@@ -30,7 +30,8 @@ setup(
     description="TPU-native deep learning optimization library "
                 "(ZeRO, pipeline/tensor/sequence parallelism, 1-bit Adam, "
                 "sparse attention) built on JAX/XLA/Pallas",
-    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*"]),
+    packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
+                                    "deepspeed_tpu_torch*"]),
     # csrc/ ships in the sdist via MANIFEST.in; a wheel install without the
     # sources degrades gracefully (op_builder reports the numpy fallback)
     scripts=["bin/ds", "bin/ds_report", "bin/ds_ssh", "bin/deepspeed", "bin/deepspeed.pt"],
