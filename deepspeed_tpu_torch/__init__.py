@@ -9,7 +9,56 @@ hand for Hopper (``csrc/``), built on first use by
 ``ops/kernels/build.py``.
 
 Ported so far: GPT-2 greedy serving (``inference.ServeEngine``) on the
-unpaged slot cache, with the flash-attention forward and the single-query
-decode-attention kernels.  ROADMAP.md lists what comes next.
+unpaged slot cache, and single-device GPT-2 training
+(``initialize`` → ``DeepSpeedEngine.train_batch``), with the flash-attention
+forward and backward (dQ, dK/dV) kernels and the single-query
+decode-attention kernel.  ROADMAP.md lists what comes next.
+
+    engine, optimizer, dataloader, lr_schedule = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(GPT2_SMALL), config=ds_config)
+    loss = engine.train_batch(tokens)
 """
+from __future__ import annotations
+
 from .version import __version__  # noqa: F401
+
+
+def initialize(args=None,
+               model=None,
+               optimizer=None,
+               params=None,
+               training_data=None,
+               lr_scheduler=None,
+               mesh=None,
+               collate_fn=None,
+               config=None,
+               config_params=None,
+               seed: int = 0,
+               device=None):
+    """Create the engine (the JAX package's ``initialize``).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    ``config`` may be a ds_config.json path, a dict or a
+    ``DeepSpeedConfig`` (``config_params`` is an alias).  The engine runs
+    on ``cuda:0`` unless ``device`` names another; with no CUDA device
+    and no ``device`` it raises.  ``mesh`` (data/tensor parallel) is not
+    ported and raises."""
+    from .config import DeepSpeedConfig
+    from .config.config import DeepSpeedConfigError
+    from .runtime.engine import DeepSpeedEngine, refuse_unported
+
+    assert model is not None, "deepspeed_tpu_torch.initialize requires a model"
+    cfg_src = config if config is not None else config_params
+    if cfg_src is None and args is not None:
+        cfg_src = getattr(args, "deepspeed_config", None)
+    if cfg_src is None:
+        raise DeepSpeedConfigError("No DeepSpeed config provided")
+    cfg = (cfg_src if isinstance(cfg_src, DeepSpeedConfig)
+           else DeepSpeedConfig(cfg_src, world_size=1))
+    refuse_unported(cfg, optimizer, mesh)
+    engine = DeepSpeedEngine(model=model, config=cfg, optimizer=optimizer,
+                             lr_schedule=lr_scheduler, params=params,
+                             training_data=training_data,
+                             collate_fn=collate_fn, seed=seed, device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

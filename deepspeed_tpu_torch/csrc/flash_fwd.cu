@@ -3,9 +3,11 @@
 // Replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py
 // `_fwd_kernel` (launched by `_fwd` through `pl.pallas_call`): attention over
 // [B*H, T, 64] with an online softmax across key tiles, fp32 running max m,
-// normaliser l and output accumulator, the causal mask, the `kv_length`
-// validity floor and the dead-row rule (a row with no valid key outputs 0
-// and lse = +1e30).
+// normaliser l and output accumulator, the causal mask, the additive key
+// mask, the `kv_length` validity floor, the in-kernel hash dropout and the
+// dead-row rule (a row with no valid key outputs 0 and lse = +1e30).  The
+// mask and hash math lives in flash_common.cuh, shared with both backward
+// kernels.
 //
 // What bounds it on the H100: at the serving prefill's shape (T = 512,
 // causal, 12 heads, bf16) the work is ~0.4 GFLOP per layer against ~3.2 MB
@@ -27,44 +29,32 @@
 //   at kv_length, so no tile past either is read;
 // - the ragged edge (T not a multiple of the tile) and kv_length are
 //   masked in the kernel, with no padded copies of q/k/v;
+// - dropout regenerates its keep mask from (batch*head, q, k, seed) with
+//   the position hash, so no mask is stored: the normaliser l sums the
+//   undropped p and only the value product sees the dropped one;
 // - O is written in the input dtype and lse as a plain fp32 [B*H, T]
 //   (no 8-row sublane broadcast: that layout only served Mosaic's tiling).
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int D = 64;         // head_dim
+using namespace flash;
+
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 32;        // keys per shared-memory tile
 constexpr int THREADS = 256;  // 4 threads per query row
 constexpr int CPT = BK / 4;   // key columns per thread per tile
 constexpr int OPT = D / 4;    // output columns per thread
-constexpr float NEG_INF = -1e30f;
-constexpr float DEAD_ROW_THRESH = -1e9f * 0.5f;
-constexpr float DEAD_LSE = 1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) { return __float2half(x); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int tq, int tk, int kv_len,
-                 float sm_scale, int causal) {
+                 float* __restrict__ lse, int tq, int tk, Mask mk) {
   __shared__ float ks[BK][D + 1];
   __shared__ float vs[BK][D];
   __shared__ float ps[BQ][BK + 1];
+  __shared__ float kms[BK];
 
   const int bh = blockIdx.x;
   const int q0 = blockIdx.y * BQ;
@@ -73,6 +63,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int cg = tid & 3;    // column group: columns cg, cg+4, cg+8, ...
   const int qi = q0 + row;
   const bool row_live = qi < tq;
+  const uint32_t hid = bh_id(bh, mk);
 
   const T* qb = q + (size_t)bh * tq * D;
   const T* kb = k + (size_t)bh * tk * D;
@@ -89,8 +80,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   // keys any row of this tile can see: below kv_length, and (causal) at or
   // below the diagonal of the tile's last row
-  int kend = min(tk, kv_len);
-  if (causal) kend = min(kend, q0 + BQ);
+  int kend = min(tk, mk.seq_len);
+  if (mk.causal) kend = min(kend, q0 + BQ);
   const int ntiles = (kend + BK - 1) / BK;
 
   for (int t = 0; t < ntiles; ++t) {
@@ -107,6 +98,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       ks[r][c] = kv;
       vs[r][c] = vv;
     }
+    if (tid < BK) kms[tid] = key_mask(bh, k0 + tid, tk, mk);
     __syncthreads();
 
     float s[CPT];
@@ -114,12 +106,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int c = cg + 4 * j;
-      const int kj = k0 + c;
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[c][d], dot);
-      const bool valid = kj < kend && (!causal || kj <= qi);
-      s[j] = valid ? dot * sm_scale : NEG_INF;
+      s[j] = masked_score(dot, kms[c], qi, k0 + c, mk);
       mt = fmaxf(mt, s[j]);
     }
     // the four threads of a row are adjacent lanes of one warp
@@ -130,9 +120,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float lsum = 0.f;
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
-      const float p = expf(s[j] - m_new);
-      ps[row][cg + 4 * j] = p;
-      lsum += p;
+      const int c = cg + 4 * j;
+      float p = expf(s[j] - m_new);
+      lsum += p;  // the normaliser sums the undropped probabilities
+      if (mk.dropout) p = keep(qi, k0 + c, hid, mk) ? p / mk.keep_div : 0.f;
+      ps[row][c] = p;
     }
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
     lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
@@ -151,7 +143,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_live) return;
-  // dead rows (no valid key: kv_length 0) hard-zero; their lse is +1e30
+  // dead rows (no valid key) hard-zero; their lse is +1e30
   const bool dead = m <= DEAD_ROW_THRESH;
   const float l_safe = (l == 0.f) ? 1.f : l;
   T* ob = o + ((size_t)bh * tq + qi) * D;
@@ -160,36 +152,34 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (cg == 0) lse[(size_t)bh * tq + qi] = dead ? DEAD_LSE : m + logf(l_safe);
 }
 
+template <typename T>
+void launch(const void* q, const void* k, const void* v, void* o, void* lse,
+            int bh, int tq, int tk, const Mask& mk, cudaStream_t st) {
+  const dim3 grid(bh, (tq + BQ - 1) / BQ);
+  flash_fwd_kernel<T><<<grid, THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), tq, tk, mk);
+}
+
 }  // namespace
 
 // dtype: 0 fp32, 1 bf16, 2 fp16.  q/o are [bh, tq, 64], k/v [bh, tk, 64],
-// lse [bh, tq] fp32, all contiguous.  Returns cudaGetLastError().
+// lse [bh, tq] fp32, kmask [bh, tk] fp32 or null, all contiguous.  Returns
+// cudaGetLastError().
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
-                         void* lse, int bh, int tq, int tk, int kv_len,
-                         float sm_scale, int causal, int dtype, void* stream) {
-  const dim3 grid(bh, (tq + BQ - 1) / BQ);
+                         void* lse, const void* kmask, int bh, int tq, int tk,
+                         int kv_len, float sm_scale, int causal, int dropout,
+                         unsigned seed, unsigned thresh, float keep_div,
+                         unsigned bh_base, int bh_period, unsigned bh_stride,
+                         int dtype, void* stream) {
+  const Mask mk = make_mask(kmask, kv_len, sm_scale, causal, dropout, seed, thresh,
+                            keep_div, bh_base, bh_period, bh_stride);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      flash_fwd_kernel<float><<<grid, THREADS, 0, st>>>(
-          static_cast<const float*>(q), static_cast<const float*>(k),
-          static_cast<const float*>(v), static_cast<float*>(o),
-          static_cast<float*>(lse), tq, tk, kv_len, sm_scale, causal);
-      break;
-    case 1:
-      flash_fwd_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-          static_cast<float*>(lse), tq, tk, kv_len, sm_scale, causal);
-      break;
-    case 2:
-      flash_fwd_kernel<__half><<<grid, THREADS, 0, st>>>(
-          static_cast<const __half*>(q), static_cast<const __half*>(k),
-          static_cast<const __half*>(v), static_cast<__half*>(o),
-          static_cast<float*>(lse), tq, tk, kv_len, sm_scale, causal);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 0: launch<float>(q, k, v, o, lse, bh, tq, tk, mk, st); break;
+    case 1: launch<__nv_bfloat16>(q, k, v, o, lse, bh, tq, tk, mk, st); break;
+    case 2: launch<__half>(q, k, v, o, lse, bh, tq, tk, mk, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

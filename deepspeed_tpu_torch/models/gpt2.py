@@ -1,5 +1,5 @@
-"""GPT-2 serving model — the port of ``deepspeed_tpu/models/gpt2.py``'s
-inference half.
+"""GPT-2 — the port of ``deepspeed_tpu/models/gpt2.py``: the training
+forward and loss, and the serving prefill and decode step.
 
 The parameter tree keeps the JAX package's names, shapes and layouts
 (layer-stacked blocks, ``qkv_w [L, d, 3, d]``), so weights move across
@@ -7,15 +7,24 @@ with :func:`params_from_numpy`, one copy per leaf.  The public functions
 keep the JAX layouts too: attention tensors ``[B, H, T, Dh]``, the slot
 cache ``[L, S, H, T, Dh]``.
 
-Ported: ``GPT2Config``, ``GPT2Model.init/prefill/decode_step`` and the
-block helpers they run.  The prefill attention is the flash kernel
-(``ops/kernels/flash_attention.py``) on ``attn_impl="flash"`` and the
+Ported: ``GPT2Config``, ``GPT2Model.init/apply/loss_fn/prefill/
+decode_step`` and the block helpers they run.  The attention is the flash
+kernels (``ops/kernels/flash_attention.py``: forward, and on the training
+path its dQ and dK/dV backward kernels) on ``attn_impl="flash"`` and the
 dense arm on ``"dense"``; the decode attention is
 ``ops/kernels/decode_attention.py``.  The large products (qkv, out, fc,
 proj and the tied ``x @ wte.T``) stay ``torch.matmul``, as the JAX package
-leaves them to XLA.  Not ported yet (ROADMAP.md queue 1): the training
-forward, LoRA, int8 weights, the paged and speculative-verify paths and
-the tensor-parallel specs.
+leaves them to XLA.  Not ported yet (ROADMAP.md queue 1): LoRA, int8
+weights, the paged and speculative-verify paths, sequence-parallel
+attention, parameter streaming and the tensor-parallel specs.
+
+Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
+block and dropout site derives its own seed with ``runtime.utils.fold_in``
+(the counterpart of the JAX ``fold_in``/``split`` calls), and the hidden
+dropouts build their ``torch.Generator`` from that seed inside the block,
+so ``remat="block"`` (``torch.utils.checkpoint``) replays the same masks
+when it recomputes a block.  The attention dropout is the flash kernel's
+position hash, seeded by the same kind of integer.
 
 Unlike the JAX functions, :func:`gpt2_decode_step` writes the new K/V rows
 into the caches IN PLACE (a slot cache is the largest tensor of serving;
@@ -29,25 +38,62 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention
 from ..ops.kernels.decode_attention import decode_attention
-from ..ops.kernels.flash_attention import flash_attention
+from ..ops.kernels.flash_attention import flash_attention, mha
+from ..runtime.module import TrainModule
+from ..runtime.utils import fold_in
+
+_M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
 class GPT2Config:
+    """The JAX package's ``GPT2Config`` with its defaults.
+
+    ``scan_layers`` changes nothing here: eager PyTorch runs the layers as
+    a Python loop either way (the JAX flag chose between ``lax.scan`` and
+    an unrolled trace).  ``stream_scan=True`` (one layer's parameters
+    fetched per tick) is not ported and raises."""
     vocab_size: int = 50257
     n_positions: int = 1024
     d_model: int = 768
     n_layer: int = 12
     n_head: int = 12
-    attn_impl: str = "flash"         # 'flash' (the CUDA kernel) | 'dense'
+    dropout: float = 0.0
+    embd_dropout: float = 0.0
+    remat: Optional[str] = "block"   # None | 'block'
+    attn_impl: str = "flash"         # 'flash' (the CUDA kernels) | 'dense'
+    scan_layers: bool = True
+    stream_scan: bool = False
+
+    def __post_init__(self):
+        if self.stream_scan:
+            raise NotImplementedError(
+                "GPT2Config.stream_scan (per-layer parameter streaming) is "
+                "not ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, "
+                "item 12 (offload and input pipeline)")
+        if self.remat not in (None, "block"):
+            raise ValueError(f"remat={self.remat!r}: expected None or "
+                             "'block'")
 
     @property
     def d_head(self) -> int:
         assert self.d_model % self.n_head == 0
         return self.d_model // self.n_head
+
+    @property
+    def num_params(self) -> int:
+        d, L, V, Tmax = (self.d_model, self.n_layer, self.vocab_size,
+                         self.n_positions)
+        per_block = (4 * d  # ln scales/biases
+                     + d * 3 * d + 3 * d      # qkv
+                     + d * d + d              # attn out
+                     + d * 4 * d + 4 * d      # fc
+                     + 4 * d * d + d)         # proj
+        return V * d + Tmax * d + L * per_block + 2 * d
 
 
 # canned sizes (GPT-2 paper / Megatron perf ladder)
@@ -57,8 +103,8 @@ GPT2_LARGE = GPT2Config(d_model=1280, n_layer=36, n_head=20)         # 774M
 GPT2_XL = GPT2Config(d_model=1600, n_layer=48, n_head=25)            # 1.5B
 
 
-class GPT2Model:
-    """Causal LM with tied input/output embeddings (serving entry points)."""
+class GPT2Model(TrainModule):
+    """Causal LM with tied input/output embeddings and next-token loss."""
 
     def __init__(self, config: GPT2Config):
         self.config = config
@@ -105,6 +151,50 @@ class GPT2Model:
                 "proj_b": const((L, d), 0.0),
             },
         }
+
+    def apply(self, params, tokens: torch.Tensor, rng: Optional[int],
+              train: bool = True) -> torch.Tensor:
+        """tokens [B, T] → logits [B, T, vocab] in the params' dtype.
+        ``rng``: host integer seed of this forward's dropout (None when
+        ``train`` is False or every rate is 0)."""
+        cfg = self.config
+        B, T = tokens.shape
+        if T > cfg.n_positions:
+            raise ValueError(
+                f"sequence length {T} exceeds n_positions={cfg.n_positions}")
+        tokens = tokens.long()
+        x = params["wte"][tokens] + params["wpe"][:T][None]
+        x = _dropout(x, cfg.embd_dropout if train else 0.0,
+                     fold_in(rng, 997))
+        blocks = params["blocks"]
+        # one unbind per leaf: its backward stacks the layer grads once,
+        # where indexing each layer would add a full-stack zero tensor per
+        # layer
+        per_layer = [dict(zip(blocks, leaves)) for leaves in
+                     zip(*(a.unbind(0) for a in blocks.values()))]
+        for i, bp in enumerate(per_layer):
+            lrng = fold_in(rng, i)
+            if cfg.remat == "block" and torch.is_grad_enabled():
+                # the blocks draw no global RNG (their seeds are host
+                # integers), so there is no RNG state to stash and restore
+                x = checkpoint(gpt2_block_forward, cfg, bp, x, lrng, train,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = gpt2_block_forward(cfg, bp, x, lrng, train)
+        x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+        return x @ params["wte"].to(x.dtype).T
+
+    def loss_fn(self, params, batch, rng: Optional[int],
+                train: bool = True) -> torch.Tensor:
+        """Mean next-token NLL: logits to fp32, ``log_softmax``, the
+        targets' log-probabilities.  ``batch``: tokens [B, T+1] (or a dict
+        with ``input_ids``)."""
+        tokens = batch["input_ids"] if isinstance(batch, dict) else batch
+        logits = self.apply(params, tokens[:, :-1], rng, train)
+        targets = tokens[:, 1:].long()
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None])
+        return nll.mean()
 
     def prefill(self, params, tokens):
         """Inference forward that also returns every layer's K/V (the
@@ -159,11 +249,71 @@ def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
     return heads(qkv[:, :, 0]), heads(qkv[:, :, 1]), heads(qkv[:, :, 2])
 
 
-def gpt2_attn_project(bp, x, attn):
-    """heads → output projection → residual."""
+def _generator(seed: Optional[int], device) -> torch.Generator:
+    if seed is None:
+        raise ValueError("dropout > 0 needs an rng seed (train=True)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) & ((1 << 63) - 1))
+    return gen
+
+
+def _dropout(x, rate: float, seed: Optional[int]):
+    """Inverted dropout with keep probability ``1 - rate``, its mask drawn
+    from a ``torch.Generator`` built here from the host ``seed`` (so a
+    recomputed block draws the same mask)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=_generator(seed, x.device),
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
+                      rng: Optional[int] = None):
+    """heads → output projection → dropout → residual (the sublayer's
+    tail, shared with the serving paths, which pass ``drop=0``)."""
     B, H, T, Dh = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, H * Dh)
-    return x + attn @ bp["out_w"].to(x.dtype) + bp["out_b"].to(x.dtype)
+    y = attn @ bp["out_w"].to(x.dtype) + bp["out_b"].to(x.dtype)
+    return x + _dropout(y, drop, rng)
+
+
+def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
+                       train: bool):
+    """ln1 → attention → residual (the block minus its FFN sublayer)."""
+    B, T, D = x.shape
+    r1, r2 = fold_in(rng, 0), fold_in(rng, 1)
+    drop = cfg.dropout if train else 0.0
+    q, k, v = gpt2_qkv_heads(cfg, bp, x)
+    if cfg.attn_impl == "flash":
+        # the flash kernels, probability dropout hashed in-kernel
+        attn = mha(q, k, v, dropout_rate=drop, causal=True,
+                   dropout_seed=None if r1 is None else r1 & _M32)
+    elif cfg.attn_impl == "dense":
+        gen = _generator(r1, x.device) if drop > 0.0 else None
+        attn = causal_attention(q, k, v, dropout_rate=drop, dropout_rng=gen)
+    elif cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} (sequence-parallel attention) is "
+            "not ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, "
+            "item 11 (sequence, expert and compressed parallelism)")
+    else:
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r}: expected 'flash', 'dense', "
+            "'ring', or 'ulysses'")
+    return gpt2_attn_project(bp, x, attn, drop, r2)
+
+
+def gpt2_block_forward(cfg: GPT2Config, bp, x, rng: Optional[int],
+                       train: bool):
+    """One pre-LN transformer block over one layer's params — the training
+    forward's block math."""
+    r_attn, r3 = fold_in(rng, 0), fold_in(rng, 1)
+    drop = cfg.dropout if train else 0.0
+    x = gpt2_attn_sublayer(cfg, bp, x, r_attn, train)
+    h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    h = gpt2_ffn(bp, h)
+    return x + _dropout(h, drop, r3)
 
 
 def _decode_attn_impl(cfg: GPT2Config) -> str:

@@ -3,9 +3,9 @@
 Each source under ``deepspeed_tpu_torch/csrc/`` has a plain ``extern "C"``
 launcher and compiles on its own with ``nvcc`` for ``sm_90a`` into a
 shared library under ``deepspeed_tpu_torch/_build/`` (listed in
-``.gitignore``).  The library's file name carries a digest of the source
-and the flags, so an edited source is rebuilt and a stale library is
-never loaded.  Nothing here runs at import time: the CPU tests import
+``.gitignore``).  The library's file name carries a digest of the flags,
+the source and every header it includes (``csrc/*.cuh``), so an edited
+source or header is rebuilt and a stale library is never loaded.  Nothing here runs at import time: the CPU tests import
 every module on a machine with no ``nvcc``.
 
 A build failure raises with the compiler's output; there is no fallback.
@@ -15,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -46,10 +47,32 @@ def nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(src: str) -> List[str]:
+    """``src`` and every file it includes with ``#include "..."``,
+    transitively (paths relative to the including file), in a stable
+    order: what the library's digest must cover."""
+    seen, todo = [src], [src]
+    while todo:
+        path = todo.pop()
+        with open(path, "rb") as f:
+            text = f.read()
+        for inc in _INCLUDE.findall(text):
+            dep = os.path.join(os.path.dirname(path), inc.decode())
+            if os.path.exists(dep) and dep not in seen:
+                seen.append(dep)
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(src):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return src, os.path.join(BUILD_DIR,
                              f"lib{name}-{digest.hexdigest()[:12]}.so")
 

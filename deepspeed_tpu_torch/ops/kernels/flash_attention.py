@@ -1,19 +1,19 @@
-"""Flash attention forward: the hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: the three hand-written Hopper
+kernels, their plain PyTorch versions and the autograd Function over them.
 
-Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``'s forward
-(``flash_attention`` and the ``_fwd_kernel`` it launches).  On a CUDA
-tensor :func:`flash_attention` launches ``csrc/flash_fwd.cu``; on a CPU
-tensor it runs :func:`flash_attention_plain`, the same function in plain
-PyTorch (the CPU tests' path and the kernel's yardstick on the card).
-There is no fallback: a CUDA tensor reaches the kernel or the call raises.
+Port of ``deepspeed_tpu/ops/pallas/flash_attention.py``: ``flash_attention``
+and ``mha``, the ``_flash`` custom_vjp (``_flash_fwd``/``_flash_bwd``) and
+the three kernels it launches.  On a CUDA tensor the forward launches
+``csrc/flash_fwd.cu`` and the backward ``csrc/flash_bwd_dq.cu`` and
+``csrc/flash_bwd_dkv.cu``; on a CPU tensor each runs its plain PyTorch
+version (the CPU tests' path and the kernels' yardstick on the card).
+There is no fallback: a CUDA tensor reaches its kernel or the call raises.
 
-The serving prefill (causal, no dropout, no key mask) is what the kernel
-covers.  Dropout and the additive key mask are training-path arguments:
-the plain version implements them with the JAX package's exact
-position-hash dropout mask, and on a CUDA tensor they raise until the
-training slice ports the backward kernels (ROADMAP.md queue 2, items
-1-3).
+All three kernels cover every arm of the JAX kernels: causal and
+non-causal, ``kv_length``, the additive key mask, the in-kernel position
+hash dropout (bit-exact with the JAX package's ``dropout_keep_mask``, so
+the backward regenerates the forward's mask instead of storing it),
+``bh_affine`` head ids and the dead-row rule.
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ NEG_MASK = -1e9
 #: output is hard-zeroed and its lse set to +DEAD_LSE
 DEAD_ROW_THRESH = NEG_MASK * 0.5
 DEAD_LSE = 1e30
-#: the only head_dim the kernel takes (every GPT-2 size uses 64)
+#: the only head_dim the kernels take (every GPT-2 size uses 64)
 HEAD_DIM = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -60,6 +60,14 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def keep_threshold(rate: float) -> int:
+    """The uint32 keep threshold of ``rate``: a hash at or above it keeps
+    its element.  Computed on the host exactly as the JAX package does
+    (``round``, saturating at 2**32 - 1) and handed to the kernels as an
+    integer — never derived from a float on the device."""
+    return min(round(rate * 2.0 ** 32), 2 ** 32 - 1)
+
+
 def dropout_keep_mask(q_ids, k_ids, bh, seed, rate: float) -> torch.Tensor:
     """Counter-based keep mask: a uint32 hash of (batch·head, q position,
     k position, seed) compared against ``rate`` — bit-equal to the JAX
@@ -67,8 +75,16 @@ def dropout_keep_mask(q_ids, k_ids, bh, seed, rate: float) -> torch.Tensor:
     x = (_mul32(q_ids, 0x9E3779B9) + k_ids) & _M32
     x = x ^ _mul32(bh, 0x85EBCA6B)
     x = _fmix32(x ^ (int(seed) & _M32))
-    thresh = min(round(rate * 2.0 ** 32), 2 ** 32 - 1)
-    return x >= thresh
+    return x >= keep_threshold(rate)
+
+
+def grid_bh_ids(n: int, bh_affine=None, device=None) -> torch.Tensor:
+    """The hash's batch·head id of each of the ``n`` grid rows:
+    ``base + (g // period) * stride + g % period`` (the JAX package's
+    ``_grid_bh``); ``bh_affine=None`` is ``arange(n)``."""
+    base, period, stride = _affine(n, bh_affine)
+    g = torch.arange(n, device=device)
+    return (base + (g // period) * stride + g % period) & _M32
 
 
 def dense_keep_mask(B, H, Tq, Tk, seed, rate: float, bh_ids=None,
@@ -84,19 +100,20 @@ def dense_keep_mask(B, H, Tq, Tk, seed, rate: float, bh_ids=None,
         bh_ids.view(B, H, 1, 1), seed, rate)
 
 
+def _affine(n: int, bh_affine):
+    base, period, stride = bh_affine if bh_affine is not None else (0, n, 0)
+    if int(period) < 1:
+        raise ValueError(f"bh_affine period must be >= 1, got {period}")
+    return int(base) & _M32, int(period), int(stride) & _M32
+
+
 # ---------------------------------------------------------------------------
-# plain version
+# plain versions
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_plain(q, k, v, causal: bool, sm_scale: float,
-                          kv_length: Optional[int] = None, kmask=None,
-                          dropout_rate: float = 0.0, seed: int = 0,
-                          bh_ids=None):
-    """The kernel's function in plain PyTorch: ``(out [B,H,T,Dh] in
-    q.dtype, lse [B,H,T] fp32)``.  Scores, softmax statistics and the
-    value product run in fp32 whatever the input dtype, as in the kernel.
-    ``kmask``: optional additive fp32 key mask [B·H, Tk]."""
+def _scores(q, k, causal, sm_scale, kv_length, kmask):
+    """``_masked_scores`` over the whole [B, H, Tq, Tk] grid, in fp32."""
     B, H, T, _ = q.shape
     tk = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
@@ -108,15 +125,35 @@ def flash_attention_plain(q, k, v, causal: bool, sm_scale: float,
     if causal:
         q_ids = torch.arange(T, device=q.device)
         valid = valid & (k_ids[None, :] <= q_ids[:, None])
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def _drop_scale(q, tk, dropout_rate, seed, bh_affine):
+    """keep / (1 - rate) over the [B, H, Tq, Tk] grid, or None."""
+    if dropout_rate <= 0.0:
+        return None
+    B, H, T, _ = q.shape
+    keep = dense_keep_mask(B, H, T, tk, seed, dropout_rate,
+                           grid_bh_ids(B * H, bh_affine, q.device), q.device)
+    return keep / (1.0 - dropout_rate)
+
+
+def flash_attention_plain(q, k, v, causal: bool, sm_scale: float,
+                          kv_length: Optional[int] = None, kmask=None,
+                          dropout_rate: float = 0.0, seed: int = 0,
+                          bh_affine=None):
+    """The forward kernel's function in plain PyTorch: ``(out [B,H,T,Dh]
+    in q.dtype, lse [B,H,T] fp32)``.  Scores, softmax statistics and the
+    value product run in fp32 whatever the input dtype, as in the kernel.
+    ``kmask``: optional additive fp32 key mask [B·H, Tk]."""
+    s = _scores(q, k, causal, sm_scale, kv_length, kmask)
     m = s.amax(dim=-1, keepdim=True)
     dead = m <= DEAD_ROW_THRESH
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    if dropout_rate > 0.0:
-        keep = dense_keep_mask(B, H, T, tk, seed, dropout_rate, bh_ids,
-                               device=q.device)
-        p = p * keep / (1.0 - dropout_rate)
+    scale = _drop_scale(q, k.shape[2], dropout_rate, seed, bh_affine)
+    if scale is not None:
+        p = p * scale
     out = torch.matmul(p, v.float()) / l
     out = torch.where(dead, torch.zeros_like(out), out).to(q.dtype)
     lse = torch.where(dead[..., 0], torch.full_like(m[..., 0], DEAD_LSE),
@@ -124,69 +161,247 @@ def flash_attention_plain(q, k, v, causal: bool, sm_scale: float,
     return out, lse
 
 
+def _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, kv_length, kmask,
+               dropout_rate, seed, bh_affine):
+    """(p·r, ds) of the backward in fp32, r = keep/(1-rate) or 1."""
+    s = _scores(q, k, causal, sm_scale, kv_length, kmask)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    pd = p
+    scale = _drop_scale(q, k.shape[2], dropout_rate, seed, bh_affine)
+    if scale is not None:
+        pd = p * scale
+        dp = dp * scale
+    ds = p * (dp - delta[..., None]) * sm_scale
+    return pd, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float, kv_length: Optional[int] = None,
+                       kmask=None, dropout_rate: float = 0.0, seed: int = 0,
+                       bh_affine=None):
+    """The dQ kernel's function in plain PyTorch: ``dq = ds · K`` with
+    ``ds = p (dp − delta) sm_scale`` recomputed from the saved ``lse``
+    ([B,H,T] fp32) and ``delta = rowsum(dO·O)``; fp32 inside, dQ in
+    q.dtype."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, kv_length,
+                       kmask, dropout_rate, seed, bh_affine)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool,
+                        sm_scale: float, kv_length: Optional[int] = None,
+                        kmask=None, dropout_rate: float = 0.0, seed: int = 0,
+                        bh_affine=None):
+    """The dK/dV kernel's function in plain PyTorch: ``(dk, dv)`` with
+    ``dv = (p·r)ᵀ · dO`` and ``dk = dsᵀ · Q``; fp32 inside, results in
+    k.dtype / v.dtype."""
+    pd, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale,
+                        kv_length, kmask, dropout_rate, seed, bh_affine)
+    dv = torch.matmul(pd.transpose(-1, -2), do.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ---------------------------------------------------------------------------
-# the kernel's wrapper
+# the kernels' wrappers
 # ---------------------------------------------------------------------------
 
-
-def _load():
-    lib = build.load("flash_fwd")
-    if lib.flash_fwd.argtypes is None:
-        lib.flash_fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                                  + [ctypes.c_float, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_void_p])
-        lib.flash_fwd.restype = ctypes.c_int
-    return lib
+_PTR, _INT, _UINT, _FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                             ctypes.c_float)
+#: kmask pointer, then bh, tq, tk, kv_len, sm_scale, causal, dropout, seed,
+#: thresh, keep_div, bh_base, bh_period, bh_stride, dtype, stream
+_TAIL = [_PTR] + [_INT] * 4 + [_FLOAT, _INT, _INT, _UINT, _UINT, _FLOAT,
+                               _UINT, _INT, _UINT, _INT, _PTR]
+_N_TENSORS = {"flash_fwd": 5, "flash_bwd_dq": 7, "flash_bwd_dkv": 8}
 
 
-def flash_attention_cuda(q, k, v, causal: bool, sm_scale: float,
-                         kv_length: Optional[int] = None):
-    """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors q
-    [B,H,T,64] and k/v [B,H,Tk,64] of one dtype (fp32, bf16 or fp16).
-    Returns ``(out [B,H,T,64] in q.dtype, lse [B,H,T] fp32)``; raises on
-    anything the kernel does not take and on a failed launch."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _load(name: str):
+    lib = build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR] * _N_TENSORS[name] + _TAIL
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(fn: str, **tensors) -> None:
+    """Device, dtype, contiguity and head_dim of a kernel's tensors."""
+    q = tensors["q"]
+    for name, t in tensors.items():
         if not t.is_cuda:
-            raise ValueError(f"flash_attention_cuda: {name} is on {t.device}, "
-                             "not a CUDA device")
-        if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"flash_attention_cuda: {name} has dtype "
-                            f"{t.dtype}; q, k and v must share one of "
-                            f"{list(_DTYPE_CODES)}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_cuda: {name} is not "
-                             "contiguous")
+            raise ValueError(f"{fn}: {name} is on {t.device}, not a CUDA "
+                             "device")
         if t.device != q.device:
-            raise ValueError("flash_attention_cuda: q, k and v must be on "
-                             "one device")
+            raise ValueError(f"{fn}: every tensor must be on one device")
+        want = torch.float32 if name in ("lse", "delta", "kmask") else q.dtype
+        if t.dtype != want or (want is q.dtype
+                               and t.dtype not in _DTYPE_CODES):
+            raise TypeError(f"{fn}: {name} has dtype {t.dtype}; q, k, v "
+                            f"(and dO) share one of {list(_DTYPE_CODES)}, "
+                            "lse, delta and kmask are float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
     B, H, T, Dh = q.shape
+    k, v = tensors["k"], tensors["v"]
     tk = k.shape[2]
     if Dh != HEAD_DIM or k.shape != (B, H, tk, Dh) or v.shape != k.shape:
         raise ValueError(
-            f"flash_attention_cuda: shapes q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)}; the kernel takes "
-            f"[B, H, T, {HEAD_DIM}] with k and v of one shape")
+            f"{fn}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}; the kernel takes [B, H, T, {HEAD_DIM}] "
+            "with k and v of one shape")
+    km = tensors.get("kmask")
+    if km is not None and km.shape != (B * H, tk):
+        raise ValueError(f"{fn}: kmask {tuple(km.shape)} is not "
+                         f"[B*H, Tk] = {(B * H, tk)}")
+
+
+def _launch(name: str, tensors, q, tk: int, causal, sm_scale, kv_length,
+            kmask, dropout_rate, seed, bh_affine) -> None:
+    B, H, T, _ = q.shape
+    base, period, stride = _affine(B * H, bh_affine)
+    fn = _load(name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*[t.data_ptr() for t in tensors],
+                None if kmask is None else kmask.data_ptr(),
+                B * H, T, tk, tk if kv_length is None else int(kv_length),
+                float(sm_scale), int(causal), int(dropout_rate > 0.0),
+                int(seed) & _M32, keep_threshold(dropout_rate),
+                1.0 - dropout_rate, base, period, stride,
+                _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def flash_attention_cuda(q, k, v, causal: bool, sm_scale: float,
+                         kv_length: Optional[int] = None, kmask=None,
+                         dropout_rate: float = 0.0, seed: int = 0,
+                         bh_affine=None):
+    """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors q
+    [B,H,T,64] and k/v [B,H,Tk,64] of one dtype (fp32, bf16 or fp16), with
+    an optional fp32 ``kmask`` [B·H, Tk].  Returns ``(out [B,H,T,64] in
+    q.dtype, lse [B,H,T] fp32)``; raises on anything the kernel does not
+    take and on a failed launch."""
+    extra = {} if kmask is None else {"kmask": kmask}
+    _check("flash_attention_cuda", q=q, k=k, v=v, **extra)
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), lse.data_ptr(), B * H, T, tk,
-                           tk if kv_length is None else int(kv_length),
-                           float(sm_scale), int(causal),
-                           _DTYPE_CODES[q.dtype], stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {rc}")
+    _launch("flash_fwd", (q, k, v, out, lse), q, k.shape[2], causal,
+            sm_scale, kv_length, kmask, dropout_rate, seed, bh_affine)
     flash_attention.launches += 1
     return out, lse
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                      sm_scale: float, kv_length: Optional[int] = None,
+                      kmask=None, dropout_rate: float = 0.0, seed: int = 0,
+                      bh_affine=None):
+    """Launch ``csrc/flash_bwd_dq.cu``: dQ [B,H,T,64] in q.dtype from q,
+    k, v, dO (one dtype, contiguous) and fp32 lse/delta [B,H,T]."""
+    extra = {} if kmask is None else {"kmask": kmask}
+    _check("flash_bwd_dq_cuda", q=q, k=k, v=v, do=do, lse=lse,
+           delta=delta, **extra)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _launch("flash_bwd_dq", (q, k, v, do, lse, delta, dq), q, k.shape[2],
+            causal, sm_scale, kv_length, kmask, dropout_rate, seed,
+            bh_affine)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                       sm_scale: float, kv_length: Optional[int] = None,
+                       kmask=None, dropout_rate: float = 0.0, seed: int = 0,
+                       bh_affine=None):
+    """Launch ``csrc/flash_bwd_dkv.cu``: ``(dk, dv)`` [B,H,Tk,64] in the
+    input dtype, from the same operands as :func:`flash_bwd_dq_cuda`."""
+    extra = {} if kmask is None else {"kmask": kmask}
+    _check("flash_bwd_dkv_cuda", q=q, k=k, v=v, do=do, lse=lse,
+           delta=delta, **extra)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch("flash_bwd_dkv", (q, k, v, do, lse, delta, dk, dv), q,
+            k.shape[2], causal, sm_scale, kv_length, kmask, dropout_rate,
+            seed, bh_affine)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def flash_bwd_dq(q, *args, **kwargs):
+    """dQ: the kernel on a CUDA tensor, its plain version on a CPU one."""
+    fn = flash_bwd_dq_cuda if q.is_cuda else flash_bwd_dq_plain
+    return fn(q, *args, **kwargs)
+
+
+def flash_bwd_dkv(q, *args, **kwargs):
+    """(dK, dV): the kernel on a CUDA tensor, its plain version on a CPU
+    one."""
+    fn = flash_bwd_dkv_cuda if q.is_cuda else flash_bwd_dkv_plain
+    return fn(q, *args, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _Flash(torch.autograd.Function):
+    """The JAX package's ``_flash`` custom_vjp: the forward saves q, k, v,
+    out and lse; the backward computes ``delta = rowsum(dO·O)`` in fp32
+    and runs the dQ and dK/dV kernels.  The key mask, the seed and the
+    head ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kmask, causal, sm_scale, kv_length,
+                dropout_rate, seed, bh_affine):
+        args = (causal, sm_scale, kv_length, kmask, dropout_rate, seed,
+                bh_affine)
+        fwd = flash_attention_cuda if q.is_cuda else flash_attention_plain
+        out, lse = fwd(q, k, v, *args)
+        ctx.save_for_backward(q, k, v, out, lse, kmask)
+        ctx.args = args[:3] + args[4:]
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, kmask = ctx.saved_tensors
+        causal, sm_scale, kv_length, dropout_rate, seed, bh_affine = ctx.args
+        do = do.contiguous()
+        delta = (do.float() * out.float()).sum(-1)
+        args = (causal, sm_scale, kv_length, kmask, dropout_rate, seed,
+                bh_affine)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, *args)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, *args)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
+
+
+def _key_mask(key_mask, b, h, tk, device):
+    """A [B, Tk] or [B·H, Tk] boolean (True = attend) or additive mask as
+    the kernels' fp32 [B·H, Tk] additive row."""
+    km = torch.as_tensor(key_mask, device=device)
+    if km.dtype == torch.bool:
+        km = torch.where(km, 0.0, NEG_MASK).float()
+    else:
+        km = km.float()
+    if tuple(km.shape) == (b, tk):
+        km = km[:, None, :].expand(b, h, tk)
+    elif tuple(km.shape) != (b * h, tk):
+        raise ValueError(
+            f"key_mask shape {tuple(km.shape)} must be [B, Tk]="
+            f"{b, tk} or [B*H, Tk]={b * h, tk}")
+    return km.reshape(b * h, tk).contiguous()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -198,18 +413,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bh_affine=None,
                     key_mask=None,
                     kv_length: Optional[int] = None) -> torch.Tensor:
-    """Flash attention over [B, H, T, Dh] inputs — the JAX package's
-    ``flash_attention`` (forward), minus its TPU tiling and interpret-mode
-    arguments (``block_q``, ``block_k``, ``interpret``): the kernel's
-    tiles are fixed and it never runs in an interpreter.
+    """Flash attention over [B, H, T, Dh] inputs (differentiable) — the
+    JAX package's ``flash_attention`` minus its TPU tiling and
+    interpret-mode arguments (``block_q``, ``block_k``, ``interpret``):
+    the kernels' tiles are fixed and they never run in an interpreter.
 
-    ``kv_length``: static live length of k/v — keys at or past it are
-    hard-masked; out-of-range values raise.  Rows with no valid key
-    (``kv_length=0``, or a key mask dropping every key) output exact
-    zeros.  ``dropout_rate > 0`` (with ``dropout_seed`` or a
-    ``torch.Generator`` as ``dropout_rng``), ``bh_affine`` and
-    ``key_mask`` follow the JAX package's semantics on a CPU tensor and
-    raise ``NotImplementedError`` on a CUDA tensor (training slice).
+    ``dropout_rate > 0`` drops attention probabilities inside the kernel
+    with the position hash, seeded by ``dropout_seed`` (a host integer,
+    uint32) or by one draw from ``dropout_rng``, a CPU
+    ``torch.Generator`` (drawn on the host: a seed read back from the
+    card would stall it).  ``bh_affine = (base, period, stride)`` maps
+    row g of the [B·H] grid to the hash's id ``base + (g // period) *
+    stride + g % period``.  ``key_mask``: [B, Tk] or [B·H, Tk], boolean
+    (True = attend) or additive float.  ``kv_length``: static live length
+    of k/v — keys at or past it are hard-masked; out-of-range values
+    raise.  Rows with no valid key output exact zeros with zero
+    gradients.
     """
     assert q.ndim == 4, f"expected [B, H, T, D], got {tuple(q.shape)}"
     b, h, t, d = q.shape
@@ -228,48 +447,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = float(d) ** -0.5
     dropout_rate = float(dropout_rate)
     assert 0.0 <= dropout_rate < 1.0, f"bad dropout_rate {dropout_rate}"
-    if q.is_cuda:
-        if dropout_rate > 0.0 or key_mask is not None:
-            raise NotImplementedError(
-                "flash_attention on CUDA covers the serving prefill; "
-                "dropout and key_mask come with the training slice "
-                "(ROADMAP.md queue 2, items 1-3)")
-        out, _ = flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal, sm_scale,
-                                      kv_length)
-        return out
     seed = 0
     if dropout_rate > 0.0:
         if dropout_seed is not None:
-            seed = int(dropout_seed)
+            seed = int(dropout_seed) & _M32
         else:
             assert dropout_rng is not None, \
                 "dropout_rate > 0 requires dropout_rng or dropout_seed"
+            if dropout_rng.device.type != "cpu":
+                raise ValueError(
+                    "dropout_rng must be a CPU torch.Generator (the seed is "
+                    "drawn on the host); pass dropout_seed for a seed you "
+                    "derive yourself")
             seed = int(torch.randint(0, 2 ** 32, (), generator=dropout_rng))
-    base, period, stride = bh_affine if bh_affine is not None \
-        else (0, b * h, 0)
-    g = torch.arange(b * h, device=q.device)
-    bh_ids = (int(base) + (g // int(period)) * int(stride)
-              + g % int(period)) & _M32
-    kmask = None
-    if key_mask is not None:
-        km = torch.as_tensor(key_mask, device=q.device)
-        if km.dtype == torch.bool:
-            km = torch.where(km, 0.0, NEG_MASK).float()
-        else:
-            km = km.float()
-        if tuple(km.shape) == (b, tk):
-            km = km[:, None, :].expand(b, h, tk)
-        elif tuple(km.shape) != (b * h, tk):
-            raise ValueError(
-                f"key_mask shape {tuple(km.shape)} must be [B, Tk]="
-                f"{b, tk} or [B*H, Tk]={b * h, tk}")
-        kmask = km.reshape(b * h, tk)
-    out, _ = flash_attention_plain(q, k, v, causal, sm_scale, kv_length,
-                                   kmask, dropout_rate, seed, bh_ids)
-    return out
+    kmask = (None if key_mask is None
+             else _key_mask(key_mask, b, h, tk, q.device))
+    return _Flash.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                        kmask, causal, sm_scale, kv_length, dropout_rate,
+                        seed, bh_affine)
 
 
-#: kernel launches since the count was last set to 0 (one per call that
-#: reached the CUDA kernel; the plain version never counts)
+def mha(q, k, v, dropout_rate: float = 0.0, dropout_rng=None,
+        causal: bool = True, **kwargs):
+    """The model-facing alias (the JAX package's ``mha``): dropout runs
+    inside the flash kernel."""
+    return flash_attention(q, k, v, causal=causal,
+                           dropout_rate=dropout_rate,
+                           dropout_rng=dropout_rng, **kwargs)
+
+
+#: kernel launches since each count was last set to 0 (one per call that
+#: reached the CUDA kernel; the plain versions never count)
 flash_attention.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0

@@ -1,0 +1,59 @@
+"""Runtime numeric utilities — the port of ``deepspeed_tpu/runtime/utils.py``
+(norms and clipping), plus the host-side seed derivation the port uses in
+place of ``jax.random.fold_in``.
+
+Trees are dicts of tensors, possibly nested; ``tree_leaves`` walks them in
+key order, the same order on every call.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+_M64 = (1 << 64) - 1
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a (nested) dict in key-insertion order; a list or
+    tuple of tensors passes through."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return list(tree)
+    return [tree]
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over every leaf of its fp32 sum of squares (a
+    device scalar; no host sync)."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.tensor(0.0)
+    return torch.stack([x.float().square().sum() for x in leaves]).sum() \
+        .sqrt()
+
+
+def clip_by_global_norm(tree, max_norm: float, norm=None):
+    """Scale the leaves so their global L2 norm is <= max_norm (reference:
+    runtime/utils.py clip_grad_norm_ semantics): ``min(1, max_norm /
+    (norm + 1e-6))``.  Returns ``(list of scaled leaves, norm)``."""
+    leaves = tree_leaves(tree)
+    if norm is None:
+        norm = global_norm(leaves)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return [x * scale.to(x.dtype) for x in leaves], norm
+
+
+def fold_in(seed: Optional[int], data: int) -> Optional[int]:
+    """A new 64-bit host seed from ``(seed, data)`` — the counterpart of
+    ``jax.random.fold_in`` for the port's integer seeds (the splitmix64
+    finalizer over ``seed + golden * (data + 1)``).  Deterministic, so a
+    recomputed block derives the same seeds; ``None`` stays ``None`` (no
+    randomness wanted)."""
+    if seed is None:
+        return None
+    z = (int(seed) + 0x9E3779B97F4A7C15 * (int(data) + 1)) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return z ^ (z >> 31)

@@ -61,3 +61,40 @@ def test_full_config_serving_block_parses_equal():
     ref = JaxDeepSpeedConfig(src, world_size=8)
     assert ours.serving_config.slots == 16
     assert vars(ours.serving_config) == vars(ref.serving_config)
+
+
+def _ref_first_loss_dict(total_batch):
+    """The training dict ``__graft_entry__._ref_first_loss`` builds."""
+    return {"train_micro_batch_size_per_gpu": 1,
+            "gradient_accumulation_steps": total_batch,
+            "steps_per_print": 10 ** 9,
+            "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 0},
+            "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+
+
+TRAIN = [
+    _ref_first_loss_dict(4),
+    _ref_first_loss_dict(8),
+    {"train_batch_size": 16, "train_micro_batch_size_per_gpu": 8,
+     "gradient_clipping": 1.0, "fp16": {"enabled": True,
+                                        "initial_scale_power": 8,
+                                        "hysteresis": 1},
+     "optimizer": {"type": "Adam", "params": {"lr": 1e-4,
+                                              "betas": [0.9, 0.95]}},
+     "scheduler": {"type": "WarmupLR", "params": {"warmup_num_steps": 8}}},
+]
+
+
+@pytest.mark.parametrize("cfg", TRAIN)
+def test_training_dicts_parse_equal(cfg):
+    ours, ref = DeepSpeedConfig(cfg, world_size=1), \
+        JaxDeepSpeedConfig(cfg, world_size=1)
+    for name in ("train_batch_size", "train_micro_batch_size_per_gpu",
+                 "gradient_accumulation_steps", "steps_per_print",
+                 "gradient_clipping", "optimizer_name", "optimizer_params",
+                 "scheduler_name", "scheduler_params", "fp16_enabled",
+                 "bf16_enabled", "zero_optimization_stage"):
+        assert getattr(ours, name) == getattr(ref, name), name
+    assert vars(ours.fp16) == vars(ref.fp16)
+    assert vars(ours.zero_config) == vars(ref.zero_config)

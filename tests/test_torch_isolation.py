@@ -12,6 +12,7 @@ import sys
 import pytest
 import torch
 
+import deepspeed_tpu_torch
 import deepspeed_tpu_torch.inference.engine as engine_mod
 from deepspeed_tpu_torch.inference import ServeEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
@@ -30,7 +31,8 @@ def _package_files():
 
 def _port_files():
     return [os.path.join(REPO, "chip_smoke.py"),
-            os.path.join(REPO, "profile_serve_torch.py")] + _package_files()
+            os.path.join(REPO, "profile_serve_torch.py"),
+            os.path.join(REPO, "profile_train_torch.py")] + _package_files()
 
 
 def _module_names():
@@ -126,3 +128,63 @@ def test_unported_paged_only_knobs_and_mesh_raise(monkeypatch):
         engine_mod._refuse_unported(cfg)
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")
+
+
+TRAIN_BASE = {"train_micro_batch_size_per_gpu": 1,
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}}
+
+
+def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                       config=TRAIN_BASE)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                       config=TRAIN_BASE, device="cuda")
+    eng, *_ = deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                             config=TRAIN_BASE,
+                                             device="cpu")
+    assert eng.state.master_params["wte"].device.type == "cpu"
+    eng.close()
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
+     "item 9"),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True},
+      "bf16": {"enabled": True}}, "item 12"),
+    ({"pipeline": {"stages": 2}}, "item 10"),
+    ({"optimizer": {"type": "OneBitAdam", "params": {}},
+      "bf16": {"enabled": True}}, "item 11"),
+    ({"optimizer": {"type": "Lamb", "params": {}}}, "item 13"),
+    ({"sparse_gradients": True}, "item 11"),
+    ({"progressive_layer_drop": {"enabled": True}}, "item 13"),
+    ({"telemetry": {"enabled": True}}, "item 5"),
+    ({"tensorboard": {"enabled": True}}, "item 5"),
+    ({"checkpoint": {"async_save": True}}, "item 6"),
+], ids=["zero", "offload", "pipeline", "onebit", "lamb", "sparse_grads",
+        "pld", "telemetry", "tensorboard", "checkpoint"])
+def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                       config={**TRAIN_BASE, **extra},
+                                       device="cpu")
+
+
+def test_unported_training_paths_raise():
+    with pytest.raises(NotImplementedError, match="item 9"):
+        deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                       config=TRAIN_BASE, mesh=object(),
+                                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        GPT2Config(stream_scan=True)
+    eng, *_ = deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
+                                             config=TRAIN_BASE,
+                                             device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        eng.save_checkpoint("/nonexistent")
+    model = GPT2Model(GPT2Config(**{**TINY.__dict__, "attn_impl": "ring"}))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model.loss_fn(model.init(0), torch.zeros(1, 5, dtype=torch.long),
+                      None, train=False)

@@ -17,7 +17,9 @@ from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_attention, decode_attention_cuda,
     decode_attention_plain)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-    flash_attention, flash_attention_cuda, flash_attention_plain)
+    flash_attention, flash_attention_cuda, flash_attention_plain,
+    flash_bwd_dkv, flash_bwd_dkv_cuda, flash_bwd_dkv_plain, flash_bwd_dq,
+    flash_bwd_dq_cuda, flash_bwd_dq_plain)
 
 pytestmark = pytest.mark.gpu
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -73,13 +75,73 @@ def test_decode_kernel_matches_plain(dev, dtype):
     assert (out[0] == 0).all()
 
 
+def _train_arms(dev, bh, tk, dead_row):
+    """kmask [bh, tk] with one all-masked row (and a masked stretch)."""
+    km = torch.zeros(bh, tk, device=dev)
+    km[1, 5:40] = -1e9
+    if dead_row:
+        km[bh - 1] = -1e9
+    return km
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal,t,tk,kv_length,rate,masked", [
+    (True, 130, 130, None, 0.1, True), (True, 77, 77, 60, 0.0, True),
+    (False, 33, 200, 150, 0.25, True), (True, 256, 256, None, 0.1, False),
+    (False, 40, 96, 0, 0.1, False),
+])
+def test_flash_training_arms_match_plain(dev, dtype, causal, t, tk,
+                                         kv_length, rate, masked):
+    """The forward with dropout, a key mask (one dead row) and a
+    non-trivial bh_affine, then both backward kernels on the same
+    arguments, each against its plain version in fp32."""
+    q = _randn(dev, 2, 3, t, 64, seed=7).to(dtype)
+    k = _randn(dev, 2, 3, tk, 64, seed=8).to(dtype)
+    v = _randn(dev, 2, 3, tk, 64, seed=9).to(dtype)
+    do = _randn(dev, 2, 3, t, 64, seed=10).to(dtype)
+    km = _train_arms(dev, 6, tk, True) if masked else None
+    args = (causal, 0.125, kv_length, km, rate, 0xDEADBEEF, (11, 2, 5))
+    out, lse = flash_attention_cuda(q, k, v, *args)
+    ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(),
+                                         *args)
+    tol = TOL[dtype]
+    assert (out.float() - ref).abs().max().item() <= tol
+    live = ref_lse < 1e29
+    assert torch.equal(lse >= 1e29, ~live)
+    if live.any():
+        assert (lse[live] - ref_lse[live]).abs().max().item() <= tol
+    delta = (do.float() * ref).sum(-1)
+    dq = flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, *args)
+    dk, dv = flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, *args)
+    torch.cuda.synchronize()
+    f = (q.float(), k.float(), v.float(), do.float(), ref_lse, delta)
+    rdq = flash_bwd_dq_plain(*f, *args)
+    rdk, rdv = flash_bwd_dkv_plain(*f, *args)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * max(1.0, want.abs().max().item()), err
+    if masked:  # the all-masked row: exact zeros forward and back
+        assert (out.view(6, t, 64)[5] == 0).all()
+        assert (dq.view(6, t, 64)[5] == 0).all()
+    if kv_length == 0:
+        for g in (out, dq, dk, dv):
+            assert (g == 0).all()
+
+
 def test_public_entry_points_launch_or_raise(dev):
     q = _randn(dev, 1, 2, 16, 64).bfloat16()
     before = flash_attention.launches
     flash_attention(q, q, q)
     assert flash_attention.launches == before + 1
-    with pytest.raises(NotImplementedError, match="training"):
-        flash_attention(q, q, q, dropout_rate=0.1, dropout_seed=1)
+    counts = (flash_attention.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    qr = q.clone().requires_grad_(True)
+    flash_attention(qr, q, q, dropout_rate=0.1, dropout_seed=1,
+                    key_mask=torch.ones(1, 16, dtype=torch.bool,
+                                        device=dev)).sum().backward()
+    assert (flash_attention.launches, flash_bwd_dq.launches,
+            flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q[..., :32], q[..., :32], q[..., :32])
     kc = _randn(dev, 2, 2, 8, 64)
