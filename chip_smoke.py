@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 
 Phases, all on ``cuda:0``; any failure exits non-zero:
 
-1. build    the four kernels of the serving and training paths from
+1. build    the seven kernels of the serving and training paths from
             ``deepspeed_tpu_torch/csrc/`` with nvcc for sm_90a
             (``-Xptxas -v`` lines printed), all sources compiled in
             parallel;
@@ -19,20 +19,41 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             dropout 0.1, a key mask with an all-masked row and a
             non-trivial ``bh_affine``, the dQ and dK/dV kernels at
             [8, 12, 1024, 64] causal with dropout 0.1 and an all-dead case
-            (exact-zero gradients); timed with CUDA events beside the plain
-            version, one PyTorch library call on the same work
-            (``library_ms``, a yardstick only) and the bound the card's
-            peak rates give;
+            (exact-zero gradients), the paged, multi-query and paged
+            multi-query decode kernels at [8, 12, 1024, 64] with page_len
+            16 over a 513-page pool (permuted table, garbage in every page
+            no live row lands in) and W = 5 verify rows; timed with CUDA
+            events beside the plain version, one PyTorch library call on
+            the same work (``library_ms``, a yardstick only) and the bound
+            the card's peak rates give;
 3. serve    ``ServeEngine`` on full-size GPT-2 small (bf16, random weights
             from a seed): 12 requests over 8 slots, prompts of 16-512
             tokens, 64 new tokens each; tokens/s, per-token p50/p99 and
             peak memory; asserts that every prefill went through the
             flash kernel and every decode tick through the decode kernel;
-4. parity   the same 12 requests in fp32 on the kernel path and on the
-            dense path (``attn_impl="dense"``, ``decode_impl="dense"``):
-            greedy streams must be equal, a flip allowed only on a near tie
-            (top-2 logit gap below 1e-3), each reported with its gap;
-5. train    ``deepspeed_tpu_torch.initialize`` on full-size GPT-2 small
+4. serve_paged  the same model on the paged pool (page_len 16, 640 pages,
+            prefix cache, prefill chunks of 128): 16 requests (8 sharing a
+            256-token template, two identical 300-token prompts, a 1-token
+            prompt, 5 random ones) in two waves; tokens/s, TPOT and TTFT
+            p50/p99, peak memory, prefix hits/misses/COW, prompt tokens
+            computed against submitted; asserts 12 paged-decode launches
+            per decode tick, 12 flash launches per prefill with no cached
+            prefix, and the pool's free pages after the run equal to its
+            start less the pages the prefix cache holds;
+5. serve_spec   the serve phase's 12 requests with speculate_k 4 and a
+            2-layer draft cut from the target (its embeddings, final norm
+            and blocks 0-1), on the slot cache and on the paged pool;
+            tokens/s, tokens per target pass, TPOT; asserts 12 multi-query
+            launches (slot: ``decode_multi``, paged:
+            ``decode_paged_multi``) and 2 x 5 draft ``decode_attention``
+            launches per verify pass;
+6. parity   the serve phase's 12 requests in fp32 on the dense path
+            (``attn_impl="dense"``, ``decode_impl="dense"``) against the
+            kernel path, the paged kernel path, and the speculative path
+            on both caches: greedy streams must be equal, a flip allowed
+            only on a near tie (top-2 logit gap below 1e-3), each reported
+            with its gap;
+7. train    ``deepspeed_tpu_torch.initialize`` on full-size GPT-2 small
             (bf16, dropout 0.1 everywhere, ``remat="block"``, random
             weights from a seed), micro-batch 8 x 1024 tokens, gradient
             accumulation 2, Adam, clipping 1.0: 2 warm-up steps, then 8
@@ -40,12 +61,15 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             the first; step ms, tokens/s and peak memory; asserts that
             every step launched the flash forward 2 x 12 x 2 times (forward
             and recompute) and each backward kernel 12 x 2 times;
-6. train parity  fp32 (TF32 off), width 768 at 4 layers, dropout 0: the
+8. train parity  fp32 (TF32 off), width 768 at 4 layers, dropout 0: the
             kernel path against the dense path (``attn_impl="dense"``) on
             the same params and tokens, the first step's attention-weight
             gradients within 1e-3 (max relative) and 5 steps' losses within
             1e-4 (relative).
 
+Every phase that drives a path sets the launch counts to 0 just before it
+and reads them just after; the kernels line carries each kernel's
+launches by phase and their sum.
 Then one ``{"kernels": [...]}`` line and, last, the run's result line.
 Without a CUDA device, or without the package beside this file, it exits
 non-zero and prints no result.
@@ -59,7 +83,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention")
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
+           "decode_paged", "decode_multi", "decode_paged_multi")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -71,6 +96,13 @@ NEAR_TIE = 1e-3
 TRAIN_SHAPE = (8, 12, 1024, 64)
 TRAIN_MICRO, TRAIN_GA, TRAIN_WARM, TRAIN_STEPS = 8, 2, 2, 8
 PARITY_LAYERS, PARITY_STEPS = 4, 5
+#: the serving phases' engine configs
+SLOT_CFG = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
+PAGED_CFG = {**SLOT_CFG, "page_len": 16, "pages": 640, "prefix_cache": True,
+             "prefill_chunk_len": 128}
+DRAFT_LAYERS = 2
+SPEC = {"speculate_k": 4,
+        "draft": {"d_model": 768, "n_layer": DRAFT_LAYERS, "n_head": 12}}
 
 
 def fail(msg: str) -> None:
@@ -229,6 +261,164 @@ def phase_kernels(dev):
     return results
 
 
+def _paged_pool(cache, lengths, page_len, pool_pages):
+    """The rows of a slot cache [S, H, T, D] as a page pool [P, H,
+    page_len, D] and an int32 table [S, T // page_len]: each slot's live
+    pages (for its longest row) at permuted page ids, everything else,
+    dead table entries' scratch page 0 included, garbage."""
+    import torch
+    S, H, T, D = cache.shape
+    M = T // page_len
+    need = ((lengths.reshape(S, -1).amax(1) + page_len - 1)
+            // page_len).tolist()
+    ids = (torch.randperm(pool_pages - 1, generator=torch.Generator()
+                          .manual_seed(SEED)) + 1).tolist()
+    table = torch.zeros((S, M), dtype=torch.int32)
+    pool = 100 * torch.randn((pool_pages, H, page_len, D),
+                             generator=torch.Generator().manual_seed(SEED))
+    pool = pool.to(cache.device)
+    nxt = 0
+    for s in range(S):
+        n = need[s]
+        table[s, :n] = torch.tensor(ids[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+        pool[table[s, :n].long()] = cache[s].reshape(
+            H, M, page_len, D)[:, :n].transpose(0, 1)
+    return pool, table.to(cache.device)
+
+
+def phase_decode_kernels(dev, results):
+    """The paged, multi-query and paged multi-query decode kernels against
+    their plain versions at the serving shapes: the slot cache [8, 12,
+    1024, 64], page_len 16 over a 513-page pool with a permuted table,
+    lengths {0, 1, 513, 1024, 77, 300, 640, 1000}, W = 5 verify rows at
+    L + i + 1 (rows past the capacity masked, as ``_verify_rows`` does);
+    timed beside the plain version, a library yardstick (the pages
+    gathered through the table, then masked ``scaled_dot_product_
+    attention``) and the bytes bound (the live K/V rows read once, plus
+    q, out, lengths and table)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _default_scale, decode_attention_plain, decode_multi_cuda,
+        decode_multi_plain, decode_paged_cuda, decode_paged_multi_cuda,
+        decode_paged_multi_plain, decode_paged_plain, paged_gather)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    S, H, T, D, W, PAGE, POOL = 8, 12, 1024, 64, 5, 16, 513
+    scale = _default_scale(D)
+    base = torch.tensor([0, 1, 513, 1024, 77, 300, 640, 1000],
+                        dtype=torch.int32, device=dev)
+    rows = base[:, None] + torch.arange(1, W + 1, device=dev,
+                                        dtype=torch.int32)[None]
+    multi_lens = torch.where((base[:, None] > 0) & (rows <= T), rows,
+                             0).to(torch.int32)
+    kc32, vc32 = (torch.randn((S, H, T, D), generator=g, device=dev)
+                  for _ in range(2))
+    # the pages the single-query lengths and the verify rows both need
+    live = torch.cat([base[:, None], multi_lens], dim=1)
+    kp32, table = _paged_pool(kc32, live, PAGE, POOL)
+    vp32, _ = _paged_pool(vc32, live, PAGE, POOL)
+    q1_32 = torch.randn((S, H, D), generator=g, device=dev)
+    qw_32 = torch.randn((S, H, W, D), generator=g, device=dev)
+    # name: (kernel, plain, slot-cache plain of the same rows, paged, lens)
+    cases = {
+        "decode_paged": (decode_paged_cuda, decode_paged_plain,
+                         decode_attention_plain, True, base),
+        "decode_multi": (decode_multi_cuda, decode_multi_plain, None, False,
+                         multi_lens),
+        "decode_paged_multi": (decode_paged_multi_cuda,
+                               decode_paged_multi_plain, decode_multi_plain,
+                               True, multi_lens),
+    }
+    errs = {}
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        kc, vc, kp, vp = (t.to(tdt) for t in (kc32, vc32, kp32, vp32))
+        for name, (cuda, plain, slot_plain, paged, lens) in cases.items():
+            q = (q1_32 if name == "decode_paged" else qw_32).to(tdt)
+            out = cuda(q, *((kp, vp, table) if paged else (kc, vc)), lens,
+                       scale)
+            torch.cuda.synchronize()
+            if paged:
+                ref = plain(q.float(), kp.float(), vp.float(), table, lens,
+                            scale)
+                # the pool holds the cache's rows: the same attention
+                same = slot_plain(q.float(), kc.float(), vc.float(), lens,
+                                  scale)
+                if not (same - ref).abs().max().item() < 1e-5:
+                    fail(f"{name}: the paged operands differ from the cache")
+            else:
+                ref = plain(q.float(), kc.float(), vc.float(), lens, scale)
+            err = (out.float() - ref).abs().max().item()
+            print(f"[kernels] {name} {dtype}: max abs err {err:.3g}")
+            if not err <= TOL[dtype]:
+                fail(f"{name} {dtype}: error {err} above {TOL[dtype]}")
+            if not (out[0] == 0).all():
+                fail(f"{name}: the length-0 slot is not exact zeros")
+            if dtype == "bfloat16":
+                errs[name] = err
+    # timings, bf16, at the same shapes
+    kc, vc, kp, vp = (t.bfloat16() for t in (kc32, vc32, kp32, vp32))
+    q1, qw = q1_32.bfloat16(), qw_32.bfloat16()
+    keys = torch.arange(T, device=dev)
+    mask1 = (keys[None] < base[:, None])[:, None, None, :]
+    maskw = (keys[None, None] < multi_lens[:, :, None])[:, None]
+    # bytes: live K and V rows (the longest row's keys per slot) read
+    # once, q read and out written once, the lengths and the table
+    kv_b = lambda lens: int(lens.reshape(S, -1).amax(1).sum()) * H * D * 4  # noqa: E731
+    qo_b = lambda w: 2 * S * H * w * D * 2  # noqa: E731
+    pairs1 = int(base.sum()) * H
+    pairsw = int(multi_lens.sum()) * H
+
+    def lib_paged(q, mask):
+        return F.scaled_dot_product_attention(
+            q, paged_gather(kp, table), paged_gather(vp, table),
+            attn_mask=mask)
+
+    specs = {
+        "decode_paged": (
+            "decode_paged.cu", 308,
+            lambda: decode_paged_cuda(q1, kp, vp, table, base, scale),
+            lambda: decode_paged_plain(q1, kp, vp, table, base, scale),
+            lambda: lib_paged(q1[:, :, None], mask1),
+            kv_b(base) + qo_b(1) + table.numel() * 4 + S * 4, 4 * D * pairs1),
+        "decode_multi": (
+            "decode_multi.cu", 540,
+            lambda: decode_multi_cuda(qw, kc, vc, multi_lens, scale),
+            lambda: decode_multi_plain(qw, kc, vc, multi_lens, scale),
+            lambda: F.scaled_dot_product_attention(qw, kc, vc,
+                                                   attn_mask=maskw),
+            kv_b(multi_lens) + qo_b(W) + S * W * 4, 4 * D * pairsw),
+        "decode_paged_multi": (
+            "decode_paged_multi.cu", 666,
+            lambda: decode_paged_multi_cuda(qw, kp, vp, table, multi_lens,
+                                            scale),
+            lambda: decode_paged_multi_plain(qw, kp, vp, table, multi_lens,
+                                             scale),
+            lambda: lib_paged(qw, maskw),
+            kv_b(multi_lens) + qo_b(W) + table.numel() * 4 + S * W * 4,
+            4 * D * pairsw),
+    }
+    for name, (src, line, run, plain, lib, nbytes, flops) in specs.items():
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/csrc/{src}",
+            "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
+            "max_abs_err": errs[name], "ms": time_ms(run),
+            "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
+            "library_ms": time_ms(lib),
+            "library_note": "the pages gathered through the table (paged "
+                            "arms), then masked F.scaled_dot_product_attention",
+        }
+        r = results[name]
+        print(f"[kernels] {name} bf16: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
 def _rel_err(got, want) -> float:
     """max abs error, relative to the largest magnitude when it exceeds 1."""
     return ((got.float() - want).abs().max()
@@ -384,84 +574,246 @@ def _load():
             for n in lens]
 
 
-def _serve(model, params, cfg, prompts, dev):
+def _paged_load():
+    """The serve_paged phase's 16 requests as two waves (the second is
+    submitted once the first has its first tokens, so its prompts can hit
+    the prefix cache): 8 prompts sharing a 256-token template, each with
+    its own 8-64-token suffix; two identical 300-token prompts (a shared
+    partial page: copy-on-write); one 1-token prompt; 5 random prompts of
+    16-512 tokens."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    rng = np.random.default_rng(SEED + 5)
+
+    def tok(n):
+        return [int(t) for t in rng.integers(0, GPT2_SMALL.vocab_size, n)]
+
+    template = tok(256)
+    sharers = [template + tok(int(n)) for n in rng.integers(8, 65, 8)]
+    twin = tok(300)
+    rand = [tok(int(n)) for n in rng.integers(PROMPT_MIN, PROMPT_MAX + 1, 5)]
+    return [sharers[0], twin], sharers[1:] + [list(twin), tok(1)] + rand
+
+
+def _draft_params(params):
+    """The speculative draft: the target's embeddings, final norm and its
+    first DRAFT_LAYERS blocks (so acceptance is partial, not nil)."""
+    draft = {k: v for k, v in params.items() if k != "blocks"}
+    draft["blocks"] = {k: v[:DRAFT_LAYERS]
+                       for k, v in params["blocks"].items()}
+    return draft
+
+
+def _check_requests(phase, reqs):
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    for r in reqs:
+        if r.error is not None or r.finish_reason != "length" \
+                or len(r.tokens) != NEW_TOKENS \
+                or not all(0 <= t < GPT2_SMALL.vocab_size for t in r.tokens):
+            fail(f"{phase} request {r.rid}: {r.finish_reason} {r.error!r} "
+                 f"({len(r.tokens)} tokens)")
+
+
+def _serve(model, params, cfg, prompts, dev, draft_params=None):
     from deepspeed_tpu_torch.inference import ServeEngine
-    eng = ServeEngine(model, cfg, params=params, device=dev)
+    eng = ServeEngine(model, cfg, params=params, device=dev,
+                      draft_params=draft_params)
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     eng.run_until_idle()
     eng.close()
-    for r in reqs:
-        if r.error is not None or r.finish_reason != "length" \
-                or len(r.tokens) != NEW_TOKENS:
-            fail(f"request {r.rid}: {r.finish_reason} {r.error!r} "
-                 f"({len(r.tokens)} tokens)")
+    _check_requests("parity", reqs)
     return reqs
+
+
+def _pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def _latencies(phase, reqs, tokens, wall):
+    """tokens/s over the run, decode per-token latency (TPOT) and time to
+    first token p50/p99, peak memory."""
+    import torch
+    tpot = [t for r in reqs for t in r.token_times[1:]]
+    ttft = [r.token_times[0] for r in reqs]
+    print(f"[{phase}] {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.1f} tokens/s; per-token (decode) p50 "
+          f"{_pct(tpot, 0.5) * 1e3:.3f} ms p99 {_pct(tpot, 0.99) * 1e3:.3f} "
+          f"ms; time to first token p50 {_pct(ttft, 0.5) * 1e3:.1f} ms p99 "
+          f"{_pct(ttft, 0.99) * 1e3:.1f} ms; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def _engine(cfg, dev, dtype, draft=False):
+    """GPT-2 small at full width and depth with random weights from the
+    seed, warmed up on one short request (cuBLAS handles, caches)."""
+    import torch
+    from deepspeed_tpu_torch.inference import ServeEngine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+    model = GPT2Model(GPT2_SMALL)
+    params = model.init(SEED, device=dev, dtype=dtype)
+    eng = ServeEngine(model, {"serving": cfg}, params=params, device=dev,
+                      draft_params=_draft_params(params) if draft else None)
+    warm = eng.submit(list(range(16)), max_new_tokens=2)
+    eng.run_until_idle()
+    if warm.error is not None:
+        fail(f"warm-up request: {warm.error!r}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return eng
 
 
 def phase_serve(dev):
     import torch
-    from deepspeed_tpu_torch.inference import ServeEngine
-    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
-    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention)
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
 
-    model = GPT2Model(GPT2_SMALL)
-    params = model.init(SEED, device=dev, dtype=torch.bfloat16)
-    cfg = {"serving": {"slots": 8, "max_seq_len": 1024,
-                       "prefill_len": 512}}
-    eng = ServeEngine(model, cfg, params=params, device=dev)
-    warm = eng.submit(list(range(16)), max_new_tokens=2)  # cuBLAS, caches
-    eng.run_until_idle()
-    if warm.error is not None:
-        fail(f"warm-up request: {warm.error!r}")
+    eng = _engine(SLOT_CFG, dev, torch.bfloat16)
     ticks0 = eng.decode_ticks
     prompts = _load()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_fwd": flash_attention.launches,
-                "decode_attention": decode_attention.launches}
+    launches = _counts()
     ticks = eng.decode_ticks - ticks0
     eng.close()
     L = GPT2_SMALL.n_layer
-    for r in reqs:
-        if r.error is not None or r.finish_reason != "length" \
-                or len(r.tokens) != NEW_TOKENS \
-                or not all(0 <= t < GPT2_SMALL.vocab_size for t in r.tokens):
-            fail(f"serve request {r.rid}: {r.finish_reason} {r.error!r}")
+    _check_requests("serve", reqs)
     if launches["flash_fwd"] != N_REQ * L:
         fail(f"flash_fwd launched {launches['flash_fwd']} times, expected "
              f"{N_REQ} prefills x {L} layers")
     if launches["decode_attention"] != L * ticks or ticks == 0:
         fail(f"decode_attention launched {launches['decode_attention']} "
              f"times, expected {L} layers x {ticks} decode ticks")
-    tokens = sum(len(r.tokens) for r in reqs)
-    tpot = sorted(t for r in reqs for t in r.token_times[1:])
-    ttft = sorted(r.token_times[0] for r in reqs)
-    pct = lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))]  # noqa: E731
     print(f"[serve] GPT-2 small bf16, {N_REQ} requests x {NEW_TOKENS} "
           f"tokens over 8 slots, prompts {min(map(len, prompts))}-"
-          f"{max(map(len, prompts))}: {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.1f} tokens/s; {ticks} decode ticks")
-    print(f"[serve] per-token (decode) p50 {pct(tpot, 0.5) * 1e3:.3f} ms "
-          f"p99 {pct(tpot, 0.99) * 1e3:.3f} ms; time to first token p50 "
-          f"{pct(ttft, 0.5) * 1e3:.1f} ms p99 {pct(ttft, 0.99) * 1e3:.1f} "
-          f"ms; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+          f"{max(map(len, prompts))}, {ticks} decode ticks")
+    _latencies("serve", reqs, sum(len(r.tokens) for r in reqs), wall)
     print(f"[serve] launches: flash_fwd {launches['flash_fwd']} "
           f"(= {N_REQ} x {L}), decode_attention "
           f"{launches['decode_attention']} (= {L} x {ticks})")
     return launches
 
 
+def phase_serve_paged(dev):
+    """The paged engine: prefix cache, copy-on-write and chunked prefill
+    on full-size GPT-2 small, bf16."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    eng = _engine(PAGED_CFG, dev, torch.bfloat16)
+    eng.prefix.clear()        # forget the warm-up prompt's pages
+    free0 = eng.pool.free_count
+    ticks0 = eng.decode_ticks
+    stats0 = (eng.prefix.hits, eng.prefix.misses, eng.prefix.cow)
+    first, rest = _paged_load()
+    _zero_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in first]
+    while not all(r.tokens for r in reqs):
+        eng.step()
+    reqs += [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in rest]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ticks = eng.decode_ticks - ticks0
+    held = eng.prefix.entries
+    free = eng.pool.free_count
+    hits, misses, cow = (now - then for now, then in zip(
+        (eng.prefix.hits, eng.prefix.misses, eng.prefix.cow), stats0))
+    eng.close()
+    L = GPT2_SMALL.n_layer
+    _check_requests("serve_paged", reqs)
+    # a prefill with no cached prefix (or the first chunk of one) runs the
+    # flash kernel in every layer; a prefix hit runs the gather arm
+    no_prefix = sum(r.shared_len == 0 for r in reqs)
+    if launches["flash_fwd"] != L * no_prefix:
+        fail(f"flash_fwd launched {launches['flash_fwd']} times, expected "
+             f"{L} layers x {no_prefix} prefills with no cached prefix")
+    if launches["decode_paged"] != L * ticks or ticks == 0:
+        fail(f"decode_paged launched {launches['decode_paged']} times, "
+             f"expected {L} layers x {ticks} decode ticks")
+    if launches["decode_attention"] != 0:
+        fail("the paged engine launched the slot-cache decode kernel")
+    if free != free0 - held:
+        fail(f"{free} free pages after the run; expected {free0} less the "
+             f"{held} the prefix cache holds")
+    if hits < 8 or cow < 1:
+        fail(f"prefix cache: {hits} hits, {cow} copies on write; expected "
+             "the 7 template sharers and the twin to hit, the twin to COW")
+    computed = sum(r.computed_len for r in reqs)
+    submitted = sum(len(r.prompt) for r in reqs)
+    print(f"[serve_paged] GPT-2 small bf16, {len(reqs)} requests x "
+          f"{NEW_TOKENS} tokens over 8 slots, page_len "
+          f"{PAGED_CFG['page_len']}, {PAGED_CFG['pages']} pages, prefill "
+          f"chunks of {PAGED_CFG['prefill_chunk_len']}: {ticks} decode "
+          f"ticks; prefix hits {hits}, misses {misses}, copies on write "
+          f"{cow}; prompt tokens computed {computed} of {submitted} "
+          f"submitted; {free} free pages after the run = {free0} less "
+          f"{held} held by the prefix cache")
+    _latencies("serve_paged", reqs, sum(len(r.tokens) for r in reqs), wall)
+    print(f"[serve_paged] launches: flash_fwd {launches['flash_fwd']} (= "
+          f"{L} x {no_prefix}), decode_paged {launches['decode_paged']} (= "
+          f"{L} x {ticks})")
+    return launches
+
+
+def phase_serve_spec(dev):
+    """Greedy speculation (k = 4, a 2-layer draft cut from the target) on
+    the slot cache and on the paged pool, full-size GPT-2 small, bf16."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    L = GPT2_SMALL.n_layer
+    total = {}
+    for arm, cfg, kernel in (
+            ("slot", SLOT_CFG, "decode_multi"),
+            ("paged", {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]},
+             "decode_paged_multi")):
+        eng = _engine({**cfg, **SPEC}, dev, torch.bfloat16, draft=True)
+        v0, p0, a0 = eng.verify_ticks, eng._spec_passes, eng._spec_accepted_n
+        prompts = _load()
+        _zero_counts()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        passes = eng.verify_ticks - v0
+        req_passes = eng._spec_passes - p0
+        accepted = eng._spec_accepted_n - a0
+        eng.close()
+        _check_requests(f"serve_spec {arm}", reqs)
+        draft_steps = SPEC["draft"]["n_layer"] * (SPEC["speculate_k"] + 1)
+        if launches[kernel] != L * passes or passes == 0:
+            fail(f"{kernel} launched {launches[kernel]} times, expected "
+                 f"{L} layers x {passes} verify passes")
+        if launches["decode_attention"] != draft_steps * passes:
+            fail(f"decode_attention launched {launches['decode_attention']} "
+                 f"times, expected {draft_steps} draft steps x {passes} "
+                 "verify passes")
+        print(f"[serve_spec] {arm} cache, k {SPEC['speculate_k']}, draft "
+              f"{SPEC['draft']}: {passes} verify passes, "
+              f"{(accepted + req_passes) / req_passes:.3f} tokens per target "
+              f"pass per request, draft acceptance "
+              f"{accepted / (req_passes * SPEC['speculate_k']):.3f}")
+        _latencies(f"serve_spec {arm}", reqs,
+                   sum(len(r.tokens) for r in reqs), wall)
+        print(f"[serve_spec] {arm} launches: {kernel} {launches[kernel]} (= "
+              f"{L} x {passes}), decode_attention "
+              f"{launches['decode_attention']} (= {draft_steps} x {passes})")
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def phase_parity(dev):
+    """fp32, TF32 off: the dense path's greedy streams against the kernel
+    path's on the slot cache and the paged pool, and against the
+    speculative path's on both."""
     import torch
     from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2Config,
                                                  GPT2Model, gpt2_prefill)
@@ -472,45 +824,64 @@ def phase_parity(dev):
     dense = GPT2Model(dense_cfg)
     params = kern.init(SEED, device=dev, dtype=torch.float32)
     prompts = _load()
-    base = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
-    ours = _serve(kern, params, {"serving": base}, prompts, dev)
-    ref = _serve(dense, params, {"serving": {**base,
+    ref = _serve(dense, params, {"serving": {**SLOT_CFG,
                                              "decode_impl": "dense"}},
                  prompts, dev)
-    flips = 0
-    for p, a, b in zip(prompts, ours, ref):
-        if a.tokens == b.tokens:
-            continue
-        i = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                 if x != y)
-        logits, _, _ = gpt2_prefill(dense_cfg, params, torch.tensor(
-            [p + b.tokens[:i]], device=dev))
-        top = torch.topk(logits[0, -1].float(), 2).values
-        gap = float(top[0] - top[1])
-        print(f"[parity] request {a.rid}: flip at token {i} "
-              f"({a.tokens[i]} vs {b.tokens[i]}), top-2 logit gap {gap:.3g}")
-        if not gap < NEAR_TIE:
-            fail(f"request {a.rid} diverges at token {i} with gap {gap}")
-        flips += 1
-    print(f"[parity] fp32 kernel path vs dense path: {N_REQ - flips}/"
-          f"{N_REQ} greedy streams equal, {flips} near-tie flips")
+    paged = {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]}
+    for label, cfg, draft in (
+            ("kernel path", SLOT_CFG, None),
+            ("paged kernel path", paged, None),
+            ("speculative path", {**SLOT_CFG, **SPEC}, _draft_params(params)),
+            ("speculative paged path", {**paged, **SPEC},
+             _draft_params(params))):
+        ours = _serve(kern, params, {"serving": cfg}, prompts, dev,
+                      draft_params=draft)
+        flips = 0
+        for p, a, b in zip(prompts, ours, ref):
+            if a.tokens == b.tokens:
+                continue
+            i = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                     if x != y)
+            logits, _, _ = gpt2_prefill(dense_cfg, params, torch.tensor(
+                [p + b.tokens[:i]], device=dev))
+            top = torch.topk(logits[0, -1].float(), 2).values
+            gap = float(top[0] - top[1])
+            print(f"[parity] {label}, request {a.rid}: flip at token {i} "
+                  f"({a.tokens[i]} vs {b.tokens[i]}), top-2 logit gap "
+                  f"{gap:.3g}")
+            if not gap < NEAR_TIE:
+                fail(f"{label}: request {a.rid} diverges at token {i} with "
+                     f"gap {gap}")
+            flips += 1
+        print(f"[parity] fp32 {label} vs dense path: {N_REQ - flips}/"
+              f"{N_REQ} greedy streams equal, {flips} near-tie flips")
+
+
+def _counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    return {"flash_fwd": fa.flash_attention.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "decode_attention": da.decode_attention.launches,
+            "decode_paged": da.decode_attention_paged.launches,
+            "decode_multi": da.decode_attention_multi.launches,
+            "decode_paged_multi": da.decode_attention_paged_multi.launches}
 
 
 def _train_counts():
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_bwd_dkv, flash_bwd_dq)
-    return {"flash_fwd": flash_attention.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches}
+    counts = _counts()
+    return {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv")}
 
 
 def _zero_counts():
-    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention)
-    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
-        flash_attention, flash_bwd_dkv, flash_bwd_dq)
-    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
-               decode_attention):
+    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
+    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
+    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
+               da.decode_attention, da.decode_attention_paged,
+               da.decode_attention_multi, da.decode_attention_paged_multi):
         fn.launches = 0
 
 
@@ -661,15 +1032,18 @@ def main() -> None:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     phase_build()
     kernels = phase_kernels(dev)
+    phase_decode_kernels(dev, kernels)
     phase_train_kernels(dev, kernels)
-    serve = phase_serve(dev)
+    by_phase = {"serve": phase_serve(dev),
+                "serve_paged": phase_serve_paged(dev),
+                "serve_spec": phase_serve_spec(dev)}
     phase_parity(dev)
-    train = phase_train(dev)
+    by_phase["train"] = phase_train(dev)
     phase_train_parity(dev)
     for name, r in kernels.items():
-        by_phase = {"serve": serve.get(name, 0), "train": train.get(name, 0)}
-        r["launches"] = sum(by_phase.values())
-        r["launches_by_phase"] = by_phase
+        r["launches_by_phase"] = {ph: c.get(name, 0)
+                                  for ph, c in by_phase.items()}
+        r["launches"] = sum(r["launches_by_phase"].values())
     print(card)
     print(json.dumps({"kernels": [kernels[n] for n in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

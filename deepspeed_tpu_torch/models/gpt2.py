@@ -8,15 +8,18 @@ keep the JAX layouts too: attention tensors ``[B, H, T, Dh]``, the slot
 cache ``[L, S, H, T, Dh]``.
 
 Ported: ``GPT2Config``, ``GPT2Model.init/apply/loss_fn/prefill/
-decode_step`` and the block helpers they run.  The attention is the flash
-kernels (``ops/kernels/flash_attention.py``: forward, and on the training
-path its dQ and dK/dV backward kernels) on ``attn_impl="flash"`` and the
-dense arm on ``"dense"``; the decode attention is
-``ops/kernels/decode_attention.py``.  The large products (qkv, out, fc,
-proj and the tied ``x @ wte.T``) stay ``torch.matmul``, as the JAX package
-leaves them to XLA.  Not ported yet (ROADMAP.md queue 1): LoRA, int8
-weights, the paged and speculative-verify paths, sequence-parallel
-attention, parameter streaming and the tensor-parallel specs.
+decode_step/prefill_paged/decode_step_paged/verify_step/verify_step_paged``
+and the block helpers they run.  The attention is the flash kernels
+(``ops/kernels/flash_attention.py``: forward, and on the training path its
+dQ and dK/dV backward kernels) on ``attn_impl="flash"`` and the dense arm
+on ``"dense"``; the decode attention is ``ops/kernels/decode_attention.py``
+(slot cache, paged pool, and their multi-query verify arms).  The large
+products (qkv, out, fc, proj and the tied ``x @ wte.T``) stay
+``torch.matmul``, as the JAX package leaves them to XLA.  Not ported yet
+(ROADMAP.md queue 1): LoRA (the ``lora`` arguments raise, item 7.5), int8
+weights and the int8 page pool (``k_scale``/``v_scale`` raise, item 7.4),
+sequence-parallel attention, parameter streaming and the tensor-parallel
+specs.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
 block and dropout site derives its own seed with ``runtime.utils.fold_in``
@@ -26,9 +29,13 @@ so ``remat="block"`` (``torch.utils.checkpoint``) replays the same masks
 when it recomputes a block.  The attention dropout is the flash kernel's
 position hash, seeded by the same kind of integer.
 
-Unlike the JAX functions, :func:`gpt2_decode_step` writes the new K/V rows
-into the caches IN PLACE (a slot cache is the largest tensor of serving;
-a functional copy per tick would double it) and returns the same tensors.
+Unlike the JAX functions, the serving steps (:func:`gpt2_decode_step`,
+:func:`gpt2_verify_step`, their paged twins and :func:`gpt2_prefill_paged`)
+write the new K/V rows into the caches and pools IN PLACE (a KV cache is
+the largest tensor of serving; a functional copy per tick would double it)
+and return the same tensors.  The paged prefill's ``lax.cond`` on the
+cached prefix length is a host branch here: the engine knows
+``prefix_len`` and ``delta_len`` on the host.
 """
 from __future__ import annotations
 
@@ -41,7 +48,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import causal_attention
-from ..ops.kernels.decode_attention import decode_attention
+from ..ops.kernels.decode_attention import (_default_scale,
+                                            decode_attention,
+                                            decode_attention_multi,
+                                            decode_attention_paged,
+                                            decode_attention_paged_multi,
+                                            paged_gather)
 from ..ops.kernels.flash_attention import flash_attention, mha
 from ..runtime.module import TrainModule
 from ..runtime.utils import fold_in
@@ -208,6 +220,48 @@ class GPT2Model(TrainModule):
         return gpt2_decode_step(self.config, params, tokens, k_cache,
                                 v_cache, lengths, active, impl=impl)
 
+    def prefill_paged(self, params, tokens, delta_len, prefix_len,
+                      page_row, k_pool, v_pool, k_scale=None,
+                      v_scale=None, lora=None, adapter_slots=None,
+                      lora_scale: float = 1.0):
+        """Delta-aware prefill into a paged KV pool — see
+        ``gpt2_prefill_paged``."""
+        return gpt2_prefill_paged(self.config, params, tokens, delta_len,
+                                  prefix_len, page_row, k_pool, v_pool,
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  lora=lora)
+
+    def decode_step_paged(self, params, tokens, k_pool, v_pool,
+                          page_table, lengths, active,
+                          impl: Optional[str] = None, k_scale=None,
+                          v_scale=None, lora=None, adapter_slots=None,
+                          lora_scale: float = 1.0):
+        """One masked decode tick over the paged KV pool — see
+        ``gpt2_decode_step_paged``."""
+        return gpt2_decode_step_paged(self.config, params, tokens, k_pool,
+                                      v_pool, page_table, lengths, active,
+                                      impl=impl, k_scale=k_scale,
+                                      v_scale=v_scale, lora=lora)
+
+    def verify_step(self, params, tokens, k_cache, v_cache, lengths,
+                    active, impl: Optional[str] = None):
+        """Score W speculative tokens per slot in one widened decode
+        pass — see ``gpt2_verify_step``."""
+        return gpt2_verify_step(self.config, params, tokens, k_cache,
+                                v_cache, lengths, active, impl=impl)
+
+    def verify_step_paged(self, params, tokens, k_pool, v_pool,
+                          page_table, lengths, active,
+                          impl: Optional[str] = None, k_scale=None,
+                          v_scale=None, lora=None, adapter_slots=None,
+                          lora_scale: float = 1.0):
+        """The paged twin of ``verify_step`` — see
+        ``gpt2_verify_step_paged``."""
+        return gpt2_verify_step_paged(self.config, params, tokens, k_pool,
+                                      v_pool, page_table, lengths, active,
+                                      impl=impl, k_scale=k_scale,
+                                      v_scale=v_scale, lora=lora)
+
 
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """The port's parameter tree from ``GPT2Model.init``'s tree given as
@@ -331,6 +385,16 @@ def _layer(blocks, i: int):
     return {name: a[i] for name, a in blocks.items()}
 
 
+def _embed(params, tokens, positions):
+    """Token plus position embeddings (any matching index shapes)."""
+    return params["wte"][tokens.long()] + params["wpe"][positions.long()]
+
+
+def _logits(params, x):
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    return x @ params["wte"].to(x.dtype).T
+
+
 def gpt2_block_prefill(cfg: GPT2Config, bp, x):
     """One block at inference, also returning the per-head K/V."""
     q, k, v = gpt2_qkv_heads(cfg, bp, x)
@@ -390,9 +454,7 @@ def gpt2_prefill(cfg: GPT2Config, params, tokens):
         x, (k, v) = gpt2_block_prefill(cfg, _layer(params["blocks"], i), x)
         ks.append(k)
         vs.append(v)
-    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
-    logits = x @ params["wte"].to(x.dtype).T
-    return logits, torch.stack(ks), torch.stack(vs)
+    return _logits(params, x), torch.stack(ks), torch.stack(vs)
 
 
 @torch.no_grad()
@@ -421,7 +483,326 @@ def gpt2_decode_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
         x = gpt2_block_decode(cfg, _layer(params["blocks"], i), x,
                               k_cache[i], v_cache[i], positions, att_len,
                               active, impl)
-    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
-    logits = (x @ params["wte"].to(x.dtype).T)[:, 0]
-    new_lengths = lengths + active.to(torch.int32)
-    return logits, k_cache, v_cache, new_lengths
+    logits = _logits(params, x)[:, 0]
+    return logits, k_cache, v_cache, lengths + active.to(torch.int32)
+
+
+def _unported_arms(what: str, k_scale=None, v_scale=None, lora=None):
+    """Refuse the int8 page pool and the LoRA adapters (not ported)."""
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            f"{what} with k_scale/v_scale (the int8 page pool) is not "
+            "ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, item "
+            "7.4 (quantized serving)")
+    if lora is not None:
+        raise NotImplementedError(
+            f"{what} with lora (multi-tenant adapters) is not ported to "
+            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 7.5 (LoRA "
+            "adapters)")
+
+
+# ---------------------------------------------------------------------------
+# speculative verify path (serving.speculate_k > 0): ONE widened decode
+# pass scores W = k+1 new tokens per slot — the pending token plus the
+# draft's k proposals — writing all W K/V rows (masked) and attending each
+# query over its own causal window (deepspeed_tpu/models/gpt2.py:691-880).
+# ---------------------------------------------------------------------------
+
+
+def _verify_rows(lengths, active, W: int, cap: int):
+    """The per-row geometry every verify arm shares (reference
+    ``_verify_rows``, ``models/gpt2.py:701-717``): absolute positions
+    (clipped), write validity, per-query attention lengths.  Row ``i`` of
+    slot ``s`` sits at ``lengths[s] + i`` and attends ``lengths[s] + i +
+    1`` keys; rows at or past ``cap`` are masked (their write is a no-op,
+    their output row exact zeros the engine's truncation discards)."""
+    base = lengths.to(torch.int32)
+    abs_pos = base[:, None] + torch.arange(W, dtype=torch.int32,
+                                           device=base.device)[None]
+    row_valid = active[:, None] & (abs_pos < cap)
+    positions = abs_pos.clamp(0, cap - 1)
+    row_lens = torch.where(row_valid, abs_pos + 1, 0).to(torch.int32)
+    return positions, row_valid, row_lens
+
+
+def _cache_write_rows(cache, new, positions, row_valid):
+    """Masked IN-PLACE write of W rows per slot into the slot cache in one
+    scatter: cache [S, H, T, Dh], new [S, H, W, Dh], positions/row_valid
+    [S, W] from :func:`_verify_rows`.
+
+    Rows past the capacity clip onto position ``cap - 1``, where the
+    slot's last valid row may also write.  So that no two writers of one
+    target disagree, every row writes the value its TARGET ends with: the
+    new row whose own position it is (``positions - positions[:, :1]``)
+    when that row is valid, else the old value.  The reference gets the
+    same result by writing the W rows one after another."""
+    S, H, T, Dh = cache.shape
+    s_idx = torch.arange(S, device=cache.device)[:, None]
+    owner = (positions - positions[:, :1]).long()             # [S, W]
+    owner_valid = torch.gather(row_valid, 1, owner)
+    rows = new.transpose(1, 2)                                # [S, W, H, Dh]
+    owner_new = rows[s_idx, owner]                            # [S, W, H, Dh]
+    pos = positions.long()
+    old = cache[s_idx, :, pos]                                # [S, W, H, Dh]
+    cache[s_idx, :, pos] = torch.where(owner_valid[..., None, None],
+                                       owner_new.to(cache.dtype), old)
+    return cache
+
+
+def gpt2_block_verify(cfg: GPT2Config, bp, x, k_cache, v_cache, positions,
+                      row_valid, row_lens, impl: str):
+    """One block of the verify pass: x [S, W, D]; writes all W K/V rows
+    (masked per row) then runs the multi-query decode attention."""
+    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, W, Dh]
+    _cache_write_rows(k_cache, k, positions, row_valid)
+    _cache_write_rows(v_cache, v, positions, row_valid)
+    attn = decode_attention_multi(q, k_cache, v_cache, row_lens,
+                                  impl=impl)            # [S, H, W, Dh]
+    x = gpt2_attn_project(bp, x, attn)
+    h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    return x + gpt2_ffn(bp, h)
+
+
+@torch.no_grad()
+def gpt2_verify_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
+                     lengths, active, impl: Optional[str] = None):
+    """One speculative verify pass for every slot at once.
+
+    tokens [S, W] — per slot its pending token then its k draft
+    proposals; k_cache/v_cache [L, S, H, T, Dh], updated in place;
+    lengths [S] — live KV length BEFORE this pass; active [S] bool.
+
+    Returns ``(logits [S, W, V], k_cache, v_cache)``: ``logits[s, i]``
+    scores the token after ``tokens[s, i]``.  Lengths are not advanced:
+    how far the cache moved is the caller's acceptance decision."""
+    if impl is None:
+        impl = _decode_attn_impl(cfg)
+    S, W = tokens.shape
+    cap = min(k_cache.shape[3], cfg.n_positions)
+    positions, row_valid, row_lens = _verify_rows(lengths, active, W, cap)
+    x = _embed(params, tokens, positions)               # [S, W, D]
+    for i in range(cfg.n_layer):
+        x = gpt2_block_verify(cfg, _layer(params["blocks"], i), x,
+                              k_cache[i], v_cache[i], positions, row_valid,
+                              row_lens, impl)
+    return _logits(params, x), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# paged serving paths (serving.page_len > 0): the same block helpers over a
+# flat page pool [P, H, page_len, Dh] addressed through per-slot int32 page
+# tables (deepspeed_tpu/models/gpt2.py:883-1201).  Page 0 is the reserved
+# scratch page every MASKED write is routed to, so two writers of one pool
+# row can only be masked rows writing back the same old value.
+# ---------------------------------------------------------------------------
+
+
+def _paged_cache_write(pool, new, page_ids, offs, active):
+    """Masked IN-PLACE write of rows into the page pool:
+    ``pool[page_ids, :, offs] = new`` where ``active``; masked rows write
+    their old value back at the scratch page.  pool [P, H, page_len, Dh];
+    new [..., H, Dh]; page_ids/offs/active share ``new``'s leading shape
+    (page ids already routed to scratch for masked rows)."""
+    page_ids, offs = page_ids.long(), offs.long()
+    old = pool[page_ids, :, offs]
+    pool[page_ids, :, offs] = torch.where(active[..., None, None],
+                                          new.to(pool.dtype), old)
+    return pool
+
+
+def _paged_write(pool, scales, new, page_ids, offs, active):
+    """The reference's fp/int8 dispatch (``models/gpt2.py:923-929``),
+    fp arm: ``scales`` must be None (the int8 pool is item 7.4)."""
+    _unported_arms("_paged_write", k_scale=scales)
+    return _paged_cache_write(pool, new, page_ids, offs, active), None
+
+
+def _route(page_table, positions, valid, page_len: int):
+    """(page ids, offsets) of ``positions`` [S] or [S, W] through the
+    table, masked rows routed to the scratch page 0."""
+    pos = positions.long()
+    s_idx = torch.arange(page_table.shape[0], device=pos.device)
+    if pos.ndim == 2:
+        s_idx = s_idx[:, None]
+    page_ids = torch.where(valid, page_table.long()[s_idx, pos // page_len],
+                           0)
+    return page_ids, pos % page_len
+
+
+def gpt2_block_decode_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
+                            page_table, positions, att_len, active,
+                            impl: str, k_scale=None, v_scale=None):
+    """One block of a paged decode tick: x [S, 1, D]; writes the token's
+    K/V at ``positions`` into the slot's page (masked by ``active``,
+    masked slots routed to scratch) then attends over ``att_len`` live
+    keys per slot through the page table."""
+    _unported_arms("gpt2_block_decode_paged", k_scale, v_scale)
+    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, 1, Dh]
+    page_ids, offs = _route(page_table, positions, active, k_pool.shape[2])
+    _paged_write(k_pool, None, k[:, :, 0], page_ids, offs, active)
+    _paged_write(v_pool, None, v[:, :, 0], page_ids, offs, active)
+    attn = decode_attention_paged(q[:, :, 0], k_pool, v_pool, page_table,
+                                  att_len, impl=impl)   # [S, H, Dh]
+    x = gpt2_attn_project(bp, x, attn[:, :, None, :])
+    h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    return x + gpt2_ffn(bp, h)
+
+
+@torch.no_grad()
+def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
+                           page_table, lengths, active,
+                           impl: Optional[str] = None, k_scale=None,
+                           v_scale=None, lora=None, adapter_slots=None,
+                           lora_scale: float = 1.0):
+    """One decode tick for every slot at once over the paged pool — the
+    paged twin of :func:`gpt2_decode_step`.
+
+    tokens [S]; k_pool/v_pool [L, P, H, page_len, Dh], updated in place;
+    page_table [S, max_pages] int (dead entries = scratch page 0);
+    lengths [S] — live KV length BEFORE this token; active [S] bool.
+    Returns (logits [S, V], k_pool, v_pool, new_lengths)."""
+    _unported_arms("gpt2_decode_step_paged", k_scale, v_scale, lora)
+    if impl is None:
+        impl = _decode_attn_impl(cfg)
+    page_len = k_pool.shape[3]
+    cap = page_table.shape[1] * page_len
+    lengths = lengths.to(torch.int32)
+    positions = lengths.clamp(0, min(cap, cfg.n_positions) - 1)
+    x = _embed(params, tokens, positions)[:, None]
+    att_len = torch.where(active, lengths + 1, 0).to(torch.int32)
+    for i in range(cfg.n_layer):
+        x = gpt2_block_decode_paged(cfg, _layer(params["blocks"], i), x,
+                                    k_pool[i], v_pool[i], page_table,
+                                    positions, att_len, active, impl)
+    logits = _logits(params, x)[:, 0]
+    return logits, k_pool, v_pool, lengths + active.to(torch.int32)
+
+
+def gpt2_block_verify_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
+                            page_table, positions, row_valid, row_lens,
+                            impl: str, k_scale=None, v_scale=None):
+    """One block of the paged verify pass: the W rows' page-routed writes
+    in one scatter (masked rows to scratch; valid rows of a slot are W
+    distinct positions of its own pages) then the paged multi-query
+    attention."""
+    _unported_arms("gpt2_block_verify_paged", k_scale, v_scale)
+    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, W, Dh]
+    page_ids, offs = _route(page_table, positions, row_valid,
+                            k_pool.shape[2])            # [S, W]
+    _paged_write(k_pool, None, k.transpose(1, 2), page_ids, offs, row_valid)
+    _paged_write(v_pool, None, v.transpose(1, 2), page_ids, offs, row_valid)
+    attn = decode_attention_paged_multi(q, k_pool, v_pool, page_table,
+                                        row_lens, impl=impl)
+    x = gpt2_attn_project(bp, x, attn)
+    h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    return x + gpt2_ffn(bp, h)
+
+
+@torch.no_grad()
+def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
+                           page_table, lengths, active,
+                           impl: Optional[str] = None, k_scale=None,
+                           v_scale=None, lora=None, adapter_slots=None,
+                           lora_scale: float = 1.0):
+    """The paged twin of :func:`gpt2_verify_step`: the engine must have
+    allocated pages covering all W rows before the pass (and rolls back
+    the ones the acceptance did not keep).  Returns (logits [S, W, V],
+    k_pool, v_pool)."""
+    _unported_arms("gpt2_verify_step_paged", k_scale, v_scale, lora)
+    if impl is None:
+        impl = _decode_attn_impl(cfg)
+    S, W = tokens.shape
+    cap = min(page_table.shape[1] * k_pool.shape[3], cfg.n_positions)
+    positions, row_valid, row_lens = _verify_rows(lengths, active, W, cap)
+    x = _embed(params, tokens, positions)
+    for i in range(cfg.n_layer):
+        x = gpt2_block_verify_paged(cfg, _layer(params["blocks"], i), x,
+                                    k_pool[i], v_pool[i], page_table,
+                                    positions, row_valid, row_lens, impl)
+    return _logits(params, x), k_pool, v_pool
+
+
+def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
+                             page_row, prefix_len: int, delta_len: int,
+                             k_scale=None, v_scale=None):
+    """One block of the delta-aware paged prefill: the delta tokens' K/V
+    (absolute positions ``prefix_len + i``, ``i < delta_len``) written
+    into the slot's pages, then the attention.  Two arms, chosen on the
+    host:
+
+    * ``prefix_len == 0`` — the model's own prefill attention (the flash
+      kernel or the dense arm, ``gpt2_block_prefill``'s ops);
+    * ``prefix_len > 0`` — dense attention over the pool gathered through
+      ``page_row``: delta query ``i`` attends every key at an absolute
+      position ``<= prefix_len + i`` (plain torch ops, as the reference's
+      jnp arm)."""
+    _unported_arms("gpt2_block_prefill_paged", k_scale, v_scale)
+    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [1, H, Tq, Dh]
+    page_len = k_pool.shape[2]
+    pos = prefix_len + torch.arange(delta_len, device=x.device)
+    page_ids = page_row.long()[pos // page_len]
+    offs = pos % page_len
+    k_pool[page_ids, :, offs] = k[0, :, :delta_len].transpose(0, 1).to(
+        k_pool.dtype)
+    v_pool[page_ids, :, offs] = v[0, :, :delta_len].transpose(0, 1).to(
+        v_pool.dtype)
+    if prefix_len == 0:
+        if cfg.attn_impl == "flash":
+            attn = flash_attention(q, k, v, causal=True)
+        elif cfg.attn_impl == "dense":
+            attn = causal_attention(q, k, v)
+        else:
+            _decode_attn_impl(cfg)  # raises with the real story
+    else:
+        kg = paged_gather(k_pool, page_row[None])[0]    # [H, T', Dh]
+        vg = paged_gather(v_pool, page_row[None])[0]
+        s = torch.einsum("htd,hsd->hts", q[0].float(), kg.float()) \
+            * _default_scale(cfg.d_head)
+        abs_pos = prefix_len + torch.arange(x.shape[1], device=x.device)
+        key_pos = torch.arange(kg.shape[1], device=x.device)
+        ok = key_pos[None, :] <= abs_pos[:, None]       # [Tq, T']
+        s = torch.where(ok[None], s, torch.finfo(torch.float32).min)
+        probs = torch.softmax(s, dim=-1).to(q.dtype)
+        attn = torch.einsum("hts,hsd->htd", probs, vg.to(q.dtype))[None]
+    x = gpt2_attn_project(bp, x, attn)
+    h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    return x + gpt2_ffn(bp, h)
+
+
+@torch.no_grad()
+def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
+                       prefix_len, page_row, k_pool, v_pool, k_scale=None,
+                       v_scale=None, lora=None, adapter_slots=None,
+                       lora_scale: float = 1.0):
+    """Delta-aware prefill into the paged pool (full prefills, prefix-hit
+    deltas and prefill chunks alike).
+
+    tokens [1, Tq] — the delta tokens (prompt minus the cached prefix),
+    right-padded to the prefill bucket; ``delta_len``/``prefix_len`` host
+    integers; page_row [max_pages] int — the slot's full table (shared
+    prefix pages plus its own pages, dead entries = scratch);
+    k_pool/v_pool [L, P, H, page_len, Dh], updated in place.
+
+    Returns (logits [1, Tq, V], k_pool, v_pool): ``logits[0, i]`` scores
+    the token after absolute position ``prefix_len + i``; padding rows are
+    garbage and write nothing."""
+    _unported_arms("gpt2_prefill_paged", k_scale, v_scale, lora)
+    B, Tq = tokens.shape
+    if Tq > cfg.n_positions:
+        raise ValueError(
+            f"sequence length {Tq} exceeds n_positions={cfg.n_positions}")
+    prefix_len, delta_len = int(prefix_len), int(delta_len)
+    if not 0 < delta_len <= Tq or \
+            prefix_len + delta_len > page_row.shape[0] * k_pool.shape[3]:
+        raise ValueError(
+            f"prefill of {delta_len} tokens after a {prefix_len}-token "
+            f"prefix does not fit a {Tq}-token bucket and a "
+            f"{page_row.shape[0]}-page table")
+    pos = (prefix_len + torch.arange(Tq, device=tokens.device)).clamp(
+        0, cfg.n_positions - 1)
+    x = _embed(params, tokens, pos[None])
+    for i in range(cfg.n_layer):
+        x = gpt2_block_prefill_paged(cfg, _layer(params["blocks"], i), x,
+                                     k_pool[i], v_pool[i], page_row,
+                                     prefix_len, delta_len)
+    return _logits(params, x), k_pool, v_pool

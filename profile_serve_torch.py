@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where a decode tick of the PyTorch port's ServeEngine spends its time,
+"""Where a serving tick of the PyTorch port's ServeEngine spends its time,
 on one NVIDIA card.
 
-    python3 profile_serve_torch.py [--ticks N]
+    python3 profile_serve_torch.py [--ticks N] [--paged] [--spec]
 
 Serves full-size GPT-2 small in bf16 (random weights from seed 0, the
 serving config and load of chip_smoke.py: 8 slots, max_seq_len 1024,
-prefill bucket 512, 12 prompts of 16-512 tokens).  Once all 8 slots
-decode, it times N decode-only ticks on the host clock (each ends in the
-token read-back, which synchronises), then traces N more with
-``torch.profiler`` and prints: wall per tick, device busy time per tick
-by kernel name (top 12), the device's idle share, and the time of one
+prefill bucket 512, 12 prompts of 16-512 tokens).  ``--paged`` serves from
+the paged pool (page_len 16) instead of the slot cache; ``--spec`` makes
+every tick a speculative block (k = 4, a 2-layer draft cut from the
+target, as chip_smoke.py's serve_spec phase), so a "tick" is one draft
+propose plus one verify pass.  Once all 8 slots decode, it times N ticks
+on the host clock (each ends in the token read-back, which synchronises),
+then traces N more with ``torch.profiler`` and prints: wall per tick,
+tokens per tick, device busy time per tick by kernel name (top 12), the
+device's idle share and the time of one
 512-token prefill.  The trace goes to ``chiprun_out/serve_trace.json``.
 """
 import argparse
@@ -26,6 +30,10 @@ import numpy as np
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ticks", type=int, default=20)
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged pool (page_len 16)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative ticks (k 4, 2-layer draft)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -41,23 +49,39 @@ def main() -> None:
                          text=True).stdout.strip())
     model = GPT2Model(GPT2_SMALL)
     params = model.init(0, device=dev, dtype=torch.bfloat16)
-    eng = ServeEngine(model, {"serving": {"slots": 8, "max_seq_len": 1024,
-                                          "prefill_len": 512}},
-                      params=params, device=dev)
+    serving = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
+    if args.paged:
+        serving["page_len"] = 16
+    draft = None
+    if args.spec:
+        serving.update(speculate_k=4, draft={"d_model": 768, "n_layer": 2,
+                                             "n_head": 12})
+        draft = {k: v for k, v in params.items() if k != "blocks"}
+        draft["blocks"] = {k: v[:2] for k, v in params["blocks"].items()}
+
+    def engine():
+        return ServeEngine(model, {"serving": serving}, params=params,
+                           device=dev, draft_params=draft)
+
+    eng = engine()
     rng = np.random.default_rng(0)
     prompts = [[int(t) for t in rng.integers(0, GPT2_SMALL.vocab_size, n)]
                for n in rng.integers(16, 513, 12)]
-    budget = 2 * args.ticks + 8
-    for p in prompts[:8]:
-        eng.submit(p, max_new_tokens=budget)
-    eng.step()  # admits (prefills) all 8, then the first decode tick
+    per_tick = 5 if args.spec else 1
+    budget = per_tick * (2 * args.ticks + 8)
+    reqs = [eng.submit(p, max_new_tokens=budget) for p in prompts[:8]]
+    eng.step()  # admits (prefills) all 8, then the first tick
     eng.step()
     torch.cuda.synchronize()
 
-    t0 = time.perf_counter()
+    def produced():
+        return sum(len(r.tokens) for r in reqs)
+
+    t0, n0 = time.perf_counter(), produced()
     for _ in range(args.ticks):
         eng.step()
     tick_ms = (time.perf_counter() - t0) / args.ticks * 1e3
+    tokens_per_tick = (produced() - n0) / args.ticks
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -66,6 +90,9 @@ def main() -> None:
             eng.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / args.ticks * 1e3
+    if any(r.finish_reason for r in reqs):
+        sys.exit("profile_serve_torch: a request finished inside the "
+                 "measured window; raise the budget")
     os.makedirs("chiprun_out", exist_ok=True)
     prof.export_chrome_trace("chiprun_out/serve_trace.json")
 
@@ -78,8 +105,12 @@ def main() -> None:
                          ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    print(f"decode tick, 8 active slots: {tick_ms:.3f} ms wall "
-          f"(unprofiled), {wall_ms:.3f} ms wall under the profiler")
+    kind = ("speculative block (draft propose + verify)" if args.spec
+            else "decode tick")
+    cache = "paged pool" if args.paged else "slot cache"
+    print(f"{kind}, {cache}, 8 active slots: {tick_ms:.3f} ms wall "
+          f"(unprofiled), {wall_ms:.3f} ms wall under the profiler; "
+          f"{tokens_per_tick:.3f} tokens per tick")
     # the profiler slows the host, not the device: the idle share of an
     # unprofiled tick is the busy time over the unprofiled wall
     print(f"device busy {busy_ms:.3f} ms per tick -> idle share "
@@ -91,20 +122,31 @@ def main() -> None:
 
     # one 512-token prefill into a free slot (host clock, synchronised)
     eng.close()
-    eng = ServeEngine(model, {"serving": {"slots": 8, "max_seq_len": 1024,
-                                          "prefill_len": 512}},
-                      params=params, device=dev)
-    tokens = torch.zeros((1, 512), dtype=torch.long, device=dev)
+    eng = engine()
+    tokens = np.zeros((1, 512), np.int64)
+    if args.paged:
+        row = np.zeros((eng.max_pages,), np.int32)
+        row[:32] = np.arange(1, 33)
+
+        def prefill():
+            eng._prefill_paged(tokens, 512, 0, row, 0)
+    else:
+        dev_tokens = torch.from_numpy(tokens).to(dev)
+
+        def prefill():
+            eng._prefill(dev_tokens, 512, 0)
     for _ in range(3):
-        eng._prefill(tokens, 512, 0)
+        prefill()
     t0 = time.perf_counter()
     for _ in range(args.ticks):
-        eng._prefill(tokens, 512, 0)
+        prefill()
     prefill_ms = (time.perf_counter() - t0) / args.ticks * 1e3
     eng.close()
     print(f"one 512-token prefill (12 layers + logits + read-back): "
           f"{prefill_ms:.3f} ms")
-    print(json.dumps({"tick_ms": tick_ms, "profiled_tick_ms": wall_ms,
+    print(json.dumps({"paged": args.paged, "spec": args.spec,
+                      "tick_ms": tick_ms, "profiled_tick_ms": wall_ms,
+                      "tokens_per_tick": tokens_per_tick,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / tick_ms,
                       "prefill_ms": prefill_ms}))

@@ -94,8 +94,10 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"serving": {"page_len": 8}}, "7.2"),
-    ({"serving": {"speculate_k": 2}}, "7.3"),
+    # paged KV and greedy speculation are ported; their unported arms
+    # (the int8 pool, sampling) still raise
+    ({"serving": {"page_len": 8, "quantization": {"kv": "int8"}}}, "7.4"),
+    ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "7.3"),
     ({"serving": {"temperature": 0.7}}, "7.3"),
     ({"serving": {"quantization": {"weights": "int8"}}}, "7.4"),
     ({"telemetry": {"enabled": True}}, "item 5"),
@@ -106,26 +108,25 @@ def test_unported_knob_raises_naming_its_roadmap_item(extra, item):
         ServeEngine(GPT2Model(TINY), extra, device="cpu")
 
 
-def test_unported_paged_only_knobs_and_mesh_raise(monkeypatch):
-    """kv_tier, lora and prefill_chunk_len need page_len > 0 to parse at
-    all, so the page_len refusal comes first; the engine's own checks for
-    them are exercised directly, and a mesh raises before anything
-    else."""
-    with pytest.raises(NotImplementedError, match="7.2"):
-        ServeEngine(GPT2Model(TINY), {"serving": {
-            "page_len": 8, "prefill_chunk_len": 4}}, device="cpu")
-    cfg = engine_mod._ServeConfigView({"serving": {"slots": 1}})
-    monkeypatch.setitem(cfg.serving.kv_tier, "idle_park_ticks", 3)
-    with pytest.raises(NotImplementedError, match="7.6"):
-        engine_mod._refuse_unported(cfg)
-    cfg = engine_mod._ServeConfigView({"serving": {"slots": 1}})
-    monkeypatch.setitem(cfg.serving.lora, "rank", 4)
-    with pytest.raises(NotImplementedError, match="7.5"):
-        engine_mod._refuse_unported(cfg)
-    cfg = engine_mod._ServeConfigView({"serving": {"slots": 1}})
-    monkeypatch.setattr(cfg.serving, "prefill_chunk_len", 4)
-    with pytest.raises(NotImplementedError, match="7.2"):
-        engine_mod._refuse_unported(cfg)
+def test_unported_paged_only_knobs_and_mesh_raise():
+    """kv_tier and lora need page_len > 0 to parse at all; on the paged
+    engine (ported, chunked prefill included) they raise naming their
+    items, and a mesh raises before anything else."""
+    for extra, item in ((
+            {"kv_tier": {"idle_park_ticks": 3}}, "7.6"),
+            ({"lora": {"rank": 4}}, "7.5")):
+        cfg = engine_mod._ServeConfigView({"serving": {"page_len": 8,
+                                                       **extra}})
+        with pytest.raises(NotImplementedError, match=item):
+            engine_mod._refuse_unported(cfg)
+        with pytest.raises(NotImplementedError, match=item):
+            ServeEngine(GPT2Model(TINY), {"serving": {"page_len": 8,
+                                                      **extra}},
+                        device="cpu")
+    eng = ServeEngine(GPT2Model(TINY), {"serving": {
+        "page_len": 8, "prefill_chunk_len": 4}}, device="cpu")
+    assert eng.paged and eng.prefill_chunk_len == 4
+    eng.close()
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")
 

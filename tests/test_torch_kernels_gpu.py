@@ -15,7 +15,10 @@ import torch
 
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_attention, decode_attention_cuda,
-    decode_attention_plain)
+    decode_attention_multi, decode_attention_paged,
+    decode_attention_paged_multi, decode_attention_plain, decode_multi_cuda,
+    decode_multi_plain, decode_paged_cuda, decode_paged_multi_cuda,
+    decode_paged_multi_plain, decode_paged_plain)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_cuda, flash_attention_plain,
     flash_bwd_dkv, flash_bwd_dkv_cuda, flash_bwd_dkv_plain, flash_bwd_dq,
@@ -152,3 +155,96 @@ def test_public_entry_points_launch_or_raise(dev):
     with pytest.raises(ValueError, match="contiguous"):
         decode_attention_cuda(kc[:, :, 0], kc, kc,
                               lengths.to(torch.int32), 0.125)
+
+
+def _paged(dev, dtype, page_len, w):
+    """Five slots over a scattered page pool: a length-0 slot, one key, a
+    page boundary, lengths ending mid-page past several boundaries, the
+    full table; W rows at L + i + 1 with one row that is masked in pages
+    the others keep live.  Unowned pages and the scratch page 0 hold
+    huge garbage; dead table columns hold an id past the pool."""
+    S, H, M, P = 5, 3, 9, 60
+    base = torch.tensor([0, 1, page_len, 3 * page_len + 5, M * page_len - w],
+                        device=dev)
+    lens = base[:, None] + torch.arange(1, w + 1, device=dev)[None]
+    lens = torch.where(base[:, None] > 0, lens, 0)
+    if w > 1:
+        lens[3, 0] = 2                   # dead in the slot's later pages
+    lens = lens.clamp(max=M * page_len).to(torch.int32)
+    g = torch.Generator().manual_seed(page_len + w)
+    pool = [torch.randn(P, H, page_len, 64, generator=g).to(dev)
+            for _ in range(2)]
+    for t in pool:
+        t[0] = 1e4
+    ids = (torch.randperm(P - 1, generator=g) + 1).tolist()
+    table = torch.full((S, M), 10 ** 6, dtype=torch.int32)
+    need = ((lens.amax(1).cpu() + page_len - 1) // page_len).tolist()
+    nxt = 0
+    for s_, n in enumerate(need):
+        table[s_, :n] = torch.tensor(ids[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+    q = _randn(dev, S, H, w, 64, seed=11).to(dtype)
+    return (q, pool[0].to(dtype), pool[1].to(dtype), table.to(dev),
+            lens.contiguous())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("page_len", [7, 16])
+@pytest.mark.parametrize("w", [1, 5, 9])
+def test_paged_kernels_match_plain(dev, dtype, page_len, w):
+    """decode_paged (W = 1) and decode_paged_multi against their plain
+    versions: key steps crossing pages, scratch and never-read table
+    entries, a length-0 slot (exact zeros), a row masked in a live page."""
+    q, kp, vp, table, lens = _paged(dev, dtype, page_len, w)
+    f32 = (q.float(), kp.float(), vp.float(), table, lens)
+    scale = _default_scale(64)
+    out = decode_paged_multi_cuda(q, kp, vp, table, lens, scale)
+    torch.cuda.synchronize()
+    ref = decode_paged_multi_plain(*f32, scale)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    assert (out[0] == 0).all()
+    if w == 1:
+        one = decode_paged_cuda(q[:, :, 0].contiguous(), kp, vp, table,
+                                lens[:, 0].contiguous(), scale)
+        torch.cuda.synchronize()
+        ref1 = decode_paged_plain(q[:, :, 0].float(), kp.float(), vp.float(),
+                                  table, lens[:, 0], scale)
+        assert (one.float() - ref1).abs().max().item() <= TOL[dtype]
+        assert (one[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [1, 5, 9])
+def test_multi_kernel_matches_plain(dev, dtype, w):
+    """decode_multi over the slot cache the pool stands for."""
+    q, kp, vp, table, lens = _paged(dev, dtype, 16, w)
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _live_table, paged_gather)
+    live = _live_table(table, lens, 16)
+    k, v = paged_gather(kp, live), paged_gather(vp, live)
+    scale = _default_scale(64)
+    out = decode_multi_cuda(q, k, v, lens, scale)
+    torch.cuda.synchronize()
+    ref = decode_multi_plain(q.float(), k.float(), v.float(), lens, scale)
+    assert (out.float() - ref).abs().max().item() <= TOL[dtype]
+    assert (out[0] == 0).all()
+
+
+def test_decode_entry_points_launch_or_raise(dev):
+    q, kp, vp, table, lens = _paged(dev, torch.bfloat16, 16, 5)
+    counts = (decode_attention_paged.launches,
+              decode_attention_multi.launches,
+              decode_attention_paged_multi.launches)
+    decode_attention_paged(q[:, :, 0], kp, vp, table, lens[:, 0])
+    decode_attention_paged_multi(q, kp, vp, table, lens)
+    kc = torch.zeros(5, 3, 32, 64, device=dev, dtype=torch.bfloat16)
+    decode_attention_multi(q, kc, kc, lens.clamp(max=32))
+    assert (decode_attention_paged.launches, decode_attention_multi.launches,
+            decode_attention_paged_multi.launches) == tuple(
+                c + 1 for c in counts)
+    with pytest.raises(ValueError, match="shapes"):   # W > 9
+        decode_attention_multi(q.repeat(1, 1, 2, 1), kc, kc,
+                               lens.repeat(1, 2).clamp(max=32))
+    with pytest.raises(TypeError, match="dtype"):
+        decode_attention_paged_multi(q.float(), kp, vp, table, lens)
