@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 
 Phases, all on ``cuda:0``; any failure exits non-zero:
 
-1. build    the seven kernels of the serving and training paths from
+1. build    the ten kernels of the serving, training and sparse paths from
             ``deepspeed_tpu_torch/csrc/`` with nvcc for sm_90a
             (``-Xptxas -v`` lines printed), all sources compiled in
             parallel;
@@ -19,7 +19,10 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             dropout 0.1, a key mask with an all-masked row and a
             non-trivial ``bh_affine``, the dQ and dK/dV kernels at
             [8, 12, 1024, 64] causal with dropout 0.1 and an all-dead case
-            (exact-zero gradients), the paged, multi-query and paged
+            (exact-zero gradients), all three at the bert_train call
+            ([8, 16, 512, 64], non-causal, dropout 0.1, the padded batch's
+            [B, T] key mask; the forward also within one bf16 ulp + 1e-4
+            elementwise; padded keys' dK/dV exact zeros), the paged, multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
             no live row lands in) and W = 5 verify rows; timed with CUDA
@@ -65,7 +68,42 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             kernel path against the dense path (``attn_impl="dense"``) on
             the same params and tokens, the first step's attention-weight
             gradients within 1e-3 (max relative) and 5 steps' losses within
-            1e-4 (relative).
+            1e-4 (relative);
+9. sparse_kernels  (run right after the kernels phase) the block-sparse
+            forward, dQ and dK/dV kernels against their plain versions at
+            [2, 16, 4096, 64] on four layouts: Fixed block 16 with the
+            ``ds_config`` defaults, BigBird block 64 (both head-uniform), a
+            per-head BigBird block 32, and Fixed with an empty query block
+            row and key block column (exact zeros, no NaN); tolerances as
+            in phase 2, and the bf16 forward within one bf16 ulp + 1e-4
+            elementwise; timed on the Fixed layout beside the plain versions,
+            SDPA with the layout as a token mask (forward; forward plus
+            backward) and the bound of the active blocks' work;
+10. sparse  ``BertSparseSelfAttention`` at BERT-large's width (d 1024, 16
+            heads, Fixed layout) over B 2 x T 4096, bf16, weights from a
+            seed: forward and backward through autograd, 2 warm-up and 5
+            timed iterations (queued under sync debug mode 'error': no
+            host sync); ms, tokens/s and peak memory; asserts one
+            launch of each block-sparse kernel per iteration; then the
+            gather path (an all-zero additive key padding mask, which must
+            launch no block-sparse kernel) against the kernel path, within
+            2e-2 of the largest output magnitude;
+11. bert_train  ``deepspeed_tpu_torch.initialize`` on BERT-large (24
+            layers, d 1024, 16 heads, vocab 30522), bf16, dropout 0.1,
+            ``remat="block"``, LAMB lr 1e-3, micro-batch 8 x 512 MLM + NSP
+            tokens by BERT's masking recipe with a quarter of the rows
+            right-padded: 2 warm-up and 4 timed steps on one batch (no host
+            sync, as in phase 7); losses finite and falling; step ms,
+            tokens/s, peak memory; asserts
+            2 x 24 flash forward launches (forward and recompute) and 24 of
+            each backward kernel per step; then the same model with
+            progressive layer drop (theta 0.5, gamma 1) for 2 steps with no
+            host sync: fewer than 24 layer passes per step, each dropped
+            layer launching no flash kernel;
+12. bert parity  fp32 (TF32 off), width 1024 at 4 layers, dropout 0: the
+            flash path against ``attn_impl="dense"`` on the same params and
+            padded batch, first-step attention-weight gradients within 1e-3
+            (max relative) and 5 LAMB steps' losses within 1e-4 (relative).
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -84,7 +122,8 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
-           "decode_paged", "decode_multi", "decode_paged_multi")
+           "decode_paged", "decode_multi", "decode_paged_multi",
+           "block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -96,6 +135,13 @@ NEAR_TIE = 1e-3
 TRAIN_SHAPE = (8, 12, 1024, 64)
 TRAIN_MICRO, TRAIN_GA, TRAIN_WARM, TRAIN_STEPS = 8, 2, 2, 8
 PARITY_LAYERS, PARITY_STEPS = 4, 5
+#: the sparse path: BertSparseSelfAttention at BERT-large's width
+SPARSE_SHAPE = (2, 16, 4096, 64)
+SPARSE_WARM, SPARSE_ITERS = 2, 5
+#: the BERT-large training path: micro-batch 8 x 512 tokens
+BERT_MICRO, BERT_SEQ, BERT_WARM, BERT_STEPS = 8, 512, 2, 4
+BERT_PLD_STEPS = 2
+MASK_TOKEN = 103   # BERT's [MASK] id
 #: the serving phases' engine configs
 SLOT_CFG = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
 PAGED_CFG = {**SLOT_CFG, "page_len": 16, "pages": 640, "prefix_cache": True,
@@ -103,6 +149,7 @@ PAGED_CFG = {**SLOT_CFG, "page_len": 16, "pages": 640, "prefix_cache": True,
 DRAFT_LAYERS = 2
 SPEC = {"speculate_k": 4,
         "draft": {"d_model": 768, "n_layer": DRAFT_LAYERS, "n_head": 12}}
+
 
 
 def fail(msg: str) -> None:
@@ -146,9 +193,9 @@ def phase_build():
           f"{time.perf_counter() - t0:.1f} s")
     for name in KERNELS:
         for line in logs[name].splitlines():
-            if "ptxas" in line and ("registers" in line or "smem" in line
-                                    or "Compiling" in line
-                                    or "spill" in line):
+            if ("ptxas" in line and ("registers" in line or "smem" in line
+                                     or "Compiling" in line)
+                    or "spill" in line):
                 print(f"[build] {name}: {line.strip()}")
 
 
@@ -425,10 +472,85 @@ def _rel_err(got, want) -> float:
             / max(1.0, want.abs().max().item())).item()
 
 
+def _ulp_err(got, want) -> float:
+    """max |got - want| over (one bf16 ulp of want + the fp32 tolerance):
+    at most 1 when got is fp32 work on the same inputs rounded to bf16."""
+    return ((got.float() - want).abs()
+            / (want.abs() * 2.0 ** -7 + TOL["float32"])).max().item()
+
+
+def _bert_flash_case(dev):
+    """The flash kernels at the bert_train phase's call against their plain
+    versions: [8, 16, 512, 64], non-causal, dropout 0.1, and the [B, T]
+    additive key mask that the transformer layer's ``_key_mask_rows``
+    builds from a padded MLM batch (fp32 and bf16).  The padded keys' dK
+    and dV must be exact zeros."""
+    import torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_cuda, flash_attention_plain, flash_bwd_dkv_cuda,
+        flash_bwd_dkv_plain, flash_bwd_dq_cuda, flash_bwd_dq_plain)
+    from deepspeed_tpu_torch.ops.transformer import DeepSpeedTransformerLayer
+
+    B, T = BERT_MICRO, BERT_SEQ
+    H = BERT_LARGE.num_attention_heads
+    D = BERT_LARGE.hidden_size // H
+    scale = D ** -0.5
+    att = torch.from_numpy(mlm_batch(B, T, BERT_LARGE.vocab_size, SEED)[
+        "attention_mask"]).to(dev)
+    # the additive mask as BertModel.encode builds it, then the kernels'
+    # [B·H, T] rows
+    add = (1.0 - att.float())[:, None, None, :] * -10000.0
+    km = DeepSpeedTransformerLayer._key_mask_rows(add, B, H, T)
+    km = km[:, None].expand(B, H, T).reshape(B * H, T).contiguous()
+    pad = att == 0
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+    q32, k32, v32, do32 = (torch.randn((B, H, T, D), generator=g,
+                                       device=dev) for _ in range(4))
+    args = (False, scale, None, km, 0.1, 0xB5297A4D, None)
+    label = (f"[{B}, {H}, {T}, {D}] non-causal dropout 0.1 BERT key mask "
+             f"({int(pad.any(1).sum())} padded rows)")
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+        f32 = (q.float(), k.float(), v.float())
+        out, lse = flash_attention_cuda(q, k, v, *args)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_plain(*f32, *args)
+        err = (out.float() - ref).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        ulp = _ulp_err(out, ref)
+        delta = (do.float() * ref).sum(-1)
+        dq = flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, *args)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, *args)
+        torch.cuda.synchronize()
+        plain = (*f32, do.float(), ref_lse, delta)
+        e_dq = _rel_err(dq, flash_bwd_dq_plain(*plain, *args))
+        rdk, rdv = flash_bwd_dkv_plain(*plain, *args)
+        e_dkv = max(_rel_err(dk, rdk), _rel_err(dv, rdv))
+        print(f"[kernels] flash {dtype} {label}: fwd err {err:.3g} (lse "
+              f"{lse_err:.3g}; {ulp:.3g} of one bf16 ulp + 1e-4), dq err "
+              f"{e_dq:.3g}, dk/dv err {e_dkv:.3g}")
+        if not (max(err, lse_err, e_dq, e_dkv) <= TOL[dtype]
+                and (dtype == "float32" or ulp <= 1.0)):
+            fail(f"flash kernels {dtype} {label}: errors {err} / {lse_err} "
+                 f"/ {e_dq} / {e_dkv} above {TOL[dtype]}, or forward "
+                 f"{ulp} ulp-relative above 1")
+        if not all(torch.isfinite(t).all() for t in (out, dq, dk, dv)):
+            fail(f"flash kernels {dtype} {label}: non-finite")
+        if not ((dk.transpose(1, 2)[pad] == 0).all()
+                and (dv.transpose(1, 2)[pad] == 0).all()):
+            fail(f"flash_bwd_dkv {dtype} {label}: the padded keys' dK/dV "
+                 "are not exact zeros")
+        del out, lse, dq, dk, dv, ref, ref_lse, rdk, rdv, delta
+
+
 def phase_train_kernels(dev, results):
     """The flash kernels at the training shape: the forward's training
-    arms, then dQ and dK/dV against their plain versions, and their
-    timings (bf16, causal, dropout 0.1: the train phase's call)."""
+    arms, then dQ and dK/dV against their plain versions, the same at the
+    bert_train phase's call, and their timings (bf16, causal, dropout 0.1:
+    the train phase's call)."""
     import torch
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.kernels.flash_attention import (
@@ -502,6 +624,8 @@ def phase_train_kernels(dev, results):
             if dtype == "bfloat16" and kmask is None and kvl is None:
                 errs["dq"], errs["dkv"] = e_dq, e_dkv
             del dq, dk, dv, rdq, rdk, rdv
+
+    _bert_flash_case(dev)
 
     # timings at the train phase's call: bf16, causal, dropout 0.1
     q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
@@ -857,17 +981,26 @@ def phase_parity(dev):
               f"{N_REQ} greedy streams equal, {flips} near-tie flips")
 
 
-def _counts():
-    """Every kernel wrapper's launch count, by kernel name."""
+def _counted():
+    """Every kernel wrapper that carries a launch count, by kernel name."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops.kernels import decode_attention as da
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    return {"flash_fwd": fa.flash_attention.launches,
-            "flash_bwd_dq": fa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
-            "decode_attention": da.decode_attention.launches,
-            "decode_paged": da.decode_attention_paged.launches,
-            "decode_multi": da.decode_attention_multi.launches,
-            "decode_paged_multi": da.decode_attention_paged_multi.launches}
+    return {"flash_fwd": fa.flash_attention,
+            "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "decode_attention": da.decode_attention,
+            "decode_paged": da.decode_attention_paged,
+            "decode_multi": da.decode_attention_multi,
+            "decode_paged_multi": da.decode_attention_paged_multi,
+            "block_sparse_fwd": bs.block_sparse_fwd,
+            "block_sparse_bwd_dq": bs.block_sparse_bwd_dq,
+            "block_sparse_bwd_dkv": bs.block_sparse_bwd_dkv}
+
+
+def _counts():
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _train_counts():
@@ -877,11 +1010,7 @@ def _train_counts():
 
 
 def _zero_counts():
-    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
-    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    for fn in (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv,
-               da.decode_attention, da.decode_attention_paged,
-               da.decode_attention_multi, da.decode_attention_paged_multi):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -1018,6 +1147,469 @@ def phase_train_parity(dev):
         fail(f"train parity: losses differ by {worst} (relative)")
 
 
+def _sparse_layouts():
+    """The sparse-kernel phase's layouts at [2, 16, 4096, 64]: name →
+    (layout [16, nb, nb], block)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+    H, T = SPARSE_SHAPE[1], SPARSE_SHAPE[2]
+    empty = FixedSparsityConfig(num_heads=H).make_layout(T)
+    empty[:, 5, :] = 0            # a query block row and a key block
+    empty[:, :, 9] = 0            # column with no active block
+    return {
+        "fixed16": (FixedSparsityConfig(num_heads=H).make_layout(T), 16),
+        "bigbird64": (BigBirdSparsityConfig(num_heads=H,
+                                            block=64).make_layout(T), 64),
+        "bigbird32 per head": (BigBirdSparsityConfig(
+            num_heads=H, block=32, different_layout_per_head=True,
+            seed=SEED).make_layout(T), 32),
+        "fixed16 empty row and column": (empty, 16),
+    }
+
+
+def phase_sparse_kernels(dev, results):
+    """The three block-sparse kernels against their plain versions at
+    [2, 16, 4096, 64] (fp32 within 1e-4; bf16 within 2e-2 of the plain
+    version in fp32 on the same inputs; gradients relative to their
+    largest magnitude when it exceeds 1) on four layouts, then their bf16
+    timings on the sparse phase's layout (Fixed, block 16) beside the
+    plain versions, SDPA with the layout as a token mask, and the bounds
+    of the active blocks' bytes and operations."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    B, H, T, D = SPARSE_SHAPE
+    scale = D ** -0.5
+    q32, k32, v32, do32 = (torch.randn(SPARSE_SHAPE, generator=g, device=dev)
+                           for _ in range(4))
+    errs = {}
+    for label, (layout, block) in _sparse_layouts().items():
+        luts = bs.device_luts(bs.build_kernel_luts(layout), dev)
+        cols, nvalid, rows_t, nvalid_t = luts
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
+            f32 = (q.float(), k.float(), v.float())
+            out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale,
+                                                block)
+            torch.cuda.synchronize()
+            ref, ref_lse = bs.block_sparse_fwd_plain(*f32, cols, nvalid,
+                                                     scale, block)
+            err = (out.float() - ref).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            ulp = _ulp_err(out, ref)
+            delta = (do.float() * ref).sum(-1)
+            dq = bs.block_sparse_bwd_dq_cuda(q, k, v, do, ref_lse, delta,
+                                             cols, nvalid, scale, block)
+            dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
+                                                  rows_t, nvalid_t, scale,
+                                                  block)
+            torch.cuda.synchronize()
+            plain = (*f32, do.float(), ref_lse, delta)
+            e_dq = _rel_err(dq, bs.block_sparse_bwd_dq_plain(
+                *plain, cols, nvalid, scale, block))
+            rdk, rdv = bs.block_sparse_bwd_dkv_plain(*plain, rows_t, nvalid_t,
+                                                     scale, block)
+            e_dkv = max(_rel_err(dk, rdk), _rel_err(dv, rdv))
+            del rdk, rdv
+            print(f"[sparse kernels] {label} (block {block}, "
+                  f"{cols.shape[0]} LUT plane(s), density "
+                  f"{layout.mean():.3f}) {dtype}: fwd err "
+                  f"{err:.3g} (lse {lse_err:.3g}; {ulp:.3g} of one bf16 ulp "
+                  f"+ 1e-4), dq err {e_dq:.3g}, dk/dv err {e_dkv:.3g}")
+            if not (max(err, lse_err, e_dq, e_dkv) <= TOL[dtype]
+                    and (dtype == "float32" or ulp <= 1.0)):
+                fail(f"block-sparse kernels {label} {dtype}: errors {err} / "
+                     f"{lse_err} / {e_dq} / {e_dkv} above {TOL[dtype]}, or "
+                     f"forward {ulp} ulp-relative above 1")
+            if not all(torch.isfinite(t).all() for t in (out, dq, dk, dv)):
+                fail(f"block-sparse kernels {label} {dtype}: non-finite")
+            if "empty" in label:
+                rows = slice(5 * block, 6 * block)
+                keys = slice(9 * block, 10 * block)
+                if not ((out[:, :, rows] == 0).all()
+                        and (lse[:, :, rows] == -1e30).all()
+                        and (dq[:, :, rows] == 0).all()
+                        and (dk[:, :, keys] == 0).all()
+                        and (dv[:, :, keys] == 0).all()):
+                    fail("block-sparse kernels: the empty row / column is "
+                         "not exact zeros")
+            if label == "fixed16" and dtype == "bfloat16":
+                errs = {"fwd": err, "dq": e_dq, "dkv": e_dkv}
+            del out, lse, dq, dk, dv, ref, ref_lse, delta
+        torch.cuda.empty_cache()
+
+    # timings, bf16, on the sparse phase's layout
+    layout, block = _sparse_layouts()["fixed16"]
+    cols, nvalid, rows_t, nvalid_t = bs.device_luts(
+        bs.build_kernel_luts(layout), dev)
+    q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
+    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale, block)
+    delta = (do.float() * out.float()).sum(-1)
+    # active (query, key) pairs: every head's layout, block x block each
+    pairs = B * int(layout.sum()) * block * block
+    row_b = B * H * T * D * 2            # one bf16 [B, H, T, 64] tensor
+    stat_b = B * H * T * 4               # one fp32 [B, H, T] statistic
+    lut_b = sum(t.numel() * 4 for t in (cols, nvalid))
+    lut_tb = sum(t.numel() * 4 for t in (rows_t, nvalid_t))
+    mask = torch.from_numpy(np.kron(layout[0], np.ones(
+        (block, block), np.int64)) > 0).to(dev)[None, None]
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    def lib_fwd_bwd():
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        torch.autograd.grad(o, (qs, ks, vs), do)
+
+    lib_ms = time_ms(lib_fwd, 10)
+    lib_fb_ms = time_ms(lib_fwd_bwd, 10)
+    note = ("F.scaled_dot_product_attention with the layout expanded to a "
+            "[T, T] boolean token mask")
+    specs = {
+        "block_sparse_fwd": (
+            "block_sparse_fwd.cu", 105, errs["fwd"],
+            lambda: bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale,
+                                             block),
+            lambda: bs.block_sparse_fwd_plain(q, k, v, cols, nvalid, scale,
+                                              block),
+            4 * row_b + stat_b + lut_b, 4 * D * pairs, lib_ms,
+            note + ", forward"),
+        "block_sparse_bwd_dq": (
+            "block_sparse_bwd_dq.cu", 200, errs["dq"],
+            lambda: bs.block_sparse_bwd_dq_cuda(q, k, v, do, lse, delta, cols,
+                                                nvalid, scale, block),
+            lambda: bs.block_sparse_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                 cols, nvalid, scale, block),
+            5 * row_b + 2 * stat_b + lut_b, 6 * D * pairs, lib_fb_ms,
+            note + ", forward plus backward (all three gradients)"),
+        "block_sparse_bwd_dkv": (
+            "block_sparse_bwd_dkv.cu", 235, errs["dkv"],
+            lambda: bs.block_sparse_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                 rows_t, nvalid_t, scale,
+                                                 block),
+            lambda: bs.block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                  rows_t, nvalid_t, scale,
+                                                  block),
+            6 * row_b + 2 * stat_b + lut_tb, 8 * D * pairs, lib_fb_ms,
+            note + ", forward plus backward (all three gradients)"),
+    }
+    for name, (src, line, err, run, plain, nbytes, flops, lib,
+               lib_note) in specs.items():
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"deepspeed_tpu_torch/csrc/{src}",
+            "replaces": ("deepspeed_tpu/ops/pallas/block_sparse_attention.py:"
+                         f"{line}"),
+            "max_abs_err": err, "shape": list(SPARSE_SHAPE),
+            "layout": "FixedSparsityConfig(num_heads=16), block 16, density "
+                      f"{layout.mean():.4f}",
+            "ms": time_ms(run), "plain_ms": time_ms(plain, 5),
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "library_note": lib_note,
+            "library_fwd_ms": lib_ms,
+        }
+        r = results[name]
+        print(f"[sparse kernels] {name} bf16 {SPARSE_SHAPE}: {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, library {lib:.4f} ms, "
+              f"bound {bms:.5f} ms ({by})")
+    print(f"[sparse kernels] SDPA with the token mask: forward {lib_ms:.4f} "
+          f"ms, forward plus backward {lib_fb_ms:.4f} ms")
+    torch.cuda.empty_cache()
+
+
+def _sparse_layer(dev):
+    """BertSparseSelfAttention at BERT-large's width (d 1024, 16 heads,
+    the Fixed layout's defaults), bf16 weights from the seed, and its
+    inputs: hidden states [2, 4096, 1024] and an output cotangent."""
+    import torch
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BertSelfAttentionConfig, BertSparseSelfAttention, FixedSparsityConfig)
+    B, H, T, D = SPARSE_SHAPE
+    layer = BertSparseSelfAttention(BertSelfAttentionConfig(H * D, H),
+                                    FixedSparsityConfig(num_heads=H))
+    params = {n: {k: t.bfloat16().requires_grad_(True) for k, t in p.items()}
+              for n, p in layer.init(SEED, device=dev).items()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    x = torch.randn((B, T, H * D), generator=g, device=dev).bfloat16()
+    cot = torch.randn((B, T, H * D), generator=g, device=dev).bfloat16()
+    return layer, params, x.requires_grad_(True), cot
+
+
+def phase_sparse(dev):
+    """The block-sparse attention path: BertSparseSelfAttention forward and
+    backward through autograd at BERT-large's width, B 2 x T 4096, bf16;
+    then the gather path on the same inputs (an all-zero additive key
+    padding mask) against the kernel path."""
+    import torch
+    layer, params, x, cot = _sparse_layer(dev)
+    B, H, T, D = SPARSE_SHAPE
+
+    def iteration():
+        out = layer(params, x)
+        out.backward(cot)
+        return out
+
+    for _ in range(SPARSE_WARM):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    # any host sync inside an iteration (a read-back, a LUT upload) raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SPARSE_ITERS):
+            out = iteration()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    for name in ("block_sparse_fwd", "block_sparse_bwd_dq",
+                 "block_sparse_bwd_dkv"):
+        if launches[name] != SPARSE_ITERS:
+            fail(f"{name} launched {launches[name]} times in {SPARSE_ITERS} "
+                 "iterations, expected one per iteration")
+    if not torch.isfinite(out).all() or not all(
+            torch.isfinite(p.grad).all() for sub in params.values()
+            for p in sub.values()):
+        fail("sparse: non-finite output or gradients")
+    ms = wall / SPARSE_ITERS * 1e3
+    print(f"[sparse] BertSparseSelfAttention d {H * D}, {H} heads, Fixed "
+          f"layout block 16, B {B} x T {T}, bf16, forward + backward: "
+          f"{ms:.3f} ms per iteration = {B * T / (wall / SPARSE_ITERS):.0f} "
+          f"tokens/s over {SPARSE_ITERS} iterations; peak memory "
+          f"{peak / 2**20:.1f} MiB; launches per iteration: 1 of each "
+          "block-sparse kernel; no host sync (torch.cuda sync debug mode "
+          "'error')")
+    with torch.no_grad():
+        _zero_counts()
+        kern = layer(params, x)
+        kp = torch.zeros((B, T), device=dev)
+        gathered = layer(params, x, kp)
+        torch.cuda.synchronize()
+        counts = _counts()
+    if counts["block_sparse_fwd"] != 1 or any(
+            counts[n] for n in ("block_sparse_bwd_dq", "block_sparse_bwd_dkv")):
+        fail(f"sparse: the kernel and gather calls launched {counts}, "
+             "expected one block_sparse_fwd (the kernel path) and nothing "
+             "from the gather path")
+    err = (gathered.float() - kern.float()).abs().max().item()
+    top = kern.float().abs().max().item()
+    print(f"[sparse] gather path (all-zero additive key padding mask, no "
+          f"sparse kernel launched) vs kernel path: max abs diff {err:.3g} "
+          f"= {err / top:.3g} of the largest output magnitude {top:.3g}")
+    # both paths round bf16: held to 2e-2 of what they compare
+    if not err <= TOL["bfloat16"] * top:
+        fail(f"sparse: the gather path differs from the kernel path by {err}"
+             f", above {TOL['bfloat16']} x {top}")
+    return launches
+
+
+def mlm_batch(rows, seq, vocab, seed):
+    """An MLM + NSP batch by BERT's masking recipe (15 % of the live
+    positions selected; 80 % [MASK], 10 % a random token, 10 % kept), a
+    quarter of the rows right-padded so the key mask is real."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(2, vocab, (rows, seq))
+    mask = np.ones((rows, seq), np.int64)
+    for r in range(0, rows, 4):
+        mask[r, int(rng.integers(seq // 4, 3 * seq // 4)):] = 0
+    selected = (rng.random((rows, seq)) < 0.15) & (mask > 0)
+    roll = rng.random((rows, seq))
+    corrupted = np.where(selected & (roll < 0.8), MASK_TOKEN, ids)
+    corrupted = np.where(selected & (roll >= 0.8) & (roll < 0.9),
+                         rng.integers(2, vocab, (rows, seq)), corrupted)
+    return {"input_ids": np.where(mask > 0, corrupted, 0),
+            "attention_mask": mask,
+            "token_type_ids": (np.arange(seq)[None] >= seq // 2).astype(
+                np.int64).repeat(rows, 0) * mask,
+            "masked_lm_labels": np.where(selected, ids, -100),
+            "next_sentence_label": rng.integers(0, 2, rows)}
+
+
+def lamb_config(dtype_block: dict, micro: int) -> dict:
+    return {"train_micro_batch_size_per_gpu": micro,
+            "gradient_accumulation_steps": 1,
+            "steps_per_print": 10 ** 9,
+            "optimizer": {"type": "Lamb", "params": {"lr": 1e-3}},
+            **dtype_block}
+
+
+def phase_bert_train(dev):
+    """initialize() + train_batch on BERT-large (24 layers, d 1024, 16
+    heads, vocab 30522), bf16, dropout 0.1, remat block, LAMB."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
+
+    cfg = dataclasses.replace(BERT_LARGE, remat="block")
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=BertModel(cfg), seed=SEED,
+        config=lamb_config({"bf16": {"enabled": True}}, BERT_MICRO))
+    if eng.device != dev:
+        fail(f"initialize() placed the engine on {eng.device}, not {dev}")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in mlm_batch(
+        BERT_MICRO, BERT_SEQ, cfg.vocab_size, SEED).items()}
+    losses = [eng.train_batch(batch) for _ in range(BERT_WARM)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(BERT_STEPS):
+            losses.append(eng.train_batch(batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    losses = [float(x) for x in losses]
+    m = eng.last_metrics
+    eng.close()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"bert_train losses not finite and falling: {losses}")
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    for name, per_step in want.items():
+        if launches[name] != per_step * BERT_STEPS:
+            fail(f"bert_train: {name} launched {launches[name]} times in "
+                 f"{BERT_STEPS} steps, expected {per_step} per step")
+    tokens = BERT_MICRO * BERT_SEQ
+    print(f"[bert_train] BERT-large bf16, micro-batch {BERT_MICRO} x "
+          f"{BERT_SEQ} tokens (a quarter of the rows padded), dropout 0.1, "
+          f"remat block, LAMB lr 1e-3: {wall / BERT_STEPS * 1e3:.1f} ms per "
+          f"step = {tokens / (wall / BERT_STEPS):.0f} tokens/s over "
+          f"{BERT_STEPS} steps; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**20:.1f} MiB")
+    print(f"[bert_train] losses {' '.join(f'{x:.4f}' for x in losses)}; "
+          f"grad norm {m.grad_norm:.4f}, lr {m.lr:.3g}")
+    print(f"[bert_train] {BERT_STEPS} steps queued with no host sync "
+          "(torch.cuda sync debug mode 'error')")
+    print(f"[bert_train] launches per step: flash_fwd "
+          f"{launches['flash_fwd'] // BERT_STEPS} (= 2 x {L}), flash_bwd_dq "
+          f"{launches['flash_bwd_dq'] // BERT_STEPS}, flash_bwd_dkv "
+          f"{launches['flash_bwd_dkv'] // BERT_STEPS} (= {L})")
+    _bert_pld(dev, cfg, batch)
+    return launches
+
+
+def _bert_pld(dev, cfg, batch):
+    """The bert_train model with progressive layer drop on a fast schedule
+    (theta 0.5, gamma 1: keep probability 0.684 then 0.568 after the first
+    step): one warm-up step at theta 1, then BERT_PLD_STEPS steps with no
+    host sync; a dropped layer launches no flash kernel, forward,
+    recompute or backward."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BertModel
+
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=BertModel(cfg), seed=SEED,
+        config={**lamb_config({"bf16": {"enabled": True}}, BERT_MICRO),
+                "progressive_layer_drop": {"enabled": True, "theta": 0.5,
+                                           "gamma": 1.0}})
+    losses = [eng.train_batch(batch)]
+    torch.cuda.synchronize()
+    _zero_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(BERT_PLD_STEPS):
+            losses.append(eng.train_batch(batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = _train_counts()
+    eng.close()
+    losses = [float(x) for x in losses]
+    kept = launches["flash_bwd_dq"]
+    full = cfg.num_hidden_layers * BERT_PLD_STEPS
+    print(f"[bert_train] progressive layer drop (theta 0.5, gamma 1), "
+          f"{BERT_PLD_STEPS} steps with no host sync: {kept} of {full} "
+          f"layer passes kept; launches {launches}; losses "
+          f"{' '.join(f'{x:.4f}' for x in losses)}")
+    if not all(np.isfinite(losses)):
+        fail(f"bert_train with PLD: non-finite losses {losses}")
+    if not (0 < kept < full and launches["flash_fwd"] == 2 * kept
+            and launches["flash_bwd_dkv"] == kept):
+        fail(f"bert_train with PLD: launches {launches} over {full} layer "
+             "passes, expected 2 x kept / kept / kept with some layers "
+             "dropped")
+
+
+def phase_bert_parity(dev):
+    """fp32 (TF32 off), width 1024 at 4 layers, dropout 0: the flash
+    kernel path against the dense path on the same params and padded
+    batch."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base = dataclasses.replace(BERT_LARGE, num_hidden_layers=PARITY_LAYERS,
+                               hidden_dropout_prob=0.0,
+                               attention_probs_dropout_prob=0.0, remat=None)
+    models = {impl: BertModel(dataclasses.replace(base, attn_impl=impl))
+              for impl in ("flash", "dense")}
+    params = models["flash"].init(SEED, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in mlm_batch(
+        2, BERT_SEQ, base.vocab_size, SEED + 1).items()}
+    batch["attention_mask"][1, BERT_SEQ // 3:] = 0    # a padded row for sure
+    grads = {}
+    for impl, model in models.items():
+        p = {k: (v if not isinstance(v, dict) else dict(v))
+             for k, v in params.items()}
+        for leaf in tree_leaves(p):
+            leaf.requires_grad_(True)
+        model.loss_fn(p, batch, None, train=True).backward()
+        grads[impl] = {n: p["layers"][n].grad.clone()
+                       for n in ("attn_qkvw", "attn_ow")}
+        for leaf in tree_leaves(p):
+            leaf.grad = None
+            leaf.requires_grad_(False)
+    for n in ("attn_qkvw", "attn_ow"):
+        a, b = grads["flash"][n], grads["dense"][n]
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        print(f"[bert parity] first-step grad {n}: max rel diff {rel:.3g}")
+        if not rel <= 1e-3:
+            fail(f"bert parity: {n} gradients differ by {rel} (max rel)")
+    losses = {}
+    for impl, model in models.items():
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=model, params=params, seed=SEED,
+            config=lamb_config({}, 2))
+        _zero_counts()
+        losses[impl] = [float(eng.train_batch(batch))
+                        for _ in range(PARITY_STEPS)]
+        n = PARITY_STEPS * PARITY_LAYERS if impl == "flash" else 0
+        if _train_counts() != dict.fromkeys(_train_counts(), n):
+            fail(f"bert parity: the {impl} path launched "
+                 f"{_train_counts()}, expected {n} of each")
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(losses["flash"], losses["dense"]))
+    print(f"[bert parity] fp32 kernel vs dense, {PARITY_LAYERS} layers at "
+          f"width {base.hidden_size}, 2 x {BERT_SEQ} tokens with a padded "
+          f"row, LAMB, {PARITY_STEPS} steps: losses "
+          f"{' '.join(f'{x:.6f}' for x in losses['flash'])} vs "
+          f"{' '.join(f'{x:.6f}' for x in losses['dense'])}; max rel diff "
+          f"{worst:.3g}")
+    if not worst <= 1e-4:
+        fail(f"bert parity: losses differ by {worst} (relative)")
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         fail("deepspeed_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -1034,12 +1626,16 @@ def main() -> None:
     kernels = phase_kernels(dev)
     phase_decode_kernels(dev, kernels)
     phase_train_kernels(dev, kernels)
+    phase_sparse_kernels(dev, kernels)
     by_phase = {"serve": phase_serve(dev),
                 "serve_paged": phase_serve_paged(dev),
                 "serve_spec": phase_serve_spec(dev)}
     phase_parity(dev)
     by_phase["train"] = phase_train(dev)
     phase_train_parity(dev)
+    by_phase["sparse"] = phase_sparse(dev)
+    by_phase["bert_train"] = phase_bert_train(dev)
+    phase_bert_parity(dev)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

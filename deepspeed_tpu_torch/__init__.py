@@ -9,17 +9,24 @@ hand for Hopper (``csrc/``), built on first use by
 ``ops/kernels/build.py``.
 
 Ported so far: GPT-2 greedy serving (``inference.ServeEngine``) on the
-unpaged slot cache, and single-device GPT-2 training
-(``initialize`` → ``DeepSpeedEngine.train_batch``), with the flash-attention
-forward and backward (dQ, dK/dV) kernels and the single-query
-decode-attention kernel.  ROADMAP.md lists what comes next.
+slot cache and the paged pool, with greedy speculation; single-device
+training (``initialize`` → ``DeepSpeedEngine.train_batch``) of GPT-2 and
+of BERT (``models.bert``: MLM + NSP, the ``DeepSpeedTransformerLayer``
+encoder, Adam or LAMB, progressive layer drop); and block-sparse attention
+(``ops.sparse_attention``: ``SparseSelfAttention``,
+``BertSparseSelfAttention``).  Kernels: flash attention forward and
+backward, the four decode-attention kernels and the block-sparse forward,
+dQ and dK/dV.  ROADMAP.md lists what comes next.
 
     engine, optimizer, dataloader, lr_schedule = deepspeed_tpu_torch.initialize(
-        model=GPT2Model(GPT2_SMALL), config=ds_config)
-    loss = engine.train_batch(tokens)
+        model=BertModel(BERT_LARGE), config=ds_config)
+    loss = engine.train_batch(batch)
 """
 from __future__ import annotations
 
+from .config.constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER  # noqa: F401
+from .ops.transformer import (DeepSpeedTransformerConfig,  # noqa: F401
+                              DeepSpeedTransformerLayer)
 from .version import __version__  # noqa: F401
 
 

@@ -56,7 +56,9 @@ from ..ops.kernels.decode_attention import (_default_scale,
                                             paged_gather)
 from ..ops.kernels.flash_attention import flash_attention, mha
 from ..runtime.module import TrainModule
-from ..runtime.utils import fold_in
+from ..runtime.utils import dropout as _dropout
+from ..runtime.utils import fold_in, params_from_numpy  # noqa: F401
+from ..runtime.utils import seeded_generator as _generator
 
 _M32 = 0xFFFFFFFF
 
@@ -263,16 +265,6 @@ class GPT2Model(TrainModule):
                                       v_scale=v_scale, lora=lora)
 
 
-def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
-    """The port's parameter tree from ``GPT2Model.init``'s tree given as
-    numpy arrays (``np.asarray`` of each JAX leaf): same names and shapes,
-    one copy per leaf onto ``device``, cast to ``dtype`` when given."""
-    if isinstance(tree, dict):
-        return {name: params_from_numpy(sub, device, dtype)
-                for name, sub in tree.items()}
-    return torch.tensor(tree, device=device, dtype=dtype)
-
-
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
     dt = x.dtype
     x32 = x.float()
@@ -301,25 +293,6 @@ def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
         return t.reshape(B, T, H, Dh).transpose(1, 2)
 
     return heads(qkv[:, :, 0]), heads(qkv[:, :, 1]), heads(qkv[:, :, 2])
-
-
-def _generator(seed: Optional[int], device) -> torch.Generator:
-    if seed is None:
-        raise ValueError("dropout > 0 needs an rng seed (train=True)")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) & ((1 << 63) - 1))
-    return gen
-
-
-def _dropout(x, rate: float, seed: Optional[int]):
-    """Inverted dropout with keep probability ``1 - rate``, its mask drawn
-    from a ``torch.Generator`` built here from the host ``seed`` (so a
-    recomputed block draws the same mask)."""
-    if rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=_generator(seed, x.device),
-                      device=x.device) < 1.0 - rate
-    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
 def gpt2_attn_project(bp, x, attn, drop: float = 0.0,

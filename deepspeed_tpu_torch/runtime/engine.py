@@ -19,8 +19,10 @@ Randomness is host integers (``runtime/module.py``): the step's seed is
 as the JAX step folds its PRNG key.
 
 Scope: ZeRO stage 0 on one device, fp32/bf16/fp16 (dynamic loss scale
-with hysteresis, skip on overflow), clipping, Adam/AdamW, the four lr
-schedules, ``eval_batch`` and the forward/backward/step facade.  The
+with hysteresis, skip on overflow), clipping, Adam/AdamW or LAMB, the
+four lr schedules, progressive layer drop (θ advanced each step and put
+into every micro-batch dict as a host float), ``eval_batch`` and the
+forward/backward/step facade.  The
 ``data_prefetch`` block (on by default) runs inline here: the batch is
 moved to the card inside ``train_batch``, a device tensor passes
 straight through.  Every other config knob whose path is not ported
@@ -41,11 +43,13 @@ from .dataloader import DeepSpeedDataLoader
 from .lr_schedules import get_lr_schedule
 from .utils import clip_by_global_norm, fold_in, global_norm, tree_leaves
 from ..ops.adam import fused_adam
+from ..ops.lamb import fused_lamb
+from .progressive_layer_drop import ProgressiveLayerDrop
 
 
 class TrainState(NamedTuple):
     master_params: Any           # fp32 tree (dict) on the device
-    opt_state: Any               # FusedAdamState over tree_leaves order
+    opt_state: Any               # Adam/LAMB state over tree_leaves order
     scaler: precision.LossScaleState
     skipped_steps: torch.Tensor  # i32 device scalar
 
@@ -95,18 +99,14 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
     if config.pipeline_config.stages != C.PIPELINE_STAGES_DEFAULT:
         raise _unported("pipeline.stages > 1", "item 10 (pipeline)")
     name = config.optimizer_name
-    if optimizer is None and name not in (None, C.ADAM_OPTIMIZER):
+    if optimizer is None and name not in (None, C.ADAM_OPTIMIZER,
+                                          C.LAMB_OPTIMIZER):
         if name == C.ONEBIT_ADAM_OPTIMIZER:
             raise _unported("optimizer onebitadam",
                             "item 11 (compressed parallelism)")
-        if name == C.LAMB_OPTIMIZER:
-            raise _unported("optimizer lamb", "item 13 (BERT, LAMB)")
         raise ValueError(f"Unknown optimizer {name!r}")
     if config.sparse_gradients_enabled:
         raise _unported("sparse_gradients", "item 11 (runtime/csr_tensor)")
-    if config.pld_config.enabled:
-        raise _unported("progressive_layer_drop",
-                        "item 13 (progressive layer drop)")
     for what, on in (("telemetry.enabled", config.telemetry_config.enabled),
                      ("tensorboard.enabled",
                       config.tensorboard_config.enabled),
@@ -178,6 +178,10 @@ class DeepSpeedEngine:
         self._lr_schedule = self._resolve_lr_schedule(lr_schedule)
         self.optimizer = (optimizer if optimizer is not None
                           else self._build_basic_optimizer())
+        self.progressive_layer_drop = (
+            ProgressiveLayerDrop(theta=config.pld_config.theta,
+                                 gamma=config.pld_config.gamma)
+            if config.pld_config.enabled else None)
         clip = config.gradient_clipping
         self.gradient_clipping = _CallableFloat(
             float(clip) if clip and clip > 0 else 0.0)
@@ -235,9 +239,13 @@ class DeepSpeedEngine:
         lr = params.pop("lr", 1e-3)
         if self._lr_schedule is not None:
             lr = self._lr_schedule
-        return fused_adam(lr, tuple(params.pop("betas", (0.9, 0.999))),
-                          params.pop("eps", 1e-8),
-                          params.pop("weight_decay", 0.0),
+        args = (lr, tuple(params.pop("betas", (0.9, 0.999))),
+                params.pop("eps", 1e-8), params.pop("weight_decay", 0.0))
+        if self.config.optimizer_name == C.LAMB_OPTIMIZER:
+            return fused_lamb(*args,
+                              max_coeff=params.pop("max_coeff", 10.0),
+                              min_coeff=params.pop("min_coeff", 0.01))
+        return fused_adam(*args,
                           adam_w_mode=params.pop("adam_w_mode", True),
                           bias_correction=params.pop("bias_correction",
                                                      True))
@@ -266,6 +274,10 @@ class DeepSpeedEngine:
         try:
             for i in range(ga):
                 mb = _tree_map(lambda x: x[i], batch)
+                if self.progressive_layer_drop is not None \
+                        and isinstance(mb, dict):
+                    # a host float: the model's layer draws never sync
+                    mb["pld_theta"] = self.progressive_layer_drop.get_theta()
                 params = precision.cast_to_compute(master,
                                                    self.compute_dtype)
                 loss = self.module.loss_fn(params, mb, fold_in(step_rng, i),
@@ -378,6 +390,8 @@ class DeepSpeedEngine:
                 raise ValueError("train_batch needs a batch or a data_iter")
             batch = next(it)
         t0 = time.time()
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         packed = self._train_step(self._place_train_batch(batch))
         self._last_packed = packed
         self._last_metrics = None

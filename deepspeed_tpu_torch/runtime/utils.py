@@ -1,6 +1,7 @@
 """Runtime numeric utilities — the port of ``deepspeed_tpu/runtime/utils.py``
 (norms and clipping), plus the host-side seed derivation the port uses in
-place of ``jax.random.fold_in``.
+place of ``jax.random.fold_in`` and the helpers every model shares: the
+seeded dropout, a host uniform draw and ``params_from_numpy``.
 
 Trees are dicts of tensors, possibly nested; ``tree_leaves`` walks them in
 key order, the same order on every call.
@@ -57,3 +58,41 @@ def fold_in(seed: Optional[int], data: int) -> Optional[int]:
     z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
     z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return z ^ (z >> 31)
+
+
+def host_uniform(seed: int) -> float:
+    """A uniform draw in [0, 1) from a host seed (the top 53 bits of
+    ``fold_in(seed, 0)``): a decision the host takes without a generator
+    and without reading anything back from the card."""
+    return (fold_in(seed, 0) >> 11) * 2.0 ** -53
+
+
+def seeded_generator(seed: Optional[int], device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded from a host seed."""
+    if seed is None:
+        raise ValueError("dropout > 0 needs an rng seed (train=True)")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed) & ((1 << 63) - 1))
+    return gen
+
+
+def dropout(x, rate: float, seed: Optional[int]):
+    """Inverted dropout with keep probability ``1 - rate``, its mask drawn
+    from a ``torch.Generator`` built here from the host ``seed`` (so a
+    block recomputed under ``torch.utils.checkpoint`` draws the same
+    mask)."""
+    if rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=seeded_generator(seed, x.device),
+                      device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
+    """The port's parameter tree from a JAX ``init`` tree given as numpy
+    arrays (``np.asarray`` of each JAX leaf): same names and shapes, one
+    copy per leaf onto ``device``, cast to ``dtype`` when given."""
+    if isinstance(tree, dict):
+        return {name: params_from_numpy(sub, device, dtype)
+                for name, sub in tree.items()}
+    return torch.tensor(tree, device=device, dtype=dtype)

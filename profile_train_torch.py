@@ -2,16 +2,20 @@
 """Where a training step of the PyTorch port spends its time, on one
 NVIDIA card.
 
-    python3 profile_train_torch.py [--steps N]
+    python3 profile_train_torch.py [--model gpt2-small|bert-large] [--steps N]
 
-Trains full-size GPT-2 small with the train phase of chip_smoke.py
-(``deepspeed_tpu_torch.initialize``, bf16, dropout 0.1, ``remat="block"``,
-micro-batch 8 x 1024 tokens, gradient accumulation 2, Adam, clipping 1.0,
-random weights from seed 0).  After 2 warm-up steps it times N steps on
-the host clock (ending in ``torch.cuda.synchronize()``), then traces N
-more with ``torch.profiler`` and prints: wall per step, device busy time
-per step by kernel name (top 15) and by group (the three flash kernels,
-matrix products, the rest), and the device's idle share.
+``gpt2-small`` (the default) trains full-size GPT-2 small with the train
+phase of chip_smoke.py (``deepspeed_tpu_torch.initialize``, bf16, dropout
+0.1, ``remat="block"``, micro-batch 8 x 1024 tokens, gradient
+accumulation 2, Adam, clipping 1.0, random weights from seed 0).
+``bert-large`` trains BERT-large with its bert_train phase (bf16, dropout
+0.1, ``remat="block"``, LAMB lr 1e-3, micro-batch 8 x 512 MLM + NSP
+tokens with a quarter of the rows right-padded).  After 2 warm-up steps
+it times N steps on the host clock (ending in
+``torch.cuda.synchronize()``), then traces N more with ``torch.profiler``
+and prints: wall per step, device busy time per step by kernel name (top
+15) and by group (the three flash kernels, matrix products, the rest),
+and the device's idle share.
 """
 import argparse
 import dataclasses
@@ -30,21 +34,10 @@ GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet")))
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--steps", type=int, default=4)
-    args = ap.parse_args()
+def _gpt2_small():
     import torch
-    if not torch.cuda.is_available():
-        sys.exit("profile_train_torch: needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
-
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
     cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
                               remat="block")
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
@@ -56,13 +49,47 @@ def main() -> None:
                 "optimizer": {"type": "Adam", "params": {"lr": 1e-4}}})
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (16, cfg.n_positions + 1))).to(eng.device)
+    return eng, tokens, "GPT-2 small, 16 x 1024 tokens"
+
+
+def _bert_large():
+    import torch
+    import deepspeed_tpu_torch
+    from chip_smoke import (BERT_MICRO, BERT_SEQ, lamb_config, mlm_batch)
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
+    cfg = dataclasses.replace(BERT_LARGE, remat="block")
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=BertModel(cfg), seed=0,
+        config=lamb_config({"bf16": {"enabled": True}}, BERT_MICRO))
+    batch = {k: torch.from_numpy(v).to(eng.device) for k, v in mlm_batch(
+        BERT_MICRO, BERT_SEQ, cfg.vocab_size, 0).items()}
+    return eng, batch, f"BERT-large, {BERT_MICRO} x {BERT_SEQ} tokens"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--model", choices=("gpt2-small", "bert-large"),
+                    default="gpt2-small")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("profile_train_torch: needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    eng, batch, label = (_bert_large() if args.model == "bert-large"
+                          else _gpt2_small())
     for _ in range(2):
-        eng.train_batch(tokens)
+        eng.train_batch(batch)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
     for _ in range(args.steps):
-        eng.train_batch(tokens)
+        eng.train_batch(batch)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
@@ -70,7 +97,7 @@ def main() -> None:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            eng.train_batch(tokens)
+            eng.train_batch(batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / args.steps * 1e3
 
@@ -89,7 +116,7 @@ def main() -> None:
         name = next((n for n, frags in GROUPS
                      if any(f in key for f in frags)), "other")
         groups[name] += ms
-    print(f"train step (16 x 1024 tokens): {step_ms:.3f} ms wall "
+    print(f"train step ({label}): {step_ms:.3f} ms wall "
           f"(unprofiled), {wall_ms:.3f} ms under the profiler")
     # the profiler slows the host, not the device: the idle share of an
     # unprofiled step is the busy time over the unprofiled wall

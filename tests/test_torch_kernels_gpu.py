@@ -248,3 +248,107 @@ def test_decode_entry_points_launch_or_raise(dev):
                                lens.repeat(1, 2).clamp(max=32))
     with pytest.raises(TypeError, match="dtype"):
         decode_attention_paged_multi(q.float(), kp, vp, table, lens)
+
+
+def _sparse_layout(kind, H, T, block):
+    """A head-uniform Fixed layout, a per-head BigBird layout, or Fixed
+    with query block row 1 and key block column 2 emptied (block 128: the
+    only row/column 1 of 2)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+    if kind == "per_head":
+        return BigBirdSparsityConfig(H, block=block, num_random_blocks=1,
+                                     different_layout_per_head=True,
+                                     seed=block).make_layout(T)
+    layout = FixedSparsityConfig(H, block=block,
+                                 num_local_blocks=2).make_layout(T)
+    if kind == "empty":
+        nb = T // block
+        layout[:, 1 % nb, :] = 0
+        layout[:, :, min(2, nb - 1)] = 0
+    return layout
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["fixed", "per_head", "empty"])
+def test_block_sparse_kernels_match_plain(dev, dtype, block, kind):
+    """The forward (O, lse), dQ and dK/dV kernels against their plain
+    versions in fp32 on the same inputs; gradients relative to their
+    largest magnitude; empty rows and columns exact zeros."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    B, H, T = 2, 4, 512
+    layout = _sparse_layout(kind, H, T, block)
+    cols, nvalid, rows_t, nvalid_t = bs.device_luts(
+        bs.build_kernel_luts(layout), dev)
+    q, k, v, do = (_randn(dev, B, H, T, 64, seed=20 + i).to(dtype)
+                   for i in range(4))
+    f32 = (q.float(), k.float(), v.float())
+    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, 0.125, block)
+    torch.cuda.synchronize()
+    ref, ref_lse = bs.block_sparse_fwd_plain(*f32, cols, nvalid, 0.125,
+                                             block)
+    tol = TOL[dtype]
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= tol
+    delta = (do.float() * ref).sum(-1)
+    dq = bs.block_sparse_bwd_dq_cuda(q, k, v, do, ref_lse, delta, cols,
+                                     nvalid, 0.125, block)
+    dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
+                                          rows_t, nvalid_t, 0.125, block)
+    torch.cuda.synchronize()
+    plain = (*f32, do.float(), ref_lse, delta)
+    rdq = bs.block_sparse_bwd_dq_plain(*plain, cols, nvalid, 0.125, block)
+    rdk, rdv = bs.block_sparse_bwd_dkv_plain(*plain, rows_t, nvalid_t,
+                                             0.125, block)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * max(1.0, want.abs().max().item()), err
+    if kind == "empty":
+        nb = T // block
+        r, c = 1 % nb, min(2, nb - 1)
+        rows = slice(r * block, (r + 1) * block)
+        keys = slice(c * block, (c + 1) * block)
+        assert (out[:, :, rows] == 0).all() and (dq[:, :, rows] == 0).all()
+        assert (lse[:, :, rows] == -1e30).all()
+        assert (dk[:, :, keys] == 0).all() and (dv[:, :, keys] == 0).all()
+
+
+def test_block_sparse_entry_points_launch_or_raise(dev):
+    """SparseSelfAttention with no mask launches each kernel once per
+    forward and backward; with a mask it takes the gather path and
+    launches none; the wrappers raise on what the kernels do not take."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, SparseSelfAttention)
+    attn = SparseSelfAttention(FixedSparsityConfig(4, block=16))
+    q = _randn(dev, 2, 4, 128, 64).bfloat16().requires_grad_(True)
+    counts = (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dq.launches,
+              bs.block_sparse_bwd_dkv.launches)
+    out = attn(q, q, q)
+    out.float().sum().backward()
+    after = (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dq.launches,
+             bs.block_sparse_bwd_dkv.launches)
+    assert after == tuple(c + 1 for c in counts)
+    kp = torch.zeros(2, 128, device=dev)
+    gathered = attn(q, q, q, key_padding_mask=kp)
+    assert (bs.block_sparse_fwd.launches,) == after[:1]
+    # two bf16 results of one function: within 2e-2 of the magnitude
+    assert (gathered.float() - out.float()).abs().max().item() <= \
+        2e-2 * max(1.0, out.float().abs().max().item())
+    layout = FixedSparsityConfig(4, block=8).make_layout(128)
+    x = q.detach()
+    with pytest.raises(ValueError, match="block"):
+        bs.block_sparse_attention(x, x, x, layout, 8)
+    layout = FixedSparsityConfig(4, block=16).make_layout(128)
+    with pytest.raises(ValueError, match="head_dim"):
+        bs.block_sparse_attention(x[..., :32], x[..., :32], x[..., :32],
+                                  layout, 16)
+    luts = bs.device_luts(bs.build_kernel_luts(layout), dev)
+    with pytest.raises(TypeError, match="dtype"):
+        bs.block_sparse_fwd_cuda(x, x.float(), x, *luts[:2], 0.125, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        bs.block_sparse_fwd_cuda(x.transpose(2, 3).contiguous().transpose(
+            2, 3), x, x, *luts[:2], 0.125, 16)
