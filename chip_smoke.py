@@ -7,8 +7,10 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
 
 Phases, all on ``cuda:0``; any failure exits non-zero:
 
-1. build    the ten kernels of the serving, training and sparse paths from
-            ``deepspeed_tpu_torch/csrc/`` with nvcc for sm_90a
+1. build    the ten sources of the twelve kernels of the serving, training
+            and sparse paths (the paged decode sources also hold their
+            int8 pool arms) from ``deepspeed_tpu_torch/csrc/`` with nvcc
+            for sm_90a
             (``-Xptxas -v`` lines printed), all sources compiled in
             parallel;
 2. kernels  each kernel against its plain PyTorch version at the serving
@@ -25,7 +27,11 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             elementwise; padded keys' dK/dV exact zeros), the paged, multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
-            no live row lands in) and W = 5 verify rows; timed with CUDA
+            no live row lands in) and W = 5 verify rows, and the int8 pool
+            arms of the paged and paged multi-query kernels on that pool
+            quantized from bf16 (random bytes and NaN scales in every row
+            no live row reads; fp32 queries within 1e-4, bf16 queries
+            within one bf16 ulp + 1e-4 elementwise); timed with CUDA
             events beside the plain version, one PyTorch library call on
             the same work (``library_ms``, a yardstick only) and the bound
             the card's peak rates give;
@@ -50,13 +56,32 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             launches (slot: ``decode_multi``, paged:
             ``decode_paged_multi``) and 2 x 5 draft ``decode_attention``
             launches per verify pass;
-6. parity   the serve phase's 12 requests in fp32 on the dense path
+6. serve_quant  the serve_paged phase's engine and 16 requests with
+            ``quantization: {"weights": "int8", "kv": "int8"}``: the same
+            figures, plus param_bytes, kv_bytes and peak memory beside
+            serve_paged's; asserts 12 int8 paged-decode launches per tick
+            and none of the fp arm, and the free pages as in serve_paged;
+7. serve_quant_capacity  the bf16 pool and the int8 pool (kv int8) in
+            the same KV bytes (4 slots x 64 tokens of bf16 KV; page_len
+            16, 64 slots): 96 requests all due at once, every 4th long (3
+            pages) and the rest short (1 page); prints each pool's highest
+            concurrency, asserts the int8 pool's kv_bytes are no more, no
+            kv_capacity finish, and more requests at once on int8;
+8. serve_quant_spec  the serve_spec paged arm on the int8 pool with int8
+            target and draft weights; asserts 12 int8 paged multi-query
+            launches and 2 x 5 draft ``decode_attention`` launches per
+            verify pass;
+9. parity   the serve phase's 12 requests in fp32 on the dense path
             (``attn_impl="dense"``, ``decode_impl="dense"``) against the
             kernel path, the paged kernel path, and the speculative path
             on both caches: greedy streams must be equal, a flip allowed
             only on a near tie (top-2 logit gap below 1e-3), each reported
-            with its gap;
-7. train    ``deepspeed_tpu_torch.initialize`` on full-size GPT-2 small
+            with its gap; then with int8 weights and pool, the paged
+            kernel path and the speculative paged path against the int8
+            dense path, and the speculative against the non-speculative,
+            under the same rule; the int8 streams' token agreement with
+            the fp dense path is reported;
+10. train    ``deepspeed_tpu_torch.initialize`` on full-size GPT-2 small
             (bf16, dropout 0.1 everywhere, ``remat="block"``, random
             weights from a seed), micro-batch 8 x 1024 tokens, gradient
             accumulation 2, Adam, clipping 1.0: 2 warm-up steps, then 8
@@ -64,12 +89,12 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             the first; step ms, tokens/s and peak memory; asserts that
             every step launched the flash forward 2 x 12 x 2 times (forward
             and recompute) and each backward kernel 12 x 2 times;
-8. train parity  fp32 (TF32 off), width 768 at 4 layers, dropout 0: the
+11. train parity  fp32 (TF32 off), width 768 at 4 layers, dropout 0: the
             kernel path against the dense path (``attn_impl="dense"``) on
             the same params and tokens, the first step's attention-weight
             gradients within 1e-3 (max relative) and 5 steps' losses within
             1e-4 (relative);
-9. sparse_kernels  (run right after the kernels phase) the block-sparse
+12. sparse_kernels  (run right after the kernels phase) the block-sparse
             forward, dQ and dK/dV kernels against their plain versions at
             [2, 16, 4096, 64] on four layouts: Fixed block 16 with the
             ``ds_config`` defaults, BigBird block 64 (both head-uniform), a
@@ -79,7 +104,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             elementwise; timed on the Fixed layout beside the plain versions,
             SDPA with the layout as a token mask (forward; forward plus
             backward) and the bound of the active blocks' work;
-10. sparse  ``BertSparseSelfAttention`` at BERT-large's width (d 1024, 16
+13. sparse  ``BertSparseSelfAttention`` at BERT-large's width (d 1024, 16
             heads, Fixed layout) over B 2 x T 4096, bf16, weights from a
             seed: forward and backward through autograd, 2 warm-up and 5
             timed iterations (queued under sync debug mode 'error': no
@@ -88,19 +113,19 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             gather path (an all-zero additive key padding mask, which must
             launch no block-sparse kernel) against the kernel path, within
             2e-2 of the largest output magnitude;
-11. bert_train  ``deepspeed_tpu_torch.initialize`` on BERT-large (24
+14. bert_train  ``deepspeed_tpu_torch.initialize`` on BERT-large (24
             layers, d 1024, 16 heads, vocab 30522), bf16, dropout 0.1,
             ``remat="block"``, LAMB lr 1e-3, micro-batch 8 x 512 MLM + NSP
             tokens by BERT's masking recipe with a quarter of the rows
             right-padded: 2 warm-up and 4 timed steps on one batch (no host
-            sync, as in phase 7); losses finite and falling; step ms,
+            sync, as in phase 10); losses finite and falling; step ms,
             tokens/s, peak memory; asserts
             2 x 24 flash forward launches (forward and recompute) and 24 of
             each backward kernel per step; then the same model with
             progressive layer drop (theta 0.5, gamma 1) for 2 steps with no
             host sync: fewer than 24 layer passes per step, each dropped
             layer launching no flash kernel;
-12. bert parity  fp32 (TF32 off), width 1024 at 4 layers, dropout 0: the
+15. bert parity  fp32 (TF32 off), width 1024 at 4 layers, dropout 0: the
             flash path against ``attn_impl="dense"`` on the same params and
             padded batch, first-step attention-weight gradients within 1e-3
             (max relative) and 5 LAMB steps' losses within 1e-4 (relative).
@@ -121,9 +146,13 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+#: the kernels of the kernels line; the int8 pool arms are built from the
+#: sources of their fp arms (csrc/decode_paged.cu, decode_paged_multi.cu)
 KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
-           "decode_paged", "decode_multi", "decode_paged_multi",
+           "decode_paged", "decode_paged_int8", "decode_multi",
+           "decode_paged_multi", "decode_paged_multi_int8",
            "block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
+SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -147,6 +176,8 @@ SLOT_CFG = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
 PAGED_CFG = {**SLOT_CFG, "page_len": 16, "pages": 640, "prefix_cache": True,
              "prefill_chunk_len": 128}
 DRAFT_LAYERS = 2
+#: the quantized serving plane, both arms on
+QUANT = {"weights": "int8", "kv": "int8"}
 SPEC = {"speculate_k": 4,
         "draft": {"d_model": 768, "n_layer": DRAFT_LAYERS, "n_head": 12}}
 
@@ -188,10 +219,10 @@ def bound_ms(nbytes: int, flops: int, dtype: str):
 def phase_build():
     from deepspeed_tpu_torch.ops.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(KERNELS, verbose=True, force=True)
+    logs = build.build(SOURCES, verbose=True, force=True)
     print(f"[build] nvcc for sm_90a, {len(logs)} sources in parallel: "
           f"{time.perf_counter() - t0:.1f} s")
-    for name in KERNELS:
+    for name in SOURCES:
         for line in logs[name].splitlines():
             if ("ptxas" in line and ("registers" in line or "smem" in line
                                      or "Compiling" in line)
@@ -448,6 +479,9 @@ def phase_decode_kernels(dev, results):
             kv_b(multi_lens) + qo_b(W) + table.numel() * 4 + S * W * 4,
             4 * D * pairsw),
     }
+    _decode_int8_kernels(dev, specs, errs, kc32, vc32, kp32, vp32, table,
+                         live, base, multi_lens, q1_32, qw_32, mask1, maskw,
+                         qo_b)
     for name, (src, line, run, plain, lib, nbytes, flops) in specs.items():
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         results[name] = {
@@ -457,13 +491,131 @@ def phase_decode_kernels(dev, results):
             "max_abs_err": errs[name], "ms": time_ms(run),
             "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
             "library_ms": time_ms(lib),
-            "library_note": "the pages gathered through the table (paged "
-                            "arms), then masked F.scaled_dot_product_attention",
+            "library_note": (
+                "the int8 pages dequantized through the table "
+                "(dequantize_paged, in bf16), then masked "
+                "F.scaled_dot_product_attention" if name.endswith("_int8")
+                else "the pages gathered through the table (paged arms), "
+                     "then masked F.scaled_dot_product_attention"),
         }
         r = results[name]
         print(f"[kernels] {name} bf16: {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+
+
+def _int8_pool(pool32, table, live_lens, page_len, seed):
+    """The rows of an fp32 page pool as an int8 pool and its fp32 scales,
+    quantized by the port's ``quantize_rows`` from their bf16 values;
+    every (page, row) that no live row reads — the scratch page 0 and the
+    tails of the last live pages included — holds random bytes and a NaN
+    scale, so a stray read shows."""
+    import torch
+    from deepspeed_tpu_torch.inference.quantize import quantize_rows
+    live = torch.zeros(pool32.shape[0], page_len, dtype=torch.bool)
+    tab = table.cpu().long()
+    for s, n in enumerate(live_lens.reshape(tab.shape[0], -1).amax(1)
+                          .tolist()):
+        pos = torch.arange(n)
+        live[tab[s, pos // page_len], pos % page_len] = True
+    dead = (~live).to(pool32.device)
+    q8, sc = quantize_rows(pool32.bfloat16())
+    junk = torch.randint(-128, 128, q8.shape, dtype=torch.int8,
+                         generator=torch.Generator().manual_seed(seed))
+    q8 = torch.where(dead[:, None, :, None], junk.to(q8.device), q8)
+    sc = torch.where(dead[:, None, :], float("nan"), sc)
+    return q8.contiguous(), sc.contiguous()
+
+
+def _decode_int8_kernels(dev, specs, errs, kc32, vc32, kp32, vp32, table,
+                         live, base, multi_lens, q1_32, qw_32, mask1, maskw,
+                         qo_b):
+    """The int8 pool arms of decode_paged and decode_paged_multi (W = 5)
+    on the phase's pool, its rows quantized from bf16: fp32 and bf16
+    queries against the plain versions in fp32 (the live pages
+    dequantized, then the plain attention) within 1e-4 (fp32) and one
+    bf16 ulp + 1e-4 elementwise (bf16); the plain versions against the
+    dense attention over the dequantized cache; exact zeros at length 0.
+    Adds their timing specs: bytes bound of 136 B per live (head, key)
+    row (2 x 64 int8 + 2 x 4 B of scale), the library yardstick being
+    dequantize_paged + masked SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.inference.quantize import (dequantize_rows,
+                                                        quantize_rows)
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _default_scale, decode_attention_plain, decode_multi_plain,
+        decode_paged_int8_cuda, decode_paged_int8_plain,
+        decode_paged_multi_int8_cuda, decode_paged_multi_int8_plain,
+        dequantize_paged)
+    S, H, T, D = kc32.shape
+    PAGE = kp32.shape[2]
+    scale = _default_scale(D)
+    k8, ks = _int8_pool(kp32, table, live, PAGE, SEED + 7)
+    v8, vs = _int8_pool(vp32, table, live, PAGE, SEED + 8)
+    kd, vd = (dequantize_rows(*quantize_rows(c.bfloat16()))
+              for c in (kc32, vc32))
+    cases = {
+        "decode_paged_int8": (decode_paged_int8_cuda,
+                              decode_paged_int8_plain,
+                              decode_attention_plain, q1_32, base),
+        "decode_paged_multi_int8": (decode_paged_multi_int8_cuda,
+                                    decode_paged_multi_int8_plain,
+                                    decode_multi_plain, qw_32, multi_lens),
+    }
+    for dtype in ("float32", "bfloat16"):
+        for name, (cuda, plain, dense, q32, lens) in cases.items():
+            q = q32.to(getattr(torch, dtype))
+            out = cuda(q, k8, v8, ks, vs, table, lens, scale)
+            torch.cuda.synchronize()
+            ref = plain(q.float(), k8, v8, ks, vs, table, lens, scale)
+            same = dense(q.float(), kd, vd, lens, scale)
+            if not (same - ref).abs().max().item() < 1e-5:
+                fail(f"{name}: the int8 pool differs from the quantized "
+                     "cache")
+            err = (out.float() - ref).abs().max().item()
+            if dtype == "float32":
+                ok, what = err <= TOL[dtype], f"above {TOL[dtype]}"
+            else:
+                ulp = _ulp_err(out, ref)
+                ok, what = ulp <= 1.0, f"{ulp:.3g} bf16 ulps (+1e-4)"
+                errs[name] = err
+            print(f"[kernels] {name} q {dtype}: max abs err {err:.3g}")
+            if not (ok and torch.isfinite(out).all()):
+                fail(f"{name} q {dtype}: error {err}, {what}")
+            if not (out[0] == 0).all():
+                fail(f"{name}: the length-0 slot is not exact zeros")
+    q1, qw = q1_32.bfloat16(), qw_32.bfloat16()
+    # the library yardstick reads the same pages; its dead columns point
+    # at page 0, so it gets finite scales there
+    ks_l, vs_l = torch.nan_to_num(ks), torch.nan_to_num(vs)
+
+    def lib(q, mask):
+        return F.scaled_dot_product_attention(
+            q, dequantize_paged(k8, ks_l, table).bfloat16(),
+            dequantize_paged(v8, vs_l, table).bfloat16(), attn_mask=mask)
+
+    kv8_b = lambda lens: (int(lens.reshape(S, -1).amax(1).sum()) * H  # noqa: E731
+                          * (2 * D + 2 * 4))
+    specs["decode_paged_int8"] = (
+        "decode_paged.cu", 308,
+        lambda: decode_paged_int8_cuda(q1, k8, v8, ks, vs, table, base,
+                                       scale),
+        lambda: decode_paged_int8_plain(q1, k8, v8, ks, vs, table, base,
+                                        scale),
+        lambda: lib(q1[:, :, None], mask1),
+        kv8_b(base) + qo_b(1) + table.numel() * 4 + S * 4,
+        4 * D * int(base.sum()) * H)
+    specs["decode_paged_multi_int8"] = (
+        "decode_paged_multi.cu", 666,
+        lambda: decode_paged_multi_int8_cuda(qw, k8, v8, ks, vs, table,
+                                             multi_lens, scale),
+        lambda: decode_paged_multi_int8_plain(qw, k8, v8, ks, vs, table,
+                                              multi_lens, scale),
+        lambda: lib(qw, maskw),
+        kv8_b(multi_lens) + qo_b(multi_lens.shape[1]) + table.numel() * 4
+        + multi_lens.numel() * 4,
+        4 * D * int(multi_lens.sum()) * H)
 
 
 def _rel_err(got, want) -> float:
@@ -769,7 +921,11 @@ def _latencies(phase, reqs, tokens, wall):
 
 def _engine(cfg, dev, dtype, draft=False):
     """GPT-2 small at full width and depth with random weights from the
-    seed, warmed up on one short request (cuBLAS handles, caches)."""
+    seed, warmed up on one short request (cuBLAS handles, caches).  The
+    peak-memory count restarts once the engine holds only what it serves
+    (the fp master dropped when the weights are quantized) and the earlier
+    phases' engines are collected."""
+    import gc
     import torch
     from deepspeed_tpu_torch.inference import ServeEngine
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
@@ -781,6 +937,8 @@ def _engine(cfg, dev, dtype, draft=False):
     eng.run_until_idle()
     if warm.error is not None:
         fail(f"warm-up request: {warm.error!r}")
+    del params
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     return eng
@@ -820,13 +978,21 @@ def phase_serve(dev):
     return launches
 
 
-def phase_serve_paged(dev):
+def phase_serve_paged(dev, fp_memory=None):
     """The paged engine: prefix cache, copy-on-write and chunked prefill
-    on full-size GPT-2 small, bf16."""
+    on full-size GPT-2 small, bf16.  Given ``fp_memory`` (what the
+    serve_paged phase returned beside its launches: param_bytes, kv_bytes
+    and peak memory), the serve_quant phase: the same engine with int8
+    weights and the int8 page pool, its memory printed beside that."""
     import torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
 
-    eng = _engine(PAGED_CFG, dev, torch.bfloat16)
+    quant = fp_memory is not None
+    label = "serve_quant" if quant else "serve_paged"
+    cfg = {**PAGED_CFG, "quantization": QUANT} if quant else PAGED_CFG
+    kernel, other = (("decode_paged_int8", "decode_paged") if quant
+                     else ("decode_paged", "decode_paged_int8"))
+    eng = _engine(cfg, dev, torch.bfloat16)
     eng.prefix.clear()        # forget the warm-up prompt's pages
     free0 = eng.pool.free_count
     ticks0 = eng.decode_ticks
@@ -847,20 +1013,23 @@ def phase_serve_paged(dev):
     free = eng.pool.free_count
     hits, misses, cow = (now - then for now, then in zip(
         (eng.prefix.hits, eng.prefix.misses, eng.prefix.cow), stats0))
+    memory = (eng.param_bytes, eng.kv_bytes,
+              torch.cuda.max_memory_allocated(dev))
     eng.close()
     L = GPT2_SMALL.n_layer
-    _check_requests("serve_paged", reqs)
+    _check_requests(label, reqs)
     # a prefill with no cached prefix (or the first chunk of one) runs the
     # flash kernel in every layer; a prefix hit runs the gather arm
     no_prefix = sum(r.shared_len == 0 for r in reqs)
     if launches["flash_fwd"] != L * no_prefix:
         fail(f"flash_fwd launched {launches['flash_fwd']} times, expected "
              f"{L} layers x {no_prefix} prefills with no cached prefix")
-    if launches["decode_paged"] != L * ticks or ticks == 0:
-        fail(f"decode_paged launched {launches['decode_paged']} times, "
-             f"expected {L} layers x {ticks} decode ticks")
-    if launches["decode_attention"] != 0:
-        fail("the paged engine launched the slot-cache decode kernel")
+    if launches[kernel] != L * ticks or ticks == 0:
+        fail(f"{kernel} launched {launches[kernel]} times, expected {L} "
+             f"layers x {ticks} decode ticks")
+    if launches["decode_attention"] != 0 or launches[other] != 0:
+        fail(f"the {label} engine launched the slot-cache decode kernel "
+             f"or {other}")
     if free != free0 - held:
         fail(f"{free} free pages after the run; expected {free0} less the "
              f"{held} the prefix cache holds")
@@ -869,33 +1038,114 @@ def phase_serve_paged(dev):
              "the 7 template sharers and the twin to hit, the twin to COW")
     computed = sum(r.computed_len for r in reqs)
     submitted = sum(len(r.prompt) for r in reqs)
-    print(f"[serve_paged] GPT-2 small bf16, {len(reqs)} requests x "
-          f"{NEW_TOKENS} tokens over 8 slots, page_len "
-          f"{PAGED_CFG['page_len']}, {PAGED_CFG['pages']} pages, prefill "
-          f"chunks of {PAGED_CFG['prefill_chunk_len']}: {ticks} decode "
-          f"ticks; prefix hits {hits}, misses {misses}, copies on write "
-          f"{cow}; prompt tokens computed {computed} of {submitted} "
+    print(f"[{label}] GPT-2 small bf16{' ' + str(QUANT) if quant else ''}, "
+          f"{len(reqs)} requests x {NEW_TOKENS} tokens over 8 slots, "
+          f"page_len {PAGED_CFG['page_len']}, {PAGED_CFG['pages']} pages, "
+          f"prefill chunks of {PAGED_CFG['prefill_chunk_len']}: {ticks} "
+          f"decode ticks; prefix hits {hits}, misses {misses}, copies on "
+          f"write {cow}; prompt tokens computed {computed} of {submitted} "
           f"submitted; {free} free pages after the run = {free0} less "
           f"{held} held by the prefix cache")
-    _latencies("serve_paged", reqs, sum(len(r.tokens) for r in reqs), wall)
-    print(f"[serve_paged] launches: flash_fwd {launches['flash_fwd']} (= "
-          f"{L} x {no_prefix}), decode_paged {launches['decode_paged']} (= "
-          f"{L} x {ticks})")
+    _latencies(label, reqs, sum(len(r.tokens) for r in reqs), wall)
+    print(f"[{label}] launches: flash_fwd {launches['flash_fwd']} (= "
+          f"{L} x {no_prefix}), {kernel} {launches[kernel]} (= {L} x "
+          f"{ticks}), {other} 0")
+    if quant:
+        (pb, kb, peak), (pb0, kb0, peak0) = memory, fp_memory
+        print(f"[serve_quant] param_bytes {pb} vs serve_paged {pb0} "
+              f"({pb0 / pb:.3f}x fewer); kv_bytes {kb} vs {kb0} "
+              f"({kb0 / kb:.3f}x fewer); peak memory {peak / 2**20:.1f} "
+              f"MiB vs {peak0 / 2**20:.1f} MiB, of which beyond the "
+              f"params and KV {(peak - pb - kb) / 2**20:.1f} vs "
+              f"{(peak0 - pb0 - kb0) / 2**20:.1f} MiB (transients: the "
+              "int8 matmuls cast one layer's weight to bf16 at a time)")
+    return launches, memory
+
+
+def phase_serve_quant_capacity(dev):
+    """How many requests each pool admits at once in the same KV bytes
+    (``tools/loadgen/scenarios.py:279 run_quant_ab``'s geometry, rebuilt
+    here): GPT-2 small bf16, page_len 16, max_seq_len 64, a KV budget of 4
+    slots x 64 tokens of bf16 KV; the bf16 pool and the int8 pool (kv
+    int8) get as many pages as fit the budget (plus the scratch page), 64
+    slots, 96 requests all due at once, every 4th long (prompt 44, 3
+    pages) and the rest short (prompt 12, 1 page), 4 new tokens each."""
+    import torch
+    from deepspeed_tpu_torch.inference.kv_cache import (KVCacheSpec,
+                                                        PagedKVCacheSpec)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    page_len, max_seq, n_req = 16, 64, 96
+    c = GPT2_SMALL
+    budget = KVCacheSpec(layers=c.n_layer, slots=4, heads=c.n_head,
+                         max_len=max_seq, head_dim=c.d_head,
+                         dtype=torch.bfloat16).bytes
+    rng = np.random.default_rng(SEED + 9)
+    prompts = [[int(t) for t in rng.integers(0, c.vocab_size,
+                                             44 if i % 4 == 3 else 12)]
+               for i in range(n_req)]
+    base = {"slots": 64, "max_seq_len": max_seq, "prefill_len": 44,
+            "queue_capacity": 256, "page_len": page_len,
+            "prefix_cache": False}
+    out, launches = {}, {}
+    for name, quant in (("bf16", False), ("int8", True)):
+        page_bytes = PagedKVCacheSpec(
+            layers=c.n_layer, slots=1, heads=c.n_head, pages=1,
+            page_len=page_len, head_dim=c.d_head, max_pages=1,
+            dtype=torch.int8 if quant else torch.bfloat16,
+            quant=quant).page_bytes
+        pages = budget // page_bytes + 1
+        cfg = {**base, "pages": pages}
+        if quant:
+            cfg["quantization"] = {"kv": "int8"}
+        eng = _engine(cfg, dev, torch.bfloat16)
+        _zero_counts()
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        peak = 0
+        while eng.scheduler.active or eng._pending or eng.queue.qsize():
+            eng.step()
+            peak = max(peak, len(eng.scheduler.active))
+        torch.cuda.synchronize()
+        for k, n in _counts().items():
+            launches[k] = launches.get(k, 0) + n
+        truncated = sum(r.finish_reason == "kv_capacity" for r in reqs)
+        bad = [r.rid for r in reqs if r.error is not None
+               or len(r.tokens) != 4 and r.finish_reason != "kv_capacity"]
+        out[name] = (pages - 1, eng.kv_bytes, peak, truncated)
+        eng.close()
+        if bad:
+            fail(f"serve_quant capacity {name}: requests {bad} failed")
+        print(f"[serve_quant capacity] {name} pool: {pages - 1} pages of "
+              f"{page_bytes} B in a budget of {budget} B, kv_bytes "
+              f"{out[name][1]}; highest concurrency {peak} of 64 slots; "
+              f"{truncated} kv_capacity finishes")
+    (p8, kv8, c8, t8), (p16, kv16, c16, t16) = out["int8"], out["bf16"]
+    if not (kv8 <= kv16 and t8 == 0 and t16 == 0 and c8 > c16):
+        fail(f"serve_quant capacity: int8 {out['int8']} vs bf16 "
+             f"{out['bf16']} (pages, kv_bytes, concurrency, truncations)")
+    print(f"[serve_quant capacity] the int8 pool admits {c8} requests at "
+          f"once against {c16} for bf16 ({c8 / c16:.3f}x) in "
+          f"{kv8} vs {kv16} KV bytes")
     return launches
 
 
-def phase_serve_spec(dev):
+def phase_serve_spec(dev, quant=False):
     """Greedy speculation (k = 4, a 2-layer draft cut from the target) on
-    the slot cache and on the paged pool, full-size GPT-2 small, bf16."""
+    the slot cache and on the paged pool, full-size GPT-2 small, bf16;
+    with ``quant`` (the serve_quant_spec phase) on the int8 pool with int8
+    target and draft weights."""
     import torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
 
     L = GPT2_SMALL.n_layer
+    paged = {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]}
+    arms = ((("paged int8", {**paged, "quantization": QUANT},
+              "decode_paged_multi_int8"),) if quant else
+            (("slot", SLOT_CFG, "decode_multi"),
+             ("paged", paged, "decode_paged_multi")))
+    tag = "serve_quant_spec" if quant else "serve_spec"
     total = {}
-    for arm, cfg, kernel in (
-            ("slot", SLOT_CFG, "decode_multi"),
-            ("paged", {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]},
-             "decode_paged_multi")):
+    for arm, cfg, kernel in arms:
         eng = _engine({**cfg, **SPEC}, dev, torch.bfloat16, draft=True)
         v0, p0, a0 = eng.verify_ticks, eng._spec_passes, eng._spec_accepted_n
         prompts = _load()
@@ -910,23 +1160,29 @@ def phase_serve_spec(dev):
         req_passes = eng._spec_passes - p0
         accepted = eng._spec_accepted_n - a0
         eng.close()
-        _check_requests(f"serve_spec {arm}", reqs)
+        _check_requests(f"{tag} {arm}", reqs)
         draft_steps = SPEC["draft"]["n_layer"] * (SPEC["speculate_k"] + 1)
         if launches[kernel] != L * passes or passes == 0:
             fail(f"{kernel} launched {launches[kernel]} times, expected "
                  f"{L} layers x {passes} verify passes")
+        others = [k for k in ("decode_multi", "decode_paged_multi",
+                              "decode_paged_multi_int8", "decode_paged",
+                              "decode_paged_int8")
+                  if k != kernel and launches[k]]
+        if others:
+            fail(f"{tag} {arm} also launched {others}")
         if launches["decode_attention"] != draft_steps * passes:
             fail(f"decode_attention launched {launches['decode_attention']} "
                  f"times, expected {draft_steps} draft steps x {passes} "
                  "verify passes")
-        print(f"[serve_spec] {arm} cache, k {SPEC['speculate_k']}, draft "
+        print(f"[{tag}] {arm} cache, k {SPEC['speculate_k']}, draft "
               f"{SPEC['draft']}: {passes} verify passes, "
               f"{(accepted + req_passes) / req_passes:.3f} tokens per target "
               f"pass per request, draft acceptance "
               f"{accepted / (req_passes * SPEC['speculate_k']):.3f}")
-        _latencies(f"serve_spec {arm}", reqs,
+        _latencies(f"{tag} {arm}", reqs,
                    sum(len(r.tokens) for r in reqs), wall)
-        print(f"[serve_spec] {arm} launches: {kernel} {launches[kernel]} (= "
+        print(f"[{tag}] {arm} launches: {kernel} {launches[kernel]} (= "
               f"{L} x {passes}), decode_attention "
               f"{launches['decode_attention']} (= {draft_steps} x {passes})")
         for name, n in launches.items():
@@ -934,13 +1190,44 @@ def phase_serve_spec(dev):
     return total
 
 
+def _compare_streams(label, ours, ref, prompts, cfg, params):
+    """Greedy streams equal, a flip allowed only on a near tie (top-2
+    logit gap below NEAR_TIE at that step of ``cfg`` with ``params``,
+    reported with its gap)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_prefill
+    flips = 0
+    for p, a, b in zip(prompts, ours, ref):
+        if a.tokens == b.tokens:
+            continue
+        i = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                 if x != y)
+        logits, _, _ = gpt2_prefill(cfg, params, torch.tensor(
+            [p + b.tokens[:i]], device=params["wte"].device))
+        top = torch.topk(logits[0, -1].float(), 2).values
+        gap = float(top[0] - top[1])
+        print(f"[parity] {label}, request {a.rid}: flip at token {i} "
+              f"({a.tokens[i]} vs {b.tokens[i]}), top-2 logit gap "
+              f"{gap:.3g}")
+        if not gap < NEAR_TIE:
+            fail(f"{label}: request {a.rid} diverges at token {i} with "
+                 f"gap {gap}")
+        flips += 1
+    print(f"[parity] fp32 {label}: {len(ref) - flips}/{len(ref)} greedy "
+          f"streams equal, {flips} near-tie flips")
+
+
 def phase_parity(dev):
     """fp32, TF32 off: the dense path's greedy streams against the kernel
     path's on the slot cache and the paged pool, and against the
-    speculative path's on both."""
+    speculative path's on both; then, quantized (int8 weights and pool),
+    the kernel path's and the speculative path's streams against the
+    quantized dense path's and each other, and the int8 streams' token
+    agreement with the fp ones (reported)."""
     import torch
+    from deepspeed_tpu_torch.inference.quantize import quantize_gpt2_params
     from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2Config,
-                                                 GPT2Model, gpt2_prefill)
+                                                 GPT2Model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kern = GPT2Model(GPT2_SMALL)
@@ -960,47 +1247,57 @@ def phase_parity(dev):
              _draft_params(params))):
         ours = _serve(kern, params, {"serving": cfg}, prompts, dev,
                       draft_params=draft)
-        flips = 0
-        for p, a, b in zip(prompts, ours, ref):
-            if a.tokens == b.tokens:
-                continue
-            i = next(i for i, (x, y) in enumerate(zip(a.tokens, b.tokens))
-                     if x != y)
-            logits, _, _ = gpt2_prefill(dense_cfg, params, torch.tensor(
-                [p + b.tokens[:i]], device=dev))
-            top = torch.topk(logits[0, -1].float(), 2).values
-            gap = float(top[0] - top[1])
-            print(f"[parity] {label}, request {a.rid}: flip at token {i} "
-                  f"({a.tokens[i]} vs {b.tokens[i]}), top-2 logit gap "
-                  f"{gap:.3g}")
-            if not gap < NEAR_TIE:
-                fail(f"{label}: request {a.rid} diverges at token {i} with "
-                     f"gap {gap}")
-            flips += 1
-        print(f"[parity] fp32 {label} vs dense path: {N_REQ - flips}/"
-              f"{N_REQ} greedy streams equal, {flips} near-tie flips")
+        _compare_streams(f"{label} vs dense path", ours, ref, prompts,
+                         dense_cfg, params)
+    qpaged = {**paged, "quantization": QUANT}
+    qparams = quantize_gpt2_params(params)
+    qref = _serve(dense, params, {"serving": {**qpaged,
+                                              "decode_impl": "dense"}},
+                  prompts, dev)
+    qkern = _serve(kern, params, {"serving": qpaged}, prompts, dev)
+    qspec = _serve(kern, params, {"serving": {**qpaged, **SPEC}}, prompts,
+                   dev, draft_params=_draft_params(params))
+    for label, ours, against in (
+            ("int8 paged kernel path vs int8 dense path", qkern, qref),
+            ("int8 speculative paged path vs int8 dense path", qspec, qref),
+            ("int8 speculative vs int8 non-speculative kernel path", qspec,
+             qkern)):
+        _compare_streams(label, ours, against, prompts, dense_cfg, qparams)
+    same = total = 0
+    for a, b in zip(qkern, ref):
+        same += sum(x == y for x, y in zip(a.tokens, b.tokens))
+        total += len(b.tokens)
+    print(f"[parity] int8 (weights and KV) kernel path vs fp dense path: "
+          f"{same}/{total} tokens agree ({same / total:.4f}; reported, "
+          "not asserted)")
 
 
 def _counted():
-    """Every kernel wrapper that carries a launch count, by kernel name."""
+    """Every kernel wrapper's launch count as (wrapper, attribute), by
+    kernel name: the paged arms count their int8 pool launches apart."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
     from deepspeed_tpu_torch.ops.kernels import decode_attention as da
     from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    return {"flash_fwd": fa.flash_attention,
-            "flash_bwd_dq": fa.flash_bwd_dq,
-            "flash_bwd_dkv": fa.flash_bwd_dkv,
-            "decode_attention": da.decode_attention,
-            "decode_paged": da.decode_attention_paged,
-            "decode_multi": da.decode_attention_multi,
-            "decode_paged_multi": da.decode_attention_paged_multi,
-            "block_sparse_fwd": bs.block_sparse_fwd,
-            "block_sparse_bwd_dq": bs.block_sparse_bwd_dq,
-            "block_sparse_bwd_dkv": bs.block_sparse_bwd_dkv}
+    fns = {"flash_fwd": fa.flash_attention,
+           "flash_bwd_dq": fa.flash_bwd_dq,
+           "flash_bwd_dkv": fa.flash_bwd_dkv,
+           "decode_attention": da.decode_attention,
+           "decode_paged": da.decode_attention_paged,
+           "decode_multi": da.decode_attention_multi,
+           "decode_paged_multi": da.decode_attention_paged_multi,
+           "block_sparse_fwd": bs.block_sparse_fwd,
+           "block_sparse_bwd_dq": bs.block_sparse_bwd_dq,
+           "block_sparse_bwd_dkv": bs.block_sparse_bwd_dkv}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    for name in ("decode_paged", "decode_paged_multi"):
+        out[name + "_int8"] = (fns[name], "launches_int8")
+    return out
 
 
 def _counts():
     """Every kernel wrapper's launch count, by kernel name."""
-    return {name: fn.launches for name, fn in _counted().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counted().items()}
 
 
 def _train_counts():
@@ -1010,8 +1307,8 @@ def _train_counts():
 
 
 def _zero_counts():
-    for fn in _counted().values():
-        fn.launches = 0
+    for fn, attr in _counted().values():
+        setattr(fn, attr, 0)
 
 
 def _train_config(dtype_block: dict, micro: int, ga: int) -> dict:
@@ -1627,9 +1924,12 @@ def main() -> None:
     phase_decode_kernels(dev, kernels)
     phase_train_kernels(dev, kernels)
     phase_sparse_kernels(dev, kernels)
-    by_phase = {"serve": phase_serve(dev),
-                "serve_paged": phase_serve_paged(dev),
-                "serve_spec": phase_serve_spec(dev)}
+    by_phase = {"serve": phase_serve(dev)}
+    by_phase["serve_paged"], paged_memory = phase_serve_paged(dev)
+    by_phase["serve_spec"] = phase_serve_spec(dev)
+    by_phase["serve_quant"], _ = phase_serve_paged(dev, paged_memory)
+    by_phase["serve_quant_capacity"] = phase_serve_quant_capacity(dev)
+    by_phase["serve_quant_spec"] = phase_serve_spec(dev, quant=True)
     phase_parity(dev)
     by_phase["train"] = phase_train(dev)
     phase_train_parity(dev)

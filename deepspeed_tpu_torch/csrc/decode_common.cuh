@@ -29,7 +29,21 @@
 //   explicitly (never exp(-inf - -inf)); a length-0 row outputs exact zeros;
 // - no host sync: lengths and tables stay on the device, the launch is
 //   asynchronous.
+//
+// The int8 arm (QUANT, paged only: serving.quantization.kv='int8') reads
+// int8 K/V rows plus one fp32 scale per (page, head, row) from k_scale /
+// v_scale [P, H, page_len], through the same table indirection as the
+// rows.  The scales fold into the score and the probability as the TPU
+// kernel folds them (decode_attention.py:336-359): s = (q.k8) * sm_scale
+// * ks, acc += (p * vs) * v8, while l sums p alone; the page is never
+// dequantized into memory.  A lane reads its eight int8 dims with one
+// 8-byte load, so a group of eight lanes reads the 64-byte row; the row
+// costs 136 B of traffic (2 x 64 int8 + 2 x 4 B of scale) against 256 B
+// in bf16.
 #pragma once
+
+#include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -79,6 +93,14 @@ __device__ __forceinline__ void load8(const __half* p, float (&x)[8]) {
   }
 }
 
+// eight consecutive int8 values (8-byte aligned) as floats
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -100,11 +122,16 @@ struct Args {
   int t_max;            // unpaged: the cache stride T
   int page_len, max_pages;
   float sm_scale;
+  const float* k_scale;  // QUANT: [P, H, page_len]
+  const float* v_scale;
 };
 
+// TQ: the query/output type; TKV: the K/V type, TQ or (QUANT) int8_t.
 // WT: W rounded up to a compiled row count; rows w >= a.w have length 0
-template <typename T, int WT, bool PAGED>
+template <typename TQ, typename TKV, int WT, bool PAGED>
 __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
+  constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
+  static_assert(!QUANT || PAGED, "the int8 pool is paged only");
   __shared__ float sq[WT][D];
   __shared__ int slen[WT];
   __shared__ float sm[WT][WARPS], sl[WT][WARPS];
@@ -118,7 +145,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   const int grp = lane >> 3, sub = lane & 7;
   const int cap = PAGED ? a.page_len * a.max_pages : a.t_max;
 
-  const T* q = static_cast<const T*>(a.q);
+  const TQ* q = static_cast<const TQ*>(a.q);
   for (int i = tid; i < WT * D; i += THREADS) {
     const int w = i / D;
     sq[w][i % D] = w < a.w ? to_float(q[((size_t)sh * a.w + w) * D + i % D])
@@ -144,11 +171,12 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
     for (int i = 0; i < 8; ++i) acc[w][i] = 0.f;
   }
 
-  const T* kb = static_cast<const T*>(a.k);
-  const T* vb = static_cast<const T*>(a.v);
+  const TKV* kb = static_cast<const TKV*>(a.k);
+  const TKV* vb = static_cast<const TKV*>(a.v);
   for (int base = warp * GROUPS; base < maxlen; base += STEP) {
     const int j = base + grp;  // this group's key
     float kk[8], vv[8];
+    float ks = 1.f, vs = 1.f;  // the row's scales (QUANT)
     if (j < maxlen) {
       size_t row;
       if (PAGED) {
@@ -159,6 +187,10 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
       }
       load8(kb + row * D + sub * 8, kk);
       load8(vb + row * D + sub * 8, vv);
+      if (QUANT) {  // one scale per row: no Dh factor in the index
+        ks = a.k_scale[row];
+        vs = a.v_scale[row];
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < 8; ++i) kk[i] = vv[i] = 0.f;
@@ -173,14 +205,17 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
       part += __shfl_xor_sync(FULL, part, 2);
       part += __shfl_xor_sync(FULL, part, 4);
       const bool valid = j < len[w];
-      const float sc = valid ? part * a.sm_scale : NEG_INF;
+      float sc = part * a.sm_scale;
+      if (QUANT) sc *= ks;
+      sc = valid ? sc : NEG_INF;
       const float mt = fmaxf(m[w], sc);
       const float alpha = expf(m[w] - mt);
       // masked explicitly: a row with no live key yet has mt == NEG_INF
       const float p = valid ? expf(sc - mt) : 0.f;
       l[w] = fmaf(l[w], alpha, p);
+      const float pv = QUANT ? p * vs : p;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[w][i] = fmaf(acc[w][i], alpha, p * vv[i]);
+      for (int i = 0; i < 8; ++i) acc[w][i] = fmaf(acc[w][i], alpha, pv * vv[i]);
       m[w] = mt;
     }
   }
@@ -218,7 +253,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   __syncthreads();
 
   // merge the eight warps: warp r finishes rows r, r + 8
-  T* o = static_cast<T*>(a.o);
+  TQ* o = static_cast<TQ*>(a.o);
   for (int w = warp; w < a.w; w += WARPS) {
     float mx = NEG_INF;
 #pragma unroll
@@ -237,39 +272,44 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   }
 }
 
-template <typename T, bool PAGED, bool MULTI>
+template <typename TQ, typename TKV, bool PAGED, bool MULTI>
 int launch_typed(const Args& a, int slots, cudaStream_t st) {
   const dim3 grid(slots * a.heads);
   if (a.w == 1) {
-    rows_kernel<T, 1, PAGED><<<grid, THREADS, 0, st>>>(a);
+    rows_kernel<TQ, TKV, 1, PAGED><<<grid, THREADS, 0, st>>>(a);
   } else if (!MULTI) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (MULTI) {
     if (a.w <= 2)
-      rows_kernel<T, 2, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TQ, TKV, 2, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 3)
-      rows_kernel<T, 3, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TQ, TKV, 3, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 5)
-      rows_kernel<T, 5, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TQ, TKV, 5, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 9)
-      rows_kernel<T, 9, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TQ, TKV, 9, PAGED><<<grid, THREADS, 0, st>>>(a);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 fp32, 1 bf16, 2 fp16.  Returns cudaGetLastError().
-template <bool PAGED, bool MULTI>
+// dtype (of q and the output): 0 fp32, 1 bf16, 2 fp16.  K/V share it, or
+// are int8 with QUANT.  Returns cudaGetLastError().
+template <bool PAGED, bool MULTI, bool QUANT = false>
 int launch(int dtype, const Args& a, int slots, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      return launch_typed<float, PAGED, MULTI>(a, slots, st);
+      return launch_typed<float, std::conditional_t<QUANT, int8_t, float>,
+                          PAGED, MULTI>(a, slots, st);
     case 1:
-      return launch_typed<__nv_bfloat16, PAGED, MULTI>(a, slots, st);
+      return launch_typed<__nv_bfloat16,
+                          std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
+                          PAGED, MULTI>(a, slots, st);
     case 2:
-      return launch_typed<__half, PAGED, MULTI>(a, slots, st);
+      return launch_typed<__half, std::conditional_t<QUANT, int8_t, __half>,
+                          PAGED, MULTI>(a, slots, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,12 +3,13 @@
 //
 // Replaces the Pallas TPU kernel deepspeed_tpu/ops/pallas/decode_attention.py
 // `_decode_paged_kernel` (launched by `_decode_paged_pallas` through
-// `pl.pallas_call`; API `decode_attention_paged`), fp arm: one new query per
-// (slot, head) against the slot's K/V rows in a flat pool
+// `pl.pallas_call`; API `decode_attention_paged`), both arms: one new query
+// per (slot, head) against the slot's K/V rows in a flat pool
 // [P, H, page_len, 64], found through the slot's page table, masked to a
 // per-slot live length read from device memory.  A length-0 slot outputs
-// exact zeros.  The TPU kernel's int8 pool arm is not ported (the wrapper
-// refuses scales).
+// exact zeros.  `decode_paged` is the fp arm; `decode_paged_int8` the int8
+// pool arm (`:313-359`), whose per-row fp32 scales fold into the scores
+// and probabilities.
 //
 // The TPU kernel streamed one page per grid step through a scalar-prefetched
 // table and an (8, 128)-tiled query broadcast; here each block reads its own
@@ -30,4 +31,22 @@ extern "C" int decode_paged(const void* q, const void* k_pages,
                  static_cast<const int*>(lengths), o, heads, 1, 0, page_len,
                  max_pages, sm_scale};
   return decode::launch<true, false>(dtype, a, slots, stream);
+}
+
+// The int8 pool arm: pools int8 [pages, heads, page_len, 64] with fp32
+// k_scale / v_scale [pages, heads, page_len]; q/o fp32, bf16 or fp16
+// (dtype as above), the other operands as in decode_paged.
+extern "C" int decode_paged_int8(const void* q, const void* k_pages,
+                                 const void* v_pages, const void* k_scale,
+                                 const void* v_scale, const void* table,
+                                 const void* lengths, void* o, int slots,
+                                 int heads, int pages, int page_len,
+                                 int max_pages, float sm_scale, int dtype,
+                                 void* stream) {
+  (void)pages;
+  decode::Args a{q, k_pages, v_pages, static_cast<const int*>(table),
+                 static_cast<const int*>(lengths), o, heads, 1, 0, page_len,
+                 max_pages, sm_scale, static_cast<const float*>(k_scale),
+                 static_cast<const float*>(v_scale)};
+  return decode::launch<true, false, true>(dtype, a, slots, stream);
 }

@@ -40,6 +40,15 @@ acceptance emits exactly the non-speculative stream.  Rollback: the slot
 cache masks lengths back; the paged pool frees the pages only rejected
 speculation touched.
 
+Quantized serving (``serving.quantization``, reference ``engine.py:
+182-210, 387-447, 595-607``): ``weights: "int8"`` quantizes the target's
+(and the draft's) matmul weights once at build (``inference/quantize.py``)
+on either layout; ``kv: "int8"`` (paged only) stores the pool as int8 rows
+with fp32 scale sidecars that every prefill, decode tick, verify pass and
+copy-on-write carries.  ``param_bytes`` and ``kv_bytes`` are the device
+bytes the parameters and the KV caches claim, as the JAX engine counts
+them.
+
 Fault plane: the request queue is a stages :class:`Channel` and all
 serving work runs under one :class:`Stage` record ("serve", points
 ``admit``/``prefill_chunk``/``step``), so poison/drain semantics,
@@ -72,6 +81,7 @@ from ..runtime.stages import Channel, Stage
 from ..utils.logging import logger
 from .kv_cache import (KVCacheSpec, PagedKVCacheSpec, init_cache,
                        init_paged_cache)
+from .quantize import param_nbytes, quantize_gpt2_params
 from .scheduler import PagePool, PrefixCache, Request, SlotScheduler
 from .speculative import select_next_token, speculative_accept
 
@@ -108,11 +118,6 @@ def _refuse_unported(cfg: _ServeConfigView) -> None:
     if sv.temperature > 0:
         raise _unported("serving.temperature > 0 (sampling)",
                         "item 7.3 (speculation and sampling)")
-    q = sv.quantization
-    if (q[C.SERVING_QUANT_WEIGHTS] != C.SERVING_QUANT_WEIGHTS_DEFAULT
-            or q[C.SERVING_QUANT_KV] != C.SERVING_QUANT_KV_DEFAULT):
-        raise _unported("serving.quantization (int8 weights / KV)",
-                        "item 7.4 (quantized serving)")
     if sv.lora[C.SERVING_LORA_RANK] > 0:
         raise _unported("serving.lora.rank > 0 (multi-tenant LoRA)",
                         "item 7.5 (LoRA adapters)")
@@ -189,11 +194,20 @@ class ServeEngine:
         self._spec_proposed_n = 0
         self._spec_accepted_n = 0
         self._spec_passes = 0
+        #: the quantized serving plane: both arms are fixed for the
+        #: engine's lifetime
+        q = cfg.serving.quantization
+        self.quant_weights = q[C.SERVING_QUANT_WEIGHTS] == "int8"
+        self.quant_kv = q[C.SERVING_QUANT_KV] == "int8"
 
         # -- params + cache on the device ---------------------------------
         if params is None:
             params = model.init(seed, device=self.device)
         self.params = _to_device(params, self.device)
+        if self.quant_weights:
+            # one-shot post-load quantization: the engine keeps only the
+            # int8 weights and their fp32 scale rows
+            self.params = quantize_gpt2_params(self.params)
         kv_dtype = self.params["wte"].dtype
         self.page_len = cfg.serving.page_len
         self.paged = self.page_len > 0
@@ -202,6 +216,11 @@ class ServeEngine:
         #: step(), next to the decode tick (the config requires paged)
         self.prefill_chunk_len = (cfg.serving.prefill_chunk_len
                                   if self.paged else 0)
+        if self.quant_kv and not self.paged:
+            raise ValueError(
+                "serving.quantization.kv='int8' requires a paged cache "
+                "(serving.page_len > 0); the slot layout keeps the "
+                "master dtype")
         if self.paged:
             self.max_pages = -(-self.max_seq_len // self.page_len)
             # 0 = capacity-neutral: every slot can reach max_seq_len, plus
@@ -210,7 +229,9 @@ class ServeEngine:
             self.cache_spec = PagedKVCacheSpec(
                 layers=mcfg.n_layer, slots=self.slots, heads=mcfg.n_head,
                 pages=pages, page_len=self.page_len, head_dim=mcfg.d_head,
-                max_pages=self.max_pages, dtype=kv_dtype)
+                max_pages=self.max_pages,
+                dtype=torch.int8 if self.quant_kv else kv_dtype,
+                quant=self.quant_kv)
             self.cache = init_paged_cache(self.cache_spec, self.device)
             self.pool = PagePool(pages)
             self.prefix = (PrefixCache(self.page_len, self.pool)
@@ -228,6 +249,14 @@ class ServeEngine:
             self.cache = init_cache(self.cache_spec, self.device)
         if self.spec_k:
             self._build_spec_plane(cfg, mcfg, draft_params, seed)
+
+        # -- memory planes: the device bytes the params and KV caches
+        # claim (reference engine.py:595-607)
+        self.param_bytes = param_nbytes(self.params)
+        self.kv_bytes = self.cache_spec.bytes
+        if self.spec_k:
+            self.param_bytes += param_nbytes(self.draft_params)
+            self.kv_bytes += self.draft_cache_spec.bytes
 
         # -- fault plane: queue as a Channel, work under one Stage -------
         self.queue = Channel(capacity=cfg.serving.queue_capacity)
@@ -258,10 +287,11 @@ class ServeEngine:
     # -- speculative decoding: the draft plane --------------------------
     def _build_spec_plane(self, cfg, mcfg, draft_params, seed: int) -> None:
         """The draft model and its slot KV cache (reference
-        ``_build_spec_plane``, ``engine.py:754-919``, fp weights).  The
-        draft always runs the fixed-stride slot cache, paged target or
-        not: at draft scale a full stride is small next to the target
-        pool, and its rollback stays a lengths mask."""
+        ``_build_spec_plane``, ``engine.py:754-919``).  The draft always
+        runs the fixed-stride slot cache in the master dtype, paged or
+        int8 target pool or not: at draft scale a full stride is small next
+        to the target pool, and its rollback stays a lengths mask.  With
+        the weights arm on, the draft's weights are quantized too."""
         d = cfg.serving.draft
         draft_cfg = GPT2Config(
             vocab_size=mcfg.vocab_size, n_positions=mcfg.n_positions,
@@ -277,6 +307,8 @@ class ServeEngine:
                 seed + 1, device=self.device,
                 dtype=self.params["wte"].dtype)
         self.draft_params = _to_device(draft_params, self.device)
+        if self.quant_weights:
+            self.draft_params = quantize_gpt2_params(self.draft_params)
         self.draft_cache_spec = KVCacheSpec(
             layers=draft_cfg.n_layer, slots=self.slots,
             heads=draft_cfg.n_head, max_len=self.max_seq_len,
@@ -400,14 +432,22 @@ class ServeEngine:
         self.cache["lengths"][slot] = length
         return int(select_next_token(logits[0, length - 1]))
 
+    def _scales(self) -> Dict[str, torch.Tensor]:
+        """The int8 pool's scale sidecars as keyword arguments of the
+        model's paged functions (none on the fp pool)."""
+        if not self.quant_kv:
+            return {}
+        return {"k_scale": self.cache["k_scale"],
+                "v_scale": self.cache["v_scale"]}
+
     def _prefill_paged(self, tokens: np.ndarray, delta_len: int,
                        prefix_len: int, row: np.ndarray, slot: int) -> int:
         """One delta-aware prefill (or chunk) into ``slot``'s pages, then
         the next greedy token after its last computed position."""
-        logits, _, _ = self.model.prefill_paged(
+        logits = self.model.prefill_paged(
             self.params, torch.from_numpy(tokens).to(self.device), delta_len,
             prefix_len, torch.from_numpy(row).to(self.device),
-            self.cache["k"], self.cache["v"])
+            self.cache["k"], self.cache["v"], **self._scales())[0]
         self.cache["lengths"][slot] = prefix_len + delta_len
         return int(select_next_token(logits[0, delta_len - 1]))
 
@@ -430,10 +470,13 @@ class ServeEngine:
         return pages
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """Copy-on-write: duplicate one page of every layer's K and V."""
+        """Copy-on-write: duplicate one page of every layer's K and V and,
+        on the int8 pool, their scale sidecars (else the copy would
+        dequantize with the wrong scales)."""
         with self._span("serve/page_cow", src=src, dst=dst):
-            for key in ("k", "v"):
-                self.cache[key][:, dst] = self.cache[key][:, src]
+            for key in ("k", "v", "k_scale", "v_scale"):
+                if key in self.cache:
+                    self.cache[key][:, dst] = self.cache[key][:, src]
 
     def _draft_prefill(self, req: Request,
                        slot: Optional[int] = None) -> None:
@@ -705,10 +748,12 @@ class ServeEngine:
         tokens, active = self._batch(active_map)
         with self._span("serve/decode_step", active=len(active_map)):
             if self.paged:
-                logits, _, _, new_len = self.model.decode_step_paged(
+                out = self.model.decode_step_paged(
                     self.params, tokens, self.cache["k"], self.cache["v"],
                     torch.from_numpy(self._table).to(self.device),
-                    self.cache["lengths"], active, impl=self.decode_impl)
+                    self.cache["lengths"], active, impl=self.decode_impl,
+                    **self._scales())
+                logits, new_len = out[0], out[-1]
             else:
                 logits, _, _, new_len = self.model.decode_step(
                     self.params, tokens, self.cache["k"], self.cache["v"],
@@ -759,10 +804,11 @@ class ServeEngine:
         tokens_w = torch.cat([tokens[:, None].to(torch.int32),
                               proposals.to(torch.int32)], dim=1)
         if self.paged:
-            logits, _, _ = self.model.verify_step_paged(
+            logits = self.model.verify_step_paged(
                 self.params, tokens_w, self.cache["k"], self.cache["v"],
                 torch.from_numpy(self._table).to(self.device),
-                self.cache["lengths"], active, impl=self.decode_impl)
+                self.cache["lengths"], active, impl=self.decode_impl,
+                **self._scales())[0]
         else:
             logits, _, _ = self.model.verify_step(
                 self.params, tokens_w, self.cache["k"], self.cache["v"],

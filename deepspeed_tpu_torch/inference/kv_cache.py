@@ -16,9 +16,11 @@ pages plus host-owned page tables:
 
 A slot's KV rows live wherever its int32 page table points; page 0 is the
 reserved scratch page masked writes land on.  A short request holds
-ceil(len/page_len) pages instead of a full ``max_seq_len`` stride.  Only
-the fp pool is ported: the int8 pool and its scale sidecars are ROADMAP.md
-queue 1 item 7.4.
+ceil(len/page_len) pages instead of a full ``max_seq_len`` stride.  The
+int8 pool (``serving.quantization.kv='int8'``) stores int8 rows plus fp32
+scale sidecars:
+
+    k_scale, v_scale  [L, P, H, page_len] fp32   one scale per stored row
 
 The shapes never change for the life of the engine: admission writes a
 prefilled request's K/V rows in place, decode appends one row per tick,
@@ -68,7 +70,11 @@ class PagedKVCacheSpec:
     """The flat page pool (reference ``kv_cache.py:121-166``): ``pages``
     fixed-size pages of ``page_len`` tokens each (page 0 reserved as the
     scratch page), referenced by per-slot page tables the host owns.
-    ``quant`` (the int8 pool) must stay False: it is not ported."""
+
+    ``quant`` (``serving.quantization.kv='int8'``): the pool stores int8
+    rows (``dtype`` int8) plus a fp32 scale sidecar ``[L, pages, H,
+    page_len]`` per pool; ``bytes`` and ``page_bytes`` count the sidecars,
+    as the reference's do."""
     layers: int
     slots: int
     heads: int
@@ -78,14 +84,8 @@ class PagedKVCacheSpec:
     #: table width: pages a slot can reference (ceil(max_len/page_len))
     max_pages: int
     dtype: torch.dtype = torch.float32
+    #: int8 rows + per-(page, head, row) fp32 scale sidecars
     quant: bool = False
-
-    def __post_init__(self):
-        if self.quant:
-            raise NotImplementedError(
-                "PagedKVCacheSpec(quant=True) (the int8 page pool) is not "
-                "ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, item "
-                "7.4 (quantized serving)")
 
     @property
     def bytes(self) -> int:
@@ -93,20 +93,28 @@ class PagedKVCacheSpec:
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes of ONE page across layers and both of k/v."""
-        return (2 * self.layers * self.heads * self.page_len
-                * self.head_dim * _itemsize(self.dtype))
+        """Device bytes of ONE page across layers and both of k/v, the
+        scale sidecar rows included."""
+        per_row = self.head_dim * _itemsize(self.dtype) + (
+            4 if self.quant else 0)
+        return 2 * self.layers * self.heads * self.page_len * per_row
 
 
 def init_paged_cache(spec: PagedKVCacheSpec,
                      device=None) -> Dict[str, torch.Tensor]:
     """Fresh all-free paged pool on ``device`` (reference
-    ``kv_cache.py:169-186``, fp pool)."""
+    ``kv_cache.py:169-186``).  An int8 pool gets all-zero scale sidecars:
+    a never-written row dequantizes to exact zeros."""
     shape = (spec.layers, spec.pages, spec.heads, spec.page_len,
              spec.head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=spec.dtype, device=device),
         "v": torch.zeros(shape, dtype=spec.dtype, device=device),
         "lengths": torch.zeros((spec.slots,), dtype=torch.int32,
                                device=device),
     }
+    if spec.quant:
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                     device=device)
+    return cache

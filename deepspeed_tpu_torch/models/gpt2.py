@@ -15,11 +15,14 @@ dQ and dK/dV backward kernels) on ``attn_impl="flash"`` and the dense arm
 on ``"dense"``; the decode attention is ``ops/kernels/decode_attention.py``
 (slot cache, paged pool, and their multi-query verify arms).  The large
 products (qkv, out, fc, proj and the tied ``x @ wte.T``) stay
-``torch.matmul``, as the JAX package leaves them to XLA.  Not ported yet
-(ROADMAP.md queue 1): LoRA (the ``lora`` arguments raise, item 7.5), int8
-weights and the int8 page pool (``k_scale``/``v_scale`` raise, item 7.4),
-sequence-parallel attention, parameter streaming and the tensor-parallel
-specs.
+``torch.matmul``, as the JAX package leaves them to XLA.  Quantized
+serving is ported: a parameter tree from ``inference.quantize.
+quantize_gpt2_params`` (int8 matmul weights with ``<name>_scale``
+siblings) runs through :func:`_wscale`, and the paged functions take the
+int8 pool's ``k_scale``/``v_scale`` sidecars (quantize on write, the int8
+kernel arms on read).  Not ported yet (ROADMAP.md queue 1): LoRA (the
+``lora`` arguments raise, item 7.5), sequence-parallel attention,
+parameter streaming and the tensor-parallel specs.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
 block and dropout site derives its own seed with ``runtime.utils.fold_in``
@@ -53,7 +56,7 @@ from ..ops.kernels.decode_attention import (_default_scale,
                                             decode_attention_multi,
                                             decode_attention_paged,
                                             decode_attention_paged_multi,
-                                            paged_gather)
+                                            dequantize_paged, paged_gather)
 from ..ops.kernels.flash_attention import flash_attention, mha
 from ..runtime.module import TrainModule
 from ..runtime.utils import dropout as _dropout
@@ -274,11 +277,26 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     return (y * scale.float() + bias.float()).to(dt)
 
 
+def _wscale(y, bp, name: str):
+    """The int8 weights' dequant (reference ``models/gpt2.py:355-366``): a
+    quantized tree carries an ``<name>_scale`` sibling per matmul weight,
+    per OUTPUT channel, so ``x · (w8 · s) == (x · w8) · s`` — one multiply
+    on the product, the scale rounded to the product's dtype first, as the
+    reference rounds it.  A tree without scales (training, fp serving)
+    returns ``y`` untouched.  The product itself multiplies ``x`` by
+    ``w8`` cast to ``x``'s dtype: eager PyTorch materializes that cast, a
+    transient copy of one layer's weight."""
+    s = bp.get(name + "_scale")
+    return y if s is None else y * s.to(y.dtype)
+
+
 def gpt2_ffn(bp, h):
     """fc → gelu (tanh approximation) → proj over normalized input."""
-    y = h @ bp["fc_w"].to(h.dtype) + bp["fc_b"].to(h.dtype)
+    y = (_wscale(h @ bp["fc_w"].to(h.dtype), bp, "fc_w")
+         + bp["fc_b"].to(h.dtype))
     y = F.gelu(y, approximate="tanh")
-    return y @ bp["proj_w"].to(h.dtype) + bp["proj_b"].to(h.dtype)
+    return (_wscale(y @ bp["proj_w"].to(h.dtype), bp, "proj_w")
+            + bp["proj_b"].to(h.dtype))
 
 
 def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
@@ -287,7 +305,8 @@ def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
     H, Dh = cfg.n_head, cfg.d_head
     h = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
     w = bp["qkv_w"].to(h.dtype).reshape(D, 3 * D)
-    qkv = (h @ w).view(B, T, 3, D) + bp["qkv_b"].to(h.dtype)
+    qkv = (_wscale((h @ w).view(B, T, 3, D), bp, "qkv_w")
+           + bp["qkv_b"].to(h.dtype))
 
     def heads(t):
         return t.reshape(B, T, H, Dh).transpose(1, 2)
@@ -301,7 +320,8 @@ def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
     tail, shared with the serving paths, which pass ``drop=0``)."""
     B, H, T, Dh = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, H * Dh)
-    y = attn @ bp["out_w"].to(x.dtype) + bp["out_b"].to(x.dtype)
+    y = (_wscale(attn @ bp["out_w"].to(x.dtype), bp, "out_w")
+         + bp["out_b"].to(x.dtype))
     return x + _dropout(y, drop, rng)
 
 
@@ -460,13 +480,8 @@ def gpt2_decode_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
     return logits, k_cache, v_cache, lengths + active.to(torch.int32)
 
 
-def _unported_arms(what: str, k_scale=None, v_scale=None, lora=None):
-    """Refuse the int8 page pool and the LoRA adapters (not ported)."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            f"{what} with k_scale/v_scale (the int8 page pool) is not "
-            "ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, item "
-            "7.4 (quantized serving)")
+def _unported_arms(what: str, lora=None):
+    """Refuse the LoRA adapters (not ported)."""
     if lora is not None:
         raise NotImplementedError(
             f"{what} with lora (multi-tenant adapters) is not ported to "
@@ -583,11 +598,37 @@ def _paged_cache_write(pool, new, page_ids, offs, active):
     return pool
 
 
+def _paged_cache_write_quant(pool, scales, new, page_ids, offs, active):
+    """The quantize-on-write twin of :func:`_paged_cache_write` (reference
+    ``models/gpt2.py:905-921``): each row is quantized per (row, head) —
+    int8 plus one fp32 scale (``inference/quantize.py``) — and the int8 row
+    and its scale land IN PLACE under the same mask.  pool int8 [P, H,
+    page_len, Dh], scales fp32 [P, H, page_len].  All on the device."""
+    from ..inference.quantize import quantize_rows  # (a cycle at import)
+    q8, s = quantize_rows(new)                      # [..., H, Dh] / [..., H]
+    page_ids, offs = page_ids.long(), offs.long()
+    old = pool[page_ids, :, offs]
+    old_s = scales[page_ids, :, offs]
+    pool[page_ids, :, offs] = torch.where(active[..., None, None], q8, old)
+    scales[page_ids, :, offs] = torch.where(active[..., None], s, old_s)
+    return pool, scales
+
+
 def _paged_write(pool, scales, new, page_ids, offs, active):
-    """The reference's fp/int8 dispatch (``models/gpt2.py:923-929``),
-    fp arm: ``scales`` must be None (the int8 pool is item 7.4)."""
-    _unported_arms("_paged_write", k_scale=scales)
-    return _paged_cache_write(pool, new, page_ids, offs, active), None
+    """The reference's fp/int8 dispatch (``models/gpt2.py:923-929``):
+    ``scales`` None writes the fp pool, else the rows are quantized."""
+    if scales is None:
+        return _paged_cache_write(pool, new, page_ids, offs, active), None
+    return _paged_cache_write_quant(pool, scales, new, page_ids, offs,
+                                    active)
+
+
+def _layer_scales(k_scale, v_scale, i: int) -> Dict[str, Any]:
+    """Layer ``i``'s scale sidecars as keyword arguments (none on the fp
+    pool)."""
+    if k_scale is None:
+        return {}
+    return {"k_scale": k_scale[i], "v_scale": v_scale[i]}
 
 
 def _route(page_table, positions, valid, page_len: int):
@@ -608,14 +649,16 @@ def gpt2_block_decode_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
     """One block of a paged decode tick: x [S, 1, D]; writes the token's
     K/V at ``positions`` into the slot's page (masked by ``active``,
     masked slots routed to scratch) then attends over ``att_len`` live
-    keys per slot through the page table."""
-    _unported_arms("gpt2_block_decode_paged", k_scale, v_scale)
+    keys per slot through the page table.  With the int8 pool
+    (``k_scale``/``v_scale`` [P, H, page_len]) the write quantizes each
+    row and the attention runs the int8 kernel arm."""
     q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, 1, Dh]
     page_ids, offs = _route(page_table, positions, active, k_pool.shape[2])
-    _paged_write(k_pool, None, k[:, :, 0], page_ids, offs, active)
-    _paged_write(v_pool, None, v[:, :, 0], page_ids, offs, active)
+    _paged_write(k_pool, k_scale, k[:, :, 0], page_ids, offs, active)
+    _paged_write(v_pool, v_scale, v[:, :, 0], page_ids, offs, active)
     attn = decode_attention_paged(q[:, :, 0], k_pool, v_pool, page_table,
-                                  att_len, impl=impl)   # [S, H, Dh]
+                                  att_len, impl=impl, k_scale=k_scale,
+                                  v_scale=v_scale)      # [S, H, Dh]
     x = gpt2_attn_project(bp, x, attn[:, :, None, :])
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
     return x + gpt2_ffn(bp, h)
@@ -633,8 +676,12 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     tokens [S]; k_pool/v_pool [L, P, H, page_len, Dh], updated in place;
     page_table [S, max_pages] int (dead entries = scratch page 0);
     lengths [S] — live KV length BEFORE this token; active [S] bool.
-    Returns (logits [S, V], k_pool, v_pool, new_lengths)."""
-    _unported_arms("gpt2_decode_step_paged", k_scale, v_scale, lora)
+    Returns (logits [S, V], k_pool, v_pool, new_lengths).
+
+    The int8 pool: pass its fp32 sidecars ``k_scale``/``v_scale`` [L, P,
+    H, page_len] (updated in place); the return grows to (logits, k_pool,
+    v_pool, k_scale, v_scale, new_lengths), as the reference's does."""
+    _unported_arms("gpt2_decode_step_paged", lora)
     if impl is None:
         impl = _decode_attn_impl(cfg)
     page_len = k_pool.shape[3]
@@ -646,9 +693,13 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     for i in range(cfg.n_layer):
         x = gpt2_block_decode_paged(cfg, _layer(params["blocks"], i), x,
                                     k_pool[i], v_pool[i], page_table,
-                                    positions, att_len, active, impl)
+                                    positions, att_len, active, impl,
+                                    **_layer_scales(k_scale, v_scale, i))
     logits = _logits(params, x)[:, 0]
-    return logits, k_pool, v_pool, lengths + active.to(torch.int32)
+    new_lengths = lengths + active.to(torch.int32)
+    if k_scale is not None:
+        return logits, k_pool, v_pool, k_scale, v_scale, new_lengths
+    return logits, k_pool, v_pool, new_lengths
 
 
 def gpt2_block_verify_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
@@ -657,15 +708,18 @@ def gpt2_block_verify_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
     """One block of the paged verify pass: the W rows' page-routed writes
     in one scatter (masked rows to scratch; valid rows of a slot are W
     distinct positions of its own pages) then the paged multi-query
-    attention."""
-    _unported_arms("gpt2_block_verify_paged", k_scale, v_scale)
+    attention — quantizing each row on write and running the int8 arm on
+    the int8 pool."""
     q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, W, Dh]
     page_ids, offs = _route(page_table, positions, row_valid,
                             k_pool.shape[2])            # [S, W]
-    _paged_write(k_pool, None, k.transpose(1, 2), page_ids, offs, row_valid)
-    _paged_write(v_pool, None, v.transpose(1, 2), page_ids, offs, row_valid)
+    _paged_write(k_pool, k_scale, k.transpose(1, 2), page_ids, offs,
+                 row_valid)
+    _paged_write(v_pool, v_scale, v.transpose(1, 2), page_ids, offs,
+                 row_valid)
     attn = decode_attention_paged_multi(q, k_pool, v_pool, page_table,
-                                        row_lens, impl=impl)
+                                        row_lens, impl=impl, k_scale=k_scale,
+                                        v_scale=v_scale)
     x = gpt2_attn_project(bp, x, attn)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
     return x + gpt2_ffn(bp, h)
@@ -680,8 +734,9 @@ def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     """The paged twin of :func:`gpt2_verify_step`: the engine must have
     allocated pages covering all W rows before the pass (and rolls back
     the ones the acceptance did not keep).  Returns (logits [S, W, V],
-    k_pool, v_pool)."""
-    _unported_arms("gpt2_verify_step_paged", k_scale, v_scale, lora)
+    k_pool, v_pool), and with the int8 pool's sidecars (logits, k_pool,
+    v_pool, k_scale, v_scale)."""
+    _unported_arms("gpt2_verify_step_paged", lora)
     if impl is None:
         impl = _decode_attn_impl(cfg)
     S, W = tokens.shape
@@ -691,7 +746,10 @@ def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     for i in range(cfg.n_layer):
         x = gpt2_block_verify_paged(cfg, _layer(params["blocks"], i), x,
                                     k_pool[i], v_pool[i], page_table,
-                                    positions, row_valid, row_lens, impl)
+                                    positions, row_valid, row_lens, impl,
+                                    **_layer_scales(k_scale, v_scale, i))
+    if k_scale is not None:
+        return _logits(params, x), k_pool, v_pool, k_scale, v_scale
     return _logits(params, x), k_pool, v_pool
 
 
@@ -708,17 +766,24 @@ def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
     * ``prefix_len > 0`` — dense attention over the pool gathered through
       ``page_row``: delta query ``i`` attends every key at an absolute
       position ``<= prefix_len + i`` (plain torch ops, as the reference's
-      jnp arm)."""
-    _unported_arms("gpt2_block_prefill_paged", k_scale, v_scale)
+      jnp arm).
+
+    With the int8 pool the delta rows are quantized on write; the first
+    arm still attends the exact fp K/V (only the stored rows are
+    quantized), and the gather arm dequantizes the pool first."""
     q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [1, H, Tq, Dh]
     page_len = k_pool.shape[2]
     pos = prefix_len + torch.arange(delta_len, device=x.device)
     page_ids = page_row.long()[pos // page_len]
     offs = pos % page_len
-    k_pool[page_ids, :, offs] = k[0, :, :delta_len].transpose(0, 1).to(
-        k_pool.dtype)
-    v_pool[page_ids, :, offs] = v[0, :, :delta_len].transpose(0, 1).to(
-        v_pool.dtype)
+    for pool, scales, new in ((k_pool, k_scale, k), (v_pool, v_scale, v)):
+        rows = new[0, :, :delta_len].transpose(0, 1)    # [delta, H, Dh]
+        if scales is None:
+            pool[page_ids, :, offs] = rows.to(pool.dtype)
+        else:
+            from ..inference.quantize import quantize_rows
+            pool[page_ids, :, offs], scales[page_ids, :, offs] = \
+                quantize_rows(rows)
     if prefix_len == 0:
         if cfg.attn_impl == "flash":
             attn = flash_attention(q, k, v, causal=True)
@@ -727,10 +792,14 @@ def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
         else:
             _decode_attn_impl(cfg)  # raises with the real story
     else:
-        kg = paged_gather(k_pool, page_row[None])[0]    # [H, T', Dh]
-        vg = paged_gather(v_pool, page_row[None])[0]
-        s = torch.einsum("htd,hsd->hts", q[0].float(), kg.float()) \
-            * _default_scale(cfg.d_head)
+        if k_scale is None:
+            kg = paged_gather(k_pool, page_row[None])[0]    # [H, T', Dh]
+            vg = paged_gather(v_pool, page_row[None])[0]
+        else:
+            kg = dequantize_paged(k_pool, k_scale, page_row[None])[0]
+            vg = dequantize_paged(v_pool, v_scale, page_row[None])[0]
+        s = torch.einsum("htd,hsd->hts", q[0].float(),
+                         kg.to(q.dtype).float()) * _default_scale(cfg.d_head)
         abs_pos = prefix_len + torch.arange(x.shape[1], device=x.device)
         key_pos = torch.arange(kg.shape[1], device=x.device)
         ok = key_pos[None, :] <= abs_pos[:, None]       # [Tq, T']
@@ -758,8 +827,10 @@ def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
 
     Returns (logits [1, Tq, V], k_pool, v_pool): ``logits[0, i]`` scores
     the token after absolute position ``prefix_len + i``; padding rows are
-    garbage and write nothing."""
-    _unported_arms("gpt2_prefill_paged", k_scale, v_scale, lora)
+    garbage and write nothing.  With the int8 pool's sidecars
+    ``k_scale``/``v_scale`` [L, P, H, page_len] (updated in place) the
+    return grows to (logits, k_pool, v_pool, k_scale, v_scale)."""
+    _unported_arms("gpt2_prefill_paged", lora)
     B, Tq = tokens.shape
     if Tq > cfg.n_positions:
         raise ValueError(
@@ -777,5 +848,8 @@ def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
     for i in range(cfg.n_layer):
         x = gpt2_block_prefill_paged(cfg, _layer(params["blocks"], i), x,
                                      k_pool[i], v_pool[i], page_row,
-                                     prefix_len, delta_len)
+                                     prefix_len, delta_len,
+                                     **_layer_scales(k_scale, v_scale, i))
+    if k_scale is not None:
+        return _logits(params, x), k_pool, v_pool, k_scale, v_scale
     return _logits(params, x), k_pool, v_pool

@@ -7,11 +7,13 @@ kernel it replaces):
 
 - ``decode_attention``: ``csrc/decode_attention.cu``, ``_decode_kernel``;
 - ``decode_attention_paged``: ``csrc/decode_paged.cu``,
-  ``_decode_paged_kernel``;
+  ``_decode_paged_kernel`` (both arms: ``decode_paged`` for the fp pool,
+  ``decode_paged_int8`` for the int8 pool);
 - ``decode_attention_multi``: ``csrc/decode_multi.cu``,
   ``_decode_multi_kernel``;
 - ``decode_attention_paged_multi``: ``csrc/decode_paged_multi.cu``,
-  ``_decode_paged_multi_kernel``.
+  ``_decode_paged_multi_kernel`` (``decode_paged_multi`` and
+  ``decode_paged_multi_int8``).
 
 The single-query arms take one query per slot (a decode tick); the multi
 arms take W = k+1 queries per slot with per-query lengths ``[S, W]`` (the
@@ -25,8 +27,15 @@ them at the scratch page 0).
 hand-written kernel on a CUDA tensor and its plain version on a CPU
 tensor; ``"dense"`` is the dense reference on either.  There is no
 fallback: with ``impl="pallas"`` a CUDA tensor reaches the kernel or the
-call raises.  The int8 pool (``k_scale``/``v_scale``) is not ported yet
-and raises naming ROADMAP.md queue 1 item 7.4.
+call raises.
+
+The int8 pool (``serving.quantization.kv='int8'``): the paged arms take
+int8 pools with fp32 ``k_scale``/``v_scale`` sidecars ``[P, H,
+page_len]``, one scale per stored row.  What a quantized page means is
+:func:`dequantize_paged` (``int8 * its row scale``); the dense arm runs the
+dense reference over that view, the plain versions the plain attention
+over it, and the kernels fold the scales into the scores and
+probabilities without dequantizing the page.
 """
 from __future__ import annotations
 
@@ -68,7 +77,11 @@ def decode_attention_reference(q, k, v, lengths, sm_scale=None):
     s = torch.where(valid, s, torch.finfo(torch.float32).min)
     probs = torch.softmax(s, dim=-1)
     probs = torch.where(lengths[:, None, None] > 0, probs, 0.0)
-    return torch.einsum("sht,shtd->shd", probs.to(q.dtype), v)
+    # a dequantized (fp32) cache under a bf16 query: the probabilities
+    # round to q.dtype and the product runs in v's type, as JAX promotes;
+    # the output is q.dtype, as the kernel arms return it
+    return torch.einsum("sht,shtd->shd", probs.to(q.dtype).to(v.dtype),
+                        v).to(q.dtype)
 
 
 def decode_attention_multi_reference(q, k, v, lengths, sm_scale=None):
@@ -92,9 +105,30 @@ def paged_gather(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
     return g.permute(0, 2, 1, 3, 4).reshape(S, H, M * L, Dh)
 
 
+def paged_gather_scales(scales: torch.Tensor,
+                        page_table: torch.Tensor) -> torch.Tensor:
+    """The scale-sidecar twin of :func:`paged_gather` (``decode_attention.
+    py:258-267``): ``scales [P, H, page_len]`` -> ``[S, H,
+    max_pages*page_len]``."""
+    g = scales[page_table.long()]                   # [S, M, H, L]
+    S, M, H, L = g.shape
+    return g.permute(0, 2, 1, 3).reshape(S, H, M * L)
+
+
+def dequantize_paged(pool: torch.Tensor, scales: torch.Tensor,
+                     page_table: torch.Tensor) -> torch.Tensor:
+    """Gather and dequantize an int8 pool (``decode_attention.py:
+    269-277``): what a quantized page means, ``int8 * its row scale``, in
+    fp32 — the definition the int8 kernel arms are checked against."""
+    from ...inference.quantize import dequantize_rows
+    return dequantize_rows(paged_gather(pool, page_table),
+                           paged_gather_scales(scales, page_table))
+
+
 def _check_quant_args(k_pages, k_scale, v_scale, what: str) -> None:
     """The reference's fused-dequant contract (``decode_attention.py:
-    421-431``), then the refusal: the int8 pool is not ported yet."""
+    421-431``): the two scale sidecars come together and only over an
+    int8 pool."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError(
             f"{what}: k_scale and v_scale must be passed together "
@@ -103,11 +137,6 @@ def _check_quant_args(k_pages, k_scale, v_scale, what: str) -> None:
         raise ValueError(
             f"{what}: scale operands imply an int8 page pool, got "
             f"dtype {k_pages.dtype}")
-    if k_scale is not None:
-        raise NotImplementedError(
-            f"{what} with k_scale/v_scale (the int8 page pool) is not "
-            "ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, item "
-            "7.4 (quantized serving)")
 
 
 # ---------------------------------------------------------------------------
@@ -175,6 +204,41 @@ def decode_paged_multi_plain(q, k_pages, v_pages, page_table, lengths,
                               sm_scale)
 
 
+def _dequant_live(pool, scales, page_table, lengths):
+    """The int8 pool dequantized through the live table (fp32 ``[S, H,
+    max_pages*page_len, Dh]``), every row at or past the slot's longest
+    length set to 0: the rows the kernels never read, whose bytes and
+    scales may be anything (a NaN scale included)."""
+    S = page_table.shape[0]
+    table = _live_table(page_table, lengths, pool.shape[2])
+    g = dequantize_paged(pool, scales, table)
+    lens = lengths.reshape(S, -1).amax(dim=1).to(g.device)
+    keep = torch.arange(g.shape[2], device=g.device)[None] < lens[:, None]
+    return torch.where(keep[:, None, :, None], g, 0.0)
+
+
+def decode_paged_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                            page_table, lengths, sm_scale: float):
+    """``csrc/decode_paged.cu``'s int8 arm in plain PyTorch: the live
+    pages dequantized (:func:`dequantize_paged`), then
+    :func:`decode_attention_plain`."""
+    return decode_attention_plain(
+        q, _dequant_live(k_pages, k_scale, page_table, lengths),
+        _dequant_live(v_pages, v_scale, page_table, lengths), lengths,
+        sm_scale)
+
+
+def decode_paged_multi_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                  page_table, lengths, sm_scale: float):
+    """``csrc/decode_paged_multi.cu``'s int8 arm in plain PyTorch: the
+    pages live for the longest row dequantized, then
+    :func:`decode_multi_plain`."""
+    return decode_multi_plain(
+        q, _dequant_live(k_pages, k_scale, page_table, lengths),
+        _dequant_live(v_pages, v_scale, page_table, lengths), lengths,
+        sm_scale)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA launchers
 # ---------------------------------------------------------------------------
@@ -191,11 +255,18 @@ _SIGNATURES = {
     "decode_multi": (5, 4),
     # q k v table lengths o | slots heads w pages page_len max_pages
     "decode_paged_multi": (6, 6),
+    # q k8 v8 k_scale v_scale table lengths o | as decode_paged
+    "decode_paged_int8": (8, 5),
+    # q k8 v8 k_scale v_scale table lengths o | as decode_paged_multi
+    "decode_paged_multi_int8": (8, 6),
 }
+#: the source each launcher is built from (default: its own name)
+_SOURCES = {"decode_paged_int8": "decode_paged",
+            "decode_paged_multi_int8": "decode_paged_multi"}
 
 
 def _load(name: str):
-    lib = build.load(name)
+    lib = build.load(_SOURCES.get(name, name))
     fn = getattr(lib, name)
     if fn.argtypes is None:
         n_ptr, n_int = _SIGNATURES[name]
@@ -205,17 +276,23 @@ def _load(name: str):
     return fn
 
 
-def _check_operands(what: str, q, floats, ints) -> None:
+def _check_operands(what: str, q, floats, ints, typed=None) -> None:
     """Device, contiguity, alignment and dtype checks every launcher
-    shares: ``floats`` share q's dtype, ``ints`` are int32."""
-    for name, t in list(floats.items()) + list(ints.items()):
+    shares: ``floats`` share q's dtype, ``ints`` are int32, ``typed``
+    maps a name to ``(tensor, the dtype it must have)``."""
+    typed = typed or {}
+    for name, t in (list(floats.items()) + list(ints.items())
+                    + [(n, t) for n, (t, _) in typed.items()]):
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{what}: {name} is on {t.device}; all "
                              "operands must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{what}: {name} is not 16-byte aligned")
+        # the scales are read one fp32 at a time, everything else in
+        # 8- or 16-byte vectors
+        align = 4 if name.endswith("_scale") else 16
+        if t.data_ptr() % align:
+            raise ValueError(f"{what}: {name} is not {align}-byte aligned")
     for name, t in floats.items():
         if t.dtype != q.dtype or t.dtype not in _DTYPE_CODES:
             raise TypeError(f"{what}: {name} has dtype {t.dtype}; q, k and "
@@ -223,6 +300,9 @@ def _check_operands(what: str, q, floats, ints) -> None:
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+    for name, (t, dtype) in typed.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
 
 
 def _launch(name: str, q, ptrs, ints, sm_scale: float) -> torch.Tensor:
@@ -340,6 +420,81 @@ def decode_paged_multi_cuda(q, k_pages, v_pages, page_table, lengths,
     return out
 
 
+def _check_int8_pools(what, q, k_pages, v_pages, k_scale, v_scale,
+                      page_table, lengths):
+    """The int8 arms' operand checks: q fp32/bf16/fp16, int8 pools, fp32
+    scales [P, H, page_len], int32 table and lengths."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{what}: q has dtype {q.dtype}; expected one of "
+                        f"{list(_DTYPE_CODES)}")
+    _check_operands(what, q, {"q": q}, {"page_table": page_table,
+                                        "lengths": lengths},
+                    {"k_pages": (k_pages, torch.int8),
+                     "v_pages": (v_pages, torch.int8),
+                     "k_scale": (k_scale, torch.float32),
+                     "v_scale": (v_scale, torch.float32)})
+    if (v_pages.shape != k_pages.shape or k_scale.shape != k_pages.shape[:3]
+            or v_scale.shape != k_scale.shape):
+        raise _shape_error(what, "int8 pools [P, H, page_len, 64] and fp32 "
+                           "scales [P, H, page_len]", k_pages=k_pages.shape,
+                           v_pages=v_pages.shape, k_scale=k_scale.shape,
+                           v_scale=v_scale.shape)
+
+
+def decode_paged_int8_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                           page_table, lengths, sm_scale: float):
+    """Launch ``csrc/decode_paged.cu``'s int8 arm: q [S,H,64] (fp32, bf16
+    or fp16), int8 pools [P,H,page_len,64] (page_len 1..128), fp32
+    k_scale/v_scale [P,H,page_len], int32 page_table [S, max_pages] and
+    lengths [S], all on the device.  Output in q.dtype."""
+    what = "decode_paged_int8_cuda"
+    _check_int8_pools(what, q, k_pages, v_pages, k_scale, v_scale,
+                      page_table, lengths)
+    P, H, L, Dh = k_pages.shape
+    S, M = page_table.shape
+    if (Dh != HEAD_DIM or q.shape != (S, H, Dh) or lengths.shape != (S,)
+            or not 1 <= L <= 128):
+        raise _shape_error(what, f"q [S, H, {HEAD_DIM}], pools [P, H, "
+                           f"page_len <= 128, {HEAD_DIM}], page_table [S, "
+                           "max_pages], lengths [S]", q=q.shape,
+                           k_pages=k_pages.shape,
+                           page_table=page_table.shape,
+                           lengths=lengths.shape)
+    out = _launch("decode_paged_int8", q, (q, k_pages, v_pages, k_scale,
+                                           v_scale, page_table, lengths),
+                  (S, H, P, L, M), sm_scale)
+    decode_attention_paged.launches_int8 += 1
+    return out
+
+
+def decode_paged_multi_int8_cuda(q, k_pages, v_pages, k_scale, v_scale,
+                                 page_table, lengths, sm_scale: float):
+    """Launch ``csrc/decode_paged_multi.cu``'s int8 arm: q [S,H,W,64] (W
+    <= 9; fp32, bf16 or fp16), int8 pools [P,H,page_len,64], fp32
+    k_scale/v_scale [P,H,page_len], int32 page_table [S, max_pages] and
+    per-query lengths [S, W], all on the device."""
+    what = "decode_paged_multi_int8_cuda"
+    _check_int8_pools(what, q, k_pages, v_pages, k_scale, v_scale,
+                      page_table, lengths)
+    P, H, L, Dh = k_pages.shape
+    S, M = page_table.shape
+    W = q.shape[2] if q.ndim == 4 else 0
+    if (Dh != HEAD_DIM or q.shape != (S, H, W, Dh)
+            or lengths.shape != (S, W) or not 1 <= W <= MAX_W
+            or not 1 <= L <= 128):
+        raise _shape_error(what, f"q [S, H, W <= {MAX_W}, {HEAD_DIM}], "
+                           f"pools [P, H, page_len <= 128, {HEAD_DIM}], "
+                           "page_table [S, max_pages], lengths [S, W]",
+                           q=q.shape, k_pages=k_pages.shape,
+                           page_table=page_table.shape,
+                           lengths=lengths.shape)
+    out = _launch("decode_paged_multi_int8", q,
+                  (q, k_pages, v_pages, k_scale, v_scale, page_table,
+                   lengths), (S, H, W, P, L, M), sm_scale)
+    decode_attention_paged_multi.launches_int8 += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # public entry points (the JAX package's signatures)
 # ---------------------------------------------------------------------------
@@ -400,11 +555,13 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     q: [S, H, Dh]; k_pages, v_pages: [P, H, page_len, Dh];
     page_table: [S, max_pages] int — dead entries hold the scratch page 0;
     lengths: [S] int — live KV length including this query's position (0
-    = free slot -> exact zeros).
+    = free slot -> exact zeros);
+    k_scale, v_scale: [P, H, page_len] fp32 — the int8 pool's per-row
+    scales (the pools are then int8); None = the fp pool.
 
-    ``impl='dense'`` gathers the pool and runs
-    :func:`decode_attention_reference`; ``'pallas'`` is the kernel on a
-    CUDA tensor and :func:`decode_paged_plain` on a CPU one."""
+    ``impl='dense'`` gathers the pool (dequantized on the int8 arm) and
+    runs :func:`decode_attention_reference`; ``'pallas'`` is the kernel on
+    a CUDA tensor and its plain version on a CPU one."""
     assert q.ndim == 3 and k_pages.ndim == 4, (tuple(q.shape),
                                                tuple(k_pages.shape))
     P, H, page_len, Dh = k_pages.shape
@@ -415,6 +572,19 @@ def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if sm_scale is None:
         sm_scale = _default_scale(Dh)
     _check_impl("decode_attention_paged", impl)
+    if k_scale is not None:
+        if impl == "dense":
+            return decode_attention_reference(
+                q, dequantize_paged(k_pages, k_scale, page_table),
+                dequantize_paged(v_pages, v_scale, page_table), lengths,
+                sm_scale=sm_scale)
+        if q.is_cuda:
+            return decode_paged_int8_cuda(
+                q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+                k_scale.float().contiguous(), v_scale.float().contiguous(),
+                _i32(page_table), _i32(lengths), sm_scale)
+        return decode_paged_int8_plain(q, k_pages, v_pages, k_scale, v_scale,
+                                       page_table, lengths, sm_scale)
     if impl == "dense":
         return decode_attention_reference(
             q, paged_gather(k_pages, page_table),
@@ -472,7 +642,7 @@ def decode_attention_paged_multi(q: torch.Tensor, k_pages: torch.Tensor,
     (``deepspeed_tpu/ops/pallas/decode_attention.py:776-826``): the
     per-query ``lengths [S, W]`` contract of
     :func:`decode_attention_multi` over the pool/table layout of
-    :func:`decode_attention_paged`."""
+    :func:`decode_attention_paged`, its int8 arm included."""
     assert q.ndim == 4 and k_pages.ndim == 4, (tuple(q.shape),
                                                tuple(k_pages.shape))
     P, H, page_len, Dh = k_pages.shape
@@ -487,6 +657,20 @@ def decode_attention_paged_multi(q: torch.Tensor, k_pages: torch.Tensor,
     if sm_scale is None:
         sm_scale = _default_scale(Dh)
     _check_impl("decode_attention_paged_multi", impl)
+    if k_scale is not None:
+        if impl == "dense":
+            return decode_attention_multi_reference(
+                q, dequantize_paged(k_pages, k_scale, page_table),
+                dequantize_paged(v_pages, v_scale, page_table), lengths,
+                sm_scale=sm_scale)
+        if q.is_cuda:
+            return decode_paged_multi_int8_cuda(
+                q.contiguous(), k_pages.contiguous(), v_pages.contiguous(),
+                k_scale.float().contiguous(), v_scale.float().contiguous(),
+                _i32(page_table), _i32(lengths), sm_scale)
+        return decode_paged_multi_int8_plain(q, k_pages, v_pages, k_scale,
+                                             v_scale, page_table, lengths,
+                                             sm_scale)
     if impl == "dense":
         return decode_attention_multi_reference(
             q, paged_gather(k_pages, page_table),
@@ -501,8 +685,11 @@ def decode_attention_paged_multi(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 #: kernel launches since the count was last set to 0 (one per call that
-#: reached the CUDA kernel; the plain versions never count)
+#: reached the CUDA kernel; the plain versions never count); the paged
+#: arms count their int8 pool launches apart
 decode_attention.launches = 0
 decode_attention_paged.launches = 0
+decode_attention_paged.launches_int8 = 0
 decode_attention_multi.launches = 0
 decode_attention_paged_multi.launches = 0
+decode_attention_paged_multi.launches_int8 = 0

@@ -2,20 +2,22 @@
 """Where a serving tick of the PyTorch port's ServeEngine spends its time,
 on one NVIDIA card.
 
-    python3 profile_serve_torch.py [--ticks N] [--paged] [--spec]
+    python3 profile_serve_torch.py [--ticks N] [--paged [--quant]] [--spec]
 
 Serves full-size GPT-2 small in bf16 (random weights from seed 0, the
 serving config and load of chip_smoke.py: 8 slots, max_seq_len 1024,
 prefill bucket 512, 12 prompts of 16-512 tokens).  ``--paged`` serves from
-the paged pool (page_len 16) instead of the slot cache; ``--spec`` makes
+the paged pool (page_len 16) instead of the slot cache, ``--quant`` (with
+``--paged``) with int8 weights and the int8 pool (``quantization:
+{"weights": "int8", "kv": "int8"}``, the serve_quant phase); ``--spec`` makes
 every tick a speculative block (k = 4, a 2-layer draft cut from the
 target, as chip_smoke.py's serve_spec phase), so a "tick" is one draft
 propose plus one verify pass.  Once all 8 slots decode, it times N ticks
 on the host clock (each ends in the token read-back, which synchronises),
 then traces N more with ``torch.profiler`` and prints: wall per tick,
 tokens per tick, device busy time per tick by kernel name (top 12), the
-device's idle share and the time of one
-512-token prefill.  The trace goes to ``chiprun_out/serve_trace.json``.
+decode attention kernels' time per tick, the device's idle share and the
+time of one 512-token prefill.  The trace goes to ``chiprun_out/serve_trace.json``.
 """
 import argparse
 import json
@@ -32,9 +34,13 @@ def main() -> None:
     ap.add_argument("--ticks", type=int, default=20)
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged pool (page_len 16)")
+    ap.add_argument("--quant", action="store_true",
+                    help="int8 weights and the int8 pool (needs --paged)")
     ap.add_argument("--spec", action="store_true",
                     help="speculative ticks (k 4, 2-layer draft)")
     args = ap.parse_args()
+    if args.quant and not args.paged:
+        ap.error("--quant needs --paged: the int8 pool is paged only")
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_serve_torch: needs a CUDA device")
@@ -52,6 +58,8 @@ def main() -> None:
     serving = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
     if args.paged:
         serving["page_len"] = 16
+    if args.quant:
+        serving["quantization"] = {"weights": "int8", "kv": "int8"}
     draft = None
     if args.spec:
         serving.update(speculate_k=4, draft={"d_model": 768, "n_layer": 2,
@@ -107,7 +115,8 @@ def main() -> None:
     busy_ms = sum(r[0] for r in rows)
     kind = ("speculative block (draft propose + verify)" if args.spec
             else "decode tick")
-    cache = "paged pool" if args.paged else "slot cache"
+    cache = ("int8 paged pool, int8 weights" if args.quant else
+             "paged pool" if args.paged else "slot cache")
     print(f"{kind}, {cache}, 8 active slots: {tick_ms:.3f} ms wall "
           f"(unprofiled), {wall_ms:.3f} ms wall under the profiler; "
           f"{tokens_per_tick:.3f} tokens per tick")
@@ -119,6 +128,14 @@ def main() -> None:
           f"{sum(r[1] for r in rows)} device ops per tick")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.4f} ms  x{n:<4d} {key[:90]}")
+    # the decode attention kernels: decode_kernel (slot cache) and the
+    # instantiations of decode_common.cuh's rows_kernel (paged, multi and
+    # their int8 arms)
+    attn = [r for r in rows if "rows_kernel" in r[2]
+            or "decode_kernel" in r[2]]
+    attn_ms = sum(r[0] for r in attn)
+    print(f"decode attention kernels: {attn_ms:.4f} ms per tick over "
+          f"{sum(r[1] for r in attn)} launches")
 
     # one 512-token prefill into a free slot (host clock, synchronised)
     eng.close()
@@ -144,7 +161,8 @@ def main() -> None:
     eng.close()
     print(f"one 512-token prefill (12 layers + logits + read-back): "
           f"{prefill_ms:.3f} ms")
-    print(json.dumps({"paged": args.paged, "spec": args.spec,
+    print(json.dumps({"paged": args.paged, "quant": args.quant,
+                      "spec": args.spec, "attention_kernel_ms": attn_ms,
                       "tick_ms": tick_ms, "profiled_tick_ms": wall_ms,
                       "tokens_per_tick": tokens_per_tick,
                       "device_busy_ms": busy_ms,

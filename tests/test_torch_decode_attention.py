@@ -84,6 +84,8 @@ from deepspeed_tpu.ops.pallas.decode_attention import (  # noqa: E402
     decode_attention_paged as jax_decode_paged,
     decode_attention_paged_multi as jax_decode_paged_multi,
     paged_gather as jax_paged_gather)
+from deepspeed_tpu_torch.inference.quantize import (  # noqa: E402
+    quantize_rows)
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (  # noqa: E402
     decode_attention_multi, decode_attention_paged,
     decode_attention_paged_multi, paged_gather)
@@ -207,15 +209,28 @@ def test_paged_arms_refuse_int8_pool_and_count_no_cpu_launch():
                            paged_gather(pv, table), lens[:, None])
     assert (decode_attention_paged.launches, decode_attention_multi.launches,
             decode_attention_paged_multi.launches) == counts
+    # the int8 pool: the plain arms (no launch either) against the dense
+    # arm over the same quantized pool
+    k8, ks = quantize_rows(pk)
+    v8, vs = quantize_rows(pv)
+    counts = (decode_attention_paged.launches_int8,
+              decode_attention_paged_multi.launches_int8)
+    for impl in ("pallas", "dense"):
+        one = decode_attention_paged(q, k8, v8, table, lens, impl=impl,
+                                     k_scale=ks, v_scale=vs)
+        multi = decode_attention_paged_multi(q[:, :, None], k8, v8, table,
+                                             lens[:, None], impl=impl,
+                                             k_scale=ks, v_scale=vs)
+        if impl == "pallas":
+            plain = (one, multi)
+    np.testing.assert_allclose(plain[0].numpy(), one.numpy(), atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(plain[1].numpy(), multi.numpy(), atol=1e-5,
+                               rtol=0)
+    assert (plain[0][0] == 0).all() and (plain[1][0] == 0).all()
+    assert (decode_attention_paged.launches_int8,
+            decode_attention_paged_multi.launches_int8) == counts
     scale = torch.ones(POOL, PH, PAGE)
-    with pytest.raises(NotImplementedError, match="7.4"):
-        decode_attention_paged(q, pk.to(torch.int8), pv.to(torch.int8),
-                               table, lens, k_scale=scale, v_scale=scale)
-    with pytest.raises(NotImplementedError, match="7.4"):
-        decode_attention_paged_multi(q[:, :, None], pk.to(torch.int8),
-                                     pv.to(torch.int8), table,
-                                     lens[:, None], k_scale=scale,
-                                     v_scale=scale)
     with pytest.raises(ValueError, match="together"):
         decode_attention_paged(q, pk, pv, table, lens, k_scale=scale)
     with pytest.raises(ValueError, match="impl"):

@@ -94,12 +94,16 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # paged KV and greedy speculation are ported; their unported arms
-    # (the int8 pool, sampling) still raise
-    ({"serving": {"page_len": 8, "quantization": {"kv": "int8"}}}, "7.4"),
+    # paged KV, greedy speculation and quantized serving are ported; the
+    # unported arms beside them (KV tiering and LoRA on the paged pool,
+    # sampling) still raise.  The ids name the ported block each case
+    # rides on.
+    ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3}}},
+     "7.6"),
     ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "7.3"),
     ({"serving": {"temperature": 0.7}}, "7.3"),
-    ({"serving": {"quantization": {"weights": "int8"}}}, "7.4"),
+    ({"serving": {"page_len": 8, "quantization": {"weights": "int8"},
+                  "lora": {"rank": 4}}}, "7.5"),
     ({"telemetry": {"enabled": True}}, "item 5"),
 ], ids=["page_len", "speculate_k", "temperature", "quantization",
         "telemetry"])

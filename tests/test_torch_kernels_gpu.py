@@ -8,16 +8,21 @@ machine need not have):
 
 Tolerances: max abs error 1e-4 in fp32 (same math, other summation
 order); 2e-2 in bf16/fp16 (the kernel's output is rounded to the input
-type; the plain version runs in fp32 on the same inputs).
+type; the plain version runs in fp32 on the same inputs); the int8 pool
+arms elementwise within one ulp of the output type at the reference's
+magnitude, plus 1e-4.
 """
 import pytest
 import torch
 
+from deepspeed_tpu_torch.inference.quantize import quantize_rows
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_attention, decode_attention_cuda,
     decode_attention_multi, decode_attention_paged,
     decode_attention_paged_multi, decode_attention_plain, decode_multi_cuda,
-    decode_multi_plain, decode_paged_cuda, decode_paged_multi_cuda,
+    decode_multi_plain, decode_paged_cuda, decode_paged_int8_cuda,
+    decode_paged_int8_plain, decode_paged_multi_cuda,
+    decode_paged_multi_int8_cuda, decode_paged_multi_int8_plain,
     decode_paged_multi_plain, decode_paged_plain)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     flash_attention, flash_attention_cuda, flash_attention_plain,
@@ -229,6 +234,97 @@ def test_multi_kernel_matches_plain(dev, dtype, w):
     ref = decode_multi_plain(q.float(), k.float(), v.float(), lens, scale)
     assert (out.float() - ref).abs().max().item() <= TOL[dtype]
     assert (out[0] == 0).all()
+
+
+def _paged_int8(dev, dtype, page_len, w):
+    """``_paged``'s pools quantized by the port's ``quantize_rows``, with
+    every (page, row) no live row reads (the scratch page 0 included) set
+    to random bytes and NaN scales, so a stray read shows."""
+    q, kp, vp, table, lens = _paged(dev, torch.float32, page_len, w)
+    P = kp.shape[0]
+    live = torch.zeros(P, page_len, dtype=torch.bool)
+    for s_, n in enumerate(lens.amax(1).tolist()):
+        for p in range(n):
+            live[int(table[s_, p // page_len]), p % page_len] = True
+    dead = (~live).to(dev)
+    g = torch.Generator().manual_seed(page_len * 10 + w)
+    out = []
+    for pool in (kp, vp):
+        q8, sc = quantize_rows(pool)
+        junk = torch.randint(-128, 128, q8.shape, generator=g,
+                             dtype=torch.int8).to(dev)
+        q8 = torch.where(dead[:, None, :, None], junk, q8)
+        sc = torch.where(dead[:, None, :], float("nan"), sc)
+        out += [q8.contiguous(), sc.contiguous()]
+    k8, ks, v8, vs = out
+    return q.to(dtype), k8, v8, ks, vs, table, lens
+
+
+#: one unit in the last place, relative, of each 16-bit output type
+ULP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+       torch.float16: 2.0 ** -10}
+
+
+def _within_ulp(out, ref) -> bool:
+    """Every element within one ulp of the output type at the reference's
+    magnitude, plus the fp32 tolerance: the kernel rounds its fp32 result
+    once into that type (fp32: the absolute 1e-4)."""
+    tol = ref.abs() * ULP[out.dtype] + TOL[torch.float32]
+    return bool(((out.float() - ref).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("page_len", [7, 16])
+@pytest.mark.parametrize("w", [1, 5, 9])
+def test_int8_paged_kernels_match_plain(dev, dtype, page_len, w):
+    """The int8 pool arms of decode_paged (W = 1) and decode_paged_multi
+    against their plain versions (the live pages dequantized, then the
+    plain attention): q in fp32, bf16 or fp16, garbage bytes and NaN
+    scales wherever no live row reads, a length-0 slot (exact zeros)."""
+    q, k8, v8, ks, vs, table, lens = _paged_int8(dev, dtype, page_len, w)
+    scale = _default_scale(64)
+    out = decode_paged_multi_int8_cuda(q, k8, v8, ks, vs, table, lens,
+                                       scale)
+    torch.cuda.synchronize()
+    ref = decode_paged_multi_int8_plain(q.float(), k8, v8, ks, vs, table,
+                                        lens, scale)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    assert _within_ulp(out, ref)
+    assert (out[0] == 0).all()
+    if w == 1:
+        one = decode_paged_int8_cuda(q[:, :, 0].contiguous(), k8, v8, ks,
+                                     vs, table, lens[:, 0].contiguous(),
+                                     scale)
+        torch.cuda.synchronize()
+        ref1 = decode_paged_int8_plain(q[:, :, 0].float(), k8, v8, ks, vs,
+                                       table, lens[:, 0], scale)
+        assert torch.isfinite(one).all() and (one[0] == 0).all()
+        assert _within_ulp(one, ref1)
+
+
+def test_int8_entry_points_launch_or_raise(dev):
+    """On CUDA tensors the int8 pool goes to the int8 kernels (their own
+    counts move, the fp arms' do not) or raises."""
+    q, k8, v8, ks, vs, table, lens = _paged_int8(dev, torch.bfloat16, 16, 5)
+    fp = (decode_attention_paged.launches,
+          decode_attention_paged_multi.launches)
+    i8 = (decode_attention_paged.launches_int8,
+          decode_attention_paged_multi.launches_int8)
+    decode_attention_paged(q[:, :, 0], k8, v8, table, lens[:, 0],
+                           k_scale=ks, v_scale=vs)
+    decode_attention_paged_multi(q, k8, v8, table, lens, k_scale=ks,
+                                 v_scale=vs)
+    assert (decode_attention_paged.launches,
+            decode_attention_paged_multi.launches) == fp
+    assert (decode_attention_paged.launches_int8,
+            decode_attention_paged_multi.launches_int8) == tuple(
+                c + 1 for c in i8)
+    with pytest.raises(TypeError, match="float32"):
+        decode_paged_int8_cuda(q[:, :, 0].contiguous(), k8, v8, ks.half(),
+                               vs, table, lens[:, 0].contiguous(), 0.125)
+    with pytest.raises(ValueError, match="shapes"):
+        decode_paged_multi_int8_cuda(q, k8, v8, ks[:, :, :8].contiguous(),
+                                     vs, table, lens, 0.125)
 
 
 def test_decode_entry_points_launch_or_raise(dev):

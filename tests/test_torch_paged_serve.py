@@ -124,21 +124,32 @@ def test_prefill_and_decode_paged_match_jax(weights):
 
 
 def test_paged_model_refuses_int8_pool_and_lora(weights):
+    """The paged decode step runs the int8 pool (quantize on write, the
+    int8 arm on read: the token's row lands in the slot's page with its
+    scale, and the logits equal the fp pool's within the quantization's
+    reach); LoRA still raises naming its item."""
     _, tree, cfg = weights
     params = params_from_numpy(tree)
     spec = PagedKVCacheSpec(layers=2, slots=1, heads=4, pages=3,
-                            page_len=PAGE, head_dim=16, max_pages=2)
+                            page_len=PAGE, head_dim=16, max_pages=2,
+                            dtype=torch.int8, quant=True)
     c = init_paged_cache(spec)
-    args = (cfg, params, torch.zeros(1, dtype=torch.long), c["k"], c["v"],
-            torch.zeros(1, 2, dtype=torch.int32), c["lengths"],
-            torch.ones(1, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="7.4"):
-        gpt2_decode_step_paged(*args, k_scale=c["k"], v_scale=c["v"])
+    fp = init_paged_cache(PagedKVCacheSpec(layers=2, slots=1, heads=4,
+                                           pages=3, page_len=PAGE,
+                                           head_dim=16, max_pages=2))
+    table = torch.tensor([[2, 0]], dtype=torch.int32)
+    args = (cfg, params, torch.tensor([5]))
+    tail = (table, c["lengths"], torch.ones(1, dtype=torch.bool))
+    out = gpt2_decode_step_paged(*args, c["k"], c["v"], *tail,
+                                 k_scale=c["k_scale"], v_scale=c["v_scale"])
+    assert len(out) == 6 and out[-1].tolist() == [1]
+    ref = gpt2_decode_step_paged(*args, fp["k"], fp["v"], *tail)
+    assert (c["k"][:, 2, :, 0] != 0).any() and (c["k_scale"][:, 2, :, 0]
+                                                > 0).all()
+    assert (c["k_scale"][:, 2, :, 1:] == 0).all()   # one row written
+    np.testing.assert_allclose(out[0].numpy(), ref[0].numpy(), atol=1e-2)
     with pytest.raises(NotImplementedError, match="7.5"):
-        gpt2_decode_step_paged(*args, lora={})
-    with pytest.raises(NotImplementedError, match="7.4"):
-        PagedKVCacheSpec(layers=1, slots=1, heads=1, pages=2, page_len=8,
-                         head_dim=64, max_pages=1, quant=True)
+        gpt2_decode_step_paged(*args, c["k"], c["v"], *tail, lora={})
 
 
 # ---------------------------------------------------------------------------
