@@ -12,7 +12,9 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             int8 pool arms) from ``deepspeed_tpu_torch/csrc/`` with nvcc
             for sm_90a
             (``-Xptxas -v`` lines printed), all sources compiled in
-            parallel;
+            parallel; the HGMMA (wgmma) instructions of each library
+            counted with ``cuobjdump -sass``, none allowed to be missing
+            from the tensor-core flash forward and dQ;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -31,10 +33,16 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             arms of the paged and paged multi-query kernels on that pool
             quantized from bf16 (random bytes and NaN scales in every row
             no live row reads; fp32 queries within 1e-4, bf16 queries
-            within one bf16 ulp + 1e-4 elementwise); timed with CUDA
-            events beside the plain version, one PyTorch library call on
-            the same work (``library_ms``, a yardstick only) and the bound
-            the card's peak rates give;
+            within one bf16 ulp + 1e-4 elementwise); timed beside the
+            plain version, one PyTorch library call on the same work
+            (``library_ms``, a yardstick only) and the bound the card's
+            peak rates give, each twice: ``ms`` with CUDA events around 20
+            back-to-back wrapper calls (the launch rate, host work
+            included) and ``device_ms`` from ``torch.profiler`` (the
+            kernels' own device time per call); at the training shape
+            also SDPA with dropout 0.1, forward and backward (the work the
+            kernels do), and the flash forward's and dQ's device time at
+            dropout 0 (the dropout hash's cost);
 3. serve    ``ServeEngine`` on full-size GPT-2 small (bf16, random weights
             from a seed): 12 requests over 8 slots, prompts of 16-512
             tokens, 64 new tokens each; tokens/s, per-token p50/p99 and
@@ -153,6 +161,9 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
            "decode_paged_multi", "decode_paged_multi_int8",
            "block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
+#: the sources whose bf16/fp16 arms run wgmma (their libraries must hold
+#: HGMMA instructions)
+TENSOR_CORE_SOURCES = ("flash_fwd", "flash_bwd_dq")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -195,6 +206,26 @@ def smi() -> str:
         timeout=60).stdout.strip()
 
 
+#: how ``device_ms`` (and ``plain_device_ms``, ``library_device_ms``) are
+#: read
+DEVICE_MS_METHOD = ("torch.profiler: the CUDA kernels' own durations "
+                    "summed over 20 back-to-back calls (5 for the "
+                    "block-sparse plain versions), per call")
+
+
+def print_row(tag: str, label: str, r: dict, prefix: str = "") -> None:
+    """One kernel row's times: wrapper rate and device time of the kernel,
+    its plain version and its library call, and the bound."""
+    g = lambda k: r[prefix + k]  # noqa: E731
+    lib = (f", library {g('library_ms'):.4f} ms (device "
+           f"{g('library_device_ms'):.4f})"
+           if r.get(prefix + "library_ms") is not None else "")
+    print(f"{tag} {label}: {g('ms'):.4f} ms (device {g('device_ms'):.4f}), "
+          f"plain {g('plain_ms'):.4f} ms (device "
+          f"{g('plain_device_ms'):.4f}){lib}, bound {g('bound_ms'):.5f} ms "
+          f"({g('bound_by')})")
+
+
 def time_ms(fn, iters: int = 20) -> float:
     import torch
     for _ in range(3):
@@ -209,11 +240,63 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: the durations of the CUDA kernels (and
+    device copies) that ``iters`` back-to-back calls ran, summed under
+    ``torch.profiler`` and divided by ``iters`` — no host time and no gap
+    between launches, unlike :func:`time_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window that recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+                 for ev in prof.key_averages()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    fail("device_ms: the profiler recorded no device time in 3 windows")
+
+
+def timings(run, plain, lib=None, iters: int = 20,
+            plain_iters: int = 20) -> dict:
+    """A kernel row's times: the wrapper's launch rate (``ms``, CUDA
+    events around back-to-back calls) and the device time (``device_ms``)
+    of the kernel, its plain version and, where given, the library
+    call."""
+    out = {"ms": time_ms(run, iters), "device_ms": device_ms(run, iters),
+           "plain_ms": time_ms(plain, plain_iters),
+           "plain_device_ms": device_ms(plain, plain_iters)}
+    if lib is not None:
+        out["library_ms"] = time_ms(lib, iters)
+        out["library_device_ms"] = device_ms(lib, iters)
+    return out
+
+
 def bound_ms(nbytes: int, flops: int, dtype: str):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS_S[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def sass_count(name: str, op: str = "HGMMA") -> int:
+    """Instructions of ``op`` in the built library of ``csrc/<name>.cu``
+    (``cuobjdump -sass``)."""
+    from deepspeed_tpu_torch.ops.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build._target(name)[1]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    return sum(1 for line in sass.splitlines() if op in line)
 
 
 def phase_build():
@@ -228,6 +311,11 @@ def phase_build():
                                      or "Compiling" in line)
                     or "spill" in line):
                 print(f"[build] {name}: {line.strip()}")
+        n = sass_count(name)
+        print(f"[build] {name}: {n} HGMMA instructions (cuobjdump -sass)")
+        if name in TENSOR_CORE_SOURCES and n == 0:
+            fail(f"csrc/{name}.cu: no HGMMA instruction in its library: "
+                 "the tensor-core arms did not compile to wgmma")
 
 
 def phase_kernels(dev):
@@ -281,13 +369,12 @@ def phase_kernels(dev):
         "name": "flash_fwd", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:175",
-        "max_abs_err": err_main,
-        "ms": time_ms(lambda: flash_attention_cuda(q, k, v, True, scale)),
-        "plain_ms": time_ms(lambda: flash_attention_plain(
-            q, k, v, True, scale)),
+        "max_abs_err": err_main, "device_ms_method": DEVICE_MS_METHOD,
+        **timings(lambda: flash_attention_cuda(q, k, v, True, scale),
+                  lambda: flash_attention_plain(q, k, v, True, scale),
+                  lambda: F.scaled_dot_product_attention(
+                      q, k, v, is_causal=True)),
         "bound_ms": bms, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
     }
 
     # -- decode: the tick's [8, 12, 1024, 64] slot cache, lengths with a
@@ -323,19 +410,15 @@ def phase_kernels(dev):
         "name": "decode_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:114",
-        "max_abs_err": err_main,
-        "ms": time_ms(lambda: decode_attention_cuda(q, k, v, lengths,
-                                                    dscale)),
-        "plain_ms": time_ms(lambda: decode_attention_plain(
-            q, k, v, lengths, dscale)),
+        "max_abs_err": err_main, "device_ms_method": DEVICE_MS_METHOD,
+        **timings(lambda: decode_attention_cuda(q, k, v, lengths, dscale),
+                  lambda: decode_attention_plain(q, k, v, lengths, dscale),
+                  lambda: F.scaled_dot_product_attention(
+                      q[:, :, None], k, v, attn_mask=mask)),
         "bound_ms": bms, "bound_by": by,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask)),
     }
     for r in results.values():
-        print(f"[kernels] {r['name']} bf16: {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        print_row("[kernels]", r["name"] + " bf16", r)
     return results
 
 
@@ -488,9 +571,8 @@ def phase_decode_kernels(dev, results):
             "name": name, "route": "cuda",
             "source": f"deepspeed_tpu_torch/csrc/{src}",
             "replaces": f"deepspeed_tpu/ops/pallas/decode_attention.py:{line}",
-            "max_abs_err": errs[name], "ms": time_ms(run),
-            "plain_ms": time_ms(plain), "bound_ms": bms, "bound_by": by,
-            "library_ms": time_ms(lib),
+            "max_abs_err": errs[name], "device_ms_method": DEVICE_MS_METHOD,
+            **timings(run, plain, lib), "bound_ms": bms, "bound_by": by,
             "library_note": (
                 "the int8 pages dequantized through the table "
                 "(dequantize_paged, in bf16), then masked "
@@ -498,10 +580,7 @@ def phase_decode_kernels(dev, results):
                 else "the pages gathered through the table (paged arms), "
                      "then masked F.scaled_dot_product_attention"),
         }
-        r = results[name]
-        print(f"[kernels] {name} bf16: {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+        print_row("[kernels]", name + " bf16", results[name])
 
 
 def _int8_pool(pool32, table, live_lens, page_len, seed):
@@ -782,26 +861,42 @@ def phase_train_kernels(dev, results):
     # timings at the train phase's call: bf16, causal, dropout 0.1
     q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
     args = (True, scale, None, None, 0.1, 12345, None)
+    args0 = args[:4] + (0.0,) + args[5:]
     out, lse = flash_attention_cuda(q, k, v, *args)
     delta = (do.float() * out.float()).sum(-1)
     pairs = B * H * T * (T + 1) // 2
     row_b = B * H * T * D * 2            # one bf16 [B, H, T, 64] tensor
     stat_b = B * H * T * 4               # one fp32 [B, H, T] row statistic
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-    ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        ref_out, (qs, ks, vs), do, retain_graph=True))
-    note = ("backward of F.scaled_dot_product_attention(is_causal=True, "
-            "no dropout) through autograd: all three gradients")
+    # the backward yardsticks: autograd through SDPA, all three gradients,
+    # without dropout and with the kernels' dropout 0.1
+    lib_bwd = {}
+    for rate, key in ((0.0, "library"), (0.1, "library_dropout")):
+        ref_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                 dropout_p=rate)
+        run = lambda: torch.autograd.grad(  # noqa: E731
+            ref_out, (qs, ks, vs), do, retain_graph=True)
+        lib_bwd[key + "_ms"] = time_ms(run)
+        lib_bwd[key + "_device_ms"] = device_ms(run)
+        del ref_out, run
+    note = ("backward of F.scaled_dot_product_attention(is_causal=True) "
+            "through autograd: all three gradients; library_* without "
+            "dropout, library_dropout_* with dropout_p=0.1")
     bms, by = bound_ms(4 * row_b + stat_b, 4 * D * pairs, "bfloat16")
+    fwd = timings(lambda: flash_attention_cuda(q, k, v, *args),
+                  lambda: flash_attention_plain(q, k, v, *args),
+                  lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    lib_drop = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=True, dropout_p=0.1)
     results["flash_fwd"].update({
         "train_shape": list(TRAIN_SHAPE),
-        "train_ms": time_ms(lambda: flash_attention_cuda(q, k, v, *args)),
-        "train_plain_ms": time_ms(lambda: flash_attention_plain(
-            q, k, v, *args)),
+        **{"train_" + key: val for key, val in fwd.items()},
+        "train_library_dropout_ms": time_ms(lib_drop),
+        "train_library_dropout_device_ms": device_ms(lib_drop),
+        "train_device_ms_dropout0": device_ms(
+            lambda: flash_attention_cuda(q, k, v, *args0)),
         "train_bound_ms": bms, "train_bound_by": by,
-        "train_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
     })
     bms, by = bound_ms(5 * row_b + 2 * stat_b, 6 * D * pairs, "bfloat16")
     results["flash_bwd_dq"] = {
@@ -809,12 +904,13 @@ def phase_train_kernels(dev, results):
         "source": "deepspeed_tpu_torch/csrc/flash_bwd_dq.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:363",
         "max_abs_err": errs["dq"], "shape": list(TRAIN_SHAPE),
-        "ms": time_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                *args)),
-        "plain_ms": time_ms(lambda: flash_bwd_dq_plain(q, k, v, do, lse,
-                                                       delta, *args)),
-        "bound_ms": bms, "bound_by": by, "library_ms": lib_bwd,
-        "library_note": note,
+        "device_ms_method": DEVICE_MS_METHOD,
+        **timings(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, *args),
+                  lambda: flash_bwd_dq_plain(q, k, v, do, lse, delta,
+                                             *args)),
+        "device_ms_dropout0": device_ms(lambda: flash_bwd_dq_cuda(
+            q, k, v, do, lse, delta, *args0)),
+        "bound_ms": bms, "bound_by": by, **lib_bwd, "library_note": note,
     }
     bms, by = bound_ms(6 * row_b + 2 * stat_b, 8 * D * pairs, "bfloat16")
     results["flash_bwd_dkv"] = {
@@ -822,24 +918,32 @@ def phase_train_kernels(dev, results):
         "source": "deepspeed_tpu_torch/csrc/flash_bwd_dkv.cu",
         "replaces": "deepspeed_tpu/ops/pallas/flash_attention.py:414",
         "max_abs_err": errs["dkv"], "shape": list(TRAIN_SHAPE),
-        "ms": time_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                 *args)),
-        "plain_ms": time_ms(lambda: flash_bwd_dkv_plain(q, k, v, do, lse,
-                                                        delta, *args)),
-        "bound_ms": bms, "bound_by": by, "library_ms": lib_bwd,
-        "library_note": note,
+        "device_ms_method": DEVICE_MS_METHOD,
+        **timings(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *args),
+                  lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                              *args)),
+        "bound_ms": bms, "bound_by": by, **lib_bwd, "library_note": note,
     }
     r = results["flash_fwd"]
-    print(f"[kernels] flash_fwd bf16 {TRAIN_SHAPE} dropout 0.1: "
-          f"{r['train_ms']:.4f} ms, plain {r['train_plain_ms']:.4f} ms, "
-          f"library {r['train_library_ms']:.4f} ms, bound "
-          f"{r['train_bound_ms']:.5f} ms ({r['train_bound_by']})")
+    print_row("[kernels]", f"flash_fwd bf16 {TRAIN_SHAPE} dropout 0.1", r,
+              prefix="train_")
+    print(f"[kernels] flash_fwd bf16 {TRAIN_SHAPE}: SDPA with dropout_p=0.1 "
+          f"{r['train_library_dropout_ms']:.4f} ms (device "
+          f"{r['train_library_dropout_device_ms']:.4f})")
     for name in ("flash_bwd_dq", "flash_bwd_dkv"):
         r = results[name]
-        print(f"[kernels] {name} bf16 {TRAIN_SHAPE} dropout 0.1: "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-              f"(all three grads) {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+        print_row("[kernels]", f"{name} bf16 {TRAIN_SHAPE} dropout 0.1 "
+                  "(library: all three grads, no dropout)", r)
+    r = results["flash_bwd_dq"]
+    print(f"[kernels] SDPA backward with dropout_p=0.1 (all three grads): "
+          f"{r['library_dropout_ms']:.4f} ms (device "
+          f"{r['library_dropout_device_ms']:.4f})")
+    f, dq = results["flash_fwd"], results["flash_bwd_dq"]
+    print(f"[kernels] diagnostic, the dropout hash's cost on the card "
+          f"(device ms, dropout 0.1 / 0): flash_fwd "
+          f"{f['train_device_ms']:.4f} / {f['train_device_ms_dropout0']:.4f}"
+          f", flash_bwd_dq {dq['device_ms']:.4f} / "
+          f"{dq['device_ms_dropout0']:.4f}")
 
 
 def _load():
@@ -1565,6 +1669,8 @@ def phase_sparse_kernels(dev, results):
 
     lib_ms = time_ms(lib_fwd, 10)
     lib_fb_ms = time_ms(lib_fwd_bwd, 10)
+    lib_dev = device_ms(lib_fwd, 10)
+    lib_fb_dev = device_ms(lib_fwd_bwd, 10)
     note = ("F.scaled_dot_product_attention with the layout expanded to a "
             "[T, T] boolean token mask")
     specs = {
@@ -1574,7 +1680,7 @@ def phase_sparse_kernels(dev, results):
                                              block),
             lambda: bs.block_sparse_fwd_plain(q, k, v, cols, nvalid, scale,
                                               block),
-            4 * row_b + stat_b + lut_b, 4 * D * pairs, lib_ms,
+            4 * row_b + stat_b + lut_b, 4 * D * pairs, lib_ms, lib_dev,
             note + ", forward"),
         "block_sparse_bwd_dq": (
             "block_sparse_bwd_dq.cu", 200, errs["dq"],
@@ -1583,7 +1689,7 @@ def phase_sparse_kernels(dev, results):
             lambda: bs.block_sparse_bwd_dq_plain(q, k, v, do, lse, delta,
                                                  cols, nvalid, scale, block),
             5 * row_b + 2 * stat_b + lut_b, 6 * D * pairs, lib_fb_ms,
-            note + ", forward plus backward (all three gradients)"),
+            lib_fb_dev, note + ", forward plus backward (all three gradients)"),
         "block_sparse_bwd_dkv": (
             "block_sparse_bwd_dkv.cu", 235, errs["dkv"],
             lambda: bs.block_sparse_bwd_dkv_cuda(q, k, v, do, lse, delta,
@@ -1593,9 +1699,9 @@ def phase_sparse_kernels(dev, results):
                                                   rows_t, nvalid_t, scale,
                                                   block),
             6 * row_b + 2 * stat_b + lut_tb, 8 * D * pairs, lib_fb_ms,
-            note + ", forward plus backward (all three gradients)"),
+            lib_fb_dev, note + ", forward plus backward (all three gradients)"),
     }
-    for name, (src, line, err, run, plain, nbytes, flops, lib,
+    for name, (src, line, err, run, plain, nbytes, flops, lib, lib_dev_ms,
                lib_note) in specs.items():
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         results[name] = {
@@ -1606,17 +1712,17 @@ def phase_sparse_kernels(dev, results):
             "max_abs_err": err, "shape": list(SPARSE_SHAPE),
             "layout": "FixedSparsityConfig(num_heads=16), block 16, density "
                       f"{layout.mean():.4f}",
-            "ms": time_ms(run), "plain_ms": time_ms(plain, 5),
+            "device_ms_method": DEVICE_MS_METHOD,
+            **timings(run, plain, plain_iters=5),
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
-            "library_note": lib_note,
+            "library_device_ms": lib_dev_ms, "library_note": lib_note,
             "library_fwd_ms": lib_ms,
         }
-        r = results[name]
-        print(f"[sparse kernels] {name} bf16 {SPARSE_SHAPE}: {r['ms']:.4f} "
-              f"ms, plain {r['plain_ms']:.4f} ms, library {lib:.4f} ms, "
-              f"bound {bms:.5f} ms ({by})")
+        print_row("[sparse kernels]", f"{name} bf16 {SPARSE_SHAPE}",
+                  results[name])
     print(f"[sparse kernels] SDPA with the token mask: forward {lib_ms:.4f} "
-          f"ms, forward plus backward {lib_fb_ms:.4f} ms")
+          f"ms (device {lib_dev:.4f}), forward plus backward "
+          f"{lib_fb_ms:.4f} ms (device {lib_fb_dev:.4f})")
     torch.cuda.empty_cache()
 
 

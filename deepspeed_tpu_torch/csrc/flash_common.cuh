@@ -78,11 +78,23 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   return x;
 }
 
+// `dropout_keep_mask` split by what varies: a row's term (qi * golden), a
+// grid row's salt (bh * c1 ^ seed) and the key; x ^ a ^ b == x ^ (a ^ b), so
+// keep_at(row_term(qi), kj, salt(bh)) equals the JAX hash bit for bit
+__device__ __forceinline__ uint32_t row_term(int qi) {
+  return static_cast<uint32_t>(qi) * 0x9E3779B9u;
+}
+__device__ __forceinline__ uint32_t salt(uint32_t bh, const Mask& m) {
+  return (bh * 0x85EBCA6Bu) ^ m.seed;
+}
+__device__ __forceinline__ bool keep_at(uint32_t row, int kj, uint32_t salt,
+                                        uint32_t thresh) {
+  return fmix32((row + static_cast<uint32_t>(kj)) ^ salt) >= thresh;
+}
+
 // `dropout_keep_mask` for one (query, key) pair of global positions
 __device__ __forceinline__ bool keep(int qi, int kj, uint32_t bh, const Mask& m) {
-  uint32_t x = static_cast<uint32_t>(qi) * 0x9E3779B9u + static_cast<uint32_t>(kj);
-  x ^= bh * 0x85EBCA6Bu;
-  return fmix32(x ^ m.seed) >= m.thresh;
+  return keep_at(row_term(qi), kj, salt(bh, m), m.thresh);
 }
 
 // `_grid_bh`: the hash's batch*head id of grid row g

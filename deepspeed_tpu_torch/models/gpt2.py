@@ -317,10 +317,14 @@ def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
 def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
                       rng: Optional[int] = None):
     """heads → output projection → dropout → residual (the sublayer's
-    tail, shared with the serving paths, which pass ``drop=0``)."""
+    tail, shared with the serving paths, which pass ``drop=0``).  An
+    ``attn`` of a wider type than ``x`` (the fp32 output of the dense
+    decode over a dequantized int8 pool) promotes the product and the
+    residual, as the reference's jnp promotion does."""
     B, H, T, Dh = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, H * Dh)
-    y = (_wscale(attn @ bp["out_w"].to(x.dtype), bp, "out_w")
+    dt = torch.promote_types(attn.dtype, x.dtype)
+    y = (_wscale(attn.to(dt) @ bp["out_w"].to(x.dtype).to(dt), bp, "out_w")
          + bp["out_b"].to(x.dtype))
     return x + _dropout(y, drop, rng)
 

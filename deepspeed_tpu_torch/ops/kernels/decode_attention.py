@@ -67,7 +67,8 @@ def decode_attention_reference(q, k, v, lengths, sm_scale=None):
     """Dense reference: q [S, H, Dh] against k/v [S, H, T, Dh] masked to
     per-slot ``lengths`` [S].  Rows with length 0 return exact zeros.
     Mirrors the JAX package's reference op for op (fp32 scores, finfo.min
-    mask fill, softmax, probs cast to q.dtype before the value product)."""
+    mask fill, softmax, probs cast to q.dtype before the value product,
+    the output in the promoted type of q and v)."""
     S, H, T, Dh = k.shape
     scale = _default_scale(Dh) if sm_scale is None else sm_scale
     s = torch.einsum("shd,shtd->sht", q.float(), k.float()) * scale
@@ -77,11 +78,13 @@ def decode_attention_reference(q, k, v, lengths, sm_scale=None):
     s = torch.where(valid, s, torch.finfo(torch.float32).min)
     probs = torch.softmax(s, dim=-1)
     probs = torch.where(lengths[:, None, None] > 0, probs, 0.0)
-    # a dequantized (fp32) cache under a bf16 query: the probabilities
-    # round to q.dtype and the product runs in v's type, as JAX promotes;
-    # the output is q.dtype, as the kernel arms return it
-    return torch.einsum("sht,shtd->shd", probs.to(q.dtype).to(v.dtype),
-                        v).to(q.dtype)
+    # the probabilities round to q.dtype, then the product takes JAX's
+    # promotion of q.dtype and v.dtype: a dequantized (fp32) cache under a
+    # bf16 query gives fp32, as the reference's dense arm does (the kernel
+    # arms return q.dtype in both packages)
+    out_dt = torch.promote_types(q.dtype, v.dtype)
+    return torch.einsum("sht,shtd->shd", probs.to(q.dtype).to(out_dt),
+                        v.to(out_dt))
 
 
 def decode_attention_multi_reference(q, k, v, lengths, sm_scale=None):

@@ -13,7 +13,9 @@ All three kernels cover every arm of the JAX kernels: causal and
 non-causal, ``kv_length``, the additive key mask, the in-kernel position
 hash dropout (bit-exact with the JAX package's ``dropout_keep_mask``, so
 the backward regenerates the forward's mask instead of storing it),
-``bh_affine`` head ids and the dead-row rule.
+``bh_affine`` head ids and the dead-row rule.  In bf16 and fp16 the
+forward and dQ run on the tensor cores (wgmma, TMA; ``csrc/
+flash_sm90.cuh``) and need 16-byte aligned bases; fp32 runs FMA kernels.
 """
 from __future__ import annotations
 
@@ -35,6 +37,8 @@ DEAD_LSE = 1e30
 HEAD_DIM = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the dtypes whose kernels (tensor-core arms) load q, k, v and dO by TMA
+_TMA_DTYPES = (torch.bfloat16, torch.float16)
 _M32 = 0xFFFFFFFF
 
 
@@ -144,7 +148,9 @@ def flash_attention_plain(q, k, v, causal: bool, sm_scale: float,
                           bh_affine=None):
     """The forward kernel's function in plain PyTorch: ``(out [B,H,T,Dh]
     in q.dtype, lse [B,H,T] fp32)``.  Scores, softmax statistics and the
-    value product run in fp32 whatever the input dtype, as in the kernel.
+    value product run in fp32 whatever the input dtype: the fp32 kernel's
+    arithmetic, and within rounding the bf16/fp16 kernel's (its products
+    take bf16/fp16 operands, P as two terms of the input type, ~16 bits).
     ``kmask``: optional additive fp32 key mask [B·H, Tk]."""
     s = _scores(q, k, causal, sm_scale, kv_length, kmask)
     m = s.amax(dim=-1, keepdim=True)
@@ -183,7 +189,8 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool,
     """The dQ kernel's function in plain PyTorch: ``dq = ds · K`` with
     ``ds = p (dp − delta) sm_scale`` recomputed from the saved ``lse``
     ([B,H,T] fp32) and ``delta = rowsum(dO·O)``; fp32 inside, dQ in
-    q.dtype."""
+    q.dtype (the bf16/fp16 kernel rounds ds to the input type before
+    ``ds · K``, as the JAX kernel does)."""
     _, ds = _bwd_terms(q, k, v, do, lse, delta, causal, sm_scale, kv_length,
                        kmask, dropout_rate, seed, bh_affine)
     return torch.matmul(ds, k.float()).to(q.dtype)
@@ -242,6 +249,10 @@ def _check(fn: str, **tensors) -> None:
                             "lse, delta and kmask are float32")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} is not contiguous")
+        if t.dtype in _TMA_DTYPES and t.data_ptr() % 16:
+            raise ValueError(f"{fn}: {name} starts at a pointer that is not "
+                             "16-byte aligned; the bf16/fp16 kernels read it "
+                             "through TMA")
     B, H, T, Dh = q.shape
     k, v = tensors["k"], tensors["v"]
     tk = k.shape[2]

@@ -27,9 +27,10 @@ import time
 import numpy as np
 
 #: kernel-name fragments of each group (the flash kernels by their
-#: entry points; cuBLAS/CUTLASS products by their name families)
-GROUPS = (("flash_fwd", ("flash_fwd_kernel",)),
-          ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+#: entry points: the fp32 FMA kernels and the bf16/fp16 tensor-core ones;
+#: cuBLAS/CUTLASS products by their name families)
+GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90")),
+          ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90")),
           ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet")))
 

@@ -10,7 +10,8 @@ Tolerances: max abs error 1e-4 in fp32 (same math, other summation
 order); 2e-2 in bf16/fp16 (the kernel's output is rounded to the input
 type; the plain version runs in fp32 on the same inputs); the int8 pool
 arms elementwise within one ulp of the output type at the reference's
-magnitude, plus 1e-4.
+magnitude, plus 1e-4.  The bf16/fp16 flash forward and dQ (tensor-core
+kernels) are held to the same 2e-2 as every other arm.
 """
 import pytest
 import torch
@@ -135,6 +136,90 @@ def test_flash_training_arms_match_plain(dev, dtype, causal, t, tk,
     if kv_length == 0:
         for g in (out, dq, dk, dv):
             assert (g == 0).all()
+
+
+SWEEP_T = [1, 63, 64, 65, 127, 128, 129, 1024, 2048]
+#: (key mask, dropout rate) arms run in every sweep case
+SWEEP_ARMS = [(False, 0.0), (True, 0.1), (False, 0.25), (True, 0.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", SWEEP_T)
+def test_flash_tensor_core_arms_sweep(dev, dtype, causal, t):
+    """The tensor-core forward and dQ (bf16, fp16) across tile edges: T at
+    and around multiples of the 64-row tile, causal (tq = tk) and not (tk
+    = 3T/2 + 5), each with and without a key mask (a masked stretch and
+    an all-masked row) and dropout 0, 0.1 and 0.25 under a non-trivial
+    bh_affine; against the plain versions in fp32."""
+    tk = t if causal else (3 * t) // 2 + 5
+    q = _randn(dev, 2, 3, t, 64, seed=20).to(dtype)
+    k = _randn(dev, 2, 3, tk, 64, seed=21).to(dtype)
+    v = _randn(dev, 2, 3, tk, 64, seed=22).to(dtype)
+    do = _randn(dev, 2, 3, t, 64, seed=23).to(dtype)
+    f32 = (q.float(), k.float(), v.float())
+    tol = TOL[dtype]
+    for masked, rate in SWEEP_ARMS:
+        km = _train_arms(dev, 6, tk, True) if masked else None
+        args = (causal, 0.125, None, km, rate, 0x1234567 + t, (3, 2, 7))
+        out, lse = flash_attention_cuda(q, k, v, *args)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_attention_plain(*f32, *args)
+        assert (out.float() - ref).abs().max().item() <= tol
+        live = ref_lse < 1e29
+        assert torch.equal(lse >= 1e29, ~live)
+        if live.any():
+            assert (lse[live] - ref_lse[live]).abs().max().item() <= tol
+        delta = (do.float() * ref).sum(-1)
+        dq = flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, *args)
+        torch.cuda.synchronize()
+        rdq = flash_bwd_dq_plain(*f32, do.float(), ref_lse, delta, *args)
+        err = (dq.float() - rdq).abs().max().item()
+        assert err <= tol * max(1.0, rdq.abs().max().item()), (masked, rate)
+        if masked:  # the all-masked row: exact zeros forward and back
+            assert (out.view(6, t, 64)[5] == 0).all()
+            assert (dq.view(6, t, 64)[5] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,t", [(True, 200), (False, 129)])
+def test_flash_autograd_dropout_matches_plain(dev, dtype, causal, t):
+    """The gradients of ``flash_attention`` at dropout 0.1 (the forward and
+    dQ on the tensor cores, dK/dV on its own kernel) against autograd
+    through the plain forward on the same seed: equal only if every
+    kernel hashes the same keep mask at the same (q, k) positions."""
+    q, k, v, do = (_randn(dev, 2, 2, t, 64, seed=30 + i).to(dtype)
+                   for i in range(4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, dropout_rate=0.1,
+                          dropout_seed=777)
+    grads = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [x.float().requires_grad_(True) for x in (q, k, v)]
+    ref, _ = flash_attention_plain(*ref_leaves, causal, 0.125,
+                                   dropout_rate=0.1, seed=777)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do.float())
+    tol = TOL[dtype]
+    assert (out.float() - ref).abs().max().item() <= tol
+    for got, want in zip(grads, ref_grads):
+        err = (got.float() - want).abs().max().item()
+        assert err <= tol * max(1.0, want.abs().max().item()), err
+
+
+def test_flash_misaligned_pointer_raises(dev):
+    """The bf16/fp16 kernels load by TMA, which needs 16-byte aligned
+    bases: a contiguous view two bytes into its storage raises."""
+    n = 2 * 64 * 64
+    buf = _randn(dev, 4 * n + 8).bfloat16()
+    q, k, v, do = (buf[1 + i * n:1 + (i + 1) * n].view(1, 2, 64, 64)
+                   for i in range(4))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_cuda(q, k, v, True, 0.125)
+    good = [x.clone() for x in (q, k, v)]
+    out, lse = flash_attention_cuda(*good, True, 0.125)
+    delta = (out.float() * out.float()).sum(-1)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dq_cuda(*good[:3], do, lse, delta, True, 0.125)
 
 
 def test_public_entry_points_launch_or_raise(dev):
