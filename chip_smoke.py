@@ -14,7 +14,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             (``-Xptxas -v`` lines printed), all sources compiled in
             parallel; the HGMMA (wgmma) instructions of each library
             counted with ``cuobjdump -sass``, none allowed to be missing
-            from the tensor-core flash forward and dQ;
+            from the tensor-core flash forward, dQ and dK/dV;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -26,7 +26,8 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             (exact-zero gradients), all three at the bert_train call
             ([8, 16, 512, 64], non-causal, dropout 0.1, the padded batch's
             [B, T] key mask; the forward also within one bf16 ulp + 1e-4
-            elementwise; padded keys' dK/dV exact zeros), the paged, multi-query and paged
+            elementwise; padded keys' dK/dV exact zeros; the backward
+            kernels' device time there), the paged, multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
             no live row lands in) and W = 5 verify rows, and the int8 pool
@@ -41,8 +42,8 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             included) and ``device_ms`` from ``torch.profiler`` (the
             kernels' own device time per call); at the training shape
             also SDPA with dropout 0.1, forward and backward (the work the
-            kernels do), and the flash forward's and dQ's device time at
-            dropout 0 (the dropout hash's cost);
+            kernels do), and the flash forward's, dQ's and dK/dV's device
+            time at dropout 0 (the dropout hash's cost);
 3. serve    ``ServeEngine`` on full-size GPT-2 small (bf16, random weights
             from a seed): 12 requests over 8 slots, prompts of 16-512
             tokens, 64 new tokens each; tokens/s, per-token p50/p99 and
@@ -163,7 +164,7 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
 SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
 #: the sources whose bf16/fp16 arms run wgmma (their libraries must hold
 #: HGMMA instructions)
-TENSOR_CORE_SOURCES = ("flash_fwd", "flash_bwd_dq")
+TENSOR_CORE_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -715,7 +716,8 @@ def _bert_flash_case(dev):
     versions: [8, 16, 512, 64], non-causal, dropout 0.1, and the [B, T]
     additive key mask that the transformer layer's ``_key_mask_rows``
     builds from a padded MLM batch (fp32 and bf16).  The padded keys' dK
-    and dV must be exact zeros."""
+    and dV must be exact zeros.  Returns the bf16 dQ and dK/dV kernels'
+    device ms at this call, by name, and the call's shape."""
     import torch
     from deepspeed_tpu_torch.models.bert import BERT_LARGE
     from deepspeed_tpu_torch.ops.kernels.flash_attention import (
@@ -775,6 +777,14 @@ def _bert_flash_case(dev):
             fail(f"flash_bwd_dkv {dtype} {label}: the padded keys' dK/dV "
                  "are not exact zeros")
         del out, lse, dq, dk, dv, ref, ref_lse, rdk, rdv, delta
+    # the backward kernels' device time at this call, bf16
+    q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
+    out, lse = flash_attention_cuda(q, k, v, *args)
+    delta = (do.float() * out.float()).sum(-1)
+    return {"bert_shape": [B, H, T, D], **{
+        name: device_ms(lambda: fn(q, k, v, do, lse, delta, *args))
+        for name, fn in (("flash_bwd_dq", flash_bwd_dq_cuda),
+                         ("flash_bwd_dkv", flash_bwd_dkv_cuda))}}
 
 
 def phase_train_kernels(dev, results):
@@ -856,7 +866,7 @@ def phase_train_kernels(dev, results):
                 errs["dq"], errs["dkv"] = e_dq, e_dkv
             del dq, dk, dv, rdq, rdk, rdv
 
-    _bert_flash_case(dev)
+    bert = _bert_flash_case(dev)
 
     # timings at the train phase's call: bf16, causal, dropout 0.1
     q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
@@ -922,6 +932,8 @@ def phase_train_kernels(dev, results):
         **timings(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *args),
                   lambda: flash_bwd_dkv_plain(q, k, v, do, lse, delta,
                                               *args)),
+        "device_ms_dropout0": device_ms(lambda: flash_bwd_dkv_cuda(
+            q, k, v, do, lse, delta, *args0)),
         "bound_ms": bms, "bound_by": by, **lib_bwd, "library_note": note,
     }
     r = results["flash_fwd"]
@@ -938,12 +950,19 @@ def phase_train_kernels(dev, results):
     print(f"[kernels] SDPA backward with dropout_p=0.1 (all three grads): "
           f"{r['library_dropout_ms']:.4f} ms (device "
           f"{r['library_dropout_device_ms']:.4f})")
-    f, dq = results["flash_fwd"], results["flash_bwd_dq"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        results[name].update(bert_shape=bert["bert_shape"],
+                             bert_device_ms=bert[name])
+        print(f"[kernels] {name} bf16 {bert['bert_shape']} non-causal "
+              f"dropout 0.1 BERT key mask: device {bert[name]:.4f} ms")
+    f, dq, dkv = (results[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv"))
     print(f"[kernels] diagnostic, the dropout hash's cost on the card "
           f"(device ms, dropout 0.1 / 0): flash_fwd "
           f"{f['train_device_ms']:.4f} / {f['train_device_ms_dropout0']:.4f}"
           f", flash_bwd_dq {dq['device_ms']:.4f} / "
-          f"{dq['device_ms_dropout0']:.4f}")
+          f"{dq['device_ms_dropout0']:.4f}, flash_bwd_dkv "
+          f"{dkv['device_ms']:.4f} / {dkv['device_ms_dropout0']:.4f}")
 
 
 def _load():

@@ -164,11 +164,11 @@ __device__ __forceinline__ void consume(uint8_t* sm, const float* __restrict__ l
                                         const float* __restrict__ delta,
                                         T* __restrict__ dq, int bh, int qw, int ntiles,
                                         int tq, int tk, const Mask& mk) {
-  using P = Plan<NWG, 2>;
+  using P = Plan<NWG, 2, 1>;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + P::BAR);
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
-  const float* kms = reinterpret_cast<const float*>(sm + P::KM);
+  const float* kms = reinterpret_cast<const float*>(sm + P::ROWS);
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int wg = threadIdx.x >> 7;
@@ -191,16 +191,16 @@ __device__ __forceinline__ void consume(uint8_t* sm, const float* __restrict__ l
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  const uint64_t qd = desc(sm + P::Q + wg * TILE_BYTES);
-  const uint64_t dod = desc(sm + P::Q + (NWG + wg) * TILE_BYTES);
+  const uint64_t qd = desc(sm + P::STAT + wg * TILE_BYTES);
+  const uint64_t dod = desc(sm + P::STAT + (NWG + wg) * TILE_BYTES);
   mbar_wait(bars, 0);
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % STAGES;
     const int k0 = t * TILE;
     mbar_wait(&full[s], (t / STAGES) & 1);
     if (!(mk.causal && k0 > qw + TILE - 1)) {  // past every row's diagonal
-      const uint64_t kd = desc(sm + P::K + s * TILE_BYTES);
-      const uint64_t vd = desc(sm + P::V + s * TILE_BYTES);
+      const uint64_t kd = desc(sm + P::RING0 + s * TILE_BYTES);
+      const uint64_t vd = desc(sm + P::RING1 + s * TILE_BYTES);
       float sc[32], dp[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
@@ -288,9 +288,10 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tmq,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * (NWG * TILE);  // longest first
   const int ntiles = (key_end(q0, NWG * TILE, tk, mk) + TILE - 1) / TILE;
-  init_barriers<NWG, 2>(sm);
+  init_barriers<NWG, 2, 1>(sm);
   if ((threadIdx.x >> 7) == NWG) {  // the producer warp
-    produce<NWG, 2>(sm, &tmq, &tmdo, &tmk, &tmv, bh, q0, ntiles, tk, mk);
+    produce<NWG, 2, 1>(sm, &tmq, &tmdo, &tmk, &tmv, bh, q0, 0, ntiles,
+                       KeyMaskRows{bh, tk, mk});
   } else {
     consume<T, NWG>(sm, lse, delta, dq, bh, q0 + TILE * (threadIdx.x >> 7), ntiles,
                     tq, tk, mk);
@@ -307,7 +308,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   if (rc == 0) rc = make_map(&mv, v, bh, tk, fp16);
   if (rc == 0) rc = make_map(&mdo, dout, bh, tq, fp16);
   if (rc != 0) return rc;
-  const int bytes = Plan<NWG, 2>::LAUNCH_BYTES;
+  const int bytes = Plan<NWG, 2, 1>::LAUNCH_BYTES;
   const int smem_rc = allow_smem(flash_bwd_dq_sm90<T, NWG>, bytes);
   if (smem_rc != 0) return smem_rc;
   const dim3 grid(bh, (tq + NWG * TILE - 1) / (NWG * TILE));

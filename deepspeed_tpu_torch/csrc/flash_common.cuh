@@ -81,8 +81,9 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
 // `dropout_keep_mask` split by what varies: a row's term (qi * golden), a
 // grid row's salt (bh * c1 ^ seed) and the key; x ^ a ^ b == x ^ (a ^ b), so
 // keep_at(row_term(qi), kj, salt(bh)) equals the JAX hash bit for bit
+constexpr uint32_t GOLDEN = 0x9E3779B9u;  // row_term's multiplier
 __device__ __forceinline__ uint32_t row_term(int qi) {
-  return static_cast<uint32_t>(qi) * 0x9E3779B9u;
+  return static_cast<uint32_t>(qi) * GOLDEN;
 }
 __device__ __forceinline__ uint32_t salt(uint32_t bh, const Mask& m) {
   return (bh * 0x85EBCA6Bu) ^ m.seed;

@@ -8,7 +8,7 @@
 // dead-row rule (a row with no valid key outputs 0 and lse = +1e30).  The
 // mask and hash math lives in flash_common.cuh, shared with both backward
 // kernels; the Hopper plumbing (TMA, mbarrier ring, wgmma) in
-// flash_sm90.cuh, shared with flash_bwd_dq.cu.
+// flash_sm90.cuh, shared with both backward kernels.
 //
 // What bounds it on the H100: at the training shape ([8, 12, 1024, 64]
 // causal, bf16) the two products are ~12.9 GFLOP against ~50.7 MB of
@@ -190,11 +190,11 @@ template <typename T, int NWG>
 __device__ __forceinline__ void consume(uint8_t* sm, T* __restrict__ o,
                                         float* __restrict__ lse, int bh, int qw,
                                         int ntiles, int tq, int tk, const Mask& mk) {
-  using P = Plan<NWG, 1>;
+  using P = Plan<NWG, 1, 1>;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + P::BAR);
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
-  const float* kms = reinterpret_cast<const float*>(sm + P::KM);
+  const float* kms = reinterpret_cast<const float*>(sm + P::ROWS);
   const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
   const int wg = threadIdx.x >> 7;
@@ -210,15 +210,15 @@ __device__ __forceinline__ void consume(uint8_t* sm, T* __restrict__ o,
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // l: this thread's part
 
-  const uint64_t qd = desc(sm + P::Q + wg * TILE_BYTES);
+  const uint64_t qd = desc(sm + P::STAT + wg * TILE_BYTES);
   mbar_wait(bars, 0);
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % STAGES;
     const int k0 = t * TILE;
     mbar_wait(&full[s], (t / STAGES) & 1);
     if (!(mk.causal && k0 > qw + TILE - 1)) {  // past every row's diagonal
-      const uint64_t kd = desc(sm + P::K + s * TILE_BYTES);
-      const uint64_t vd = desc(sm + P::V + s * TILE_BYTES);
+      const uint64_t kd = desc(sm + P::RING0 + s * TILE_BYTES);
+      const uint64_t vd = desc(sm + P::RING1 + s * TILE_BYTES);
       float sc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) sc[i] = 0.f;
@@ -327,9 +327,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tmq,
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * (NWG * TILE);  // longest first
   const int ntiles = (key_end(q0, NWG * TILE, tk, mk) + TILE - 1) / TILE;
-  init_barriers<NWG, 1>(sm);
+  init_barriers<NWG, 1, 1>(sm);
   if ((threadIdx.x >> 7) == NWG) {  // the producer warp
-    produce<NWG, 1>(sm, &tmq, nullptr, &tmk, &tmv, bh, q0, ntiles, tk, mk);
+    produce<NWG, 1, 1>(sm, &tmq, nullptr, &tmk, &tmv, bh, q0, 0, ntiles,
+                       KeyMaskRows{bh, tk, mk});
   } else {
     consume<T, NWG>(sm, o, lse, bh, q0 + TILE * (threadIdx.x >> 7), ntiles, tq,
                     tk, mk);
@@ -344,7 +345,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   if (rc == 0) rc = make_map(&mkk, k, bh, tk, fp16);
   if (rc == 0) rc = make_map(&mv, v, bh, tk, fp16);
   if (rc != 0) return rc;
-  const int bytes = Plan<NWG, 1>::LAUNCH_BYTES;
+  const int bytes = Plan<NWG, 1, 1>::LAUNCH_BYTES;
   const int smem_rc = allow_smem(flash_fwd_sm90<T, NWG>, bytes);
   if (smem_rc != 0) return smem_rc;
   const dim3 grid(bh, (tq + NWG * TILE - 1) / (NWG * TILE));

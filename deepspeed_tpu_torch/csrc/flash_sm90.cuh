@@ -1,8 +1,9 @@
-// Hopper building blocks of the tensor-core flash kernels (flash_fwd.cu and
-// flash_bwd_dq.cu for bf16 and fp16; flash_bwd_dkv.cu is to move onto the
-// same helpers): TMA tensor maps over [B*H, T, 64], the mbarrier ring that
-// carries K/V tiles from a producer warp to the consumer warpgroups,
-// shared-memory descriptors of 128-byte-swizzled tiles, and
+// Hopper building blocks of the three tensor-core flash kernels
+// (flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkv.cu for bf16 and fp16):
+// TMA tensor maps over [B*H, T, 64]; the mbarrier ring that carries row
+// tiles from a producer warp to the consumer warpgroups (K/V tiles past
+// stationary query tiles, or Q/dO tiles past stationary key tiles);
+// shared-memory descriptors of 128-byte-swizzled tiles; and
 // wgmma.mma_async m64n64k16 with fp32 accumulators.
 //
 // Layout rules every kernel here relies on:
@@ -10,17 +11,19 @@
 //   128-byte swizzle row, 8 rows one 1024-byte swizzle atom; tiles sit on
 //   1024-byte boundaries, so TMA's SWIZZLE_128B placement and the wgmma
 //   descriptor's B128 layout agree (descriptor base offset 0);
-// - B "K-major" is the natural [key][d] layout of K for Q.K^T (and of V
-//   for dO.V^T): the reduction runs along a row, so a k16 step moves the
-//   descriptor by 32 bytes;
-// - B "MN-major" (the transpose bit) is V for P.V (and K for dS.K): the
-//   reduction runs down the rows, so a k16 step moves 16 rows = 2048 bytes;
+// - B "K-major" is the natural [row][d] layout, the reduction running
+//   along a row (K for Q.K^T, V for dO.V^T, Q for K.Q^T, dO for V.dO^T):
+//   a k16 step moves the descriptor by 32 bytes;
+// - B "MN-major" (the transpose bit) reduces down the rows (V for P.V, K
+//   for dS.K, dO for P^T.dO, Q for dS^T.Q): a k16 step moves 16 rows =
+//   2048 bytes;
 // - in both, the stride between 8-row groups (SBO) is 1024 bytes;
 // - a thread's accumulator element i of an m64n64 fragment sits at row
 //   16*warp + lane/4 + 8*((i/2)%2) and column 8*(i/4) + 2*(lane%4) + i%2
 //   of the warpgroup's 64 x 64 tile; elements 8kk..8kk+7, packed in pairs,
 //   are exactly the A fragment of the k16 step kk of a product whose A is
-//   that tile (how P and dS feed the second product from registers).
+//   that tile (how P, dS, P^T and dS^T feed the next product from
+//   registers).
 #pragma once
 
 #include <type_traits>
@@ -95,14 +98,15 @@ inline int allow_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
-// Two consumer warpgroups a block (128 query rows) unless that leaves SMs
+// Two consumer warpgroups a block (128 rows of the block's own axis:
+// queries for the forward and dQ, keys for dK/dV) unless that leaves SMs
 // idle: a grid of fewer 128-row blocks than SMs (the serving prefill,
 // [1, 12, 512]: 48 blocks) takes 64-row blocks instead.
-inline bool two_warpgroups(int bh, int tq) {
+inline bool two_warpgroups(int bh, int rows) {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return static_cast<long long>(bh) * ((tq + 2 * TILE - 1) / (2 * TILE)) >= sms;
+  return static_cast<long long>(bh) * ((rows + 2 * TILE - 1) / (2 * TILE)) >= sms;
 }
 
 // ---------------------------------------------------------------------------
@@ -169,6 +173,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Move registers between warpgroups (sm_90a): the producer gives up what
+// the consumers' accumulators take.  Each must run in a branch its
+// warpgroup never leaves.
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // device: wgmma
 // ---------------------------------------------------------------------------
@@ -200,6 +216,14 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// the same for packed A fragments: used after the wait of a product that
+// reads them from registers, it keeps them live (and their registers
+// unreused) while the product runs
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 #define FLASH_D32                                                             \
@@ -295,69 +319,83 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
 }
 
 // ---------------------------------------------------------------------------
-// shared-memory plan of one block: NWG query tiles (Q, and dO for the
-// backward), the K/V ring with its key-mask rows, the barriers
+// shared-memory plan of one block: NS stationary tensors of NWG row tiles
+// each (Q, and dO for dQ; K and V for dK/dV), the ring of two tensors'
+// tiles (K/V; Q/dO) with NR fp32 rows of 64 per stage (the key mask; lse
+// and delta), the barriers
 // ---------------------------------------------------------------------------
 
-template <int NWG, int NQ>  // NQ: 1 (Q) or 2 (Q and dO) row tiles per warpgroup
+template <int NWG, int NS, int NR>
 struct Plan {
-  static constexpr int Q = 0;
-  static constexpr int K = Q + NQ * NWG * TILE_BYTES;
-  static constexpr int V = K + STAGES * TILE_BYTES;
-  static constexpr int KM = V + STAGES * TILE_BYTES;
-  static constexpr int BAR = KM + STAGES * TILE * 4;
+  static constexpr int STAT = 0;                               // stationary
+  static constexpr int RING0 = STAT + NS * NWG * TILE_BYTES;   // ring: 1st
+  static constexpr int RING1 = RING0 + STAGES * TILE_BYTES;    // ring: 2nd
+  static constexpr int ROWS = RING1 + STAGES * TILE_BYTES;     // fp32 rows
+  static constexpr int BAR = ROWS + STAGES * NR * TILE * 4;
   static constexpr int BYTES = BAR + (1 + 2 * STAGES) * 8;
   static constexpr int LAUNCH_BYTES = BYTES + 1024;  // + alignment slack
 };
 
-// The producer warp: the query tiles once, then each key tile's K and V
-// into the ring (TMA, lane 0) and its key-mask row (all lanes), waiting for
+// The producer warp: the NS stationary tensors' NWG tiles once (rows s0,
+// s0 + 64, ...; s_b unused when NS is 1), then ring tile t of r_a and r_b
+// (rows r0 + 64 t) into stage t % STAGES by TMA (lane 0) and its NR fp32
+// rows by all 32 lanes (`rows(stage_rows, first_row, lane)`), waiting for
 // the consumers to free a stage before refilling it.
-template <int NWG, int NQ>
-__device__ __forceinline__ void produce(uint8_t* sm, const CUtensorMap* tq_map,
-                                        const CUtensorMap* tdo_map,
-                                        const CUtensorMap* tk_map,
-                                        const CUtensorMap* tv_map, int bh, int q0,
-                                        int ntiles, int tk, const Mask& mk) {
-  using P = Plan<NWG, NQ>;
+template <int NWG, int NS, int NR, typename Rows>
+__device__ __forceinline__ void produce(uint8_t* sm, const CUtensorMap* s_a,
+                                        const CUtensorMap* s_b,
+                                        const CUtensorMap* r_a,
+                                        const CUtensorMap* r_b, int bh, int s0,
+                                        int r0, int ntiles, Rows rows) {
+  using P = Plan<NWG, NS, NR>;
   uint64_t* bars = reinterpret_cast<uint64_t*>(sm + P::BAR);
-  uint64_t* qbar = bars;
+  uint64_t* sbar = bars;
   uint64_t* full = bars + 1;
   uint64_t* empty = bars + 1 + STAGES;
-  float* kms = reinterpret_cast<float*>(sm + P::KM);
+  float* rws = reinterpret_cast<float*>(sm + P::ROWS);
   const int lane = threadIdx.x & 31;
   if (lane == 0) {
-    mbar_expect_tx(qbar, NQ * NWG * TILE_BYTES);
+    mbar_expect_tx(sbar, NS * NWG * TILE_BYTES);
     for (int w = 0; w < NWG; ++w) {
-      tma_load(sm + P::Q + w * TILE_BYTES, tq_map, qbar, q0 + TILE * w, bh);
-      if (NQ == 2)
-        tma_load(sm + P::Q + (NWG + w) * TILE_BYTES, tdo_map, qbar, q0 + TILE * w, bh);
+      tma_load(sm + P::STAT + w * TILE_BYTES, s_a, sbar, s0 + TILE * w, bh);
+      if (NS == 2)
+        tma_load(sm + P::STAT + (NWG + w) * TILE_BYTES, s_b, sbar, s0 + TILE * w, bh);
     }
   }
   for (int t = 0; t < ntiles; ++t) {
     const int s = t % STAGES;
     if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-    const int k0 = t * TILE;
-    if (mk.kmask != nullptr) {
-      kms[s * TILE + lane] = key_mask(bh, k0 + lane, tk, mk);
-      kms[s * TILE + 32 + lane] = key_mask(bh, k0 + 32 + lane, tk, mk);
-    }
+    const int row0 = r0 + t * TILE;
+    rows(rws + s * NR * TILE, row0, lane);
     if (lane == 0) {
       mbar_expect_tx(&full[s], 2 * TILE_BYTES);
-      tma_load(sm + P::K + s * TILE_BYTES, tk_map, &full[s], k0, bh);
-      tma_load(sm + P::V + s * TILE_BYTES, tv_map, &full[s], k0, bh);
+      tma_load(sm + P::RING0 + s * TILE_BYTES, r_a, &full[s], row0, bh);
+      tma_load(sm + P::RING1 + s * TILE_BYTES, r_b, &full[s], row0, bh);
     } else {
       mbar_arrive(&full[s]);
     }
   }
 }
 
-// barriers: the query tiles (one arrival + bytes), each stage's "full" (the
-// producer warp's 32 lanes + bytes) and "empty" (one arrival per consumer
-// warp)
-template <int NWG, int NQ>
+// The forward's and dQ's stage rows: the key-mask values of the stage's 64
+// keys (nothing without a mask).
+struct KeyMaskRows {
+  int bh, tk;
+  Mask mk;
+  __device__ __forceinline__ void operator()(float* dst, int k0, int lane) const {
+    if (mk.kmask != nullptr) {
+      dst[lane] = key_mask(bh, k0 + lane, tk, mk);
+      dst[32 + lane] = key_mask(bh, k0 + 32 + lane, tk, mk);
+    }
+  }
+};
+
+// barriers: the stationary tiles (one arrival + bytes), each stage's
+// "full" (the producer warp's 32 lanes + bytes) and "empty" (one arrival
+// per consumer warp)
+template <int NWG, int NS, int NR>
 __device__ __forceinline__ void init_barriers(uint8_t* sm) {
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Plan<NWG, NQ>::BAR);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + Plan<NWG, NS, NR>::BAR);
   if (threadIdx.x == 0) {
     mbar_init(&bars[0], 1);
     for (int s = 0; s < STAGES; ++s) {

@@ -13,9 +13,9 @@ All three kernels cover every arm of the JAX kernels: causal and
 non-causal, ``kv_length``, the additive key mask, the in-kernel position
 hash dropout (bit-exact with the JAX package's ``dropout_keep_mask``, so
 the backward regenerates the forward's mask instead of storing it),
-``bh_affine`` head ids and the dead-row rule.  In bf16 and fp16 the
-forward and dQ run on the tensor cores (wgmma, TMA; ``csrc/
-flash_sm90.cuh``) and need 16-byte aligned bases; fp32 runs FMA kernels.
+``bh_affine`` head ids and the dead-row rule.  In bf16 and fp16 all three
+run on the tensor cores (wgmma, TMA; ``csrc/flash_sm90.cuh``) and need
+16-byte aligned bases; fp32 runs FMA kernels.
 """
 from __future__ import annotations
 

@@ -31,7 +31,7 @@ import numpy as np
 #: cuBLAS/CUTLASS products by their name families)
 GROUPS = (("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90")),
           ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90")),
-          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+          ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90")),
           ("matmul", ("gemm", "xmma", "cutlass", "nvjet")))
 
 

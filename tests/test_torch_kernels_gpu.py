@@ -10,8 +10,8 @@ Tolerances: max abs error 1e-4 in fp32 (same math, other summation
 order); 2e-2 in bf16/fp16 (the kernel's output is rounded to the input
 type; the plain version runs in fp32 on the same inputs); the int8 pool
 arms elementwise within one ulp of the output type at the reference's
-magnitude, plus 1e-4.  The bf16/fp16 flash forward and dQ (tensor-core
-kernels) are held to the same 2e-2 as every other arm.
+magnitude, plus 1e-4.  The bf16/fp16 flash forward, dQ and dK/dV
+(tensor-core kernels) are held to the same 2e-2 as every other arm.
 """
 import pytest
 import torch
@@ -147,11 +147,12 @@ SWEEP_ARMS = [(False, 0.0), (True, 0.1), (False, 0.25), (True, 0.0)]
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("t", SWEEP_T)
 def test_flash_tensor_core_arms_sweep(dev, dtype, causal, t):
-    """The tensor-core forward and dQ (bf16, fp16) across tile edges: T at
-    and around multiples of the 64-row tile, causal (tq = tk) and not (tk
-    = 3T/2 + 5), each with and without a key mask (a masked stretch and
-    an all-masked row) and dropout 0, 0.1 and 0.25 under a non-trivial
-    bh_affine; against the plain versions in fp32."""
+    """The tensor-core forward, dQ and dK/dV (bf16, fp16) across tile
+    edges: T at and around multiples of the 64-row tile, causal (tq = tk)
+    and not (tk = 3T/2 + 5), each with and without a key mask (a masked
+    stretch and an all-masked row) and dropout 0, 0.1 and 0.25 under a
+    non-trivial bh_affine; against the plain versions in fp32, the
+    gradients relative to their largest magnitude."""
     tk = t if causal else (3 * t) // 2 + 5
     q = _randn(dev, 2, 3, t, 64, seed=20).to(dtype)
     k = _randn(dev, 2, 3, tk, 64, seed=21).to(dtype)
@@ -172,20 +173,29 @@ def test_flash_tensor_core_arms_sweep(dev, dtype, causal, t):
             assert (lse[live] - ref_lse[live]).abs().max().item() <= tol
         delta = (do.float() * ref).sum(-1)
         dq = flash_bwd_dq_cuda(q, k, v, do, ref_lse, delta, *args)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, ref_lse, delta, *args)
         torch.cuda.synchronize()
-        rdq = flash_bwd_dq_plain(*f32, do.float(), ref_lse, delta, *args)
-        err = (dq.float() - rdq).abs().max().item()
-        assert err <= tol * max(1.0, rdq.abs().max().item()), (masked, rate)
-        if masked:  # the all-masked row: exact zeros forward and back
+        plain = (*f32, do.float(), ref_lse, delta, *args)
+        rdq = flash_bwd_dq_plain(*plain)
+        rdk, rdv = flash_bwd_dkv_plain(*plain)
+        for name, got, want in (("dq", dq, rdq), ("dk", dk, rdk),
+                                ("dv", dv, rdv)):
+            err = (got.float() - want).abs().max().item()
+            assert err <= tol * max(1.0, want.abs().max().item()), (
+                name, masked, rate, err)
+        if masked:  # the all-masked row: exact zeros forward and back;
+            # the masked stretch's keys: exact-zero dK/dV
             assert (out.view(6, t, 64)[5] == 0).all()
             assert (dq.view(6, t, 64)[5] == 0).all()
+            for g in (dk.view(6, tk, 64), dv.view(6, tk, 64)):
+                assert (g[5] == 0).all() and (g[1, 5:40] == 0).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal,t", [(True, 200), (False, 129)])
 def test_flash_autograd_dropout_matches_plain(dev, dtype, causal, t):
-    """The gradients of ``flash_attention`` at dropout 0.1 (the forward and
-    dQ on the tensor cores, dK/dV on its own kernel) against autograd
+    """The gradients of ``flash_attention`` at dropout 0.1 (the forward,
+    dQ and dK/dV kernels, all three on the tensor cores) against autograd
     through the plain forward on the same seed: equal only if every
     kernel hashes the same keep mask at the same (q, k) positions."""
     q, k, v, do = (_randn(dev, 2, 2, t, 64, seed=30 + i).to(dtype)
@@ -220,6 +230,8 @@ def test_flash_misaligned_pointer_raises(dev):
     delta = (out.float() * out.float()).sum(-1)
     with pytest.raises(ValueError, match="16-byte"):
         flash_bwd_dq_cuda(*good[:3], do, lse, delta, True, 0.125)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_bwd_dkv_cuda(*good[:3], do, lse, delta, True, 0.125)
 
 
 def test_public_entry_points_launch_or_raise(dev):
