@@ -12,9 +12,10 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             int8 pool arms) from ``deepspeed_tpu_torch/csrc/`` with nvcc
             for sm_90a
             (``-Xptxas -v`` lines printed), all sources compiled in
-            parallel; the HGMMA (wgmma) instructions of each library
-            counted with ``cuobjdump -sass``, none allowed to be missing
-            from the tensor-core flash forward, dQ and dK/dV;
+            parallel; the tensor-core instructions of each library
+            counted with ``cuobjdump -sass``, HGMMA (wgmma) and HMMA
+            (mma.sync): the tensor-core flash forward, dQ and dK/dV must
+            hold HGMMA, the block-sparse forward and dK/dV HMMA;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -105,14 +106,17 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             1e-4 (relative);
 12. sparse_kernels  (run right after the kernels phase) the block-sparse
             forward, dQ and dK/dV kernels against their plain versions at
-            [2, 16, 4096, 64] on four layouts: Fixed block 16 with the
-            ``ds_config`` defaults, BigBird block 64 (both head-uniform), a
-            per-head BigBird block 32, and Fixed with an empty query block
-            row and key block column (exact zeros, no NaN); tolerances as
-            in phase 2, and the bf16 forward within one bf16 ulp + 1e-4
-            elementwise; timed on the Fixed layout beside the plain versions,
-            SDPA with the layout as a token mask (forward; forward plus
-            backward) and the bound of the active blocks' work;
+            [2, 16, 4096, 64] on five layouts: Fixed block 16 with the
+            ``ds_config`` defaults, BigBird block 64 (both head-uniform),
+            per-head BigBird at blocks 32 and 16 (block 16: the rows of
+            one group of the tensor-core kernels differ, so their unions
+            and member masks are exercised), and Fixed with an empty query
+            block row and key block column (exact zeros, no NaN);
+            tolerances as in phase 2, and the bf16 forward within one bf16
+            ulp + 1e-4 elementwise; timed on the Fixed layout beside the
+            plain versions, SDPA with the layout as a token mask (forward;
+            the backward alone, the dQ and dK/dV rows' yardstick; forward
+            plus backward) and the bound of the active blocks' work;
 13. sparse  ``BertSparseSelfAttention`` at BERT-large's width (d 1024, 16
             heads, Fixed layout) over B 2 x T 4096, bf16, weights from a
             seed: forward and backward through autograd, 2 warm-up and 5
@@ -162,9 +166,12 @@ KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "decode_attention",
            "decode_paged_multi", "decode_paged_multi_int8",
            "block_sparse_fwd", "block_sparse_bwd_dq", "block_sparse_bwd_dkv")
 SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
-#: the sources whose bf16/fp16 arms run wgmma (their libraries must hold
-#: HGMMA instructions)
-TENSOR_CORE_SOURCES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: the sources whose bf16/fp16 arms run on the tensor cores, and the SASS
+#: instruction their libraries must hold: HGMMA for wgmma, HMMA for
+#: mma.sync (``HGMMA`` does not contain ``HMMA``)
+TENSOR_CORE_SOURCES = {"flash_fwd": "HGMMA", "flash_bwd_dq": "HGMMA",
+                       "flash_bwd_dkv": "HGMMA", "block_sparse_fwd": "HMMA",
+                       "block_sparse_bwd_dkv": "HMMA"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -289,15 +296,15 @@ def bound_ms(nbytes: int, flops: int, dtype: str):
                                  else "operations")
 
 
-def sass_count(name: str, op: str = "HGMMA") -> int:
-    """Instructions of ``op`` in the built library of ``csrc/<name>.cu``
-    (``cuobjdump -sass``)."""
+def sass_count(name: str, ops=("HGMMA", "HMMA")) -> dict:
+    """Instructions of each of ``ops`` in the built library of
+    ``csrc/<name>.cu`` (``cuobjdump -sass``)."""
     from deepspeed_tpu_torch.ops.kernels import build
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build._target(name)[1]],
                           capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    return sum(1 for line in sass.splitlines() if op in line)
+                          check=True).stdout.splitlines()
+    return {op: sum(1 for line in sass if op in line) for op in ops}
 
 
 def phase_build():
@@ -313,10 +320,13 @@ def phase_build():
                     or "spill" in line):
                 print(f"[build] {name}: {line.strip()}")
         n = sass_count(name)
-        print(f"[build] {name}: {n} HGMMA instructions (cuobjdump -sass)")
-        if name in TENSOR_CORE_SOURCES and n == 0:
-            fail(f"csrc/{name}.cu: no HGMMA instruction in its library: "
-                 "the tensor-core arms did not compile to wgmma")
+        print(f"[build] {name}: {n['HGMMA']} HGMMA (wgmma) and {n['HMMA']} "
+              "HMMA (mma.sync) instructions (cuobjdump -sass)")
+        op = TENSOR_CORE_SOURCES.get(name)
+        if op is not None and n[op] == 0:
+            fail(f"csrc/{name}.cu: no {op} instruction in its library: "
+                 "the tensor-core arms did not compile to "
+                 f"{'wgmma' if op == 'HGMMA' else 'mma.sync'}")
 
 
 def phase_kernels(dev):
@@ -1583,15 +1593,27 @@ def _sparse_layouts():
         "bigbird32 per head": (BigBirdSparsityConfig(
             num_heads=H, block=32, different_layout_per_head=True,
             seed=SEED).make_layout(T), 32),
+        "bigbird16 per head": (BigBirdSparsityConfig(
+            num_heads=H, block=16, different_layout_per_head=True,
+            seed=SEED).make_layout(T), 16),
         "fixed16 empty row and column": (empty, 16),
     }
+
+
+def _sparse_tables(bs, layout, block, dev):
+    """The four LUT arrays and the group tables of ``layout`` on
+    ``dev``."""
+    host = bs.build_kernel_luts(layout)
+    groups = bs.build_group_luts(*host, block)
+    return bs.device_luts(host, dev), bs.GroupLuts(*bs.device_luts(groups,
+                                                                   dev))
 
 
 def phase_sparse_kernels(dev, results):
     """The three block-sparse kernels against their plain versions at
     [2, 16, 4096, 64] (fp32 within 1e-4; bf16 within 2e-2 of the plain
     version in fp32 on the same inputs; gradients relative to their
-    largest magnitude when it exceeds 1) on four layouts, then their bf16
+    largest magnitude when it exceeds 1) on five layouts, then their bf16
     timings on the sparse phase's layout (Fixed, block 16) beside the
     plain versions, SDPA with the layout as a token mask, and the bounds
     of the active blocks' bytes and operations."""
@@ -1607,14 +1629,14 @@ def phase_sparse_kernels(dev, results):
                            for _ in range(4))
     errs = {}
     for label, (layout, block) in _sparse_layouts().items():
-        luts = bs.device_luts(bs.build_kernel_luts(layout), dev)
-        cols, nvalid, rows_t, nvalid_t = luts
+        (cols, nvalid, rows_t, nvalid_t), groups = _sparse_tables(
+            bs, layout, block, dev)
         for dtype in ("float32", "bfloat16"):
             tdt = getattr(torch, dtype)
             q, k, v, do = (t.to(tdt) for t in (q32, k32, v32, do32))
             f32 = (q.float(), k.float(), v.float())
             out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale,
-                                                block)
+                                                block, groups)
             torch.cuda.synchronize()
             ref, ref_lse = bs.block_sparse_fwd_plain(*f32, cols, nvalid,
                                                      scale, block)
@@ -1626,7 +1648,7 @@ def phase_sparse_kernels(dev, results):
                                              cols, nvalid, scale, block)
             dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
                                                   rows_t, nvalid_t, scale,
-                                                  block)
+                                                  block, groups)
             torch.cuda.synchronize()
             plain = (*f32, do.float(), ref_lse, delta)
             e_dq = _rel_err(dq, bs.block_sparse_bwd_dq_plain(
@@ -1660,21 +1682,25 @@ def phase_sparse_kernels(dev, results):
             if label == "fixed16" and dtype == "bfloat16":
                 errs = {"fwd": err, "dq": e_dq, "dkv": e_dkv}
             del out, lse, dq, dk, dv, ref, ref_lse, delta
+        del groups
         torch.cuda.empty_cache()
 
     # timings, bf16, on the sparse phase's layout
     layout, block = _sparse_layouts()["fixed16"]
-    cols, nvalid, rows_t, nvalid_t = bs.device_luts(
-        bs.build_kernel_luts(layout), dev)
+    (cols, nvalid, rows_t, nvalid_t), groups = _sparse_tables(bs, layout,
+                                                              block, dev)
     q, k, v, do = (t.bfloat16() for t in (q32, k32, v32, do32))
-    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale, block)
+    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale, block,
+                                        groups)
     delta = (do.float() * out.float()).sum(-1)
     # active (query, key) pairs: every head's layout, block x block each
     pairs = B * int(layout.sum()) * block * block
     row_b = B * H * T * D * 2            # one bf16 [B, H, T, 64] tensor
     stat_b = B * H * T * 4               # one fp32 [B, H, T] statistic
     lut_b = sum(t.numel() * 4 for t in (cols, nvalid))
-    lut_tb = sum(t.numel() * 4 for t in (rows_t, nvalid_t))
+    # the tensor-core kernels read the group tables instead of the LUT
+    grp_b = sum(t.numel() * 4 for t in groups[:3])
+    grp_tb = sum(t.numel() * 4 for t in groups[3:])
     mask = torch.from_numpy(np.kron(layout[0], np.ones(
         (block, block), np.int64)) > 0).to(dev)[None, None]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
@@ -1686,20 +1712,28 @@ def phase_sparse_kernels(dev, results):
         o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
         torch.autograd.grad(o, (qs, ks, vs), do)
 
+    lib_o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+
+    def lib_bwd():  # the backward alone, over one saved forward
+        torch.autograd.grad(lib_o, (qs, ks, vs), do, retain_graph=True)
+
     lib_ms = time_ms(lib_fwd, 10)
     lib_fb_ms = time_ms(lib_fwd_bwd, 10)
+    lib_b_ms = time_ms(lib_bwd, 10)
     lib_dev = device_ms(lib_fwd, 10)
     lib_fb_dev = device_ms(lib_fwd_bwd, 10)
+    lib_b_dev = device_ms(lib_bwd, 10)
+    del lib_o
     note = ("F.scaled_dot_product_attention with the layout expanded to a "
             "[T, T] boolean token mask")
     specs = {
         "block_sparse_fwd": (
             "block_sparse_fwd.cu", 105, errs["fwd"],
             lambda: bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale,
-                                             block),
+                                             block, groups),
             lambda: bs.block_sparse_fwd_plain(q, k, v, cols, nvalid, scale,
                                               block),
-            4 * row_b + stat_b + lut_b, 4 * D * pairs, lib_ms, lib_dev,
+            4 * row_b + stat_b + grp_b, 4 * D * pairs, lib_ms, lib_dev,
             note + ", forward"),
         "block_sparse_bwd_dq": (
             "block_sparse_bwd_dq.cu", 200, errs["dq"],
@@ -1707,18 +1741,20 @@ def phase_sparse_kernels(dev, results):
                                                 nvalid, scale, block),
             lambda: bs.block_sparse_bwd_dq_plain(q, k, v, do, lse, delta,
                                                  cols, nvalid, scale, block),
-            5 * row_b + 2 * stat_b + lut_b, 6 * D * pairs, lib_fb_ms,
-            lib_fb_dev, note + ", forward plus backward (all three gradients)"),
+            5 * row_b + 2 * stat_b + lut_b, 6 * D * pairs, lib_b_ms,
+            lib_b_dev, note + ", the backward alone (all three gradients) "
+            "over one saved forward"),
         "block_sparse_bwd_dkv": (
             "block_sparse_bwd_dkv.cu", 235, errs["dkv"],
             lambda: bs.block_sparse_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                  rows_t, nvalid_t, scale,
-                                                 block),
+                                                 block, groups),
             lambda: bs.block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                   rows_t, nvalid_t, scale,
                                                   block),
-            6 * row_b + 2 * stat_b + lut_tb, 8 * D * pairs, lib_fb_ms,
-            lib_fb_dev, note + ", forward plus backward (all three gradients)"),
+            6 * row_b + 2 * stat_b + grp_tb, 8 * D * pairs, lib_b_ms,
+            lib_b_dev, note + ", the backward alone (all three gradients) "
+            "over one saved forward"),
     }
     for name, (src, line, err, run, plain, nbytes, flops, lib, lib_dev_ms,
                lib_note) in specs.items():
@@ -1735,12 +1771,15 @@ def phase_sparse_kernels(dev, results):
             **timings(run, plain, plain_iters=5),
             "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "library_device_ms": lib_dev_ms, "library_note": lib_note,
-            "library_fwd_ms": lib_ms,
+            "library_fwd_ms": lib_ms, "library_fwd_device_ms": lib_dev,
+            "library_fwd_bwd_ms": lib_fb_ms,
+            "library_fwd_bwd_device_ms": lib_fb_dev,
         }
         print_row("[sparse kernels]", f"{name} bf16 {SPARSE_SHAPE}",
                   results[name])
     print(f"[sparse kernels] SDPA with the token mask: forward {lib_ms:.4f} "
-          f"ms (device {lib_dev:.4f}), forward plus backward "
+          f"ms (device {lib_dev:.4f}), backward alone {lib_b_ms:.4f} ms "
+          f"(device {lib_b_dev:.4f}), forward plus backward "
           f"{lib_fb_ms:.4f} ms (device {lib_fb_dev:.4f})")
     torch.cuda.empty_cache()
 

@@ -12,6 +12,14 @@ runs its plain PyTorch version (the CPU tests' path and the kernels'
 yardstick on the card).  There is no fallback: a CUDA tensor reaches its
 kernel or the call raises.
 
+In bf16 and fp16 the forward and dK/dV kernels run on the tensor cores
+(``csrc/block_sparse_mma.cuh``) and walk grouped tables instead of the LUT
+rows: ``build_group_luts`` gathers the query block rows (key blocks) one
+CUDA block owns into a group, with the union of their LUT rows and a
+member mask per entry.  It runs once per layout on the host, beside
+``build_kernel_luts``; the CUDA wrappers take its tables on the device
+(``groups``) and raise without them.
+
 Sparsity is block-granular, as in the JAX kernels: an active block attends
 fully, a query row with no active block outputs zeros (lse -1e30) with zero
 gradients.  Masks and relative position embeddings take the gather path of
@@ -25,7 +33,7 @@ card's memory runs.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,9 +86,99 @@ def build_kernel_luts(layout: np.ndarray
     return cols, nvalid, rows_t, nvalid_t
 
 
+def group_size(block: int) -> int:
+    """Sparsity blocks (query block rows, or key blocks) one CUDA block of
+    the tensor-core forward and dK/dV kernels owns: four warps of 16 rows
+    cover 64 rows, so 4, 2 and 1 at blocks 16, 32 and 64; at block 128 a
+    group is one block, owned by two CUDA blocks (one half each)."""
+    return 64 // min(block, 64)
+
+
+class GroupLuts(NamedTuple):
+    """The grouped lookup tables the tensor-core forward and dK/dV kernels
+    walk, one plane per LUT plane (int32, numpy or on the device).
+
+    A group is ``group_size(block)`` sparsity blocks owned by one CUDA
+    block: consecutive query block rows for the forward, key blocks in
+    the order of ``dkv_keys`` for dK/dV.  Its union lists every block any
+    member uses, ascending, with a member mask per entry (bit j: member j
+    uses it), so member j's masked entries are exactly its own ``cols``
+    (``rows_t``) row, in order.  The CUDA block streams each union entry
+    once for all its members; a warp skips the entries its bit is clear
+    on."""
+    fwd_idx: object    # [P, ng, U] union key blocks of query rows gG..gG+G-1
+    fwd_mask: object   # [P, ng, U] member bits
+    fwd_count: object  # [P, ng] union sizes
+    dkv_keys: object   # [P, ngt, G] member key blocks, -1 where none
+    dkv_idx: object    # [P, ngt, Ut] union query blocks
+    dkv_mask: object   # [P, ngt, Ut] member bits
+    dkv_count: object  # [P, ngt] union sizes
+
+
+def _active(idx: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """A LUT [P, nb, W] with its counts → the active blocks [P, nb, nb]
+    as booleans."""
+    P, nb, W = idx.shape
+    p, r, w = np.nonzero(np.arange(W) < count[..., None])
+    act = np.zeros((P, nb, nb), bool)
+    act[p, r, idx[p, r, w]] = True
+    return act
+
+
+def _unions(act: np.ndarray, members: np.ndarray):
+    """Per group: the union of its members' active blocks (ascending),
+    each entry's member bits, and the union's size.  ``act`` [P, nb, nb],
+    ``members`` [P, ng, G] (-1 where a group has no such member)."""
+    P, ng, G = members.shape
+    rows = act[np.arange(P)[:, None, None], np.maximum(members, 0)]
+    rows &= (members >= 0)[..., None]                  # [P, ng, G, nb]
+    bits = (rows.astype(np.int32) << np.arange(G, dtype=np.int32)[
+        :, None]).sum(2)                               # [P, ng, nb]
+    count = (bits > 0).sum(-1).astype(np.int32)
+    idx = np.zeros((P, ng, max(int(count.max()), 1)), np.int32)
+    mask = np.zeros_like(idx)
+    for p in range(P):
+        for g in range(ng):
+            (u,) = np.nonzero(bits[p, g])
+            idx[p, g, :len(u)] = u
+            mask[p, g, :len(u)] = bits[p, g, u]
+    return idx, mask, count
+
+
+def build_group_luts(cols, nvalid, rows_t, nvalid_t, block: int
+                     ) -> GroupLuts:
+    """The grouped tables of ``build_kernel_luts``'s four arrays (numpy),
+    built once per layout on the host.
+
+    Forward: group g holds query block rows gG..gG+G-1 (G =
+    ``group_size(block)``).  dK/dV: key blocks ordered by ``nvalid_t``
+    descending, ties broken by their ``rows_t`` rows so identical columns
+    fall together, then packed G to a group: the heaviest groups come
+    first (the kernel launches them first) and columns that share their
+    query blocks share their loads."""
+    if block not in BLOCKS:
+        raise ValueError(f"build_group_luts: block {block}; the kernels "
+                         f"take block in {BLOCKS}")
+    G = group_size(block)
+    P, nb = nvalid.shape
+    ng = -(-nb // G)
+    slots = np.arange(ng * G)
+    fwd_members = np.broadcast_to(np.where(slots < nb, slots, -1).reshape(
+        ng, G), (P, ng, G))
+    dkv_members = np.full((P, ng * G), -1, np.int64)
+    for p in range(P):
+        keys = tuple(rows_t[p].T[::-1]) + (-nvalid_t[p],)
+        dkv_members[p, :nb] = np.lexsort(keys)
+    dkv_members = dkv_members.reshape(P, ng, G)
+    fwd = _unions(_active(cols, nvalid), fwd_members)
+    dkv = _unions(_active(rows_t, nvalid_t), dkv_members)
+    return GroupLuts(*fwd, dkv_members.astype(np.int32), *dkv)
+
+
 def device_luts(luts, device) -> Tuple[torch.Tensor, ...]:
-    """The four LUT arrays as int32 tensors on ``device`` (a tensor already
-    there passes through uncopied)."""
+    """The LUT arrays (``build_kernel_luts``' four, or the seven of a
+    ``GroupLuts``) as int32 tensors on ``device`` (a tensor already there
+    passes through uncopied)."""
     out = []
     for a in luts:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -190,16 +288,18 @@ def block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta, rows_t, nvalid_t,
 # ---------------------------------------------------------------------------
 
 _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: bh, heads, lut_heads, t, block, width, scale, dtype, stream
-_TAIL = [_INT] * 6 + [_FLOAT, _INT, _PTR]
-_N_TENSORS = {"block_sparse_fwd": 7, "block_sparse_bwd_dq": 9,
-              "block_sparse_bwd_dkv": 10}
+#: (tensor pointers, ints) of each launcher, then scale, dtype, stream; the
+#: ints are bh, heads, lut_heads, t, block, width (and for the grouped
+#: kernels the groups' count and union width)
+_ARGS = {"block_sparse_fwd": (10, 8), "block_sparse_bwd_dq": (9, 6),
+         "block_sparse_bwd_dkv": (14, 8)}
 
 
 def _load(name: str):
     fn = getattr(build.load(name), name)
     if fn.argtypes is None:
-        fn.argtypes = [_PTR] * _N_TENSORS[name] + _TAIL
+        ptrs, ints = _ARGS[name]
+        fn.argtypes = [_PTR] * ptrs + [_INT] * ints + [_FLOAT, _INT, _PTR]
         fn.restype = ctypes.c_int
     return fn
 
@@ -238,32 +338,68 @@ def _check(fn: str, block: int, idx, count, **tensors) -> None:
                          f"nb={nb}, W] / [1 or H, nb]")
 
 
-def _launch(name: str, tensors, q, idx, block: int, sm_scale) -> None:
+def _check_groups(fn: str, groups, q, idx, block: int, part: str):
+    """The ``part`` ('fwd' or 'dkv') tables of ``groups`` as the kernel
+    reads them: (idx, mask, count[, keys]) int32 CUDA tensors beside q,
+    one plane per LUT plane.  Raises without them: the kernel never
+    builds them itself (that would read the LUT back from the device)."""
+    if groups is None:
+        raise ValueError(
+            f"{fn}: the CUDA kernel walks the grouped tables; pass "
+            "groups=GroupLuts(*device_luts(build_group_luts(*luts, block), "
+            "device))")
+    tabs = [getattr(groups, f"{part}_{n}") for n in ("idx", "mask", "count")]
+    if part == "dkv":
+        tabs.append(groups.dkv_keys)
+    nb = q.shape[2] // block
+    ng = -(-nb // group_size(block))
+    for t in tabs:
+        if (not isinstance(t, torch.Tensor) or t.device != q.device
+                or t.dtype != torch.int32 or not t.is_contiguous()):
+            raise ValueError(f"{fn}: the group tables must be contiguous "
+                             f"int32 tensors on {q.device}")
+    if (tuple(tabs[0].shape[:2]) != (idx.shape[0], ng)
+            or tabs[1].shape != tabs[0].shape
+            or tuple(tabs[2].shape) != (idx.shape[0], ng)
+            or (part == "dkv" and tuple(tabs[3].shape) != (
+                idx.shape[0], ng, group_size(block)))):
+        raise ValueError(f"{fn}: group tables {[tuple(t.shape) for t in tabs]}"
+                         f" do not fit {idx.shape[0]} plane(s) of {ng} "
+                         f"groups at block {block}")
+    return tabs
+
+
+def _launch(name: str, tensors, q, idx, block: int, sm_scale,
+            group_dims=()) -> None:
     B, H, T, _ = q.shape
     fn = _load(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*[t.data_ptr() for t in tensors], B * H, H, idx.shape[0], T,
-                block, idx.shape[2], float(sm_scale), _DTYPE_CODES[q.dtype],
-                stream)
+                block, idx.shape[2], *group_dims, float(sm_scale),
+                _DTYPE_CODES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def block_sparse_fwd_cuda(q, k, v, cols, nvalid, sm_scale: float,
-                          block: int):
+                          block: int, groups: Optional[GroupLuts] = None):
     """Launch ``csrc/block_sparse_fwd.cu`` on contiguous CUDA tensors q, k,
-    v [B,H,T,64] of one dtype (fp32, bf16 or fp16) with the row LUT as
-    int32 tensors on the same device.  Returns ``(out [B,H,T,64] in
-    q.dtype, lse [B,H,T] fp32)``; raises on anything the kernel does not
-    take and on a failed launch."""
+    v [B,H,T,64] of one dtype (fp32, bf16 or fp16) with the row LUT and
+    the group tables (``groups``, walked by the bf16/fp16 arm) as int32
+    tensors on the same device.  Returns ``(out [B,H,T,64] in q.dtype,
+    lse [B,H,T] fp32)``; raises on anything the kernel does not take, on
+    missing group tables and on a failed launch."""
     _check("block_sparse_fwd_cuda", block, cols, nvalid, q=q, k=k, v=v)
+    gidx, gmask, gcount = _check_groups("block_sparse_fwd_cuda", groups, q,
+                                        cols, block, "fwd")
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    _launch("block_sparse_fwd", (q, k, v, out, lse, cols, nvalid), q, cols,
-            block, sm_scale)
+    _launch("block_sparse_fwd", (q, k, v, out, lse, cols, nvalid, gidx,
+                                 gmask, gcount), q, cols, block, sm_scale,
+            gidx.shape[1:])
     block_sparse_fwd.launches += 1
     return out, lse
 
@@ -285,25 +421,33 @@ def block_sparse_bwd_dq_cuda(q, k, v, do, lse, delta, cols, nvalid,
 
 
 def block_sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, rows_t, nvalid_t,
-                              sm_scale: float, block: int):
+                              sm_scale: float, block: int,
+                              groups: Optional[GroupLuts] = None):
     """Launch ``csrc/block_sparse_bwd_dkv.cu``: ``(dk, dv)`` [B,H,T,64] in
-    the input dtype, over the transposed LUT."""
+    the input dtype, over the transposed LUT (the fp32 arm) or the dK/dV
+    group tables of ``groups`` (the bf16/fp16 arm)."""
     _check("block_sparse_bwd_dkv_cuda", block, rows_t, nvalid_t, q=q, k=k,
            v=v, do=do, lse=lse, delta=delta)
+    gidx, gmask, gcount, gkeys = _check_groups(
+        "block_sparse_bwd_dkv_cuda", groups, q, rows_t, block, "dkv")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
     _launch("block_sparse_bwd_dkv", (q, k, v, do, lse, delta, dk, dv, rows_t,
-                                     nvalid_t), q, rows_t, block, sm_scale)
+                                     nvalid_t, gidx, gmask, gcount, gkeys),
+            q, rows_t, block, sm_scale, gidx.shape[1:])
     block_sparse_bwd_dkv.launches += 1
     return dk, dv
 
 
-def block_sparse_fwd(q, *args, **kwargs):
-    """(O, lse): the kernel on a CUDA tensor, its plain version on a CPU
-    one."""
-    fn = block_sparse_fwd_cuda if q.is_cuda else block_sparse_fwd_plain
-    return fn(q, *args, **kwargs)
+def block_sparse_fwd(q, k, v, cols, nvalid, sm_scale: float, block: int,
+                     groups: Optional[GroupLuts] = None):
+    """(O, lse): the kernel on a CUDA tensor, its plain version (which
+    needs no group tables) on a CPU one."""
+    if q.is_cuda:
+        return block_sparse_fwd_cuda(q, k, v, cols, nvalid, sm_scale, block,
+                                     groups)
+    return block_sparse_fwd_plain(q, k, v, cols, nvalid, sm_scale, block)
 
 
 def block_sparse_bwd_dq(q, *args, **kwargs):
@@ -312,12 +456,16 @@ def block_sparse_bwd_dq(q, *args, **kwargs):
     return fn(q, *args, **kwargs)
 
 
-def block_sparse_bwd_dkv(q, *args, **kwargs):
+def block_sparse_bwd_dkv(q, k, v, do, lse, delta, rows_t, nvalid_t,
+                         sm_scale: float, block: int,
+                         groups: Optional[GroupLuts] = None):
     """(dK, dV): the kernel on a CUDA tensor, its plain version on a CPU
     one."""
-    fn = (block_sparse_bwd_dkv_cuda if q.is_cuda
-          else block_sparse_bwd_dkv_plain)
-    return fn(q, *args, **kwargs)
+    if q.is_cuda:
+        return block_sparse_bwd_dkv_cuda(q, k, v, do, lse, delta, rows_t,
+                                         nvalid_t, sm_scale, block, groups)
+    return block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta, rows_t,
+                                      nvalid_t, sm_scale, block)
 
 
 #: kernel launches since each count was last set to 0 (one per call that
@@ -339,11 +487,13 @@ class _BlockSparse(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, cols, nvalid, rows_t, nvalid_t, sm_scale,
-                block):
-        out, lse = block_sparse_fwd(q, k, v, cols, nvalid, sm_scale, block)
+                block, groups):
+        out, lse = block_sparse_fwd(q, k, v, cols, nvalid, sm_scale, block,
+                                    groups)
         ctx.save_for_backward(q, k, v, out, lse, cols, nvalid, rows_t,
                               nvalid_t)
         ctx.args = (sm_scale, block)
+        ctx.groups = groups
         return out
 
     @staticmethod
@@ -354,21 +504,26 @@ class _BlockSparse(torch.autograd.Function):
         dq = block_sparse_bwd_dq(q, k, v, do, lse, delta, cols, nvalid,
                                  *ctx.args)
         dk, dv = block_sparse_bwd_dkv(q, k, v, do, lse, delta, rows_t,
-                                      nvalid_t, *ctx.args)
-        return dq, dk, dv, None, None, None, None, None, None
+                                      nvalid_t, *ctx.args, ctx.groups)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            layout, block: int,
                            sm_scale: Optional[float] = None,
-                           luts=None) -> torch.Tensor:
+                           luts=None, groups=None) -> torch.Tensor:
     """Block-sparse attention over [B, H, T, Dh] with a [H, nb, nb] 0/1
     layout (differentiable) — the JAX package's ``block_sparse_attention``
     minus its ``interpret`` argument.  T must be a multiple of ``block``
     (``SparseAttentionUtils.pad_to_block_size`` pads).  ``luts``: prebuilt
-    ``build_kernel_luts(layout)`` output, numpy or — for a caller in a hot
-    loop, as ``SparseSelfAttention`` is — already on q's device
-    (``device_luts``), so the call copies nothing from the host."""
+    ``build_kernel_luts(layout)`` output, and ``groups`` its
+    ``build_group_luts`` tables, numpy or — for a caller in a hot loop, as
+    ``SparseSelfAttention`` is — already on q's device (``device_luts``),
+    so the call copies nothing from the host.  Without ``luts`` both are
+    built here from the layout; with numpy ``luts`` and no ``groups`` the
+    groups are built from them; device ``luts`` need their ``groups`` on
+    a CUDA tensor (a block the kernels do not take has none: its CPU
+    call runs the plain versions, its CUDA call raises)."""
     B, H, T, D = q.shape
     if T % block:
         raise ValueError(f"seq len {T} not a multiple of block {block}")
@@ -380,6 +535,11 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sm_scale = float(D) ** -0.5
     if luts is None:
         luts = build_kernel_luts(np.asarray(layout))
+    if (groups is None and block in BLOCKS
+            and not isinstance(luts[0], torch.Tensor)):
+        groups = build_group_luts(*luts, block)
+    if groups is not None:
+        groups = GroupLuts(*device_luts(groups, q.device))
     return _BlockSparse.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                               *device_luts(luts, q.device), float(sm_scale),
-                              int(block))
+                              int(block), groups)

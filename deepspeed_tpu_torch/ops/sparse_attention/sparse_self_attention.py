@@ -29,7 +29,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..kernels.block_sparse_attention import (block_sparse_attention,
+from ..kernels.block_sparse_attention import (BLOCKS, GroupLuts,
+                                              block_sparse_attention,
+                                              build_group_luts,
                                               build_kernel_luts, device_luts)
 from .sparsity_config import FixedSparsityConfig, SparsityConfig
 
@@ -148,12 +150,16 @@ class SparseSelfAttention:
 
     def _on_device(self, kind: str, seq_len: int, device):
         """The ``kind`` ('kernel' or 'gather') tables of ``seq_len`` on
-        ``device``, uploaded on first use."""
+        ``device``, uploaded on first use: for the kernels the four LUT
+        arrays and their group tables (``build_group_luts``)."""
         key = (kind, seq_len, str(device))
         if key not in self._device_cache:
             if kind == "kernel":
-                luts = device_luts(build_kernel_luts(self._layout(seq_len)),
-                                   device)
+                block = self.sparsity_config.block
+                host = build_kernel_luts(self._layout(seq_len))
+                groups = (GroupLuts(*device_luts(build_group_luts(
+                    *host, block), device)) if block in BLOCKS else None)
+                luts = (device_luts(host, device), groups)
             else:
                 cols, valid = self.get_lut(seq_len)
                 luts = (torch.from_numpy(cols).long().to(device),
@@ -174,9 +180,10 @@ class SparseSelfAttention:
         block = self.sparsity_config.block
         if rpe is None and key_padding_mask is None and attn_mask is None \
                 and T % block == 0:
-            return block_sparse_attention(
-                query, key, value, self._layout(T), block,
-                luts=self._on_device("kernel", T, query.device))
+            luts, groups = self._on_device("kernel", T, query.device)
+            return block_sparse_attention(query, key, value,
+                                          self._layout(T), block, luts=luts,
+                                          groups=groups)
         cols, valid = self._on_device("gather", T, query.device)
         return _sparse_attn(query, key, value, cols, valid, rpe,
                             key_padding_mask, attn_mask, float(D) ** -0.5,

@@ -444,15 +444,18 @@ def test_decode_entry_points_launch_or_raise(dev):
 
 
 def _sparse_layout(kind, H, T, block):
-    """A head-uniform Fixed layout, a per-head BigBird layout, or Fixed
-    with query block row 1 and key block column 2 emptied (block 128: the
-    only row/column 1 of 2)."""
+    """A head-uniform Fixed layout (``fixed``; ``fixed_default`` with
+    FixedSparsityConfig's defaults, the sparse phase's layout), a per-head
+    BigBird layout, or Fixed with query block row 1 and key block column
+    2 emptied (block 128: the only row/column 1 of 2)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (
         BigBirdSparsityConfig, FixedSparsityConfig)
     if kind == "per_head":
         return BigBirdSparsityConfig(H, block=block, num_random_blocks=1,
                                      different_layout_per_head=True,
                                      seed=block).make_layout(T)
+    if kind == "fixed_default":
+        return FixedSparsityConfig(H, block=block).make_layout(T)
     layout = FixedSparsityConfig(H, block=block,
                                  num_local_blocks=2).make_layout(T)
     if kind == "empty":
@@ -462,22 +465,39 @@ def _sparse_layout(kind, H, T, block):
     return layout
 
 
+def _sparse_tables(bs, layout, block, dev):
+    """The four LUT arrays and the group tables, on ``dev``."""
+    host = bs.build_kernel_luts(layout)
+    groups = bs.build_group_luts(*host, block)
+    return bs.device_luts(host, dev), bs.GroupLuts(*bs.device_luts(groups,
+                                                                   dev))
+
+
+#: (kind, block, B, H, T): the three layouts at every block at [2, 4, 512];
+#: the sparse phase's Fixed layout at one batch row of T 4096 (64 heavy
+#: global columns); a per-head BigBird layout at T 2048 (the rows of one
+#: group differ, so unions and member masks are exercised)
+SPARSE_CASES = [(kind, block, 2, 4, 512)
+                for kind in ("fixed", "per_head", "empty")
+                for block in (16, 32, 64, 128)] + [
+    ("fixed_default", 16, 1, 4, 4096), ("per_head", 16, 2, 8, 2048)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("block", [16, 32, 64, 128])
-@pytest.mark.parametrize("kind", ["fixed", "per_head", "empty"])
-def test_block_sparse_kernels_match_plain(dev, dtype, block, kind):
+@pytest.mark.parametrize("kind,block,B,H,T", SPARSE_CASES)
+def test_block_sparse_kernels_match_plain(dev, dtype, kind, block, B, H, T):
     """The forward (O, lse), dQ and dK/dV kernels against their plain
     versions in fp32 on the same inputs; gradients relative to their
     largest magnitude; empty rows and columns exact zeros."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
-    B, H, T = 2, 4, 512
     layout = _sparse_layout(kind, H, T, block)
-    cols, nvalid, rows_t, nvalid_t = bs.device_luts(
-        bs.build_kernel_luts(layout), dev)
+    (cols, nvalid, rows_t, nvalid_t), groups = _sparse_tables(bs, layout,
+                                                              block, dev)
     q, k, v, do = (_randn(dev, B, H, T, 64, seed=20 + i).to(dtype)
                    for i in range(4))
     f32 = (q.float(), k.float(), v.float())
-    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, 0.125, block)
+    out, lse = bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, 0.125, block,
+                                        groups)
     torch.cuda.synchronize()
     ref, ref_lse = bs.block_sparse_fwd_plain(*f32, cols, nvalid, 0.125,
                                              block)
@@ -489,7 +509,8 @@ def test_block_sparse_kernels_match_plain(dev, dtype, block, kind):
     dq = bs.block_sparse_bwd_dq_cuda(q, k, v, do, ref_lse, delta, cols,
                                      nvalid, 0.125, block)
     dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
-                                          rows_t, nvalid_t, 0.125, block)
+                                          rows_t, nvalid_t, 0.125, block,
+                                          groups)
     torch.cuda.synchronize()
     plain = (*f32, do.float(), ref_lse, delta)
     rdq = bs.block_sparse_bwd_dq_plain(*plain, cols, nvalid, 0.125, block)
@@ -507,6 +528,30 @@ def test_block_sparse_kernels_match_plain(dev, dtype, block, kind):
         assert (out[:, :, rows] == 0).all() and (dq[:, :, rows] == 0).all()
         assert (lse[:, :, rows] == -1e30).all()
         assert (dk[:, :, keys] == 0).all() and (dv[:, :, keys] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_block_sparse_cuda_calls_without_group_tables_raise(dev, dtype):
+    """The forward and dK/dV kernels walk the group tables: a CUDA call
+    without them raises (it never builds them from device tensors) and
+    launches nothing."""
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    layout = _sparse_layout("fixed", 4, 128, 16)
+    (cols, nvalid, rows_t, nvalid_t), _ = _sparse_tables(bs, layout, 16, dev)
+    x = _randn(dev, 2, 4, 128, 64).to(dtype)
+    stat = torch.zeros(2, 4, 128, device=dev)
+    counts = (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="group"):
+        bs.block_sparse_fwd_cuda(x, x, x, cols, nvalid, 0.125, 16)
+    with pytest.raises(ValueError, match="group"):
+        bs.block_sparse_bwd_dkv_cuda(x, x, x, x, stat, stat, rows_t,
+                                     nvalid_t, 0.125, 16)
+    with pytest.raises(ValueError, match="group"):
+        bs.block_sparse_attention(x, x, x, layout, 16,
+                                  luts=bs.device_luts(
+                                      bs.build_kernel_luts(layout), dev))
+    assert (bs.block_sparse_fwd.launches,
+            bs.block_sparse_bwd_dkv.launches) == counts
 
 
 def test_block_sparse_entry_points_launch_or_raise(dev):
@@ -539,9 +584,10 @@ def test_block_sparse_entry_points_launch_or_raise(dev):
     with pytest.raises(ValueError, match="head_dim"):
         bs.block_sparse_attention(x[..., :32], x[..., :32], x[..., :32],
                                   layout, 16)
-    luts = bs.device_luts(bs.build_kernel_luts(layout), dev)
+    luts, groups = _sparse_tables(bs, layout, 16, dev)
     with pytest.raises(TypeError, match="dtype"):
-        bs.block_sparse_fwd_cuda(x, x.float(), x, *luts[:2], 0.125, 16)
+        bs.block_sparse_fwd_cuda(x, x.float(), x, *luts[:2], 0.125, 16,
+                                 groups)
     with pytest.raises(ValueError, match="contiguous"):
         bs.block_sparse_fwd_cuda(x.transpose(2, 3).contiguous().transpose(
-            2, 3), x, x, *luts[:2], 0.125, 16)
+            2, 3), x, x, *luts[:2], 0.125, 16, groups)
