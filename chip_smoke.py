@@ -15,7 +15,8 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             parallel; the tensor-core instructions of each library
             counted with ``cuobjdump -sass``, HGMMA (wgmma) and HMMA
             (mma.sync): the tensor-core flash forward, dQ and dK/dV must
-            hold HGMMA, the block-sparse forward and dK/dV HMMA;
+            hold HGMMA, the block-sparse forward, dQ and dK/dV and the
+            multi-query decode kernel HMMA;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -31,7 +32,8 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             kernels' device time there), the paged, multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
-            no live row lands in) and W = 5 verify rows, and the int8 pool
+            no live row lands in) and W = 5 verify rows (the multi-query
+            kernel's split count and cluster size printed), and the int8 pool
             arms of the paged and paged multi-query kernels on that pool
             quantized from bf16 (random bytes and NaN scales in every row
             no live row reads; fp32 queries within 1e-4, bf16 queries
@@ -171,7 +173,8 @@ SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
 #: mma.sync (``HGMMA`` does not contain ``HMMA``)
 TENSOR_CORE_SOURCES = {"flash_fwd": "HGMMA", "flash_bwd_dq": "HGMMA",
                        "flash_bwd_dkv": "HGMMA", "block_sparse_fwd": "HMMA",
-                       "block_sparse_bwd_dkv": "HMMA"}
+                       "block_sparse_bwd_dq": "HMMA",
+                       "block_sparse_bwd_dkv": "HMMA", "decode_multi": "HMMA"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -473,8 +476,9 @@ def phase_decode_kernels(dev, results):
     import torch.nn.functional as F
     from deepspeed_tpu_torch.ops.kernels.decode_attention import (
         _default_scale, decode_attention_plain, decode_multi_cuda,
-        decode_multi_plain, decode_paged_cuda, decode_paged_multi_cuda,
-        decode_paged_multi_plain, decode_paged_plain, paged_gather)
+        decode_multi_plain, decode_multi_splits, decode_paged_cuda,
+        decode_paged_multi_cuda, decode_paged_multi_plain,
+        decode_paged_plain, paged_gather)
 
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 3)
@@ -504,6 +508,10 @@ def phase_decode_kernels(dev, results):
                                decode_paged_multi_plain, decode_multi_plain,
                                True, multi_lens),
     }
+    n = decode_multi_splits(T)
+    print(f"[kernels] decode_multi bf16/fp16 at T {T}: the keys of each "
+          f"(slot, head) split over {n} CUDA blocks, cluster size {n}, "
+          f"{n * S * H} blocks")
     errs = {}
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
@@ -1645,7 +1653,8 @@ def phase_sparse_kernels(dev, results):
             ulp = _ulp_err(out, ref)
             delta = (do.float() * ref).sum(-1)
             dq = bs.block_sparse_bwd_dq_cuda(q, k, v, do, ref_lse, delta,
-                                             cols, nvalid, scale, block)
+                                             cols, nvalid, scale, block,
+                                             groups)
             dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
                                                   rows_t, nvalid_t, scale,
                                                   block, groups)
@@ -1697,7 +1706,6 @@ def phase_sparse_kernels(dev, results):
     pairs = B * int(layout.sum()) * block * block
     row_b = B * H * T * D * 2            # one bf16 [B, H, T, 64] tensor
     stat_b = B * H * T * 4               # one fp32 [B, H, T] statistic
-    lut_b = sum(t.numel() * 4 for t in (cols, nvalid))
     # the tensor-core kernels read the group tables instead of the LUT
     grp_b = sum(t.numel() * 4 for t in groups[:3])
     grp_tb = sum(t.numel() * 4 for t in groups[3:])
@@ -1738,10 +1746,10 @@ def phase_sparse_kernels(dev, results):
         "block_sparse_bwd_dq": (
             "block_sparse_bwd_dq.cu", 200, errs["dq"],
             lambda: bs.block_sparse_bwd_dq_cuda(q, k, v, do, lse, delta, cols,
-                                                nvalid, scale, block),
+                                                nvalid, scale, block, groups),
             lambda: bs.block_sparse_bwd_dq_plain(q, k, v, do, lse, delta,
                                                  cols, nvalid, scale, block),
-            5 * row_b + 2 * stat_b + lut_b, 6 * D * pairs, lib_b_ms,
+            5 * row_b + 2 * stat_b + grp_b, 6 * D * pairs, lib_b_ms,
             lib_b_dev, note + ", the backward alone (all three gradients) "
             "over one saved forward"),
         "block_sparse_bwd_dkv": (

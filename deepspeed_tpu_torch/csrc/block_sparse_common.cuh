@@ -96,23 +96,4 @@ __device__ __forceinline__ void stage2(float (*a)[PITCH], float (*b)[PITCH],
   }
 }
 
-// dtype switch of a launcher templated on <T, BLOCK>: returns
-// cudaErrorInvalidValue for an unknown dtype or block
-#define BLOCK_SPARSE_DISPATCH(LAUNCH, ...)                                   \
-  switch (dtype * 1000 + block) {                                            \
-    case 16: LAUNCH<float, 16>(__VA_ARGS__); break;                          \
-    case 32: LAUNCH<float, 32>(__VA_ARGS__); break;                          \
-    case 64: LAUNCH<float, 64>(__VA_ARGS__); break;                          \
-    case 128: LAUNCH<float, 128>(__VA_ARGS__); break;                        \
-    case 1016: LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__); break;                \
-    case 1032: LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__); break;                \
-    case 1064: LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__); break;                \
-    case 1128: LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); break;               \
-    case 2016: LAUNCH<__half, 16>(__VA_ARGS__); break;                       \
-    case 2032: LAUNCH<__half, 32>(__VA_ARGS__); break;                       \
-    case 2064: LAUNCH<__half, 64>(__VA_ARGS__); break;                       \
-    case 2128: LAUNCH<__half, 128>(__VA_ARGS__); break;                      \
-    default: return static_cast<int>(cudaErrorInvalidValue);                 \
-  }
-
 }  // namespace block_sparse

@@ -218,55 +218,24 @@ __global__ void __launch_bounds__(THREADS)
 block_sparse_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, Groups gr, int t, float scale) {
-  using C = Geo<BLOCK>;
   extern __shared__ __align__(128) uint8_t smem[];
-  const uint32_t ring = smem_u32(smem);  // stage s: K tile, then V tile
-
-  const int bh = blockIdx.x;
-  const int grp = blockIdx.y / C::NT;
-  const int half = blockIdx.y % C::NT;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int member = warp / C::WPM;
-  const int row_block = grp * C::G + member;
-  const bool live = row_block < t / BLOCK;
-  const int q0 = row_block * BLOCK + half * 64 + (warp % C::WPM) * 16;
-  const size_t g = group_row(bh, grp, gr);
-  const int* idx = gr.idx + g * gr.width;
-  const int* msk = gr.mask + g * gr.width;
-  const int steps = gr.count[g] * C::NT;
-  const T* kb = k + (size_t)bh * t * D;
-  const T* vb = v + (size_t)bh * t * D;
-
-  auto issue = [&](int s) {
-    if (s < steps) {
-      const int r0 = idx[s / C::NT] * BLOCK + (s % C::NT) * C::KT;
-      const uint32_t st = ring + (s % STAGES) * 2 * C::TILE_BYTES;
-      load_tile<C::KT>(st, kb + (size_t)r0 * D, tid);
-      load_tile<C::KT>(st + C::TILE_BYTES, vb + (size_t)r0 * D, tid);
-    }
-    cp_async_commit();  // an empty group past the end keeps the count
-  };
-  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+  const RowWalk<BLOCK> w(gr, t, warp);
 
   uint32_t qa[4][4] = {};
-  if (live) frag_a_global(qa, q + ((size_t)bh * t + q0) * D, lane);
+  if (w.live) frag_a_global(qa, q + w.row0 * D, lane);
   float acc[8][4] = {};
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   const float scale2 = scale * LOG2E;
 
-  for (int s = 0; s < steps; ++s) {
-    const bool mine = live && ((msk[s / C::NT] >> member) & 1);
-    cp_async_wait<STAGES - 2>();  // this thread's copies of stage s landed
-    __syncthreads();  // everyone's have, and stage s - 1 is released
-    issue(s + STAGES - 1);  // into the slot of stage s - 1
-    if (mine) {
-      const uint32_t st = ring + (s % STAGES) * 2 * C::TILE_BYTES;
+  walk_kv(w, smem_u32(smem), k + (size_t)w.bh * t * D, v + (size_t)w.bh * t * D,
+          tid, [&](uint32_t kt) {
 #pragma unroll
-      for (int kc = 0; kc < C::KT; kc += 16)
-        fwd_chunk<T>(qa, st, st + C::TILE_BYTES, kc, scale2, m, l, acc, lane);
-    }
-  }
-  if (!live) return;
+            for (int kc = 0; kc < Geo<BLOCK>::KT; kc += 16)
+              fwd_chunk<T>(qa, kt, kt + Geo<BLOCK>::TILE_BYTES, kc, scale2, m, l,
+                           acc, lane);
+          });
+  if (!w.live) return;
 
   // the row sums live in the four threads of a row
   float inv[2];
@@ -276,12 +245,11 @@ block_sparse_fwd_mma(const T* __restrict__ q, const T* __restrict__ k,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     inv[h] = l[h] == 0.f ? 0.f : 1.f / l[h];  // a row with no active block
   }
-  const size_t row0 = (size_t)bh * t + q0;
-  store_rows(o + row0 * D, acc, inv, lane);
+  store_rows(o + w.row0 * D, acc, inv, lane);
   if ((lane & 3) == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      lse[row0 + (lane >> 2) + 8 * h] =
+      lse[w.row0 + (lane >> 2) + 8 * h] =
           l[h] == 0.f ? NEG_INF : (m[h] + log2f(l[h])) * LN2;
   }
 }

@@ -1,7 +1,9 @@
 // Tensor-core building blocks of the bf16/fp16 block-sparse kernels
-// (block_sparse_fwd.cu and block_sparse_bwd_dkv.cu): the grouped lookup
-// tables a CUDA block walks, a cp.async ring of row tiles in shared memory,
-// and warp-level mma.sync m16n8k16 with fp32 accumulators fed by ldmatrix.
+// (block_sparse_fwd.cu, block_sparse_bwd_dq.cu and block_sparse_bwd_dkv.cu)
+// and of the multi-query decode kernel (decode_multi.cu): the grouped
+// lookup tables a CUDA block walks, a cp.async ring of row tiles in shared
+// memory (the forward's and dQ's K/V walk, `walk_kv`), and warp-level
+// mma.sync m16n8k16 with fp32 accumulators fed by ldmatrix.
 //
 // Why warp-level mma.sync and not wgmma: a warp owns 16 rows, exactly one
 // block-16 row of the layout, so it walks exactly its own LUT row and
@@ -99,6 +101,13 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
+// the same copy, of the first `bytes` (0 or 16) bytes; the rest of the 16
+// are written as zeros
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -115,6 +124,20 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const T* src, int tid) {
   for (int i = tid; i < ROWS * 8; i += THREADS) {
     const int r = i >> 3, c = i & 7;
     cp_async16(dst + swz(r, c), src + r * D + c * 8);
+  }
+}
+
+// rows [0, ROWS) of a [*, 64] operand into a swizzled tile, rows at or
+// past `live` as zeros (their source is never read)
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_tile_live(uint32_t dst, const T* src, int live,
+                                               int tid) {
+  static_assert(ROWS * 8 % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = tid; i < ROWS * 8; i += THREADS) {
+    const int r = i >> 3, c = i & 7;
+    const bool in = r < live;
+    cp_async16_zfill(dst + swz(r, c), src + (in ? r * D + c * 8 : 0), in ? 16 : 0);
   }
 }
 
@@ -159,19 +182,21 @@ __device__ __forceinline__ void frag_a_smem(uint32_t (&a)[4][4], uint32_t tile,
 }
 
 // The A fragments of a [16, 64] row-major operand in device memory (src:
-// its row 0), one per k16 step: the forward's Q.
+// its row 0), one per k16 step: the forward's Q, dQ's Q and dO; rows at or
+// past `rows` are zeros and never read (decode_multi's W rows padded to 16).
 template <typename T>
 __device__ __forceinline__ void frag_a_global(uint32_t (&a)[4][4], const T* src,
-                                              int lane) {
+                                              int lane, int rows = 16) {
   const int r = lane >> 2, c = (lane & 3) * 2;
   const uint32_t* lo = reinterpret_cast<const uint32_t*>(src + r * D + c);
   const uint32_t* hi = reinterpret_cast<const uint32_t*>(src + (r + 8) * D + c);
+  const bool lo_in = r < rows, hi_in = r + 8 < rows;
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = lo[8 * ks];
-    a[ks][1] = hi[8 * ks];
-    a[ks][2] = lo[8 * ks + 4];
-    a[ks][3] = hi[8 * ks + 4];
+    a[ks][0] = lo_in ? lo[8 * ks] : 0u;
+    a[ks][1] = hi_in ? hi[8 * ks] : 0u;
+    a[ks][2] = lo_in ? lo[8 * ks + 4] : 0u;
+    a[ks][3] = hi_in ? hi[8 * ks + 4] : 0u;
   }
 }
 
@@ -216,6 +241,66 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[8][4],
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt)
       row[4 * dt] = pack2<T>(acc[dt][2 * h] * mul[h], acc[dt][2 * h + 1] * mul[h]);
+  }
+}
+
+// What a warp of the forward's and dQ's CUDA block owns: its member (the
+// query block row gG + member of group g) and 16 rows of it, and the group's
+// union entries it walks.  blockIdx.x is batch*head, blockIdx.y the group
+// (times NT: at block 128 two CUDA blocks own one block row's halves).
+template <int BLOCK>
+struct RowWalk {
+  using C = Geo<BLOCK>;
+  int bh;
+  int member;
+  bool live;      // the member exists (the last group may be short)
+  size_t row0;    // the warp's first row in [bh * t, 64]
+  const int* idx;
+  const int* msk;
+  int steps;      // ring stages: union entries times NT
+
+  __device__ __forceinline__ RowWalk(const Groups& gr, int t, int warp) {
+    bh = blockIdx.x;
+    const int grp = blockIdx.y / C::NT;
+    const int half = blockIdx.y % C::NT;
+    member = warp / C::WPM;
+    const int row_block = grp * C::G + member;
+    live = row_block < t / BLOCK;
+    row0 = (size_t)bh * t + row_block * BLOCK + half * 64 + (warp % C::WPM) * 16;
+    const size_t g = group_row(bh, grp, gr);
+    idx = gr.idx + g * gr.width;
+    msk = gr.mask + g * gr.width;
+    steps = gr.count[g] * C::NT;
+  }
+};
+
+// The forward's and dQ's walk over a group's union entries: each entry's K
+// and V tiles (KT rows each, NT stages an entry) come once through a
+// STAGES-deep cp.async ring for all four warps, one __syncthreads a stage;
+// `body(k_tile)` (the V tile follows at k_tile + TILE_BYTES) runs on the
+// warps whose member bit is set.  kb/vb: the batch*head's [t, 64] K and V.
+// Shared memory: STAGES * 2 * TILE_BYTES from `ring`.
+template <int BLOCK, typename T, typename Body>
+__device__ __forceinline__ void walk_kv(const RowWalk<BLOCK>& w, uint32_t ring,
+                                        const T* kb, const T* vb, int tid,
+                                        Body&& body) {
+  using C = Geo<BLOCK>;
+  auto fetch = [&](int s) {
+    if (s < w.steps) {
+      const int r0 = w.idx[s / C::NT] * BLOCK + (s % C::NT) * C::KT;
+      const uint32_t st = ring + (s % STAGES) * 2 * C::TILE_BYTES;
+      load_tile<C::KT>(st, kb + (size_t)r0 * D, tid);
+      load_tile<C::KT>(st + C::TILE_BYTES, vb + (size_t)r0 * D, tid);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int s = 0; s < STAGES - 1; ++s) fetch(s);
+  for (int s = 0; s < w.steps; ++s) {
+    const bool mine = w.live && ((w.msk[s / C::NT] >> w.member) & 1);
+    cp_async_wait<STAGES - 2>();  // this thread's copies of stage s landed
+    __syncthreads();  // everyone's have, and stage s - 1 is released
+    fetch(s + STAGES - 1);  // into the slot of stage s - 1
+    if (mine) body(ring + (s % STAGES) * 2 * C::TILE_BYTES);
   }
 }
 

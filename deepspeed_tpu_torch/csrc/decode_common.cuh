@@ -1,6 +1,6 @@
 // The decode-attention core shared by csrc/decode_paged.cu,
-// csrc/decode_multi.cu and csrc/decode_paged_multi.cu (Hopper, sm_90a,
-// head_dim 64).
+// csrc/decode_paged_multi.cu and the fp32 arm of csrc/decode_multi.cu
+// (Hopper, sm_90a, head_dim 64).
 //
 // One thread block per (slot, head) attends W query rows (W = 1 for a
 // decode tick, W = k+1 <= 9 for a speculative verify pass) against the

@@ -6,19 +6,21 @@ Port of ``deepspeed_tpu/ops/pallas/block_sparse_attention.py``:
 ``build_kernel_luts``, the ``_sparse`` custom_vjp (``_sparse_fwd`` /
 ``_sparse_bwd``), ``block_sparse_attention`` and the three kernels it
 launches.  On a CUDA tensor the forward launches ``csrc/block_sparse_fwd.cu``
-and the backward ``csrc/block_sparse_bwd_dq.cu`` (row LUT) and
-``csrc/block_sparse_bwd_dkv.cu`` (transposed LUT); on a CPU tensor each
+and the backward ``csrc/block_sparse_bwd_dq.cu`` and
+``csrc/block_sparse_bwd_dkv.cu``; on a CPU tensor each
 runs its plain PyTorch version (the CPU tests' path and the kernels'
 yardstick on the card).  There is no fallback: a CUDA tensor reaches its
 kernel or the call raises.
 
-In bf16 and fp16 the forward and dK/dV kernels run on the tensor cores
+In bf16 and fp16 the three kernels run on the tensor cores
 (``csrc/block_sparse_mma.cuh``) and walk grouped tables instead of the LUT
 rows: ``build_group_luts`` gathers the query block rows (key blocks) one
 CUDA block owns into a group, with the union of their LUT rows and a
-member mask per entry.  It runs once per layout on the host, beside
+member mask per entry; the forward and dQ walk the query-row groups,
+dK/dV the key-block groups.  It runs once per layout on the host, beside
 ``build_kernel_luts``; the CUDA wrappers take its tables on the device
-(``groups``) and raise without them.
+(``groups``) and raise without them (the fp32 arms walk the LUT rows and
+do not read them).
 
 Sparsity is block-granular, as in the JAX kernels: an active block attends
 fully, a query row with no active block outputs zeros (lse -1e30) with zero
@@ -88,18 +90,18 @@ def build_kernel_luts(layout: np.ndarray
 
 def group_size(block: int) -> int:
     """Sparsity blocks (query block rows, or key blocks) one CUDA block of
-    the tensor-core forward and dK/dV kernels owns: four warps of 16 rows
+    the tensor-core kernels owns: four warps of 16 rows
     cover 64 rows, so 4, 2 and 1 at blocks 16, 32 and 64; at block 128 a
     group is one block, owned by two CUDA blocks (one half each)."""
     return 64 // min(block, 64)
 
 
 class GroupLuts(NamedTuple):
-    """The grouped lookup tables the tensor-core forward and dK/dV kernels
-    walk, one plane per LUT plane (int32, numpy or on the device).
+    """The grouped lookup tables the tensor-core kernels walk, one plane
+    per LUT plane (int32, numpy or on the device).
 
     A group is ``group_size(block)`` sparsity blocks owned by one CUDA
-    block: consecutive query block rows for the forward, key blocks in
+    block: consecutive query block rows for the forward and dQ, key blocks in
     the order of ``dkv_keys`` for dK/dV.  Its union lists every block any
     member uses, ascending, with a member mask per entry (bit j: member j
     uses it), so member j's masked entries are exactly its own ``cols``
@@ -291,7 +293,7 @@ _PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: (tensor pointers, ints) of each launcher, then scale, dtype, stream; the
 #: ints are bh, heads, lut_heads, t, block, width (and for the grouped
 #: kernels the groups' count and union width)
-_ARGS = {"block_sparse_fwd": (10, 8), "block_sparse_bwd_dq": (9, 6),
+_ARGS = {"block_sparse_fwd": (10, 8), "block_sparse_bwd_dq": (12, 8),
          "block_sparse_bwd_dkv": (14, 8)}
 
 
@@ -405,17 +407,22 @@ def block_sparse_fwd_cuda(q, k, v, cols, nvalid, sm_scale: float,
 
 
 def block_sparse_bwd_dq_cuda(q, k, v, do, lse, delta, cols, nvalid,
-                             sm_scale: float, block: int):
+                             sm_scale: float, block: int,
+                             groups: Optional[GroupLuts] = None):
     """Launch ``csrc/block_sparse_bwd_dq.cu``: dQ [B,H,T,64] in q.dtype
-    from q, k, v, dO (one dtype), fp32 lse/delta [B,H,T] and the row
-    LUT."""
+    from q, k, v, dO (one dtype), fp32 lse/delta [B,H,T], the row LUT (the
+    fp32 arm) and the forward's group tables of ``groups`` (the bf16/fp16
+    arm)."""
     _check("block_sparse_bwd_dq_cuda", block, cols, nvalid, q=q, k=k, v=v,
            do=do, lse=lse, delta=delta)
+    gidx, gmask, gcount = _check_groups("block_sparse_bwd_dq_cuda", groups,
+                                        q, cols, block, "fwd")
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
     _launch("block_sparse_bwd_dq", (q, k, v, do, lse, delta, dq, cols,
-                                    nvalid), q, cols, block, sm_scale)
+                                    nvalid, gidx, gmask, gcount), q, cols,
+            block, sm_scale, gidx.shape[1:])
     block_sparse_bwd_dq.launches += 1
     return dq
 
@@ -450,10 +457,15 @@ def block_sparse_fwd(q, k, v, cols, nvalid, sm_scale: float, block: int,
     return block_sparse_fwd_plain(q, k, v, cols, nvalid, sm_scale, block)
 
 
-def block_sparse_bwd_dq(q, *args, **kwargs):
+def block_sparse_bwd_dq(q, k, v, do, lse, delta, cols, nvalid,
+                        sm_scale: float, block: int,
+                        groups: Optional[GroupLuts] = None):
     """dQ: the kernel on a CUDA tensor, its plain version on a CPU one."""
-    fn = block_sparse_bwd_dq_cuda if q.is_cuda else block_sparse_bwd_dq_plain
-    return fn(q, *args, **kwargs)
+    if q.is_cuda:
+        return block_sparse_bwd_dq_cuda(q, k, v, do, lse, delta, cols,
+                                        nvalid, sm_scale, block, groups)
+    return block_sparse_bwd_dq_plain(q, k, v, do, lse, delta, cols, nvalid,
+                                     sm_scale, block)
 
 
 def block_sparse_bwd_dkv(q, k, v, do, lse, delta, rows_t, nvalid_t,
@@ -483,7 +495,8 @@ block_sparse_bwd_dkv.launches = 0
 class _BlockSparse(torch.autograd.Function):
     """The JAX package's ``_sparse`` custom_vjp: the forward saves q, k, v,
     out and lse; the backward computes ``delta = rowsum(dO·O)`` in fp32
-    and runs the dQ (row LUT) and dK/dV (transposed LUT) kernels."""
+    and runs the dQ and dK/dV kernels, all three over the group tables
+    (bf16/fp16) or the LUT rows (fp32)."""
 
     @staticmethod
     def forward(ctx, q, k, v, cols, nvalid, rows_t, nvalid_t, sm_scale,
@@ -502,7 +515,7 @@ class _BlockSparse(torch.autograd.Function):
         do = do.contiguous()
         delta = (do.float() * out.float()).sum(-1)
         dq = block_sparse_bwd_dq(q, k, v, do, lse, delta, cols, nvalid,
-                                 *ctx.args)
+                                 *ctx.args, ctx.groups)
         dk, dv = block_sparse_bwd_dkv(q, k, v, do, lse, delta, rows_t,
                                       nvalid_t, *ctx.args, ctx.groups)
         return dq, dk, dv, None, None, None, None, None, None, None

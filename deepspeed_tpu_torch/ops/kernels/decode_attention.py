@@ -10,7 +10,8 @@ kernel it replaces):
   ``_decode_paged_kernel`` (both arms: ``decode_paged`` for the fp pool,
   ``decode_paged_int8`` for the int8 pool);
 - ``decode_attention_multi``: ``csrc/decode_multi.cu``,
-  ``_decode_multi_kernel``;
+  ``_decode_multi_kernel`` (bf16/fp16: the key axis split over a
+  thread-block cluster, ``decode_multi_splits``);
 - ``decode_attention_paged_multi``: ``csrc/decode_paged_multi.cu``,
   ``_decode_paged_multi_kernel`` (``decode_paged_multi`` and
   ``decode_paged_multi_int8``).
@@ -377,7 +378,10 @@ def decode_paged_cuda(q, k_pages, v_pages, page_table, lengths,
 
 def decode_multi_cuda(q, k, v, lengths, sm_scale: float):
     """Launch ``csrc/decode_multi.cu``: q [S,H,W,64] (W <= 9), k/v
-    [S,H,T,64], int32 per-query lengths [S, W], all on the device."""
+    [S,H,T,64], int32 per-query lengths [S, W], all on the device.  bf16
+    and fp16 split each (slot, head)'s keys over a cluster of
+    ``decode_multi_splits(T)`` CUDA blocks; fp32 runs one block per (slot,
+    head)."""
     what = "decode_multi_cuda"
     _check_operands(what, q, {"q": q, "k": k, "v": v}, {"lengths": lengths})
     S, H, T, Dh = k.shape
@@ -392,6 +396,15 @@ def decode_multi_cuda(q, k, v, lengths, sm_scale: float):
                   sm_scale)
     decode_attention_multi.launches += 1
     return out
+
+
+def decode_multi_splits(t_max: int) -> int:
+    """CUDA blocks per (slot, head) of ``csrc/decode_multi.cu``'s bf16/fp16
+    kernel at cache length ``t_max``, which is also its cluster size: the
+    launcher's own count, read from the built library."""
+    fn = build.load("decode_multi").decode_multi_splits
+    fn.argtypes, fn.restype = [_INT], ctypes.c_int
+    return int(fn(int(t_max)))
 
 
 def decode_paged_multi_cuda(q, k_pages, v_pages, page_table, lengths,

@@ -128,11 +128,13 @@ def main() -> None:
           f"{sum(r[1] for r in rows)} device ops per tick")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.4f} ms  x{n:<4d} {key[:90]}")
-    # the decode attention kernels: decode_kernel (slot cache) and the
-    # instantiations of decode_common.cuh's rows_kernel (paged, multi and
-    # their int8 arms)
-    attn = [r for r in rows if "rows_kernel" in r[2]
-            or "decode_kernel" in r[2]]
+    # the decode attention kernels: decode_kernel (slot cache), the
+    # instantiations of decode_common.cuh's rows_kernel (paged, paged multi
+    # and their int8 arms, fp32 multi) and decode_multi.cu's key-split
+    # cluster kernel (bf16/fp16 multi)
+    attn = [r for r in rows if any(
+        name in r[2] for name in ("rows_kernel", "decode_kernel",
+                                  "decode_multi_split"))]
     attn_ms = sum(r[0] for r in attn)
     print(f"decode attention kernels: {attn_ms:.4f} ms per tick over "
           f"{sum(r[1] for r in attn)} launches")

@@ -1,18 +1,21 @@
 """Why the tensor-core block-sparse forward feeds P to P·V as two terms, and
-why its dK/dV kernel rounds P~ and dS once each.
+why its dQ and dK/dV kernels round dS (and P~) once each.
 
-``csrc/block_sparse_fwd.cu`` and ``csrc/block_sparse_bwd_dkv.cu`` (bf16 and
-fp16) run every product on mma.sync with fp32 accumulators and bf16
-operands.  The forward enters P·V as hi = round(p) plus lo = round(p - hi),
-as ``csrc/flash_fwd.cu`` does; dK/dV round P~ and dS once each before
-their second products, as the JAX kernel's ``p.astype(do.dtype)`` and
-``ds.astype(q.dtype)`` do.  This emulates both in PyTorch on the CPU
+``csrc/block_sparse_fwd.cu``, ``csrc/block_sparse_bwd_dq.cu`` and
+``csrc/block_sparse_bwd_dkv.cu`` (bf16 and fp16) run every product on
+mma.sync with fp32 accumulators and bf16 operands.  The forward enters P·V
+as hi = round(p) plus lo = round(p - hi), as ``csrc/flash_fwd.cu`` does; dQ
+rounds dS once before dS·K, as the JAX kernel's ``ds.astype(k.dtype)``
+does, and dK/dV round P~ and dS once each before their second products, as
+its ``p.astype(do.dtype)`` and ``ds.astype(q.dtype)`` do.  This emulates
+all three in PyTorch on the CPU
 (inputs from a numpy seed, [2, 2, 256, 64], the Fixed layout at block 16)
 and holds the emulation
 
 (a) to the JAX package's ``block_sparse_attention`` and its ``jax.grad``
-    in interpret mode, in bf16, within 1e-2 of the largest magnitude (both
-    sides round their results to bf16, and the JAX forward rounds P once);
+    (dQ, dK, dV) in interpret mode, in bf16, within 1e-2 of the largest
+    magnitude (both sides round their results to bf16, and the JAX forward
+    rounds P once);
 (b) to the port's fp32 plain versions within ``chip_smoke.py``'s limits:
     the forward within one bf16 ulp + 1e-4 elementwise, the gradients
     within 2e-2 of the largest magnitude.
@@ -81,37 +84,43 @@ def _emulated_fwd(q, k, v, layout, split: bool):
     return (pv / l).bfloat16().float()
 
 
-def _emulated_dkv(q, k, v, do, layout):
-    """The dK/dV kernel's arithmetic over the plain forward's lse and
-    delta = rowsum(dO·O) of the bf16 output (as the autograd Function
-    computes it): P~ and dS rounded once to bf16 before the second
-    products, the results rounded to bf16."""
+def _emulated_bwd(q, k, v, do, layout):
+    """The dQ and dK/dV kernels' arithmetic over the plain forward's lse
+    and delta = rowsum(dO·O) of the bf16 output (as the autograd Function
+    computes it): dS rounded once to bf16 before dS·K (dQ), P~ and dS
+    before P~ᵀ·dO and dSᵀ·Q (dK/dV), the results rounded to bf16; beside
+    them the fp32 plain versions on the same lse and delta.  Returns
+    ``((dq, dk, dv), (plain dq, dk, dv))``."""
     luts = bs.device_luts(bs.build_kernel_luts(layout), "cpu")
     out, lse = bs.block_sparse_fwd_plain(q, k, v, *luts[:2], SCALE, BLOCK)
     delta = (do * out.bfloat16().float()).sum(-1)
     s = q @ k.transpose(-1, -2) * SCALE
     p = torch.where(_token_mask(layout), torch.exp(s - lse[..., None]), 0.0)
     ds = p * (do @ v.transpose(-1, -2) - delta[..., None]) * SCALE
+    dq = ds.bfloat16().float() @ k
     dv = p.bfloat16().float().transpose(-1, -2) @ do
     dk = ds.bfloat16().float().transpose(-1, -2) @ q
-    plain = bs.block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta,
-                                          *luts[2:], SCALE, BLOCK)
-    return (dk.bfloat16().float(), dv.bfloat16().float()), plain
+    plain = (bs.block_sparse_bwd_dq_plain(q, k, v, do, lse, delta,
+                                          *luts[:2], SCALE, BLOCK),
+             *bs.block_sparse_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                            *luts[2:], SCALE, BLOCK))
+    return tuple(x.bfloat16().float() for x in (dq, dk, dv)), plain
 
 
 def _jax(q, k, v, do, layout):
     """The JAX Pallas kernels (interpret mode) on the same bf16 values:
-    the forward output and dK, dV of sum(out * dO)."""
+    the forward output and dQ, dK, dV of sum(out * dO)."""
     g = jnp.asarray(do.numpy(), jnp.bfloat16).astype(jnp.float32)
     qj, kj, vj = (jnp.asarray(x.numpy(), jnp.bfloat16) for x in (q, k, v))
 
-    def f(k_, v_):
-        return jbs.block_sparse_attention(qj, k_, v_, layout, BLOCK,
+    def f(q_, k_, v_):
+        return jbs.block_sparse_attention(q_, k_, v_, layout, BLOCK,
                                           interpret=True)
 
-    out = f(kj, vj)
-    grads = jax.grad(lambda k_, v_: jnp.sum(
-        f(k_, v_).astype(jnp.float32) * g), argnums=(0, 1))(kj, vj)
+    out = f(qj, kj, vj)
+    grads = jax.grad(lambda q_, k_, v_: jnp.sum(
+        f(q_, k_, v_).astype(jnp.float32) * g), argnums=(0, 1, 2))(qj, kj,
+                                                                 vj)
     return [torch.from_numpy(np.array(x.astype(jnp.float32)))
             for x in (out, *grads)]
 
@@ -133,9 +142,18 @@ def test_p_split_keeps_the_forward_within_one_bf16_ulp(split,
 
 def test_single_rounding_dkv_stays_within_chip_tolerance():
     q, k, v, do = _inputs()
-    (dk, dv), (pk, pv) = _emulated_dkv(q, k, v, do, _layout())
+    (_, dk, dv), (_, pk, pv) = _emulated_bwd(q, k, v, do, _layout())
     err = max(_rel(dk, pk), _rel(dv, pv))
     print(f"dK/dV emulation vs fp32 plain: {err:.3g} of the largest")
+    assert err <= TOL_CHIP, err
+
+
+def test_single_rounding_dq_stays_within_chip_tolerance():
+    q, k, v, do = _inputs()
+    (dq, _, _), (pq, _, _) = _emulated_bwd(q, k, v, do, _layout())
+    err = _rel(dq, pq)
+    print(f"dQ emulation (dS rounded once) vs fp32 plain: {err:.3g} of the "
+          "largest")
     assert err <= TOL_CHIP, err
 
 
@@ -143,8 +161,9 @@ def test_emulation_matches_the_jax_kernels():
     q, k, v, do = _inputs()
     layout = _layout()
     out = _emulated_fwd(q, k, v, layout, split=True)
-    (dk, dv), _ = _emulated_dkv(q, k, v, do, layout)
-    jout, jk, jv = _jax(q, k, v, do, layout)
-    errs = {"out": _rel(out, jout), "dk": _rel(dk, jk), "dv": _rel(dv, jv)}
+    (dq, dk, dv), _ = _emulated_bwd(q, k, v, do, layout)
+    jout, jq, jk, jv = _jax(q, k, v, do, layout)
+    errs = {"out": _rel(out, jout), "dq": _rel(dq, jq), "dk": _rel(dk, jk),
+            "dv": _rel(dv, jv)}
     print(f"emulation vs JAX (of the largest magnitude): {errs}")
     assert max(errs.values()) <= TOL_JAX, errs

@@ -21,8 +21,8 @@ from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_attention, decode_attention_cuda,
     decode_attention_multi, decode_attention_paged,
     decode_attention_paged_multi, decode_attention_plain, decode_multi_cuda,
-    decode_multi_plain, decode_paged_cuda, decode_paged_int8_cuda,
-    decode_paged_int8_plain, decode_paged_multi_cuda,
+    decode_multi_plain, decode_multi_splits, decode_paged_cuda,
+    decode_paged_int8_cuda, decode_paged_int8_plain, decode_paged_multi_cuda,
     decode_paged_multi_int8_cuda, decode_paged_multi_int8_plain,
     decode_paged_multi_plain, decode_paged_plain)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
@@ -333,6 +333,38 @@ def test_multi_kernel_matches_plain(dev, dtype, w):
     assert (out[0] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t", [64, 300, 1000, 1024, 2048])
+@pytest.mark.parametrize("w", range(2, 10))
+def test_multi_split_kernel_sweep(dev, dtype, t, w):
+    """decode_multi's bf16/fp16 arm (each (slot, head)'s keys split over a
+    cluster of ceil(T / 256) <= 8 CUDA blocks) against its plain version:
+    S x H = 5 x 7; T of one tile (1 split), of two splits with a short
+    last one, ragged (1000: the last tile is cut), whole (4 splits) and
+    2048 (a cluster of 8); a length-0 slot (exact zeros), one key, a row
+    ending on a tile boundary, the full cache, and a row dead in the tiles
+    the slot's other rows keep live."""
+    S, H = 5, 7
+    assert decode_multi_splits(t) == min(8, max(1, -(-t // 256)))
+    base = torch.tensor([0, 1, min(64, t - w), t - w, (3 * t) // 5 - w],
+                        device=dev)
+    lens = base[:, None] + torch.arange(1, w + 1, device=dev)[None]
+    lens = torch.where(base[:, None] > 0, lens, 0)
+    lens[2, 0] = 64                      # ends on a tile boundary
+    lens[4, 1] = 2                       # dead past the first tile
+    lens = lens.clamp(max=t).to(torch.int32).contiguous()
+    q = _randn(dev, S, H, w, 64, seed=30 + w).to(dtype)
+    k, v = (_randn(dev, S, H, t, 64, seed=40 + i).to(dtype) for i in range(2))
+    scale = _default_scale(64)
+    out = decode_multi_cuda(q, k, v, lens, scale)
+    torch.cuda.synchronize()
+    ref = decode_multi_plain(q.float(), k.float(), v.float(), lens, scale)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= TOL[dtype], err
+    assert (out[0] == 0).all()
+
+
 def _paged_int8(dev, dtype, page_len, w):
     """``_paged``'s pools quantized by the port's ``quantize_rows``, with
     every (page, row) no live row reads (the scratch page 0 included) set
@@ -507,7 +539,7 @@ def test_block_sparse_kernels_match_plain(dev, dtype, kind, block, B, H, T):
     assert (lse - ref_lse).abs().max().item() <= tol
     delta = (do.float() * ref).sum(-1)
     dq = bs.block_sparse_bwd_dq_cuda(q, k, v, do, ref_lse, delta, cols,
-                                     nvalid, 0.125, block)
+                                     nvalid, 0.125, block, groups)
     dk, dv = bs.block_sparse_bwd_dkv_cuda(q, k, v, do, ref_lse, delta,
                                           rows_t, nvalid_t, 0.125, block,
                                           groups)
@@ -532,17 +564,21 @@ def test_block_sparse_kernels_match_plain(dev, dtype, kind, block, B, H, T):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_block_sparse_cuda_calls_without_group_tables_raise(dev, dtype):
-    """The forward and dK/dV kernels walk the group tables: a CUDA call
-    without them raises (it never builds them from device tensors) and
-    launches nothing."""
+    """The forward, dQ and dK/dV kernels walk the group tables: a CUDA
+    call without them raises (it never builds them from device tensors)
+    and launches nothing."""
     from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
     layout = _sparse_layout("fixed", 4, 128, 16)
     (cols, nvalid, rows_t, nvalid_t), _ = _sparse_tables(bs, layout, 16, dev)
     x = _randn(dev, 2, 4, 128, 64).to(dtype)
     stat = torch.zeros(2, 4, 128, device=dev)
-    counts = (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dkv.launches)
+    counts = (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dq.launches,
+              bs.block_sparse_bwd_dkv.launches)
     with pytest.raises(ValueError, match="group"):
         bs.block_sparse_fwd_cuda(x, x, x, cols, nvalid, 0.125, 16)
+    with pytest.raises(ValueError, match="group"):
+        bs.block_sparse_bwd_dq_cuda(x, x, x, x, stat, stat, cols, nvalid,
+                                    0.125, 16)
     with pytest.raises(ValueError, match="group"):
         bs.block_sparse_bwd_dkv_cuda(x, x, x, x, stat, stat, rows_t,
                                      nvalid_t, 0.125, 16)
@@ -550,7 +586,7 @@ def test_block_sparse_cuda_calls_without_group_tables_raise(dev, dtype):
         bs.block_sparse_attention(x, x, x, layout, 16,
                                   luts=bs.device_luts(
                                       bs.build_kernel_luts(layout), dev))
-    assert (bs.block_sparse_fwd.launches,
+    assert (bs.block_sparse_fwd.launches, bs.block_sparse_bwd_dq.launches,
             bs.block_sparse_bwd_dkv.launches) == counts
 
 
