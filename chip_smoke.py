@@ -15,8 +15,9 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             parallel; the tensor-core instructions of each library
             counted with ``cuobjdump -sass``, HGMMA (wgmma) and HMMA
             (mma.sync): the tensor-core flash forward, dQ and dK/dV must
-            hold HGMMA, the block-sparse forward, dQ and dK/dV and the
-            multi-query decode kernel HMMA;
+            hold HGMMA, the block-sparse forward, dQ and dK/dV, the
+            multi-query decode kernel and the paged and paged multi-query
+            decode kernels (both pools) HMMA;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -32,12 +33,17 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             kernels' device time there), the paged, multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
-            no live row lands in) and W = 5 verify rows (the multi-query
-            kernel's split count and cluster size printed), and the int8 pool
+            no live row lands in) and W = 5 verify rows (the split count
+            and cluster size of the bf16/fp16 multi-query and paged
+            kernels printed), and the int8 pool
             arms of the paged and paged multi-query kernels on that pool
             quantized from bf16 (random bytes and NaN scales in every row
             no live row reads; fp32 queries within 1e-4, bf16 queries
-            within one bf16 ulp + 1e-4 elementwise); timed beside the
+            within one bf16 ulp + 1e-4 elementwise); the single-query paged
+            arms also at the capacity leg's width (64 slots x 12 heads,
+            rows of at most 3 pages) with its own table (T 64) and a long
+            one (T 1024), checked the same way, timed and printed beside
+            the parent's one-block kernel's device time; timed beside the
             plain version, one PyTorch library call on the same work
             (``library_ms``, a yardstick only) and the bound the card's
             peak rates give, each twice: ``ms`` with CUDA events around 20
@@ -174,7 +180,8 @@ SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
 TENSOR_CORE_SOURCES = {"flash_fwd": "HGMMA", "flash_bwd_dq": "HGMMA",
                        "flash_bwd_dkv": "HGMMA", "block_sparse_fwd": "HMMA",
                        "block_sparse_bwd_dq": "HMMA",
-                       "block_sparse_bwd_dkv": "HMMA", "decode_multi": "HMMA"}
+                       "block_sparse_bwd_dkv": "HMMA", "decode_multi": "HMMA",
+                       "decode_paged": "HMMA", "decode_paged_multi": "HMMA"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -198,6 +205,21 @@ SLOT_CFG = {"slots": 8, "max_seq_len": 1024, "prefill_len": 512}
 PAGED_CFG = {**SLOT_CFG, "page_len": 16, "pages": 640, "prefix_cache": True,
              "prefill_chunk_len": 128}
 DRAFT_LAYERS = 2
+#: the capacity leg's decode width: slots, heads, page_len, most keys a
+#: row (3 pages), and the table columns timed: the leg's own (T 64,
+#: max_seq_len 64) and a long table (T 1024)
+CAPACITY_DECODE = (64, 12, 16, 48)
+CAPACITY_COLS = (4, 64)
+#: device ms of the single-query paged arms at those widths, by table
+#: columns, before the split kernel (decode_common.cuh's rows_kernel then
+#: ran every arm, one block a (slot, head)): the mean of eight parent runs
+#: in turns with this tree's kernels over four calls
+#: (profile_decode_torch.py; PERF.md section 6, NVIDIA H100 80GB HBM3,
+#: 700 W); printed beside this run's times, never compared
+PARENT_CAPACITY_MS = {("decode_paged", 4): 0.0066,
+                      ("decode_paged_int8", 4): 0.0069,
+                      ("decode_paged", 64): 0.0066,
+                      ("decode_paged_int8", 64): 0.0069}
 #: the quantized serving plane, both arms on
 QUANT = {"weights": "int8", "kv": "int8"}
 SPEC = {"speculate_k": 4,
@@ -262,18 +284,28 @@ def device_ms(fn, iters: int = 20) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a window that recorded nothing is taken again
+    fullest = 0.0
+    # a window that recorded nothing, or lost some of its calls' kernels
+    # (a kernel seen a number of times that is no multiple of iters), is
+    # taken again; after 3 the fullest is kept
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
         us = sum(getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-                 for ev in prof.key_averages()
-                 if ev.device_type == DeviceType.CUDA)
-        if us > 0:
+                 for ev in evs)
+        if us > 0 and all(ev.count % iters == 0 for ev in evs):
             return us / iters / 1e3
+        fullest = max(fullest, us)
+    if fullest > 0:
+        print(f"chip_smoke: device_ms: no window of {iters} calls held "
+              "every call's kernels; the fullest is kept", file=sys.stderr)
+        return fullest / iters / 1e3
     fail("device_ms: the profiler recorded no device time in 3 windows")
 
 
@@ -462,28 +494,18 @@ def _paged_pool(cache, lengths, page_len, pool_pages):
     return pool, table.to(cache.device)
 
 
-def phase_decode_kernels(dev, results):
-    """The paged, multi-query and paged multi-query decode kernels against
-    their plain versions at the serving shapes: the slot cache [8, 12,
-    1024, 64], page_len 16 over a 513-page pool with a permuted table,
-    lengths {0, 1, 513, 1024, 77, 300, 640, 1000}, W = 5 verify rows at
-    L + i + 1 (rows past the capacity masked, as ``_verify_rows`` does);
-    timed beside the plain version, a library yardstick (the pages
-    gathered through the table, then masked ``scaled_dot_product_
-    attention``) and the bytes bound (the live K/V rows read once, plus
-    q, out, lengths and table)."""
+def decode_case(dev) -> dict:
+    """The decode phase's operands at the serving shapes, fp32: the slot
+    cache ``kc32``/``vc32`` [8, 12, 1024, 64], its rows as page pools
+    ``kp32``/``vp32`` (page_len 16, 513 pages, a permuted ``table``),
+    lengths {0, 1, 513, 1024, 77, 300, 640, 1000} (``base``), W = 5 verify
+    rows at L + i + 1 (``multi_lens``; rows past the capacity masked, as
+    ``_verify_rows`` does), the lengths both need (``live``) and the
+    queries ``q1_32`` [8, 12, 64] and ``qw_32`` [8, 12, 5, 64]."""
     import torch
-    import torch.nn.functional as F
-    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
-        _default_scale, decode_attention_plain, decode_multi_cuda,
-        decode_multi_plain, decode_multi_splits, decode_paged_cuda,
-        decode_paged_multi_cuda, decode_paged_multi_plain,
-        decode_paged_plain, paged_gather)
-
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 3)
     S, H, T, D, W, PAGE, POOL = 8, 12, 1024, 64, 5, 16, 513
-    scale = _default_scale(D)
     base = torch.tensor([0, 1, 513, 1024, 77, 300, 640, 1000],
                         dtype=torch.int32, device=dev)
     rows = base[:, None] + torch.arange(1, W + 1, device=dev,
@@ -496,8 +518,66 @@ def phase_decode_kernels(dev, results):
     live = torch.cat([base[:, None], multi_lens], dim=1)
     kp32, table = _paged_pool(kc32, live, PAGE, POOL)
     vp32, _ = _paged_pool(vc32, live, PAGE, POOL)
-    q1_32 = torch.randn((S, H, D), generator=g, device=dev)
-    qw_32 = torch.randn((S, H, W, D), generator=g, device=dev)
+    return {"base": base, "multi_lens": multi_lens, "live": live,
+            "kc32": kc32, "vc32": vc32, "kp32": kp32, "vp32": vp32,
+            "table": table,
+            "q1_32": torch.randn((S, H, D), generator=g, device=dev),
+            "qw_32": torch.randn((S, H, W, D), generator=g, device=dev)}
+
+
+def capacity_case(dev, cols: int) -> dict:
+    """The single-query paged arms' operands at the capacity leg's width
+    (``CAPACITY_DECODE``): 64 slots x 12 heads, page_len 16, ``cols``
+    table columns (T = 16 ``cols``), rows of 1-48 keys from a seed, each
+    slot's 3 pages at permuted ids and its dead columns at the scratch
+    page 0 (garbage); bf16 ``q`` and pools ``kp``/``vp``, and the int8
+    pools ``k8``/``v8`` with scales ``ks``/``vs`` quantized from them
+    (random bytes and NaN scales in every row no live row reads)."""
+    import torch
+    S, H, PAGE, most = CAPACITY_DECODE
+    g = torch.Generator().manual_seed(SEED + 11)
+    lens = torch.randint(1, most + 1, (S,), generator=g, dtype=torch.int32)
+    table = torch.zeros((S, cols), dtype=torch.int32)
+    table[:, :3] = (torch.randperm(3 * S, generator=g).view(S, 3) + 1).to(
+        torch.int32)
+    pools = []
+    for _ in range(2):
+        x = torch.randn((3 * S + 1, H, PAGE, 64), generator=g)
+        x[0] = 100 * torch.randn((H, PAGE, 64), generator=g)
+        pools.append(x.to(dev))
+    table, lens = table.to(dev), lens.to(dev)
+    k8, ks = _int8_pool(pools[0], table, lens, PAGE, SEED + 12)
+    v8, vs = _int8_pool(pools[1], table, lens, PAGE, SEED + 13)
+    q = torch.randn((S, H, 64), generator=g).to(dev, torch.bfloat16)
+    return {"q": q, "kp": pools[0].bfloat16(), "vp": pools[1].bfloat16(),
+            "k8": k8, "v8": v8, "ks": ks, "vs": vs, "table": table,
+            "lens": lens}
+
+
+def phase_decode_kernels(dev, results):
+    """The paged, multi-query and paged multi-query decode kernels against
+    their plain versions at the serving shapes (:func:`decode_case`);
+    timed beside the plain version, a library yardstick (the pages
+    gathered through the table, then masked ``scaled_dot_product_
+    attention``) and the bytes bound (the live K/V rows read once, plus
+    q, out, lengths and table); then the single-query paged arms at the
+    capacity leg's width (:func:`phase_decode_capacity`)."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _default_scale, decode_attention_plain, decode_multi_cuda,
+        decode_multi_plain, decode_paged_cuda, decode_paged_multi_cuda,
+        decode_paged_multi_plain, decode_paged_plain, decode_splits,
+        paged_gather)
+
+    c = decode_case(dev)
+    base, multi_lens, live, table = (c[k] for k in ("base", "multi_lens",
+                                                    "live", "table"))
+    kc32, vc32, kp32, vp32, q1_32, qw_32 = (
+        c[k] for k in ("kc32", "vc32", "kp32", "vp32", "q1_32", "qw_32"))
+    S, H, T, D = kc32.shape
+    W = qw_32.shape[2]
+    scale = _default_scale(D)
     # name: (kernel, plain, slot-cache plain of the same rows, paged, lens)
     cases = {
         "decode_paged": (decode_paged_cuda, decode_paged_plain,
@@ -508,10 +588,12 @@ def phase_decode_kernels(dev, results):
                                decode_paged_multi_plain, decode_multi_plain,
                                True, multi_lens),
     }
-    n = decode_multi_splits(T)
-    print(f"[kernels] decode_multi bf16/fp16 at T {T}: the keys of each "
-          f"(slot, head) split over {n} CUDA blocks, cluster size {n}, "
-          f"{n * S * H} blocks")
+    for name, n in (("decode_multi", decode_splits(T, S * H)),
+                    ("decode_paged(_multi)", decode_splits(
+                        table.shape[1] * kp32.shape[2], S * H))):
+        print(f"[kernels] {name} bf16/fp16 at T {T}: the keys of each "
+              f"(slot, head) split over {n} CUDA blocks, cluster size {n}, "
+              f"{n * S * H} blocks")
     errs = {}
     for dtype in ("float32", "bfloat16"):
         tdt = getattr(torch, dtype)
@@ -600,6 +682,84 @@ def phase_decode_kernels(dev, results):
                      "then masked F.scaled_dot_product_attention"),
         }
         print_row("[kernels]", name + " bf16", results[name])
+    phase_decode_capacity(dev, results)
+
+
+def phase_decode_capacity(dev, results):
+    """The single-query paged arms, fp and int8 pools, at the capacity
+    leg's width (:func:`capacity_case`: 64 slots x 12 heads, rows of at
+    most 3 pages) with the leg's own table (T 64, each slot's keys in one
+    tile) and a long one (T 1024, where most ranks of a T-sized cluster
+    would see no key): the slots alone fill the card.  Checked against
+    the plain versions as at the serving shapes, timed beside them, kept
+    in each kernel's row as ``capacity_t<T>``, and printed beside the
+    parent's one-block kernel's time from PERF.md."""
+    import torch
+    import torch.nn.functional as F
+    from deepspeed_tpu_torch.ops.kernels.decode_attention import (
+        _default_scale, decode_paged_cuda, decode_paged_int8_cuda,
+        decode_paged_int8_plain, decode_paged_plain, decode_splits,
+        dequantize_paged, paged_gather)
+    for cols in CAPACITY_COLS:
+        c = capacity_case(dev, cols)
+        q, kp, vp, k8, v8, ks, vs, table, lens = (
+            c[k] for k in ("q", "kp", "vp", "k8", "v8", "ks", "vs", "table",
+                           "lens"))
+        S, H, D = q.shape
+        T = cols * kp.shape[2]
+        scale = _default_scale(D)
+        n = decode_splits(T, S * H)
+        print(f"[kernels] capacity width: {S} slots x {H} heads, T {T}, rows "
+              f"of {int(lens.min())}-{int(lens.max())} keys: {n} CUDA "
+              "block(s) a (slot, head)")
+        mask = (torch.arange(T, device=dev)[None] < lens[:, None])[
+            :, None, None, :]
+        ks_l, vs_l = torch.nan_to_num(ks), torch.nan_to_num(vs)
+        rows = int(lens.sum()) * H
+        other_b = 2 * S * H * D * 2 + table.numel() * 4 + S * 4
+        cases = {
+            "decode_paged": (
+                lambda: decode_paged_cuda(q, kp, vp, table, lens, scale),
+                lambda: decode_paged_plain(q, kp, vp, table, lens, scale),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], paged_gather(kp, table),
+                    paged_gather(vp, table), attn_mask=mask),
+                lambda: decode_paged_plain(q.float(), kp.float(), vp.float(),
+                                           table, lens, scale),
+                rows * 4 * D + other_b),
+            "decode_paged_int8": (
+                lambda: decode_paged_int8_cuda(q, k8, v8, ks, vs, table,
+                                               lens, scale),
+                lambda: decode_paged_int8_plain(q, k8, v8, ks, vs, table,
+                                                lens, scale),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None],
+                    dequantize_paged(k8, ks_l, table).bfloat16(),
+                    dequantize_paged(v8, vs_l, table).bfloat16(),
+                    attn_mask=mask),
+                lambda: decode_paged_int8_plain(q.float(), k8, v8, ks, vs,
+                                                table, lens, scale),
+                rows * (2 * D + 2 * 4) + other_b),
+        }
+        for name, (run, plain, lib, ref32, nbytes) in cases.items():
+            out = run()
+            torch.cuda.synchronize()
+            ref = ref32()
+            err = (out.float() - ref).abs().max().item()
+            ok = (_ulp_err(out, ref) <= 1.0 if name.endswith("_int8")
+                  else err <= TOL["bfloat16"])
+            if not (ok and torch.isfinite(out).all()):
+                fail(f"{name} at the capacity width, T {T}: error {err}")
+            bms, by = bound_ms(nbytes, 4 * D * rows, "bfloat16")
+            row = {**timings(run, plain, lib), "bound_ms": bms,
+                   "bound_by": by, "max_abs_err": err, "splits": n}
+            results[name][f"capacity_t{T}"] = row
+            print_row("[kernels]", f"{name} bf16 at the capacity width, T "
+                      f"{T}", row)
+            parent = PARENT_CAPACITY_MS[(name, cols)]
+            print(f"[kernels] {name} at the capacity width, T {T}: device "
+                  f"{row['device_ms']:.4f} ms; the parent's one-block "
+                  f"kernel {parent:.4f} ms (PERF.md, section 6)")
 
 
 def _int8_pool(pool32, table, live_lens, page_len, seed):

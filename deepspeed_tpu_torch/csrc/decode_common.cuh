@@ -1,6 +1,9 @@
-// The decode-attention core shared by csrc/decode_paged.cu,
-// csrc/decode_paged_multi.cu and the fp32 arm of csrc/decode_multi.cu
-// (Hopper, sm_90a, head_dim 64).
+// The fp32 decode-attention core: the fp32 arms of csrc/decode_paged.cu,
+// csrc/decode_paged_multi.cu (both with their int8 pool arms under fp32
+// queries) and csrc/decode_multi.cu (Hopper, sm_90a, head_dim 64).  Their
+// bf16/fp16 arms run decode_split.cuh's key-split tensor-core kernel; the
+// tensor cores would take fp32 only as TF32, and the fp32 arms are held to
+// 1e-4 of their plain versions, so fp32 stays on FMAs here.
 //
 // One thread block per (slot, head) attends W query rows (W = 1 for a
 // decode tick, W = k+1 <= 9 for a speculative verify pass) against the
@@ -13,14 +16,14 @@
 // K and V read once against 4*64*W flops, a few flops per byte, so the
 // kernel is a stream over the live cache at 3.35 TB/s.
 //
-// What the design does about it:
+// The design:
 // - the block reads its row lengths on the device and walks only the keys
 //   below the longest one: a short slot costs what it holds, and a paged
 //   slot never reads a table column at or past ceil(len / page_len) (those
 //   entries are the scratch page 0, or garbage);
 // - a warp takes four keys at a time, one per group of eight lanes, each
-//   lane holding eight of the 64 dims: one 16-byte load per lane (bf16)
-//   reads a whole 128-byte key row per group, and a dot product needs only
+//   lane holding eight of the 64 dims: two 16-byte loads per lane read a
+//   whole 256-byte fp32 key row per group, and a dot product needs only
 //   three shuffles; a key step may cross a page boundary, since every key
 //   finds its own page;
 // - every (group, row) keeps its own fp32 online-softmax state; the four
@@ -37,16 +40,12 @@
 // kernel folds them (decode_attention.py:336-359): s = (q.k8) * sm_scale
 // * ks, acc += (p * vs) * v8, while l sums p alone; the page is never
 // dequantized into memory.  A lane reads its eight int8 dims with one
-// 8-byte load, so a group of eight lanes reads the 64-byte row; the row
-// costs 136 B of traffic (2 x 64 int8 + 2 x 4 B of scale) against 256 B
-// in bf16.
+// 8-byte load, so a group of eight lanes reads the 64-byte row.
 #pragma once
 
 #include <cstdint>
 #include <type_traits>
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace decode {
@@ -59,12 +58,6 @@ constexpr int STEP = WARPS * GROUPS;
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-
 // eight consecutive elements (16-byte aligned) as floats
 __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   const float4 a = *reinterpret_cast<const float4*>(p);
@@ -72,43 +65,12 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
   x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
   x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
 }
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load8(const __half* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __half2* h = reinterpret_cast<const __half2*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __half22float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
-  }
-}
-
 // eight consecutive int8 values (8-byte aligned) as floats
 __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
   const int8_t* b = reinterpret_cast<const int8_t*>(&u);
 #pragma unroll
   for (int i = 0; i < 8; ++i) x[i] = static_cast<float>(b[i]);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 struct Args {
@@ -126,9 +88,9 @@ struct Args {
   const float* v_scale;
 };
 
-// TQ: the query/output type; TKV: the K/V type, TQ or (QUANT) int8_t.
+// fp32 queries and output; TKV: the K/V type, float or (QUANT) int8_t.
 // WT: W rounded up to a compiled row count; rows w >= a.w have length 0
-template <typename TQ, typename TKV, int WT, bool PAGED>
+template <typename TKV, int WT, bool PAGED>
 __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   constexpr bool QUANT = std::is_same<TKV, int8_t>::value;
   static_assert(!QUANT || PAGED, "the int8 pool is paged only");
@@ -145,10 +107,10 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   const int grp = lane >> 3, sub = lane & 7;
   const int cap = PAGED ? a.page_len * a.max_pages : a.t_max;
 
-  const TQ* q = static_cast<const TQ*>(a.q);
+  const float* q = static_cast<const float*>(a.q);
   for (int i = tid; i < WT * D; i += THREADS) {
     const int w = i / D;
-    sq[w][i % D] = w < a.w ? to_float(q[((size_t)sh * a.w + w) * D + i % D])
+    sq[w][i % D] = w < a.w ? q[((size_t)sh * a.w + w) * D + i % D]
                            : 0.f;
   }
   if (tid < WT)
@@ -253,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
   __syncthreads();
 
   // merge the eight warps: warp r finishes rows r, r + 8
-  TQ* o = static_cast<TQ*>(a.o);
+  float* o = static_cast<float*>(a.o);
   for (int w = warp; w < a.w; w += WARPS) {
     float mx = NEG_INF;
 #pragma unroll
@@ -267,52 +229,35 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(Args a) {
       o1 = fmaf(sacc[w][i][2 * lane + 1], f, o1);
     }
     // length 0: no key seen, lt == 0 -> exact zeros
-    store2(o + ((size_t)sh * a.w + w) * D + 2 * lane, lt > 0.f ? o0 / lt : 0.f,
-           lt > 0.f ? o1 / lt : 0.f);
+    *reinterpret_cast<float2*>(o + ((size_t)sh * a.w + w) * D + 2 * lane) =
+        make_float2(lt > 0.f ? o0 / lt : 0.f, lt > 0.f ? o1 / lt : 0.f);
   }
 }
 
-template <typename TQ, typename TKV, bool PAGED, bool MULTI>
-int launch_typed(const Args& a, int slots, cudaStream_t st) {
+// The fp32 arms: q/o fp32, K/V fp32 or (QUANT) int8.  Returns
+// cudaGetLastError().
+template <bool PAGED, bool MULTI, bool QUANT = false>
+int launch(const Args& a, int slots, void* stream) {
+  using TKV = std::conditional_t<QUANT, int8_t, float>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(slots * a.heads);
   if (a.w == 1) {
-    rows_kernel<TQ, TKV, 1, PAGED><<<grid, THREADS, 0, st>>>(a);
+    rows_kernel<TKV, 1, PAGED><<<grid, THREADS, 0, st>>>(a);
   } else if (!MULTI) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else if constexpr (MULTI) {
     if (a.w <= 2)
-      rows_kernel<TQ, TKV, 2, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TKV, 2, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 3)
-      rows_kernel<TQ, TKV, 3, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TKV, 3, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 5)
-      rows_kernel<TQ, TKV, 5, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TKV, 5, PAGED><<<grid, THREADS, 0, st>>>(a);
     else if (a.w <= 9)
-      rows_kernel<TQ, TKV, 9, PAGED><<<grid, THREADS, 0, st>>>(a);
+      rows_kernel<TKV, 9, PAGED><<<grid, THREADS, 0, st>>>(a);
     else
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// dtype (of q and the output): 0 fp32, 1 bf16, 2 fp16.  K/V share it, or
-// are int8 with QUANT.  Returns cudaGetLastError().
-template <bool PAGED, bool MULTI, bool QUANT = false>
-int launch(int dtype, const Args& a, int slots, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch_typed<float, std::conditional_t<QUANT, int8_t, float>,
-                          PAGED, MULTI>(a, slots, st);
-    case 1:
-      return launch_typed<__nv_bfloat16,
-                          std::conditional_t<QUANT, int8_t, __nv_bfloat16>,
-                          PAGED, MULTI>(a, slots, st);
-    case 2:
-      return launch_typed<__half, std::conditional_t<QUANT, int8_t, __half>,
-                          PAGED, MULTI>(a, slots, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
 }
 
 }  // namespace decode

@@ -10,11 +10,17 @@ kernel it replaces):
   ``_decode_paged_kernel`` (both arms: ``decode_paged`` for the fp pool,
   ``decode_paged_int8`` for the int8 pool);
 - ``decode_attention_multi``: ``csrc/decode_multi.cu``,
-  ``_decode_multi_kernel`` (bf16/fp16: the key axis split over a
-  thread-block cluster, ``decode_multi_splits``);
+  ``_decode_multi_kernel``;
 - ``decode_attention_paged_multi``: ``csrc/decode_paged_multi.cu``,
   ``_decode_paged_multi_kernel`` (``decode_paged_multi`` and
   ``decode_paged_multi_int8``).
+
+The bf16/fp16 arms of the last three are one kernel
+(``csrc/decode_split.cuh``) with two maps from a key to its row: the slot
+cache's, or the page table's.  It splits each (slot, head)'s keys over a
+thread-block cluster (``decode_splits``) and runs the products on the
+tensor cores; their fp32 arms run ``csrc/decode_common.cuh``'s FMA
+kernel.
 
 The single-query arms take one query per slot (a decode tick); the multi
 arms take W = k+1 queries per slot with per-query lengths ``[S, W]`` (the
@@ -355,7 +361,10 @@ def decode_paged_cuda(q, k_pages, v_pages, page_table, lengths,
                       sm_scale: float):
     """Launch ``csrc/decode_paged.cu``: q [S,H,64], pools [P,H,page_len,64]
     (page_len 1..128), int32 page_table [S, max_pages] and lengths [S],
-    all on the device.  Live table entries must name pages below P."""
+    all on the device.  Live table entries must name pages below P.  bf16
+    and fp16 split each (slot, head)'s keys over a cluster of
+    ``decode_splits(max_pages * page_len, S * H)`` CUDA blocks; fp32
+    runs one block per (slot, head)."""
     what = "decode_paged_cuda"
     _check_operands(what, q, {"q": q, "k_pages": k_pages,
                               "v_pages": v_pages},
@@ -380,8 +389,8 @@ def decode_multi_cuda(q, k, v, lengths, sm_scale: float):
     """Launch ``csrc/decode_multi.cu``: q [S,H,W,64] (W <= 9), k/v
     [S,H,T,64], int32 per-query lengths [S, W], all on the device.  bf16
     and fp16 split each (slot, head)'s keys over a cluster of
-    ``decode_multi_splits(T)`` CUDA blocks; fp32 runs one block per (slot,
-    head)."""
+    ``decode_splits(T, S * H)`` CUDA blocks; fp32 runs one block per
+    (slot, head)."""
     what = "decode_multi_cuda"
     _check_operands(what, q, {"q": q, "k": k, "v": v}, {"lengths": lengths})
     S, H, T, Dh = k.shape
@@ -398,20 +407,24 @@ def decode_multi_cuda(q, k, v, lengths, sm_scale: float):
     return out
 
 
-def decode_multi_splits(t_max: int) -> int:
-    """CUDA blocks per (slot, head) of ``csrc/decode_multi.cu``'s bf16/fp16
-    kernel at cache length ``t_max``, which is also its cluster size: the
-    launcher's own count, read from the built library."""
-    fn = build.load("decode_multi").decode_multi_splits
-    fn.argtypes, fn.restype = [_INT], ctypes.c_int
-    return int(fn(int(t_max)))
+def decode_splits(t_max: int, pairs: int = 1) -> int:
+    """CUDA blocks per (slot, head), which is also the cluster size, of
+    the bf16/fp16 kernel of ``csrc/decode_multi.cu``, ``csrc/decode_paged.cu``
+    and ``csrc/decode_paged_multi.cu`` at cache length ``t_max`` (T, or
+    max_pages x page_len) over ``pairs`` = slots x heads: the launchers'
+    own count (``decode_split.cuh``'s ``splits``), read from the built
+    ``decode_multi`` library."""
+    fn = build.load("decode_multi").decode_splits
+    fn.argtypes, fn.restype = [_INT, _INT], ctypes.c_int
+    return int(fn(int(t_max), int(pairs)))
 
 
 def decode_paged_multi_cuda(q, k_pages, v_pages, page_table, lengths,
                             sm_scale: float):
     """Launch ``csrc/decode_paged_multi.cu``: q [S,H,W,64] (W <= 9), pools
     [P,H,page_len,64] (page_len 1..128), int32 page_table [S, max_pages]
-    and per-query lengths [S, W], all on the device."""
+    and per-query lengths [S, W], all on the device; bf16 and fp16 split
+    the keys as :func:`decode_paged_cuda` does."""
     what = "decode_paged_multi_cuda"
     _check_operands(what, q, {"q": q, "k_pages": k_pages,
                               "v_pages": v_pages},

@@ -129,12 +129,13 @@ def main() -> None:
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.4f} ms  x{n:<4d} {key[:90]}")
     # the decode attention kernels: decode_kernel (slot cache), the
-    # instantiations of decode_common.cuh's rows_kernel (paged, paged multi
-    # and their int8 arms, fp32 multi) and decode_multi.cu's key-split
-    # cluster kernel (bf16/fp16 multi)
+    # instantiations of decode_split.cuh's key-split cluster kernel (the
+    # bf16/fp16 arms of the paged, multi and paged multi kernels, int8
+    # pools included) and of decode_common.cuh's rows_kernel (their fp32
+    # arms)
     attn = [r for r in rows if any(
         name in r[2] for name in ("rows_kernel", "decode_kernel",
-                                  "decode_multi_split"))]
+                                  "decode_split_kernel"))]
     attn_ms = sum(r[0] for r in attn)
     print(f"decode attention kernels: {attn_ms:.4f} ms per tick over "
           f"{sum(r[1] for r in attn)} launches")

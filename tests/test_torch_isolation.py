@@ -32,7 +32,8 @@ def _package_files():
 def _port_files():
     return [os.path.join(REPO, "chip_smoke.py"),
             os.path.join(REPO, "profile_serve_torch.py"),
-            os.path.join(REPO, "profile_train_torch.py")] + _package_files()
+            os.path.join(REPO, "profile_train_torch.py"),
+            os.path.join(REPO, "profile_decode_torch.py")] + _package_files()
 
 
 def _module_names():

@@ -21,8 +21,8 @@ from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_attention, decode_attention_cuda,
     decode_attention_multi, decode_attention_paged,
     decode_attention_paged_multi, decode_attention_plain, decode_multi_cuda,
-    decode_multi_plain, decode_multi_splits, decode_paged_cuda,
-    decode_paged_int8_cuda, decode_paged_int8_plain, decode_paged_multi_cuda,
+    decode_multi_plain, decode_paged_cuda, decode_paged_int8_cuda,
+    decode_paged_int8_plain, decode_paged_multi_cuda, decode_splits,
     decode_paged_multi_int8_cuda, decode_paged_multi_int8_plain,
     decode_paged_multi_plain, decode_paged_plain)
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
@@ -345,7 +345,7 @@ def test_multi_split_kernel_sweep(dev, dtype, t, w):
     ending on a tile boundary, the full cache, and a row dead in the tiles
     the slot's other rows keep live."""
     S, H = 5, 7
-    assert decode_multi_splits(t) == min(8, max(1, -(-t // 256)))
+    assert decode_splits(t) == min(8, max(1, -(-t // 256)))
     base = torch.tensor([0, 1, min(64, t - w), t - w, (3 * t) // 5 - w],
                         device=dev)
     lens = base[:, None] + torch.arange(1, w + 1, device=dev)[None]
@@ -429,6 +429,231 @@ def test_int8_paged_kernels_match_plain(dev, dtype, page_len, w):
                                        table, lens[:, 0], scale)
         assert torch.isfinite(one).all() and (one[0] == 0).all()
         assert _within_ulp(one, ref1)
+
+
+def _paged_sweep_case(dev, dtype, t, page_len, w, pool, slots=5, heads=3):
+    """``slots`` x ``heads`` (5 x 3) slots over a pool of ceil(t /
+    page_len) pages a slot: a length-0 slot, one key, a row ending on a
+    tile boundary (64), the full capacity, and rows at three fifths of it,
+    any further slot at its share of the capacity; W rows at L + i + 1 with
+    one row dead past its second key.  Each slot's live pages sit at
+    permuted ids; every other page (the scratch page 0 included) holds
+    garbage, and every dead table column an id past the pool.  ``pool``
+    'int8' quantizes the pools with the port's ``quantize_rows`` and puts
+    random bytes and NaN scales in every row no live row reads."""
+    S, H = slots, heads
+    M = -(-t // page_len)
+    cap = M * page_len
+    base = torch.tensor([0, 1, min(64, cap - w), cap - w, (3 * cap) // 5 - w]
+                        + [max(1, i * cap // S - w) for i in range(5, S)])
+    lens = base[:, None] + torch.arange(1, w + 1)[None]
+    lens = torch.where(base[:, None] > 0, lens, 0)
+    lens[2, 0] = 64
+    if w > 1:
+        lens[4, 1] = 2
+    lens = lens.clamp(max=cap).to(torch.int32)
+    need = ((lens.amax(1) + page_len - 1) // page_len).tolist()
+    P = sum(need) + 2
+    g = torch.Generator().manual_seed(1000 * page_len + 10 * w + t)
+    ids = (torch.randperm(P - 1, generator=g) + 1).tolist()
+    table = torch.full((S, M), 10 ** 6, dtype=torch.int32)
+    live = torch.zeros(P, page_len, dtype=torch.bool)
+    nxt = 0
+    for s_, n in enumerate(need):
+        table[s_, :n] = torch.tensor(ids[nxt:nxt + n], dtype=torch.int32)
+        nxt += n
+        pos = torch.arange(int(lens[s_].max()))
+        live[table[s_, pos // page_len].long(), pos % page_len] = True
+    pools = [torch.randn(P, H, page_len, 64, generator=g) for _ in range(2)]
+    q = torch.randn(S, H, w, 64, generator=g).to(dev, dtype)
+    table, lens = table.to(dev), lens.to(dev).contiguous()
+    if pool == "fp":
+        kp, vp = (torch.where(live[:, None, :, None], x, 1e4).to(dev, dtype)
+                  for x in pools)
+        return q, (kp, vp), table, lens
+    dead = ~live
+    out = []
+    for x in pools:
+        q8, sc = quantize_rows(x)
+        junk = torch.randint(-128, 128, q8.shape, generator=g,
+                             dtype=torch.int8)
+        q8 = torch.where(dead[:, None, :, None], junk, q8)
+        sc = torch.where(dead[:, None, :], float("nan"), sc)
+        out += [q8.to(dev).contiguous(), sc.to(dev).contiguous()]
+    k8, ks, v8, vs = out
+    return q, (k8, v8, ks, vs), table, lens
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t", [64, 300, 1024, 4096])
+@pytest.mark.parametrize("page_len", [7, 16, 128])
+@pytest.mark.parametrize("w", [1, 5, 9])
+def test_paged_split_kernel_sweep(dev, pool, dtype, t, page_len, w):
+    """The bf16/fp16 arms of decode_paged_multi and (W = 1) decode_paged,
+    both pools (each (slot, head)'s keys split over a cluster of
+    ceil(T / 256) <= 8 CUDA blocks, read through the page table), against
+    their plain versions: TOL for the fp pool, one ulp + 1e-4 elementwise
+    for the int8 pool; exact zeros for the length-0 slot; finite output
+    with dead table columns past the pool (never dereferenced)."""
+    q, pools, table, lens = _paged_sweep_case(dev, dtype, t, page_len, w,
+                                              pool)
+    S, H, M = q.shape[0], q.shape[1], table.shape[1]
+    assert decode_splits(M * page_len, S * H) == min(
+        8, max(1, -(-(M * page_len) // 256)))
+    scale = _default_scale(64)
+    if pool == "fp":
+        kp, vp = pools
+        calls = [(decode_paged_multi_cuda, decode_paged_multi_plain, q, lens)]
+        if w == 1:
+            calls.append((decode_paged_cuda, decode_paged_plain,
+                          q[:, :, 0].contiguous(), lens[:, 0].contiguous()))
+        for cuda, plain, qq, ll in calls:
+            out = cuda(qq, kp, vp, table, ll, scale)
+            torch.cuda.synchronize()
+            ref = plain(qq.float(), kp.float(), vp.float(), table, ll, scale)
+            assert out.dtype == dtype and torch.isfinite(out).all()
+            err = (out.float() - ref).abs().max().item()
+            assert err <= TOL[dtype], (cuda.__name__, err)
+            assert (out[0] == 0).all()
+        return
+    k8, v8, ks, vs = pools
+    calls = [(decode_paged_multi_int8_cuda, decode_paged_multi_int8_plain, q,
+              lens)]
+    if w == 1:
+        calls.append((decode_paged_int8_cuda, decode_paged_int8_plain,
+                      q[:, :, 0].contiguous(), lens[:, 0].contiguous()))
+    for cuda, plain, qq, ll in calls:
+        out = cuda(qq, k8, v8, ks, vs, table, ll, scale)
+        torch.cuda.synchronize()
+        ref = plain(qq.float(), k8, v8, ks, vs, table, ll, scale)
+        assert out.dtype == dtype and torch.isfinite(out).all()
+        assert _within_ulp(out, ref), (cuda.__name__, (
+            out.float() - ref).abs().max().item())
+        assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("t", [700, 2048])
+def test_split_count_capped_at_the_serving_pairs(dev, pool, t):
+    """At the serving pair count (8 slots x 12 heads) the split count is
+    ceil(T / 256) cut to four blocks an SM: clusters of 3 at T 700 and of
+    5, not 8, at T 2048 on 132 SMs.  The slot map (decode_multi, W 5, fp
+    pool) and the page-table map (decode_paged_multi W 5, decode_paged
+    W 1) at those cluster sizes, bf16, against their plain versions."""
+    S, H, page_len = 8, 12, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t_max = -(-t // page_len) * page_len
+    n = min(8, -(-t_max // 256), 4 * sms // (S * H))
+    assert decode_splits(t_max, S * H) == n
+    if sms == 132:
+        assert n == {700: 3, 2048: 5}[t]
+    scale = _default_scale(64)
+    if pool == "fp":
+        w = 5
+        base = torch.tensor([0, 1, 64, t - w, t // 3, 2 * t // 3, 7, t // 2],
+                            device=dev)[:, None]
+        lens = base + torch.arange(1, w + 1, device=dev)[None]
+        lens = torch.where(base > 0, lens, 0).to(torch.int32).contiguous()
+        q = _randn(dev, S, H, w, 64, seed=60).bfloat16()
+        k, v = (_randn(dev, S, H, t, 64, seed=61 + i).bfloat16()
+                for i in range(2))
+        out = decode_multi_cuda(q, k, v, lens, scale)
+        torch.cuda.synchronize()
+        ref = decode_multi_plain(q.float(), k.float(), v.float(), lens, scale)
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref).abs().max().item() <= TOL[torch.bfloat16]
+        assert (out[0] == 0).all()
+    for w in (1, 5):
+        q, pools, table, lens = _paged_sweep_case(
+            dev, torch.bfloat16, t, page_len, w, pool, slots=S, heads=H)
+        if w == 1:
+            q, lens = q[:, :, 0].contiguous(), lens[:, 0].contiguous()
+        if pool == "fp":
+            kp, vp = pools
+            cuda, plain = ((decode_paged_cuda, decode_paged_plain) if w == 1
+                           else (decode_paged_multi_cuda,
+                                 decode_paged_multi_plain))
+            out = cuda(q, kp, vp, table, lens, scale)
+            torch.cuda.synchronize()
+            ref = plain(q.float(), kp.float(), vp.float(), table, lens, scale)
+            assert torch.isfinite(out).all()
+            err = (out.float() - ref).abs().max().item()
+            assert err <= TOL[torch.bfloat16], (cuda.__name__, err)
+        else:
+            k8, v8, ks, vs = pools
+            cuda, plain = ((decode_paged_int8_cuda, decode_paged_int8_plain)
+                           if w == 1 else (decode_paged_multi_int8_cuda,
+                                           decode_paged_multi_int8_plain))
+            out = cuda(q, k8, v8, ks, vs, table, lens, scale)
+            torch.cuda.synchronize()
+            ref = plain(q.float(), k8, v8, ks, vs, table, lens, scale)
+            assert torch.isfinite(out).all()
+            assert _within_ulp(out, ref), (cuda.__name__, (
+                out.float() - ref).abs().max().item())
+        assert (out[0] == 0).all()
+
+
+def test_paged_split_count_follows_the_grid(dev):
+    """At the capacity leg's width (64 slots x 12 heads, T 1024, rows of at
+    most 3 pages) the slots alone fill the card: one CUDA block a (slot,
+    head), and the kernel still matches its plain version; at the serving
+    width (8 x 12) the keys split four ways."""
+    assert decode_splits(1024, 8 * 12) == 4
+    assert decode_splits(1024, 64 * 12) == 1
+    assert decode_splits(1024, 8 * 12) == 4
+    S, H, L, M = 64, 12, 16, 64
+    g = torch.Generator().manual_seed(5)
+    lens = torch.randint(1, 3 * L + 1, (S,), generator=g, dtype=torch.int32)
+    table = torch.zeros(S, M, dtype=torch.int32)
+    table[:, :3] = torch.arange(1, 3 * S + 1, dtype=torch.int32).view(S, 3)
+    kp, vp = (torch.randn(3 * S + 1, H, L, 64, generator=g).to(
+        dev, torch.bfloat16) for _ in range(2))
+    q = torch.randn(S, H, 64, generator=g).to(dev, torch.bfloat16)
+    table, lens = table.to(dev), lens.to(dev)
+    scale = _default_scale(64)
+    out = decode_paged_cuda(q, kp, vp, table, lens, scale)
+    torch.cuda.synchronize()
+    ref = decode_paged_plain(q.float(), kp.float(), vp.float(), table, lens,
+                             scale)
+    assert (out.float() - ref).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+def test_paged_split_long_table_opts_into_more_shared_memory(dev, pool):
+    """page_len 1, T 4096 over 44 x 12 pairs: one CUDA block a (slot,
+    head) whose 4096 table columns take more than 48 KB of shared memory
+    with the ring, so the launch raises the kernel's limit first."""
+    S, H, M = 44, 12, 4096
+    assert decode_splits(M, S * H) == 1
+    g = torch.Generator().manual_seed(7)
+    lens = torch.randint(0, 300, (S,), generator=g, dtype=torch.int32)
+    lens[:3] = torch.tensor([M, M - 1, 2049], dtype=torch.int32)
+    P = int(lens.sum()) + 1
+    table = torch.zeros((S, M), dtype=torch.int32)
+    nxt = 1
+    for s_, n in enumerate(lens.tolist()):
+        table[s_, :n] = torch.arange(nxt, nxt + n, dtype=torch.int32)
+        nxt += n
+    x = [torch.randn(P, H, 1, 64, generator=g) for _ in range(2)]
+    q = torch.randn(S, H, 64, generator=g).to(dev, torch.bfloat16)
+    table, lens = table.to(dev), lens.to(dev)
+    scale = _default_scale(64)
+    if pool == "fp":
+        kp, vp = (t.to(dev, torch.bfloat16) for t in x)
+        out = decode_paged_cuda(q, kp, vp, table, lens, scale)
+        torch.cuda.synchronize()
+        ref = decode_paged_plain(q.float(), kp.float(), vp.float(), table,
+                                 lens, scale)
+        assert (out.float() - ref).abs().max().item() <= TOL[torch.bfloat16]
+        return
+    (k8, ks), (v8, vs) = (tuple(t.to(dev).contiguous()
+                                for t in quantize_rows(t)) for t in x)
+    out = decode_paged_int8_cuda(q, k8, v8, ks, vs, table, lens, scale)
+    torch.cuda.synchronize()
+    ref = decode_paged_int8_plain(q.float(), k8, v8, ks, vs, table, lens,
+                                  scale)
+    assert torch.isfinite(out).all() and _within_ulp(out, ref)
 
 
 def test_int8_entry_points_launch_or_raise(dev):
