@@ -16,8 +16,8 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             counted with ``cuobjdump -sass``, HGMMA (wgmma) and HMMA
             (mma.sync): the tensor-core flash forward, dQ and dK/dV must
             hold HGMMA, the block-sparse forward, dQ and dK/dV, the
-            multi-query decode kernel and the paged and paged multi-query
-            decode kernels (both pools) HMMA;
+            single-query and multi-query decode kernels and the paged and
+            paged multi-query decode kernels (both pools) HMMA;
 2. kernels  each kernel against its plain PyTorch version at the serving
             and training paths' shapes, fp32 (max abs error 1e-4) and bf16
             (2e-2, against the plain version in fp32 on the same bf16
@@ -180,7 +180,8 @@ SOURCES = tuple(n for n in KERNELS if not n.endswith("_int8"))
 TENSOR_CORE_SOURCES = {"flash_fwd": "HGMMA", "flash_bwd_dq": "HGMMA",
                        "flash_bwd_dkv": "HGMMA", "block_sparse_fwd": "HMMA",
                        "block_sparse_bwd_dq": "HMMA",
-                       "block_sparse_bwd_dkv": "HMMA", "decode_multi": "HMMA",
+                       "block_sparse_bwd_dkv": "HMMA",
+                       "decode_attention": "HMMA", "decode_multi": "HMMA",
                        "decode_paged": "HMMA", "decode_paged_multi": "HMMA"}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 #: the card's published peaks (H100 SXM data sheet, dense)
@@ -454,7 +455,8 @@ def phase_kernels(dev):
             < lengths[:, None])[:, None, None, :]
     results["decode_attention"] = {
         "name": "decode_attention", "route": "cuda",
-        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu",
+        "source": "deepspeed_tpu_torch/csrc/decode_attention.cu + "
+                  "deepspeed_tpu_torch/csrc/decode_split.cuh",
         "replaces": "deepspeed_tpu/ops/pallas/decode_attention.py:114",
         "max_abs_err": err_main, "device_ms_method": DEVICE_MS_METHOD,
         **timings(lambda: decode_attention_cuda(q, k, v, lengths, dscale),

@@ -1,9 +1,10 @@
 // The fp32 decode-attention core: the fp32 arms of csrc/decode_paged.cu,
 // csrc/decode_paged_multi.cu (both with their int8 pool arms under fp32
-// queries) and csrc/decode_multi.cu (Hopper, sm_90a, head_dim 64).  Their
-// bf16/fp16 arms run decode_split.cuh's key-split tensor-core kernel; the
-// tensor cores would take fp32 only as TF32, and the fp32 arms are held to
-// 1e-4 of their plain versions, so fp32 stays on FMAs here.
+// queries), csrc/decode_multi.cu and csrc/decode_attention.cu (Hopper,
+// sm_90a, head_dim 64).  Their bf16/fp16 arms run decode_split.cuh's
+// key-split tensor-core kernel; the tensor cores would take fp32 only as
+// TF32, and the fp32 arms are held to 1e-4 of their plain versions, so
+// fp32 stays on FMAs here.
 //
 // One thread block per (slot, head) attends W query rows (W = 1 for a
 // decode tick, W = k+1 <= 9 for a speculative verify pass) against the

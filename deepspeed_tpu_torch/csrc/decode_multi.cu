@@ -26,7 +26,8 @@
 // once to the input type, as the JAX kernel's `p.astype(v.dtype)` does;
 // the N blocks' states merge in distributed shared memory.  The paged
 // kernels (decode_paged.cu, decode_paged_multi.cu) are the same kernel
-// with the page-table map.
+// with the page-table map, and the single-query decode_attention.cu the
+// same map at W = 1.
 //
 // The fp32 arm keeps decode_common.cuh's `rows_kernel` (one block per
 // (slot, head), fp32 FMAs): the tensor cores would take fp32 only as TF32,
@@ -55,9 +56,9 @@ extern "C" int decode_multi(const void* q, const void* k, const void* v,
 }
 
 // The split count of decode_split.cuh's kernel, the bf16/fp16 arms of this
-// file, decode_paged.cu and decode_paged_multi.cu, at cache length t_max
-// (T, or max_pages * page_len) over `pairs` (slot, head) pairs: the CUDA
-// blocks (and the cluster size) per pair.
+// file, decode_attention.cu, decode_paged.cu and decode_paged_multi.cu, at
+// cache length t_max (T, or max_pages * page_len) over `pairs` (slot, head)
+// pairs: the CUDA blocks (and the cluster size) per pair.
 extern "C" int decode_splits(int t_max, int pairs) {
   return decode_split::splits(t_max, pairs);
 }

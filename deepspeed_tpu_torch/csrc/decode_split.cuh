@@ -1,6 +1,6 @@
-// The key-split decode-attention kernel shared by csrc/decode_multi.cu,
-// csrc/decode_paged.cu and csrc/decode_paged_multi.cu: their bf16/fp16
-// arms, head_dim 64, on Hopper (sm_90a) tensor cores.
+// The key-split decode-attention kernel shared by csrc/decode_attention.cu,
+// csrc/decode_multi.cu, csrc/decode_paged.cu and csrc/decode_paged_multi.cu:
+// their bf16/fp16 arms, head_dim 64, on Hopper (sm_90a) tensor cores.
 //
 // One (slot, head) attends W <= 9 query rows (W = 1 for a decode tick) to
 // its cached keys, each row over its own live length read from device

@@ -340,9 +340,11 @@ def _shape_error(what, want, **shapes):
 def decode_attention_cuda(q, k, v, lengths, sm_scale: float):
     """Launch ``csrc/decode_attention.cu`` on contiguous CUDA tensors q
     [S,H,64], k/v [S,H,T,64] of one dtype (fp32, bf16 or fp16) and int32
-    lengths [S].  The lengths stay on the device (no host sync).  Returns
-    the output [S,H,64] in q.dtype; raises on anything the kernel does not
-    take and on a failed launch."""
+    lengths [S].  The lengths stay on the device (no host sync).  bf16
+    and fp16 split each (slot, head)'s keys over a cluster of
+    ``decode_splits(T, S * H)`` CUDA blocks; fp32 runs one block per
+    (slot, head).  Returns the output [S,H,64] in q.dtype; raises on
+    anything the kernel does not take and on a failed launch."""
     what = "decode_attention_cuda"
     _check_operands(what, q, {"q": q, "k": k, "v": v}, {"lengths": lengths})
     S, H, T, Dh = k.shape
@@ -409,8 +411,9 @@ def decode_multi_cuda(q, k, v, lengths, sm_scale: float):
 
 def decode_splits(t_max: int, pairs: int = 1) -> int:
     """CUDA blocks per (slot, head), which is also the cluster size, of
-    the bf16/fp16 kernel of ``csrc/decode_multi.cu``, ``csrc/decode_paged.cu``
-    and ``csrc/decode_paged_multi.cu`` at cache length ``t_max`` (T, or
+    the bf16/fp16 kernel of ``csrc/decode_attention.cu``,
+    ``csrc/decode_multi.cu``, ``csrc/decode_paged.cu`` and
+    ``csrc/decode_paged_multi.cu`` at cache length ``t_max`` (T, or
     max_pages x page_len) over ``pairs`` = slots x heads: the launchers'
     own count (``decode_split.cuh``'s ``splits``), read from the built
     ``decode_multi`` library."""

@@ -1,6 +1,5 @@
 #!/usr/bin/env python3
-"""Device time of the paged and multi-query decode kernels of one checkout,
-on one NVIDIA card.
+"""Device time of the decode kernels of one checkout, on one NVIDIA card.
 
     python3 profile_decode_torch.py [--root DIR]
 
@@ -12,8 +11,9 @@ products, so the card's clocks have risen) at two widths, the operands
 made by this checkout's ``chip_smoke.py``:
 
 - serving (``decode_case``: [8, 12, 1024, 64], page_len 16, W = 5):
-  ``decode_paged``, ``decode_paged_int8``, ``decode_multi``,
-  ``decode_paged_multi``, ``decode_paged_multi_int8``;
+  ``decode_attention`` (the slot cache, one query), ``decode_paged``,
+  ``decode_paged_int8``, ``decode_multi``, ``decode_paged_multi``,
+  ``decode_paged_multi_int8``;
 - capacity (``capacity_case``: 64 slots x 12 heads, rows of at most 3
   pages, T 64 as the capacity leg's own table and T 1024):
   ``decode_paged``, ``decode_paged_int8``.
@@ -69,6 +69,8 @@ def main() -> None:
     k8, ks = cs._int8_pool(c["kp32"], table, c["live"], page, cs.SEED + 7)
     v8, vs = cs._int8_pool(c["vp32"], table, c["live"], page, cs.SEED + 8)
     serving = {
+        "decode_attention": lambda: da.decode_attention_cuda(q1, kc, vc, base,
+                                                             scale),
         "decode_paged": lambda: da.decode_paged_cuda(q1, kp, vp, table,
                                                      base, scale),
         "decode_paged_int8": lambda: da.decode_paged_int8_cuda(

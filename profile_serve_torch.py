@@ -128,11 +128,11 @@ def main() -> None:
           f"{sum(r[1] for r in rows)} device ops per tick")
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.4f} ms  x{n:<4d} {key[:90]}")
-    # the decode attention kernels: decode_kernel (slot cache), the
-    # instantiations of decode_split.cuh's key-split cluster kernel (the
-    # bf16/fp16 arms of the paged, multi and paged multi kernels, int8
-    # pools included) and of decode_common.cuh's rows_kernel (their fp32
-    # arms)
+    # the decode attention kernels: the instantiations of decode_split.cuh's
+    # key-split cluster kernel (the bf16/fp16 arms of the single-query,
+    # paged, multi and paged multi kernels, int8 pools included) and of
+    # decode_common.cuh's rows_kernel (their fp32 arms); decode_kernel is
+    # the single-query kernel of trees before the split kernel took it
     attn = [r for r in rows if any(
         name in r[2] for name in ("rows_kernel", "decode_kernel",
                                   "decode_split_kernel"))]

@@ -1,5 +1,6 @@
 """The arithmetic of ``csrc/decode_multi.cu``'s bf16/fp16 kernel, emulated in
-PyTorch on the CPU.
+PyTorch on the CPU; at W = 1 it is ``csrc/decode_attention.cu``'s too (the
+same kernel, the lengths [S] read as [S, 1]).
 
 The kernel splits each (slot, head)'s key axis over N CUDA blocks of one
 thread-block cluster (N = ceil(T / 256) clamped to 1..8: 4 at the serving
@@ -22,6 +23,10 @@ and the tests hold it
     round P once, at different running maxima, and round the output to
     bf16.
 
+(c) at W = 1, (b) against the JAX package's single-query kernel
+    (``decode_attention``, ``_decode_kernel``: Pallas, interpret mode,
+    block_k 256) in place of the multi-query one.
+
 Inputs from a numpy seed: S 5 x H 2, T 1024, N 1, 3, 4 and 8, W 1, 5 and
 9; lengths 0
 (exact zeros), 1, a tile boundary (64, 128), T, and a slot whose rows all
@@ -35,7 +40,7 @@ import pytest
 import torch
 
 from deepspeed_tpu.ops.pallas.decode_attention import (
-    decode_attention_multi as jax_decode_multi)
+    decode_attention as jax_decode, decode_attention_multi as jax_decode_multi)
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     _default_scale, decode_multi_plain)
 
@@ -168,6 +173,33 @@ def test_p_rounded_once_stays_within_chip_tolerance_and_matches_jax(n, w):
     assert err <= (jax_out - ref).abs().max().item() * 1.25, err
     assert err_jax <= TOL_JAX, err_jax
     assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 4, 8])
+def test_single_query_split_matches_jax_decode_kernel(n):
+    """W = 1, the decode tick's kernel, held as (b) holds it but to the
+    JAX package's single-query kernel: lengths 0, 1, a tile boundary (64),
+    T and 300, which ends before splits 3-7 of N = 8 begin."""
+    q, k, v = _inputs(1, seed=7)
+    lens = np.array([0, 1, 64, T, 300], np.int32)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    tl = torch.from_numpy(lens)[:, None]
+    out = _emulated(tq, tk, tv, tl, n, torch.bfloat16)[:, :, 0]
+    ref = decode_multi_plain(tq, tk, tv, tl, SCALE)[:, :, 0]
+    jax_out = jax_decode(*(jnp.asarray(a, jnp.bfloat16)
+                           for a in (q[:, :, 0], k, v)), jnp.asarray(lens),
+                         impl="pallas", interpret=True)
+    jax_out = torch.from_numpy(np.array(jax_out.astype(jnp.float32)))
+    err = (out.float() - ref).abs().max().item()
+    err_jax = (out.float() - jax_out).abs().max().item()
+    print(f"N {n}, W 1: bf16 emulation vs fp32 plain {err:.3g} "
+          f"({_ulps(out, ref):.3g} of one bf16 ulp + 1e-4), vs JAX "
+          f"_decode_kernel {err_jax:.3g}; JAX vs fp32 plain "
+          f"{(jax_out - ref).abs().max():.3g} ({_ulps(jax_out, ref):.3g} ulp)")
+    assert err <= TOL_CHIP, err
+    assert err <= (jax_out - ref).abs().max().item() * 1.25, err
+    assert err_jax <= TOL_JAX, err_jax
+    assert (out[0] == 0).all() and (jax_out[0] == 0).all()
 
 
 def test_splits_wholly_past_every_row_see_no_key():

@@ -165,6 +165,13 @@ def test_build_digest_covers_included_headers(tmp_path, monkeypatch):
     with open(csrc / "flash_common.cuh", "a") as f:
         f.write("\n// edited\n")
     after = {n: build._target(n)[1] for n in names}
-    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+    # decode_attention includes it through decode_split.cuh
+    for n in names:
         assert after[n] != before[n], n
-    assert after["decode_attention"] == before["decode_attention"]
+    # a header a kernel does not include leaves its name alone
+    with open(csrc / "decode_common.cuh", "a") as f:
+        f.write("\n// edited\n")
+    again = {n: build._target(n)[1] for n in names}
+    for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert again[n] == after[n], n
+    assert again["decode_attention"] != after["decode_attention"]

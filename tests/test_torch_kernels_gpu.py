@@ -365,6 +365,35 @@ def test_multi_split_kernel_sweep(dev, dtype, t, w):
     assert (out[0] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("t", [17, 64, 300, 1000, 1024, 2048])
+def test_single_split_kernel_sweep(dev, dtype, t):
+    """decode_attention's bf16/fp16 arm (decode_multi's split kernel at
+    W = 1) against its plain version: S x H = 5 x 7; T below one tile, of
+    one tile (1 split), ragged (300: two splits, the last tile cut; 1000),
+    whole (4 splits) and 2048 (a cluster of 8); a length-0 slot (exact
+    zeros), one key, a tile boundary, a length above T (clamped) and one
+    ending inside a split.  Every row at or past a slot's length holds NaN
+    in K and V: the kernel must not let one reach the output."""
+    S, H = 5, 7
+    lens = torch.tensor([0, 1, min(64, t), 2 * t + 5, (3 * t) // 5],
+                        dtype=torch.int32, device=dev)
+    q = _randn(dev, S, H, 64, seed=50).to(dtype)
+    k, v = (_randn(dev, S, H, t, 64, seed=51 + i).to(dtype) for i in range(2))
+    dead = (torch.arange(t, device=dev)[None, :]
+            >= lens.clamp(max=t)[:, None])[:, None, :, None]
+    scale = _default_scale(64)
+    out = decode_attention_cuda(q, k.masked_fill(dead, float("nan")),
+                                v.masked_fill(dead, float("nan")), lens,
+                                scale)
+    torch.cuda.synchronize()
+    ref = decode_attention_plain(q.float(), k.float(), v.float(), lens, scale)
+    assert out.dtype == dtype and torch.isfinite(out).all()
+    err = (out.float() - ref).abs().max().item()
+    assert err <= TOL[dtype], err
+    assert (out[0] == 0).all()
+
+
 def _paged_int8(dev, dtype, page_len, w):
     """``_paged``'s pools quantized by the port's ``quantize_rows``, with
     every (page, row) no live row reads (the scratch page 0 included) set
