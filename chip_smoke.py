@@ -149,7 +149,28 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
 15. bert parity  fp32 (TF32 off), width 1024 at 4 layers, dropout 0: the
             flash path against ``attn_impl="dense"`` on the same params and
             padded batch, first-step attention-weight gradients within 1e-3
-            (max relative) and 5 LAMB steps' losses within 1e-4 (relative).
+            (max relative) and 5 LAMB steps' losses within 1e-4 (relative);
+16. serve_kv_tier  (run after serve_quant_spec) the serve_paged engine
+            with ``serving.kv_tier`` (idle_park_ticks 1, 8 host pages, the
+            rest in page files under a temporary directory): 4 sessions
+            sharing a 256-token template, idle ticks until every prefix-
+            cache page has parked, then their next turns and 2 more
+            sharers, 16 new tokens each; bf16, then the int8 pool; the
+            streams must equal the same run's with the tier off token for
+            token, pages must park, land in page files and resume, and
+            the paged decode kernel (the int8 arm on the int8 pool) must
+            launch; prints parked/resumed pages, the prompt tokens wave 2
+            recomputed and the resume p99;
+17. checkpoint  (run after train parity) phase 10's engine and config:
+            3 steps, a synchronous save, 3 more steps; a fresh engine of
+            another seed loads it and trains the same 3 batches — the
+            losses must equal bitwise; then an async save while 2 steps
+            run, drained by ``close()`` (``latest`` names it); one byte
+            of its largest leaf flipped, ``load_checkpoint(tag=None)``
+            must fall back to the older tag; prints the checkpoint's
+            bytes and the save and load wall times beside the card's name
+            and power limit.  Both write under ``tempfile`` directories
+            they remove.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -225,6 +246,13 @@ PARENT_CAPACITY_MS = {("decode_paged", 4): 0.0066,
 QUANT = {"weights": "int8", "kv": "int8"}
 SPEC = {"speculate_k": 4,
         "draft": {"d_model": 768, "n_layer": DRAFT_LAYERS, "n_head": 12}}
+#: the KV tier: park after one idle tick, eight pages on the host, the
+#: rest in page files; the kv_tier phase's requests are shorter than the
+#: others' (a few sessions of a few tokens show parking and resume)
+KV_TIER = {"idle_park_ticks": 1, "host_budget_pages": 8}
+KV_NEW_TOKENS, KV_IDLE_TICKS = 16, 400
+#: checkpoint phase: steps before the save and after it (the resume's)
+CKPT_STEPS = 3
 
 
 
@@ -1493,6 +1521,148 @@ def phase_serve_spec(dev, quant=False):
     return total
 
 
+def _kv_tier_waves():
+    """Two waves of sessions over the serve_paged phase's geometry: the
+    first, 4 prompts sharing a 256-token template with their own 8-64-
+    token suffixes; the second, each of those extended by 8-32 tokens (a
+    session's next turn) and 2 new sharers of the template."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    rng = np.random.default_rng(SEED + 11)
+
+    def tok(n):
+        return [int(t) for t in rng.integers(0, GPT2_SMALL.vocab_size, n)]
+
+    template = tok(256)
+    first = [template + tok(int(n)) for n in rng.integers(8, 65, 4)]
+    second = ([p + tok(int(n)) for p, n in zip(first, rng.integers(
+        8, 33, 4))] + [template + tok(int(n))
+                       for n in rng.integers(8, 65, 2)])
+    return first, second
+
+
+def _kv_tier_run(dev, quant: bool, disk_dir):
+    """One run of the two waves on the paged engine (int8 weights and pool
+    with ``quant``), the KV tier on when ``disk_dir`` is given: wave 1,
+    idle ticks until every prefix-cache page has parked, wave 2.  Returns
+    the streams, the launch counts, the tier's counters and the prompt
+    tokens wave 2 computed."""
+    import torch
+    cfg = {**PAGED_CFG, **({"quantization": QUANT} if quant else {})}
+    if disk_dir is not None:
+        cfg["kv_tier"] = {**KV_TIER, "disk_dir": disk_dir}
+    eng = _engine(cfg, dev, torch.bfloat16)
+    eng.prefix.clear()        # forget the warm-up prompt's pages
+    tier = eng.kv_tier
+    if (tier is None) != (disk_dir is None):
+        fail("serving.kv_tier did not build the tier as configured")
+    counters = ("parked_pages_total", "resumed_pages_total",
+                "resumed_sessions_total", "spill_bytes", "fetch_bytes",
+                "corrupt_total")
+    # counted from here: the warm-up request may have parked a page
+    base = {c: getattr(tier, c) for c in counters} if tier else {}
+    first, second = _kv_tier_waves()
+    _zero_counts()
+    reqs = [eng.submit(p, max_new_tokens=KV_NEW_TOKENS) for p in first]
+    eng.run_until_idle()
+    idle = 0
+    if tier is not None:
+        while eng.prefix.entries and idle < KV_IDLE_TICKS:
+            eng.step()
+            idle += 1
+        if eng.prefix.entries or eng.pool.used_count:
+            fail(f"{eng.prefix.entries} prefix-cache entries and "
+                 f"{eng.pool.used_count} pool pages still held after "
+                 f"{idle} idle ticks with the KV tier on")
+    on_disk = (len([f for f in os.listdir(disk_dir) if f.endswith(".page")])
+               if disk_dir is not None else 0)
+    parked_gap = (tier.parked_pages_total - base["parked_pages_total"]
+                  if tier else 0)
+    t0 = time.perf_counter()
+    wave2 = [eng.submit(p, max_new_tokens=KV_NEW_TOKENS) for p in second]
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    reqs += wave2
+    for r in reqs:
+        if r.error is not None or len(r.tokens) != KV_NEW_TOKENS:
+            fail(f"kv_tier request {r.rid}: {r.finish_reason} {r.error!r}")
+    out = {"streams": [list(r.tokens) for r in reqs],
+           "launches": launches, "idle": idle, "on_disk": on_disk,
+           "parked_gap": parked_gap,
+           "computed": sum(r.computed_len for r in wave2),
+           "submitted": sum(len(r.prompt) for r in wave2),
+           "shared": [r.shared_len for r in wave2], "wall": wall}
+    if tier is not None:
+        d = {c: getattr(tier, c) - base[c] for c in counters}
+        out.update(parked=d["parked_pages_total"],
+                   resumed=d["resumed_pages_total"],
+                   sessions=d["resumed_sessions_total"],
+                   spill=d["spill_bytes"], fetch=d["fetch_bytes"],
+                   corrupt=d["corrupt_total"], p99=tier.resume_p99_s())
+    eng.close()
+    if eng.pool.refs:
+        fail(f"kv_tier: {len(eng.pool.refs)} pool pages held after close")
+    return out
+
+
+def phase_serve_kv_tier(dev):
+    """The KV tier on the paged engine (full-size GPT-2 small, bf16, then
+    the int8 pool): sessions park to host and disk while idle and resume
+    into fresh pages; their streams must equal the tier-off run's."""
+    import shutil
+    import tempfile
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    L = GPT2_SMALL.n_layer
+    total = {}
+    for quant in (False, True):
+        label = "int8 pool" if quant else "bf16"
+        kernel = "decode_paged_int8" if quant else "decode_paged"
+        off = _kv_tier_run(dev, quant, None)
+        root = tempfile.mkdtemp(prefix="chip_smoke_kv_")
+        try:
+            on = _kv_tier_run(dev, quant, root)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        if on["streams"] != off["streams"]:
+            bad = [i for i, (a, b) in enumerate(zip(on["streams"],
+                                                    off["streams"]))
+                   if a != b]
+            fail(f"kv_tier {label}: requests {bad} streamed other tokens "
+                 "with the tier on than with it off")
+        if on["shared"] != off["shared"]:
+            fail(f"kv_tier {label}: wave 2 shared {on['shared']} prompt "
+                 f"tokens with the tier on, {off['shared']} with it off")
+        if on["parked"] <= 0 or on["resumed"] <= 0 or on["on_disk"] <= 0 \
+                or on["corrupt"]:
+            fail(f"kv_tier {label}: parked {on['parked']}, resumed "
+                 f"{on['resumed']}, {on['on_disk']} page files, corrupt "
+                 f"{on['corrupt']}")
+        if on["launches"][kernel] <= 0 or on["launches"][kernel] % L:
+            fail(f"kv_tier {label}: {kernel} launched "
+                 f"{on['launches'][kernel]} times")
+        print(f"[serve_kv_tier] {label}: {len(on['streams'])} requests "
+              f"(4 sessions, then their next turns and 2 more sharers) x "
+              f"{KV_NEW_TOKENS} tokens, idle_park_ticks "
+              f"{KV_TIER['idle_park_ticks']}, host budget "
+              f"{KV_TIER['host_budget_pages']} pages: {on['parked_gap']} "
+              f"pages parked over {on['idle']} idle ticks ({on['on_disk']} "
+              f"in page files), {on['parked']} with those wave 2 left idle "
+              f"a tick; {on['resumed']} resumed into "
+              f"{on['sessions']} admissions; spill {on['spill']} B, fetch "
+              f"{on['fetch']} B; wave 2 computed {on['computed']} of "
+              f"{on['submitted']} prompt tokens (tier off: "
+              f"{off['computed']}); resume p99 {on['p99'] * 1e3:.3f} ms; "
+              f"wave 2 wall {on['wall']:.3f} s (tier off "
+              f"{off['wall']:.3f} s); streams equal to the tier-off run's; "
+              f"{kernel} {on['launches'][kernel]} launches")
+        for name, n in on["launches"].items():
+            total[name] = total.get(name, 0) + n
+    print(f"[serve_kv_tier] {smi()}")
+    return total
+
+
 def _compare_streams(label, ours, ref, prompts, cfg, params):
     """Greedy streams equal, a flip allowed only on a near tie (top-2
     logit gap below NEAR_TIE at that step of ``cfg`` with ``params``,
@@ -1686,6 +1856,114 @@ def phase_train(dev):
           f"flash_bwd_dq {launches['flash_bwd_dq'] // TRAIN_STEPS}, "
           f"flash_bwd_dkv {launches['flash_bwd_dkv'] // TRAIN_STEPS} "
           f"(= {L} x {A})")
+    return launches
+
+
+def _dir_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(root) for f in files)
+
+
+def phase_checkpoint(dev):
+    """Save, load and resume full-size GPT-2 small training with
+    phase_train's config (bf16, dropout 0.1, remat block, accumulation 2):
+    the resumed losses must equal the uninterrupted run's bitwise; then
+    an async save drained by close, and the fallback past a flipped
+    byte to the older tag."""
+    import dataclasses
+    import json as _json
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    config = _train_config({"bf16": {"enabled": True}}, TRAIN_MICRO,
+                           TRAIN_GA)
+
+    def engine(seed):
+        return deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                              seed=seed, config=config)[0]
+
+    T, rows = cfg.n_positions, TRAIN_MICRO * TRAIN_GA
+    rng = np.random.default_rng(SEED + 3)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (rows, T + 1))).to(dev)
+               for _ in range(2 * CKPT_STEPS)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _zero_counts()
+        eng = engine(SEED)
+        for b in batches[:CKPT_STEPS]:
+            eng.train_batch(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(root, tag="a")
+        save_s = time.perf_counter() - t0
+        nbytes = _dir_bytes(os.path.join(root, "a"))
+        ref = [float(eng.train_batch(b)) for b in batches[CKPT_STEPS:]]
+        eng.close()
+        del eng
+        eng = engine(SEED + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path, _ = eng.load_checkpoint(root)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if not path.endswith("a") or eng.global_steps != CKPT_STEPS:
+            fail(f"checkpoint: loaded {path} at step {eng.global_steps}")
+        got = [float(eng.train_batch(b)) for b in batches[CKPT_STEPS:]]
+        if got != ref:
+            fail(f"checkpoint: resumed losses {got} differ from the "
+                 f"uninterrupted run's {ref}")
+        # an async save while steps continue; close drains it
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(root, tag="b", async_write=True)
+        async_s = time.perf_counter() - t0
+        for b in batches[:2]:
+            eng.train_batch(b)
+        t0 = time.perf_counter()
+        eng.close()
+        close_s = time.perf_counter() - t0
+        with open(os.path.join(root, "latest")) as f:
+            latest = f.read().strip()
+        with open(os.path.join(root, "b", "meta.json")) as f:
+            b_steps = _json.load(f)["global_steps"]
+        if eng.last_ckpt_error is not None or latest != "b" \
+                or b_steps != 2 * CKPT_STEPS:
+            fail(f"checkpoint: async save left latest {latest!r} at step "
+                 f"{b_steps}, error {eng.last_ckpt_error!r}")
+        del eng
+        # flip one byte of a leaf of the newest tag: the load falls back
+        with open(os.path.join(root, "b", "optim", "manifest.json")) as f:
+            entry = max(_json.load(f).values(), key=lambda e: e["nbytes"])
+        leaf = os.path.join(root, "b", "optim", entry["file"])
+        with open(leaf, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        eng = engine(SEED + 2)
+        path, _ = eng.load_checkpoint(root)
+        if not path.endswith("a") or eng.global_steps != CKPT_STEPS:
+            fail(f"checkpoint: a corrupt latest loaded {path} at step "
+                 f"{eng.global_steps}, not the older tag 'a'")
+        eng.close()
+        torch.cuda.synchronize()
+        launches = _train_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[checkpoint] GPT-2 small bf16 (phase_train's config): "
+          f"{nbytes} B per checkpoint (model plane bf16, optim plane fp32 "
+          f"master + Adam moments); sync save {save_s:.3f} s, load "
+          f"{load_s:.3f} s; {CKPT_STEPS} resumed steps' losses equal the "
+          f"uninterrupted run's bitwise ({' '.join(f'{x:.6f}' for x in got)}"
+          f"); async save returned in {async_s:.3f} s, close drained it in "
+          f"{close_s:.3f} s; a flipped byte in tag 'b' ({entry['file']}) "
+          f"fell back to tag 'a'; {smi()}")
     return launches
 
 
@@ -2264,9 +2542,11 @@ def main() -> None:
     by_phase["serve_quant"], _ = phase_serve_paged(dev, paged_memory)
     by_phase["serve_quant_capacity"] = phase_serve_quant_capacity(dev)
     by_phase["serve_quant_spec"] = phase_serve_spec(dev, quant=True)
+    by_phase["serve_kv_tier"] = phase_serve_kv_tier(dev)
     phase_parity(dev)
     by_phase["train"] = phase_train(dev)
     phase_train_parity(dev)
+    by_phase["checkpoint"] = phase_checkpoint(dev)
     by_phase["sparse"] = phase_sparse(dev)
     by_phase["bert_train"] = phase_bert_train(dev)
     phase_bert_parity(dev)

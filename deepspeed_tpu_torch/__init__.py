@@ -12,7 +12,10 @@ Ported so far: GPT-2 greedy serving (``inference.ServeEngine``) on the
 slot cache and the paged pool, with greedy speculation; single-device
 training (``initialize`` → ``DeepSpeedEngine.train_batch``) of GPT-2 and
 of BERT (``models.bert``: MLM + NSP, the ``DeepSpeedTransformerLayer``
-encoder, Adam or LAMB, progressive layer drop); and block-sparse attention
+encoder, Adam or LAMB, progressive layer drop), with checkpoints in the
+JAX package's on-disk format (``runtime.checkpointing``: async and
+SIGTERM saves, CRC-verified loads with a fallback chain); KV tiering of
+idle serving sessions (``inference.kv_tier``); and block-sparse attention
 (``ops.sparse_attention``: ``SparseSelfAttention``,
 ``BertSparseSelfAttention``).  Kernels: flash attention forward and
 backward, the four decode-attention kernels and the block-sparse forward,

@@ -49,6 +49,14 @@ copy-on-write carries.  ``param_bytes`` and ``kv_bytes`` are the device
 bytes the parameters and the KV caches claim, as the JAX engine counts
 them.
 
+KV tiering (``serving.kv_tier``, reference ``engine.py:576-595,
+1341-1360, 2020-2050``; ``inference/kv_tier.py``): prefix-cache pages idle
+for ``idle_park_ticks`` ticks are exported to host bytes (and past
+``host_budget_pages`` to page files under ``disk_dir``) and released from
+the pool; paged admission resumes them into fresh pages as a prefix hit.
+A page's payload is its ``k``, ``v`` (and on the int8 pool ``k_scale``,
+``v_scale``) slices in that order, the JAX engine's payload byte for byte.
+
 Fault plane: the request queue is a stages :class:`Channel` and all
 serving work runs under one :class:`Stage` record ("serve", points
 ``admit``/``prefill_chunk``/``step``), so poison/drain semantics,
@@ -81,6 +89,7 @@ from ..runtime.stages import Channel, Stage
 from ..utils.logging import logger
 from .kv_cache import (KVCacheSpec, PagedKVCacheSpec, init_cache,
                        init_paged_cache)
+from .kv_tier import KVTier, KVTierCorruptError, disk_fsync_enabled
 from .quantize import param_nbytes, quantize_gpt2_params
 from .scheduler import PagePool, PrefixCache, Request, SlotScheduler
 from .speculative import select_next_token, speculative_accept
@@ -121,9 +130,6 @@ def _refuse_unported(cfg: _ServeConfigView) -> None:
     if sv.lora[C.SERVING_LORA_RANK] > 0:
         raise _unported("serving.lora.rank > 0 (multi-tenant LoRA)",
                         "item 7.5 (LoRA adapters)")
-    if sv.kv_tier[C.SERVING_KV_TIER_IDLE_PARK_TICKS] > 0:
-        raise _unported("serving.kv_tier (KV tiering)",
-                        "item 7.6 (KV tiering)")
     if cfg.telemetry.enabled:
         raise _unported("telemetry.enabled", "item 5 (telemetry)")
 
@@ -269,9 +275,30 @@ class ServeEngine:
         # paged, the free pages; speculating, the live accept ratio)
         self.stage.depth_fn = (self._stage_depth if self.paged
                                or self.spec_k else self.queue.qsize)
+
+        # -- KV tiering: park idle sessions' prefix-cache pages on host
+        # and disk, stream them back on resume.  Off by default
+        # (idle_park_ticks=0): the engine is then what it was without it
+        self.kv_tier = None
+        kvt = cfg.serving.kv_tier
+        if self.paged and self.prefix is not None \
+                and kvt[C.SERVING_KV_TIER_IDLE_PARK_TICKS] > 0:
+            self.kv_tier = KVTier(
+                page_len=self.page_len, pool=self.pool,
+                prefix=self.prefix,
+                exporter=self._export_page_bytes,
+                importer=self._import_page_bytes,
+                idle_park_ticks=kvt[C.SERVING_KV_TIER_IDLE_PARK_TICKS],
+                host_budget_pages=kvt[
+                    C.SERVING_KV_TIER_HOST_BUDGET_PAGES],
+                disk_dir=kvt[C.SERVING_KV_TIER_DISK_DIR] or None,
+                fsync=disk_fsync_enabled(kvt[C.SERVING_KV_TIER_FSYNC]),
+                max_failures=cfg.stages.max_stage_failures)
         wire_serve_stage_plane(self)
 
         self._rid = 0
+        #: engine ticks (``step`` calls): the KV tier's idleness clock
+        self._ticks = 0
         #: decode ticks that ran the model (each launches the decode
         #: kernel, slot or paged, once per layer)
         self.decode_ticks = 0
@@ -498,21 +525,36 @@ class ServeEngine:
 
     def _admit_one_paged(self, req: Request) -> bool:
         """Reference ``_admit_one_paged`` (``engine.py:1329-1505``)
-        without its KV-tier and LoRA branches: match the prefix, COW a
-        shared partial tail, allocate the rest, then prefill the delta (or
-        admit it for chunked prefill)."""
+        without its LoRA branch: match the prefix, extend the match with
+        the KV tier's parked pages, COW a shared partial tail, allocate
+        the rest, then prefill the delta (or admit it for chunked
+        prefill)."""
         total_pages = -(-len(req.prompt) // self.page_len)
         if self.prefix is not None:
             shared_len, spages, cow = self.prefix.match(req.prompt)
         else:
             shared_len, spages, cow = 0, [], False
-        fresh = self._alloc_pages(total_pages - len(spages)
+        tpages: List[int] = []
+        if self.kv_tier is not None and not cow \
+                and shared_len % self.page_len == 0 \
+                and self.pool.free_count >= total_pages - len(spages):
+            # session resume: continue the digest chain into the parked
+            # tier — fetched pages extend the match and insert() below
+            # re-registers them, so a resume IS a prefix hit.  Gated on
+            # enough free pages for the whole admission so one-shot
+            # records are not spent on a request that then parks; tier
+            # failures fall back to the delta prefill below
+            shared_len, tpages = self.kv_tier.resume(
+                req.prompt, "", shared_len, self._alloc_pages)
+        fresh = self._alloc_pages(total_pages - len(spages) - len(tpages)
                                   + (1 if cow else 0))
         if fresh is None:
             if self.prefix is not None:
                 self.prefix.release(spages)
+            for p in tpages:
+                self.pool.deref(p)
             return False
-        held = list(spages) + fresh
+        held = list(spages) + tpages + fresh
         try:
             req.admit_t = time.perf_counter()
             fi = 0
@@ -526,7 +568,7 @@ class ServeEngine:
                 row = spages[:-1] + fresh[:1]
                 fi = 1
             else:
-                row = list(spages)
+                row = list(spages) + tpages
             row.extend(fresh[fi:])
             delta = req.prompt[shared_len:]
             if self.prefill_chunk_len \
@@ -901,6 +943,10 @@ class ServeEngine:
         tokens produced."""
         if self._closed:
             raise RuntimeError("ServeEngine is closed")
+        if self.kv_tier is not None:
+            # park BEFORE admission so pages freed by parking are
+            # allocatable this very tick
+            self.kv_tier.park_tick(self._ticks)
         self._admit()
         try:
             n = 0
@@ -914,6 +960,7 @@ class ServeEngine:
         except BaseException as e:
             self._poison(e)
             raise
+        self._ticks += 1
         return n
 
     def run_until_idle(self, max_ticks: int = 100_000) -> int:
@@ -930,6 +977,56 @@ class ServeEngine:
             f"({len(self.scheduler.active)} active, "
             f"{len(self._pending)} pending, "
             f"{self.queue.qsize()} queued)")
+
+    # -- the KV tier's page seams -----------------------------------------
+    def _page_leaves(self) -> List[str]:
+        """Pool-shaped cache leaves in the payload's fixed order (the
+        scale sidecars ride along on the int8 pool)."""
+        return [k for k in ("k", "v", "k_scale", "v_scale")
+                if k in self.cache]
+
+    def _export_page_bytes(self, pid: int) -> bytes:
+        """ONE pool page as raw host bytes, each leaf's ``[:, pid]`` slice
+        in ``_page_leaves`` order — the KV tier's spill unit (it CRC-
+        stamps the bytes before the page's pool ref is released)."""
+        with self._span("serve/kv_spill", page=pid):
+            return b"".join(
+                self.cache[k][:, pid].contiguous().view(torch.uint8)
+                .cpu().numpy().tobytes() for k in self._page_leaves())
+
+    def _import_page_bytes(self, pid: int, payload: bytes) -> None:
+        """Import one parked page payload into pool page ``pid`` — the KV
+        tier's fetch unit.  A payload of another size than this pool's
+        page is a corrupt record, raised typed before any byte lands."""
+        parts, off = [], 0
+        for k in self._page_leaves():
+            ref = self.cache[k][:, pid]
+            nb = ref.numel() * ref.element_size()
+            parts.append((ref, off, nb))
+            off += nb
+        if off != len(payload):
+            raise KVTierCorruptError(
+                f"parked page payload is {len(payload)} bytes; this "
+                f"pool's page is {off}")
+        buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+        with self._span("serve/kv_fetch", page=pid):
+            for ref, o, nb in parts:
+                src = buf[o:o + nb].view(ref.dtype).view(ref.shape)
+                ref.copy_(src.to(self.device))
+
+    def _drain_kv_spill(self):
+        """Write every host-resident parked page to the disk tier (when
+        one exists) — the spill plane's drain barrier."""
+        if self.kv_tier is not None:
+            self.kv_tier.drain()
+
+    def _close_kv_spill(self):
+        if self.kv_tier is not None:
+            self.kv_tier.close_spill()
+
+    def _close_kv_fetch(self):
+        if self.kv_tier is not None:
+            self.kv_tier.close()
 
     # -- failure + shutdown ----------------------------------------------
     def _fail_request(self, req: Request, err: BaseException) -> None:

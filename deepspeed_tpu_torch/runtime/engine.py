@@ -25,22 +25,33 @@ into every micro-batch dict as a host float), ``eval_batch`` and the
 forward/backward/step facade.  The
 ``data_prefetch`` block (on by default) runs inline here: the batch is
 moved to the card inside ``train_batch``, a device tensor passes
-straight through.  Every other config knob whose path is not ported
+straight through.
+
+Checkpoints (``save_checkpoint``/``load_checkpoint``,
+``runtime/checkpointing.py``) are the JAX package's on-disk format: the
+``checkpoint`` block's async saves run on a daemon writer that ``close()``
+drains, and ``checkpoint.sigterm_save`` installs the preemption hook, its
+save deferred to the step boundary when the signal lands inside
+``train_batch``.  Every other config knob whose path is not ported
 raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..config import constants as C
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from . import precision
-from .dataloader import DeepSpeedDataLoader
+from .dataloader import DeepSpeedDataLoader, supports_iter_state
+from .engine_stages import close_ckpt_stage
 from .lr_schedules import get_lr_schedule
+from .resilience import AsyncCheckpointWriter
+from .stages import Stage
 from .utils import clip_by_global_norm, fold_in, global_norm, tree_leaves
 from ..ops.adam import fused_adam
 from ..ops.lamb import fused_lamb
@@ -114,10 +125,6 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
                      ("wall_clock_breakdown", config.wall_clock_breakdown)):
         if on:
             raise _unported(what, "item 5 (telemetry and utils)")
-    ck = config.checkpoint_config
-    if ck.async_save or ck.sigterm_save:
-        raise _unported("checkpoint.async_save / sigterm_save",
-                        "item 6 (checkpointing)")
 
 
 def resolve_device(device) -> torch.device:
@@ -142,6 +149,12 @@ def _tree_map(fn, tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
+
+
+def _unflatten_like(tree, leaves):
+    """``leaves`` (``tree_leaves`` order) re-nested into ``tree``'s shape."""
+    it = iter(leaves)
+    return _tree_map(lambda _: next(it), tree)
 
 
 def _master_leaf(x, device) -> torch.Tensor:
@@ -212,11 +225,36 @@ class DeepSpeedEngine:
         self.training_dataloader = (
             self.deepspeed_io(training_data, collate_fn=collate_fn)
             if training_data is not None else None)
+        self._init_checkpointing(config)
         log_dist(
             f"DeepSpeedEngine: device={self.device} zero_stage=0 "
             f"dtype={self.compute_dtype} "
             f"micro_bs={self.micro_batch_size} "
             f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
+
+    def _init_checkpointing(self, config) -> None:
+        """The async checkpoint writer (its thread starts with the first
+        async save) under its ``ckpt_writer`` stage record — a writer
+        that exhausts the stage's failure budget degrades to synchronous
+        saves — and the opt-in SIGTERM preemption hook."""
+        self._ckpt_stage = Stage(
+            "ckpt_writer",
+            max_failures=config.stages_config.max_stage_failures,
+            fallback="synchronous saves")
+        self._ckpt_writer = AsyncCheckpointWriter(stage=self._ckpt_stage)
+        # a dropped engine's in-flight save still lands
+        self._finalizer = weakref.finalize(self, self._ckpt_writer.close)
+        self._ckpt_last_save_dir = None
+        self.last_ckpt_error = None
+        self.last_loaded_data_iter_state = None
+        self._in_step = False          # SIGTERM-save deferral fence
+        self._deferred_preempt = None  # handler parked until step boundary
+        self._preemption_handler = None
+        ckc = config.checkpoint_config
+        if ckc.sigterm_save:
+            from .resilience import install_preemption_handler
+            self._preemption_handler = install_preemption_handler(
+                self, ckc.save_dir or None)
 
     # ------------------------------------------------------------------
     # configuration
@@ -383,7 +421,21 @@ class DeepSpeedEngine:
     def train_batch(self, batch=None, data_iter=None) -> torch.Tensor:
         """Run one full training step (grad-accum included) on a global
         batch of ``train_batch_size`` samples; returns the mean loss as a
-        device scalar (no host sync)."""
+        device scalar (no host sync).  A SIGTERM landing inside the step
+        parks the preemption save until the step's end, where the state
+        is whole again."""
+        self._in_step = True
+        try:
+            return self._train_batch_inner(batch, data_iter)
+        finally:
+            self._in_step = False
+            h = self._deferred_preempt
+            if h is not None:
+                self._deferred_preempt = None
+                h.complete_deferred()
+
+    def _train_batch_inner(self, batch, data_iter) -> torch.Tensor:
+        self._ckpt_writer_tick()
         if batch is None:
             it = data_iter or self._training_iter()
             if it is None:
@@ -460,15 +512,117 @@ class DeepSpeedEngine:
         self.micro_steps -= ga  # train_batch re-adds
         return self.train_batch(batch)
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise _unported("save_checkpoint", "item 6 (checkpointing)")
+    # ------------------------------------------------------------------
+    # checkpointing (reference engine.py:1211-1478)
+    # ------------------------------------------------------------------
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, async_write=None):
+        """Write ``<save_dir>/<tag>/`` (``global_step<N>`` by default) and
+        return its path.  ``async_write=True`` copies the state to the
+        host and hands serialization to the daemon writer — the step loop
+        pays only that copy; ``None`` takes the ``checkpoint.async_save``
+        config, and a degraded writer saves synchronously."""
+        if async_write is None:
+            async_write = bool(self.config.checkpoint_config.async_save)
+        if async_write:
+            async_write = not self._ckpt_stage.degraded
+        from .checkpointing import save_checkpoint
+        out = save_checkpoint(self, save_dir, tag=tag,
+                              client_state=client_state,
+                              save_latest=save_latest,
+                              async_write=bool(async_write))
+        self._ckpt_last_save_dir = save_dir
+        return out
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise _unported("load_checkpoint", "item 6 (checkpointing)")
+    def load_checkpoint(self, load_dir, tag=None,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True,
+                        load_module_only=False):
+        """Restore a checkpoint this package or the JAX package wrote;
+        returns ``(load_path, client_state)``, ``(None, None)`` when
+        ``load_dir`` holds no ``latest``."""
+        from .checkpointing import load_checkpoint
+        return load_checkpoint(
+            self, load_dir, tag=tag,
+            load_optimizer_states=load_optimizer_states,
+            load_lr_scheduler_states=load_lr_scheduler_states,
+            load_module_only=load_module_only)
+
+    def _canonical_state(self):
+        """(master, optimizer state) in the JAX engine's tree form: the
+        count and the moments re-nested onto the param tree."""
+        master = self.state.master_params
+        opt = self.state.opt_state
+        if not all(hasattr(opt, f) for f in ("count", "mu", "nu")):
+            raise NotImplementedError(
+                f"checkpointing a {type(opt).__name__} optimizer state: "
+                "only the count/mu/nu states of Adam and LAMB have the "
+                "JAX package's checkpoint layout")
+        return master, type(opt)(count=opt.count,
+                                 mu=_unflatten_like(master, opt.mu),
+                                 nu=_unflatten_like(master, opt.nu))
+
+    def _adopt_loaded(self, master, opt_tree, scaler,
+                      skipped_steps: int) -> None:
+        """Install loaded trees: ``opt_tree`` None (a module-only load)
+        starts the optimizer afresh on the loaded master."""
+        leaves = tree_leaves(master)
+        if opt_tree is None:
+            opt_state = self.optimizer.init(leaves)
+        else:
+            opt_state = type(opt_tree)(count=opt_tree.count,
+                                       mu=tree_leaves(opt_tree.mu),
+                                       nu=tree_leaves(opt_tree.nu))
+        self.state = TrainState(
+            master_params=master, opt_state=opt_state, scaler=scaler,
+            skipped_steps=torch.tensor(skipped_steps, dtype=torch.int32,
+                                       device=self.device))
+
+    def data_iterator_state(self):
+        """The training loader's position (JSON-able), or None without a
+        checkpointable loader — the checkpoint's data plane."""
+        for cand in (self._train_data_iter, self.training_dataloader):
+            if cand is not None and supports_iter_state(cand):
+                try:
+                    return cand.state_dict()
+                except TypeError:
+                    return None
+        return None
+
+    def load_data_iterator_state(self, state) -> bool:
+        """Apply a checkpointed loader position; the next ``train_batch``
+        rebuilds its iterator from there.  The state is kept as
+        ``last_loaded_data_iter_state`` either way."""
+        self.last_loaded_data_iter_state = state
+        loader = self.training_dataloader
+        if loader is None or not supports_iter_state(loader):
+            logger.warning(
+                "checkpoint has a data-iterator plane but this engine has "
+                "no checkpointable training dataloader to apply it to: "
+                "apply engine.last_loaded_data_iter_state to your loader "
+                "with load_state_dict()")
+            return False
+        loader.load_state_dict(state)
+        self._train_data_iter = None
+        return True
+
+    def _ckpt_writer_tick(self):
+        """Pre-step surfacing of a failed async save (it poisoned only
+        that save; training continues and the next save retries)."""
+        err = self._ckpt_writer.pop_error()
+        if err is not None:
+            self.last_ckpt_error = err
 
     def close(self):
-        """Nothing runs in the background on this path; idempotent."""
+        """Drain the async checkpoint writer (a save that fails while it
+        drains lands in ``last_ckpt_error``), release the preemption
+        hook; idempotent."""
         self._pending_micros = []
+        close_ckpt_stage(self)
+        ph = self._preemption_handler
+        if ph is not None and not ph.fired:
+            ph.uninstall()
+        self._finalizer.detach()
 
     # ------------------------------------------------------------------
     # introspection / logging

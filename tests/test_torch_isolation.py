@@ -5,6 +5,8 @@ told otherwise, and every config knob whose path is not ported raises
 instead of being silently ignored.
 """
 import ast
+import hashlib
+import json
 import os
 import subprocess
 import sys
@@ -95,12 +97,12 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # paged KV, greedy speculation and quantized serving are ported; the
-    # unported arms beside them (KV tiering and LoRA on the paged pool,
-    # sampling) still raise.  The ids name the ported block each case
-    # rides on.
-    ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3}}},
-     "7.6"),
+    # paged KV, KV tiering, greedy speculation and quantized serving are
+    # ported; the unported arms beside them (sampling on the tiered pool,
+    # LoRA on the paged pool, sampling) still raise.  The ids name the
+    # ported block each case rides on.
+    ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3},
+                  "temperature": 0.7}}, "7.3"),
     ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "7.3"),
     ({"serving": {"temperature": 0.7}}, "7.3"),
     ({"serving": {"page_len": 8, "quantization": {"weights": "int8"},
@@ -115,22 +117,21 @@ def test_unported_knob_raises_naming_its_roadmap_item(extra, item):
 
 def test_unported_paged_only_knobs_and_mesh_raise():
     """kv_tier and lora need page_len > 0 to parse at all; on the paged
-    engine (ported, chunked prefill included) they raise naming their
-    items, and a mesh raises before anything else."""
-    for extra, item in ((
-            {"kv_tier": {"idle_park_ticks": 3}}, "7.6"),
-            ({"lora": {"rank": 4}}, "7.5")):
-        cfg = engine_mod._ServeConfigView({"serving": {"page_len": 8,
-                                                       **extra}})
-        with pytest.raises(NotImplementedError, match=item):
-            engine_mod._refuse_unported(cfg)
-        with pytest.raises(NotImplementedError, match=item):
-            ServeEngine(GPT2Model(TINY), {"serving": {"page_len": 8,
-                                                      **extra}},
-                        device="cpu")
+    engine (ported, chunked prefill and the KV tier included) lora raises
+    naming its item, and a mesh raises before anything else."""
+    extra = {"lora": {"rank": 4}}
+    cfg = engine_mod._ServeConfigView({"serving": {"page_len": 8,
+                                                   **extra}})
+    with pytest.raises(NotImplementedError, match="7.5"):
+        engine_mod._refuse_unported(cfg)
+    with pytest.raises(NotImplementedError, match="7.5"):
+        ServeEngine(GPT2Model(TINY), {"serving": {"page_len": 8, **extra}},
+                    device="cpu")
     eng = ServeEngine(GPT2Model(TINY), {"serving": {
-        "page_len": 8, "prefill_chunk_len": 4}}, device="cpu")
+        "page_len": 8, "prefill_chunk_len": 4,
+        "kv_tier": {"idle_park_ticks": 3}}}, device="cpu")
     assert eng.paged and eng.prefill_chunk_len == 4
+    assert eng.kv_tier is not None and eng.kv_tier.idle_park_ticks == 3
     eng.close()
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")
@@ -173,7 +174,11 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
       "pipeline": {"stages": 2}}, "item 10"),
     ({"telemetry": {"enabled": True}}, "item 5"),
     ({"tensorboard": {"enabled": True}}, "item 5"),
-    ({"checkpoint": {"async_save": True}}, "item 6"),
+    # checkpointing is ported; a checkpoint of a ZeRO-partitioned state
+    # waits for item 9
+    ({"checkpoint": {"async_save": True, "sigterm_save": True},
+      "zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
+     "item 9"),
 ], ids=["zero", "offload", "pipeline", "onebit", "lamb", "sparse_grads",
         "pld", "telemetry", "tensorboard", "checkpoint"])
 def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item):
@@ -183,7 +188,7 @@ def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item):
                                        device="cpu")
 
 
-def test_unported_training_paths_raise():
+def test_unported_training_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                        config=TRAIN_BASE, mesh=object(),
@@ -193,8 +198,20 @@ def test_unported_training_paths_raise():
     eng, *_ = deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                              config=TRAIN_BASE,
                                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        eng.save_checkpoint("/nonexistent")
+    # a checkpoint a multi-process run wrote (a sharded leaf) raises
+    eng.save_checkpoint(str(tmp_path), tag="t")
+    plane = tmp_path / "t" / "optim"
+    manifest = json.loads((plane / "manifest.json").read_text())
+    manifest["['master_params']['wte']"] = {
+        "sharded": True, "leaf": 0, "dtype": "float32",
+        "store_dtype": "float32", "shape": [64, 64]}
+    data = json.dumps(manifest).encode()
+    (plane / "manifest.json").write_bytes(data)
+    meta = json.loads((tmp_path / "t" / "meta.json").read_text())
+    meta["manifest_digests"]["optim"] = hashlib.sha256(data).hexdigest()
+    (tmp_path / "t" / "meta.json").write_text(json.dumps(meta))
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.load_checkpoint(str(tmp_path), tag="t")
     model = GPT2Model(GPT2Config(**{**TINY.__dict__, "attn_impl": "ring"}))
     with pytest.raises(NotImplementedError, match="item 11"):
         model.loss_fn(model.init(0), torch.zeros(1, 5, dtype=torch.long),
