@@ -170,17 +170,61 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             must fall back to the older tag; prints the checkpoint's
             bytes and the save and load wall times beside the card's name
             and power limit.  Both write under ``tempfile`` directories
-            they remove.
+            they remove;
+18. sampler  (run after the kernels phases) the samplers on the card at
+            GPT-2's vocabulary (50257), under sync debug mode 'error' (no
+            host sync): ``select_next_token`` at temperature 0.8, 65,536
+            draws of one Zipf-shaped logits row, chi-square against its
+            softmax over the bins of expected count >= 5 (the rest
+            pooled), p >= 1e-3; ``rejection_sample_accept`` at S 8, k 4
+            over 4,096 calls with drafts drawn from the draft's softmax:
+            the mean accepted length against its closed form
+            sum_i prod_{j<=i} sum min(p_j, q_j) (z-test) and the first
+            emitted token against the target's softmax, same bar; one
+            seed's outputs bitwise equal twice; their times at the
+            serving shape;
+19. serve_sample  (run after serve_kv_tier) the serve phase's 12
+            requests at temperature 0.8 on the slot cache and on the
+            paged pool, then with speculate_k 4 and the 2-layer draft on
+            both (rejection-sampling acceptance): the launches per
+            prefill, tick and pass of serve, serve_paged and serve_spec;
+            every request its 64 tokens; a second engine of the seed
+            streams the same tokens bit for bit, and they are not the
+            greedy streams; tokens/s, TPOT, tokens per target pass;
+20. serve_lora  serve_paged's engine and load with ``serving.lora``
+            (rank 16, alpha 32, all four targets, 4 device pool slots,
+            8 adapters at most), the 16 requests over tenants 0-6 so
+            adapters fault and evict: 12 paged-decode launches a decode
+            tick; every request on tenant 0 streams serve_paged's
+            lora-off tokens bit for bit; in fp32 (TF32 off) each
+            tenant's greedy streams equal a lora-off engine's on
+            ``merge_adapter``'s dense-merged weights on the dense path
+            (near-tie rule); then int8 weights and pool (the int8 arm
+            launches; tenant 0 equals serve_quant's streams) and
+            speculate_k 4 (the paged multi-query kernel); tokens/s and
+            TPOT beside serve_paged's, adapter hits, faults, evictions
+            and bytes;
+21. serve_telemetry  serve_lora's bf16 run (plain and speculative) and
+            serve_kv_tier's bf16 run with ``telemetry.enabled`` into
+            temporary directories: streams equal to the runs without
+            it; ``summarize`` of each events.jsonl gives the adapter,
+            prefix, speculation and KV-tier scalars equal to the
+            engines' own counters; trace.json and metrics.prom parse;
+            under sync debug mode 'warn' the plain run makes as many
+            synchronizing calls with telemetry as without; tokens/s with
+            and without.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
-launches by phase and their sum.
+launches by phase and their sum.  Each phase's wall time is printed
+(``[wall]``).
 Then one ``{"kernels": [...]}`` line and, last, the run's result line.
 Without a CUDA device, or without the package beside this file, it exits
 non-zero and prints no result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -253,6 +297,17 @@ KV_TIER = {"idle_park_ticks": 1, "host_budget_pages": 8}
 KV_NEW_TOKENS, KV_IDLE_TICKS = 16, 400
 #: checkpoint phase: steps before the save and after it (the resume's)
 CKPT_STEPS = 3
+#: sampling: the serving temperature; the sampler phase's draws of one
+#: logits row (in chunks of rows) and its rejection-sampling calls at S 8
+TEMPERATURE = 0.8
+SAMPLER_DRAWS, SAMPLER_CHUNK, SAMPLER_CALLS = 65536, 4096, 4096
+#: the statistical checks' bar: a chi-square or z-test p of at least this
+P_MIN = 1e-3
+#: multi-tenant LoRA (serve_lora): rank 16, all four targets, 4 device
+#: pool slots for the 6 tenants 1-6 (tenant 0 is the base model)
+LORA = {"rank": 16, "alpha": 32.0, "hbm_adapter_slots": 4,
+        "max_adapters": 8, "targets": ["qkv_w", "out_w", "fc_w", "proj_w"]}
+LORA_TENANTS = 7
 
 
 
@@ -1201,6 +1256,23 @@ def _paged_load():
     return [sharers[0], twin], sharers[1:] + [list(twin), tok(1)] + rand
 
 
+def _paged_waves(eng, tenants=None):
+    """The serve_paged phase's load on ``eng``: its first wave, steps
+    until each of those has its first token, then the rest; request ``i``
+    on tenant ``tenants[i]`` (all on 0 when None).  Returns the requests in
+    submission order once all have finished."""
+    first, rest = _paged_load()
+    tenants = tenants or [0] * (len(first) + len(rest))
+    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS, adapter_id=t)
+            for p, t in zip(first, tenants)]
+    while not all(r.tokens for r in reqs):
+        eng.step()
+    reqs += [eng.submit(p, max_new_tokens=NEW_TOKENS, adapter_id=t)
+             for p, t in zip(rest, tenants[len(first):])]
+    eng.run_until_idle()
+    return reqs
+
+
 def _draft_params(params):
     """The speculative draft: the target's embeddings, final norm and its
     first DRAFT_LAYERS blocks (so acceptance is partial, not nil)."""
@@ -1238,7 +1310,8 @@ def _pct(xs, p):
 
 def _latencies(phase, reqs, tokens, wall):
     """tokens/s over the run, decode per-token latency (TPOT) and time to
-    first token p50/p99, peak memory."""
+    first token p50/p99, peak memory; returns (tokens/s, TPOT p50 s, TPOT
+    p99 s)."""
     import torch
     tpot = [t for r in reqs for t in r.token_times[1:]]
     ttft = [r.token_times[0] for r in reqs]
@@ -1248,21 +1321,24 @@ def _latencies(phase, reqs, tokens, wall):
           f"ms; time to first token p50 {_pct(ttft, 0.5) * 1e3:.1f} ms p99 "
           f"{_pct(ttft, 0.99) * 1e3:.1f} ms; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return tokens / wall, _pct(tpot, 0.5), _pct(tpot, 0.99)
 
 
-def _engine(cfg, dev, dtype, draft=False):
+def _engine(cfg, dev, dtype, draft=False, extra=None):
     """GPT-2 small at full width and depth with random weights from the
     seed, warmed up on one short request (cuBLAS handles, caches).  The
     peak-memory count restarts once the engine holds only what it serves
     (the fp master dropped when the weights are quantized) and the earlier
-    phases' engines are collected."""
+    phases' engines are collected.  ``extra``: more top-level config
+    blocks (telemetry)."""
     import gc
     import torch
     from deepspeed_tpu_torch.inference import ServeEngine
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
     model = GPT2Model(GPT2_SMALL)
     params = model.init(SEED, device=dev, dtype=dtype)
-    eng = ServeEngine(model, {"serving": cfg}, params=params, device=dev,
+    eng = ServeEngine(model, {"serving": cfg, **(extra or {})},
+                      params=params, device=dev,
                       draft_params=_draft_params(params) if draft else None)
     warm = eng.submit(list(range(16)), max_new_tokens=2)
     eng.run_until_idle()
@@ -1306,7 +1382,7 @@ def phase_serve(dev):
     print(f"[serve] launches: flash_fwd {launches['flash_fwd']} "
           f"(= {N_REQ} x {L}), decode_attention "
           f"{launches['decode_attention']} (= {L} x {ticks})")
-    return launches
+    return launches, [list(r.tokens) for r in reqs]
 
 
 def phase_serve_paged(dev, fp_memory=None):
@@ -1328,14 +1404,9 @@ def phase_serve_paged(dev, fp_memory=None):
     free0 = eng.pool.free_count
     ticks0 = eng.decode_ticks
     stats0 = (eng.prefix.hits, eng.prefix.misses, eng.prefix.cow)
-    first, rest = _paged_load()
     _zero_counts()
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in first]
-    while not all(r.tokens for r in reqs):
-        eng.step()
-    reqs += [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in rest]
-    eng.run_until_idle()
+    reqs = _paged_waves(eng)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
@@ -1377,7 +1448,7 @@ def phase_serve_paged(dev, fp_memory=None):
           f"write {cow}; prompt tokens computed {computed} of {submitted} "
           f"submitted; {free} free pages after the run = {free0} less "
           f"{held} held by the prefix cache")
-    _latencies(label, reqs, sum(len(r.tokens) for r in reqs), wall)
+    rates = _latencies(label, reqs, sum(len(r.tokens) for r in reqs), wall)
     print(f"[{label}] launches: flash_fwd {launches['flash_fwd']} (= "
           f"{L} x {no_prefix}), {kernel} {launches[kernel]} (= {L} x "
           f"{ticks}), {other} 0")
@@ -1390,7 +1461,8 @@ def phase_serve_paged(dev, fp_memory=None):
               f"params and KV {(peak - pb - kb) / 2**20:.1f} vs "
               f"{(peak0 - pb0 - kb0) / 2**20:.1f} MiB (transients: the "
               "int8 matmuls cast one layer's weight to bf16 at a time)")
-    return launches, memory
+    return launches, memory, {"streams": [list(r.tokens) for r in reqs],
+                              "rates": rates}
 
 
 def phase_serve_quant_capacity(dev):
@@ -1540,17 +1612,18 @@ def _kv_tier_waves():
     return first, second
 
 
-def _kv_tier_run(dev, quant: bool, disk_dir):
+def _kv_tier_run(dev, quant: bool, disk_dir, extra=None):
     """One run of the two waves on the paged engine (int8 weights and pool
     with ``quant``), the KV tier on when ``disk_dir`` is given: wave 1,
     idle ticks until every prefix-cache page has parked, wave 2.  Returns
-    the streams, the launch counts, the tier's counters and the prompt
-    tokens wave 2 computed."""
+    the streams, the launch counts, the tier's counters (over the run, and
+    since the engine's start: ``*_total``) and the prompt tokens wave 2
+    computed.  ``extra``: more top-level config blocks (telemetry)."""
     import torch
     cfg = {**PAGED_CFG, **({"quantization": QUANT} if quant else {})}
     if disk_dir is not None:
         cfg["kv_tier"] = {**KV_TIER, "disk_dir": disk_dir}
-    eng = _engine(cfg, dev, torch.bfloat16)
+    eng = _engine(cfg, dev, torch.bfloat16, extra=extra)
     eng.prefix.clear()        # forget the warm-up prompt's pages
     tier = eng.kv_tier
     if (tier is None) != (disk_dir is None):
@@ -1599,7 +1672,8 @@ def _kv_tier_run(dev, quant: bool, disk_dir):
                    resumed=d["resumed_pages_total"],
                    sessions=d["resumed_sessions_total"],
                    spill=d["spill_bytes"], fetch=d["fetch_bytes"],
-                   corrupt=d["corrupt_total"], p99=tier.resume_p99_s())
+                   corrupt=d["corrupt_total"], p99=tier.resume_p99_s(),
+                   spill_total=tier.spill_bytes, fetch_total=tier.fetch_bytes)
     eng.close()
     if eng.pool.refs:
         fail(f"kv_tier: {len(eng.pool.refs)} pool pages held after close")
@@ -1615,7 +1689,7 @@ def phase_serve_kv_tier(dev):
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
 
     L = GPT2_SMALL.n_layer
-    total = {}
+    total, streams = {}, {}
     for quant in (False, True):
         label = "int8 pool" if quant else "bf16"
         kernel = "decode_paged_int8" if quant else "decode_paged"
@@ -1659,7 +1733,517 @@ def phase_serve_kv_tier(dev):
               f"{kernel} {on['launches'][kernel]} launches")
         for name, n in on["launches"].items():
             total[name] = total.get(name, 0) + n
+        streams[label] = on["streams"]
     print(f"[serve_kv_tier] {smi()}")
+    return total, streams
+
+
+def _zipf_logits(dev, vocab: int, seed: int, s: float = 1.1):
+    """Logits whose softmax falls off as rank^-s over a random permutation
+    of the vocabulary (a seeded stand-in for a language model's row)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    ranks = torch.empty(vocab)
+    ranks[torch.randperm(vocab, generator=g)] = torch.arange(
+        1, vocab + 1, dtype=torch.float32)
+    return (-s * torch.log(ranks)).to(dev)
+
+
+def _chi2_p(counts, probs) -> float:
+    """Goodness-of-fit chi-square p of ``counts`` against ``probs`` over
+    the bins of expected count >= 5, the rest pooled into one."""
+    from scipy import stats
+    counts = np.asarray(counts, np.float64)
+    exp = np.asarray(probs, np.float64) * counts.sum()
+    big = exp >= 5
+    o = np.append(counts[big], counts[~big].sum())
+    e = np.append(exp[big], exp[~big].sum())
+    return float(stats.chisquare(o, e * o.sum() / e.sum()).pvalue)
+
+
+def phase_sampler(dev):
+    """The samplers on the card at GPT-2's vocabulary (torch ops, no
+    kernel of their own), under sync debug mode 'error' (no host sync):
+    ``select_next_token`` at T 0.8, 65,536 draws of one Zipf-shaped row
+    against its softmax; ``rejection_sample_accept`` at S 8, k 4 over
+    4,096 calls, drafts drawn from the draft's softmax: the mean accepted
+    length against its closed form and the first emitted token against
+    the target's softmax; one seed's outputs bitwise equal twice."""
+    import math
+    import torch
+    from deepspeed_tpu_torch.inference.speculative import (
+        rejection_sample_accept, select_next_token)
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    from deepspeed_tpu_torch.runtime.utils import seeded_generator
+    V, T = GPT2_SMALL.vocab_size, TEMPERATURE
+    logits = _zipf_logits(dev, V, SEED)
+    rows = logits.expand(SAMPLER_CHUNK, V)
+
+    def draws(seed):
+        g = seeded_generator(seed, dev)
+        return torch.cat([select_next_token(rows, T, g) for _ in
+                          range(SAMPLER_DRAWS // SAMPLER_CHUNK)])
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = draws(SEED + 1), draws(SEED + 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not torch.equal(a, b):
+        fail("sampler: select_next_token drew other tokens from one seed")
+    probs = torch.softmax(logits.double() / T, -1).cpu().numpy()
+    p_select = _chi2_p(torch.bincount(a.long(), minlength=V).cpu(), probs)
+
+    S, k = 8, 4
+    tl = torch.stack([_zipf_logits(dev, V, SEED + 10 + i)
+                      for i in range(k + 1)])
+    dl = tl[:k] + torch.randn(k, V, generator=seeded_generator(SEED + 20,
+                                                               dev),
+                              device=dev)
+    p = torch.softmax(tl.double() / T, -1)
+    q = torch.softmax(dl / T, -1)
+    alpha = torch.minimum(p[:k], q.double()).sum(-1).cpu()
+    expect = sum(float(torch.prod(alpha[:i + 1])) for i in range(k))
+    tl_s, q_s = tl[None].expand(S, k + 1, V), q[None].expand(S, k, V)
+    logq = torch.log(q)[None].expand(S, k, V)
+    g = seeded_generator(SEED + 30, dev)
+    accs, firsts = [], []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SAMPLER_CALLS):
+            d = select_next_token(logq, 1.0, g)
+            out, acc = rejection_sample_accept(tl_s, d, q_s, T, g)
+            accs.append(acc)
+            firsts.append(out[:, 0])
+        again = [rejection_sample_accept(tl_s, d, q_s, T,
+                                         seeded_generator(SEED + 40, dev))
+                 for _ in range(2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not all(torch.equal(x, y) for x, y in zip(*again)):
+        fail("sampler: rejection_sample_accept gave other outputs from "
+             "one seed")
+    acc = torch.cat(accs).double().cpu()
+    n = acc.numel()
+    z = (float(acc.mean()) - expect) / (float(acc.std()) / math.sqrt(n))
+    p_len = math.erfc(abs(z) / math.sqrt(2))
+    p_first = _chi2_p(torch.bincount(torch.cat(firsts).long(),
+                                     minlength=V).cpu(),
+                      p[0].cpu().numpy())
+    print(f"[sampler] select_next_token T {T}: {SAMPLER_DRAWS} draws of "
+          f"one [{V}] Zipf row, chi-square p {p_select:.4g}; "
+          f"rejection_sample_accept S {S} k {k} x {SAMPLER_CALLS} calls: "
+          f"mean accepted {float(acc.mean()):.4f} against the closed form "
+          f"{expect:.4f} (z {z:.3f}, p {p_len:.4g}), first token "
+          f"chi-square p {p_first:.4g}; bitwise under one seed; no host "
+          "sync (sync debug mode 'error')")
+    bad = {name: pv for name, pv in (("select", p_select),
+                                     ("accepted length", p_len),
+                                     ("first token", p_first))
+           if not pv >= P_MIN}
+    if bad:
+        fail(f"sampler: p below {P_MIN}: {bad}")
+    serve_rows = logits.expand(S, V)
+    g = seeded_generator(SEED + 50, dev)
+    print(f"[sampler] at the serving tick's shape [{S}, {V}]: greedy "
+          f"{time_ms(lambda: select_next_token(serve_rows)):.4f} ms, "
+          f"sampled {time_ms(lambda: select_next_token(serve_rows, T, g)):.4f}"
+          f" ms; one rejection block [{S}, {k + 1}, {V}] "
+          f"{time_ms(lambda: rejection_sample_accept(tl_s, d, q_s, T, g)):.4f}"
+          f" ms (CUDA events around 20 calls); {smi()}")
+
+
+def _spec_stats(eng, before):
+    """(verify passes, request passes, accepted drafts) since ``before``."""
+    now = (eng.verify_ticks, eng._spec_passes, eng._spec_accepted_n)
+    return tuple(a - b for a, b in zip(now, before))
+
+
+def phase_serve_sample(dev, greedy):
+    """The serve phase's 12 requests at temperature 0.8 on the slot cache
+    and on the paged pool, then with speculate_k 4 and the 2-layer draft
+    on both (rejection-sampling acceptance): the launches per prefill,
+    tick and pass of serve, serve_paged and serve_spec; every request
+    completes with its length; a second engine of the seed gives the same
+    streams bit for bit, and they are not the greedy ones."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    L = GPT2_SMALL.n_layer
+    paged = {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]}
+    draft_steps = SPEC["draft"]["n_layer"] * (SPEC["speculate_k"] + 1)
+    total = {}
+    for arm, cfg, spec, kernel in (
+            ("slot", SLOT_CFG, False, "decode_attention"),
+            ("paged", paged, False, "decode_paged"),
+            ("slot spec", {**SLOT_CFG, **SPEC}, True, "decode_multi"),
+            ("paged spec", {**paged, **SPEC}, True, "decode_paged_multi")):
+        runs = []
+        for _ in range(2):
+            eng = _engine({**cfg, "temperature": TEMPERATURE}, dev,
+                          torch.bfloat16, draft=spec)
+            ticks0 = eng.decode_ticks
+            before = (eng.verify_ticks, eng._spec_passes,
+                      eng._spec_accepted_n)
+            _zero_counts()
+            t0 = time.perf_counter()
+            reqs = [eng.submit(p, max_new_tokens=NEW_TOKENS)
+                    for p in _load()]
+            eng.run_until_idle()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            ticks = eng.decode_ticks - ticks0
+            passes, req_passes, accepted = _spec_stats(eng, before)
+            eng.close()
+            _check_requests(f"serve_sample {arm}", reqs)
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+            runs.append((reqs, launches))
+            # the target's prefills with no cached prefix, and with a
+            # draft its prefill of every prompt
+            no_prefix = sum(r.shared_len == 0 for r in reqs)
+            flash = L * no_prefix + (DRAFT_LAYERS * N_REQ if spec else 0)
+            if launches["flash_fwd"] != flash:
+                fail(f"serve_sample {arm}: flash_fwd launched "
+                     f"{launches['flash_fwd']} times, expected {L} layers "
+                     f"x {no_prefix} prefills with no cached prefix"
+                     + (f" + {DRAFT_LAYERS} draft layers x {N_REQ} draft "
+                        "prefills" if spec else ""))
+            steps = passes if spec else ticks
+            if launches[kernel] != L * steps or steps == 0:
+                fail(f"serve_sample {arm}: {kernel} launched "
+                     f"{launches[kernel]} times, expected {L} layers x "
+                     f"{steps} {'verify passes' if spec else 'ticks'}")
+            if spec and launches["decode_attention"] != draft_steps * passes:
+                fail(f"serve_sample {arm}: decode_attention launched "
+                     f"{launches['decode_attention']} times, expected "
+                     f"{draft_steps} draft steps x {passes} passes")
+        streams = [[list(r.tokens) for r in reqs] for reqs, _ in runs]
+        if streams[0] != streams[1]:
+            fail(f"serve_sample {arm}: two engines of one seed streamed "
+                 "other tokens")
+        if streams[0] == greedy:
+            fail(f"serve_sample {arm}: the sampled streams are the greedy "
+                 "ones")
+        same = sum(a == b for s, g in zip(streams[0], greedy)
+                   for a, b in zip(s, g))
+        per_pass = (f", {(accepted + req_passes) / req_passes:.3f} tokens "
+                    f"per target pass per request, draft acceptance "
+                    f"{accepted / (req_passes * SPEC['speculate_k']):.3f}"
+                    if spec else "")
+        print(f"[serve_sample] {arm}, T {TEMPERATURE}: {ticks} decode "
+              f"ticks, {passes} verify passes{per_pass}; streams of two "
+              f"engines of one seed equal; {same} of "
+              f"{N_REQ * NEW_TOKENS} tokens equal to the greedy streams'; "
+              f"{kernel} {runs[0][1][kernel]} launches")
+        _latencies(f"serve_sample {arm}", runs[1][0],
+                   sum(len(r.tokens) for r in runs[1][0]), wall)
+    return total
+
+
+def _lora_cfg(quant=False):
+    cfg = {**PAGED_CFG, "lora": LORA}
+    if quant:
+        cfg["quantization"] = QUANT
+    return cfg
+
+
+def _lora_run(label, dev, cfg, tenants, kernel, spec=False, extra=None):
+    """One run of the serve_paged load on ``cfg`` with request ``i`` on
+    tenant ``tenants[i]``: checks every request's length and the kernel's
+    launches (``L`` a decode tick, or a verify pass with the draft's
+    single-query launches beside it); returns its streams, launches,
+    rates and counters."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    L = GPT2_SMALL.n_layer
+    eng = _engine(cfg, dev, torch.bfloat16, draft=spec, extra=extra)
+    eng.prefix.clear()
+    ticks0 = eng.decode_ticks
+    before = (eng.verify_ticks, eng._spec_passes, eng._spec_accepted_n)
+    pool0 = (eng.adapters.hits, eng.adapters.faults, eng.adapters.evictions)
+    _zero_counts()
+    t0 = time.perf_counter()
+    reqs = _paged_waves(eng, tenants)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    ticks = eng.decode_ticks - ticks0
+    passes, req_passes, accepted = _spec_stats(eng, before)
+    pool = eng.adapters
+    counters = tuple(now - then for now, then in zip(
+        (pool.hits, pool.faults, pool.evictions), pool0))
+    eng.close()
+    # the engine's own counters at close (what its last telemetry flush
+    # saw); the engine itself is not kept, so its caches are freed
+    prefix = eng.prefix
+    stats = {"serve_adapters_resident": pool.resident(),
+             "serve_adapter_bytes": eng.adapter_bytes,
+             "serve_adapter_hits_total": pool.hits,
+             "serve_adapter_faults_total": pool.faults,
+             "serve_adapter_evictions_total": pool.evictions,
+             "serve_prefix_hit_ratio":
+                 prefix.hits / (prefix.hits + prefix.misses),
+             "serve_prefix_hit_tokens": prefix.hit_tokens,
+             "serve_page_cow_total": prefix.cow,
+             "serve_free_pages": eng.pool.free_count,
+             "serve_param_bytes": eng.param_bytes,
+             "serve_kv_bytes": eng.kv_bytes}
+    if spec:
+        stats["serve_spec_accept_ratio"] = eng._spec_ratio()
+        stats["serve_spec_mean_accepted_len"] = (
+            (eng._spec_accepted_n + eng._spec_passes) / eng._spec_passes)
+    out = {"streams": [list(r.tokens) for r in reqs], "launches": launches,
+           "counters": counters, "adapter_bytes": eng.adapter_bytes,
+           "ticks": ticks, "passes": passes, "stats": stats,
+           "spec": (req_passes, accepted)}
+    del eng
+    _check_requests(label, reqs)
+    steps = passes if spec else ticks
+    if launches[kernel] != L * steps or steps == 0:
+        fail(f"{label}: {kernel} launched {launches[kernel]} times, "
+             f"expected {L} layers x {steps} "
+             f"{'verify passes' if spec else 'decode ticks'}")
+    others = [k for k in ("decode_paged", "decode_paged_int8",
+                          "decode_paged_multi", "decode_paged_multi_int8",
+                          "decode_multi") if k != kernel and launches[k]]
+    if others:
+        fail(f"{label}: also launched {others}")
+    draft_steps = SPEC["draft"]["n_layer"] * (SPEC["speculate_k"] + 1)
+    if launches["decode_attention"] != (draft_steps * passes if spec else 0):
+        fail(f"{label}: decode_attention launched "
+             f"{launches['decode_attention']} times")
+    out["rates"] = _latencies(label, reqs, sum(len(r.tokens) for r in reqs),
+                              wall)
+    return out
+
+
+def phase_serve_lora(dev, paged_ref, quant_ref):
+    """serve_paged's engine with ``serving.lora`` (rank 16, all four
+    targets, 4 device pool slots) and its 16 requests over tenants 0-6,
+    so adapters fault and evict: 12 paged-decode launches a tick with
+    mixed tenants; every request on tenant 0 streams what serve_paged's
+    lora-off engine streamed, bit for bit; in fp32 each tenant's greedy
+    streams equal a lora-off engine's on ``merge_adapter``'s dense-merged
+    weights on the dense path (near-tie rule); then the int8 weights and
+    pool (the int8 arm launches; tenant 0 equals serve_quant's streams)
+    and speculate_k 4 on the bf16 engine (the paged multi-query kernel)."""
+    import torch
+    from deepspeed_tpu_torch.inference.adapters import merge_adapter
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2Config,
+                                                 GPT2Model)
+    n_req = len(paged_ref["streams"])
+    tenants = [i % LORA_TENANTS for i in range(n_req)]
+    total = {}
+
+    def add(run):
+        for name, n in run["launches"].items():
+            total[name] = total.get(name, 0) + n
+        return run
+
+    mixed = add(_lora_run("serve_lora bf16", dev, _lora_cfg(), tenants,
+                          "decode_paged"))
+    hits, faults, evictions = mixed["counters"]
+    if faults < LORA_TENANTS - 1 or evictions < 1:
+        fail(f"serve_lora: {faults} adapter faults and {evictions} "
+             f"evictions for {LORA_TENANTS - 1} tenants over "
+             f"{LORA['hbm_adapter_slots']} slots")
+    zero = add(_lora_run("serve_lora bf16 tenant 0", dev, _lora_cfg(),
+                         [0] * n_req, "decode_paged"))
+    if zero["streams"] != paged_ref["streams"]:
+        fail("serve_lora: requests on tenant 0 streamed other tokens than "
+             "serve_paged's lora-off engine")
+    qmixed = add(_lora_run("serve_lora int8", dev, _lora_cfg(quant=True),
+                           tenants, "decode_paged_int8"))
+    qzero = add(_lora_run("serve_lora int8 tenant 0", dev,
+                          _lora_cfg(quant=True), [0] * n_req,
+                          "decode_paged_int8"))
+    if qzero["streams"] != quant_ref["streams"]:
+        fail("serve_lora: int8 requests on tenant 0 streamed other tokens "
+             "than serve_quant's lora-off engine")
+    spec = add(_lora_run("serve_lora spec", dev, {**_lora_cfg(), **SPEC},
+                         tenants, "decode_paged_multi", spec=True))
+    req_passes, accepted = spec["spec"]
+
+    # fp32 parity: the mixed-tenant kernel path against per-tenant merged
+    # weights on the dense path
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        from deepspeed_tpu_torch.inference import ServeEngine
+        kern = GPT2Model(GPT2_SMALL)
+        dense_cfg = GPT2Config(**{**GPT2_SMALL.__dict__,
+                                  "attn_impl": "dense"})
+        dense = GPT2Model(dense_cfg)
+        params = kern.init(SEED, device=dev, dtype=torch.float32)
+        eng = ServeEngine(kern, {"serving": _lora_cfg()}, params=params,
+                          device=dev)
+        reqs = _paged_waves(eng, tenants)
+        eng.close()
+        _check_requests("serve_lora fp32", reqs)
+        prompts = [list(r.prompt) for r in reqs]
+        for t in range(LORA_TENANTS):
+            merged = params if t == 0 else merge_adapter(
+                params, eng.adapter_registry.get(t), eng.lora_scale)
+            sel = [i for i in range(n_req) if tenants[i] == t]
+            ref = _serve(dense, merged, {"serving": {
+                **PAGED_CFG, "decode_impl": "dense"}},
+                [prompts[i] for i in sel], dev)
+            _compare_streams(f"LoRA tenant {t} kernel path vs dense-merged "
+                             "path", [reqs[i] for i in sel], ref,
+                             [prompts[i] for i in sel], dense_cfg, merged)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    tps0, tpot0, _ = paged_ref["rates"]
+    print(f"[serve_lora] LoRA {LORA}, {n_req} requests on tenants 0-"
+          f"{LORA_TENANTS - 1}: adapter hits {hits}, faults {faults}, "
+          f"evictions {evictions}; adapter bytes {mixed['adapter_bytes']}; "
+          f"bf16 {mixed['rates'][0]:.1f} tokens/s, TPOT p50 "
+          f"{mixed['rates'][1] * 1e3:.3f} ms against serve_paged's "
+          f"{tps0:.1f} tokens/s, {tpot0 * 1e3:.3f} ms; tenant 0 alone "
+          f"{zero['rates'][0]:.1f} tokens/s; int8 "
+          f"{qmixed['rates'][0]:.1f} tokens/s (serve_quant "
+          f"{quant_ref['rates'][0]:.1f}); speculative "
+          f"{spec['rates'][0]:.1f} tokens/s, "
+          f"{(accepted + req_passes) / req_passes:.3f} tokens per target "
+          f"pass per request; tenant 0 bitwise equal to lora-off on bf16 "
+          f"and int8; {smi()}")
+    return total, {"mixed": mixed, "spec": spec, "tenants": tenants}
+
+
+#: one line of the Prometheus text exposition format
+_PROM_LINE = re.compile(
+    r"^(?:# (?:HELP|TYPE) [a-zA-Z_:][a-zA-Z0-9_:]* .+"
+    r"|[a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[^{}]*\})? \S+)$")
+
+
+def _check_artifacts(label, root):
+    """trace.json parses (every event with ph/ts/name) and metrics.prom
+    parses line by line (the exposition format's line grammar)."""
+    with open(os.path.join(root, "trace.json")) as f:
+        evs = json.load(f)["traceEvents"]
+    if not evs or not all("ph" in e and "ts" in e and "name" in e
+                          for e in evs):
+        fail(f"serve_telemetry {label}: trace.json has no events or an "
+             "event without ph/ts/name")
+    with open(os.path.join(root, "metrics.prom")) as f:
+        bad = [ln for ln in f.read().splitlines()
+               if ln.strip() and not _PROM_LINE.match(ln)]
+    if bad:
+        fail(f"serve_telemetry {label}: metrics.prom lines {bad[:3]}")
+    return len(evs)
+
+
+def _summary_equal(label, summary, want):
+    bad = {k: (summary.get(k), v) for k, v in want.items()
+           if summary.get(k) is None or abs(summary[k] - v) > 1e-9 *
+           max(1.0, abs(v))}
+    if bad:
+        fail(f"serve_telemetry {label}: summarize against the engine: "
+             f"{bad}")
+
+
+def _sync_count(run):
+    """``run()`` under ``torch.cuda.set_sync_debug_mode('warn')``: its
+    result and the synchronizing calls it made."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing CUDA operation" in
+                    str(w.message) for w in rec)
+
+
+def phase_serve_telemetry(dev, lora_ref, kv_streams):
+    """serve_lora's bf16 run (plain and speculative) and serve_kv_tier's
+    bf16 run with ``telemetry.enabled`` into temporary directories: the
+    streams equal the telemetry-off runs'; ``summarize`` of each
+    events.jsonl gives the adapter, prefix, speculation and KV-tier
+    scalars equal to the engine's own counters; trace.json and
+    metrics.prom parse; the plain run counted under sync debug mode makes
+    as many synchronizing calls with telemetry as without."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.telemetry.cli import summarize
+    tenants = lora_ref["tenants"]
+    total = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_tel_")
+    try:
+        def tel(name):
+            return {"telemetry": {"enabled": True,
+                                  "output_path": os.path.join(root, name)}}
+
+        def add(run):
+            for name, n in run["launches"].items():
+                total[name] = total.get(name, 0) + n
+            return run
+
+        off, syncs_off = _sync_count(lambda: add(_lora_run(
+            "serve_telemetry off", dev, _lora_cfg(), tenants,
+            "decode_paged")))
+        on, syncs_on = _sync_count(lambda: add(_lora_run(
+            "serve_telemetry on", dev, _lora_cfg(), tenants, "decode_paged",
+            extra=tel("lora"))))
+        if not on["streams"] == off["streams"] == lora_ref["mixed"]["streams"]:
+            fail("serve_telemetry: the LoRA streams with telemetry differ "
+                 "from those without")
+        if syncs_on != syncs_off:
+            fail(f"serve_telemetry: {syncs_on} synchronizing calls with "
+                 f"telemetry, {syncs_off} without")
+        rep = summarize(os.path.join(root, "lora", "events.jsonl"))
+        _summary_equal("lora", rep, on["stats"])
+        n_lora = _check_artifacts("lora", os.path.join(root, "lora"))
+
+        spec = add(_lora_run("serve_telemetry spec", dev,
+                             {**_lora_cfg(), **SPEC}, tenants,
+                             "decode_paged_multi", spec=True,
+                             extra=tel("spec")))
+        if spec["streams"] != lora_ref["spec"]["streams"]:
+            fail("serve_telemetry: the speculative LoRA streams with "
+                 "telemetry differ from those without")
+        srep = summarize(os.path.join(root, "spec", "events.jsonl"))
+        _summary_equal("spec", srep, spec["stats"])
+        _check_artifacts("spec", os.path.join(root, "spec"))
+
+        disk = os.path.join(root, "kv_pages")
+        os.makedirs(disk)
+        kv = _kv_tier_run(dev, False, disk, extra=tel("kv"))
+        for name, n in kv["launches"].items():
+            total[name] = total.get(name, 0) + n
+        if kv["streams"] != kv_streams:
+            fail("serve_telemetry: the KV-tier streams with telemetry "
+                 "differ from those without")
+        krep = summarize(os.path.join(root, "kv", "events.jsonl"))
+        _summary_equal("kv", krep, {
+            "serve_kv_spill_bytes_total": kv["spill_total"],
+            "serve_kv_fetch_bytes_total": kv["fetch_total"]})
+        if krep["serve_kv_parked_sessions"] is None \
+                or krep["serve_kv_resume_p99_s"] is None:
+            fail("serve_telemetry: summarize has no KV-tier parked "
+                 "sessions or resume p99")
+        _check_artifacts("kv", os.path.join(root, "kv"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[serve_telemetry] LoRA bf16 run: {on['rates'][0]:.1f} tokens/s "
+          f"with telemetry, {off['rates'][0]:.1f} without (TPOT p50 "
+          f"{on['rates'][1] * 1e3:.3f} / {off['rates'][1] * 1e3:.3f} ms); "
+          f"{syncs_on} synchronizing calls with telemetry, {syncs_off} "
+          f"without, over {on['ticks']} decode ticks; {n_lora} trace "
+          f"events; summarize equal to the engines' counters (adapters "
+          f"{rep['serve_adapter_hits_total']:.0f} hits, "
+          f"{rep['serve_adapter_faults_total']:.0f} faults, "
+          f"{rep['serve_adapter_evictions_total']:.0f} evictions; prefix "
+          f"{rep['serve_prefix_hit_tokens']:.0f} tokens reused; spec "
+          f"{srep['serve_spec_mean_accepted_len']:.3f} tokens per pass; "
+          f"KV tier spill {krep['serve_kv_spill_bytes_total']:.0f} B, fetch "
+          f"{krep['serve_kv_fetch_bytes_total']:.0f} B); streams equal to "
+          f"the telemetry-off runs'; {smi()}")
     return total
 
 
@@ -2519,6 +3103,15 @@ def phase_bert_parity(dev):
         fail(f"bert parity: losses differ by {worst} (relative)")
 
 
+def timed(phase, *args, **kwargs):
+    """Run one phase and print its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    print(f"[wall] {phase.__name__[len('phase_'):]}: "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         fail("deepspeed_tpu_torch/ is not beside chip_smoke.py: run it "
@@ -2531,25 +3124,34 @@ def main() -> None:
     card = smi()
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
-    phase_build()
-    kernels = phase_kernels(dev)
-    phase_decode_kernels(dev, kernels)
-    phase_train_kernels(dev, kernels)
-    phase_sparse_kernels(dev, kernels)
-    by_phase = {"serve": phase_serve(dev)}
-    by_phase["serve_paged"], paged_memory = phase_serve_paged(dev)
-    by_phase["serve_spec"] = phase_serve_spec(dev)
-    by_phase["serve_quant"], _ = phase_serve_paged(dev, paged_memory)
-    by_phase["serve_quant_capacity"] = phase_serve_quant_capacity(dev)
-    by_phase["serve_quant_spec"] = phase_serve_spec(dev, quant=True)
-    by_phase["serve_kv_tier"] = phase_serve_kv_tier(dev)
-    phase_parity(dev)
-    by_phase["train"] = phase_train(dev)
-    phase_train_parity(dev)
-    by_phase["checkpoint"] = phase_checkpoint(dev)
-    by_phase["sparse"] = phase_sparse(dev)
-    by_phase["bert_train"] = phase_bert_train(dev)
-    phase_bert_parity(dev)
+    timed(phase_build)
+    kernels = timed(phase_kernels, dev)
+    timed(phase_decode_kernels, dev, kernels)
+    timed(phase_train_kernels, dev, kernels)
+    timed(phase_sparse_kernels, dev, kernels)
+    timed(phase_sampler, dev)
+    by_phase = {}
+    by_phase["serve"], greedy = timed(phase_serve, dev)
+    by_phase["serve_paged"], paged_memory, paged_ref = timed(
+        phase_serve_paged, dev)
+    by_phase["serve_spec"] = timed(phase_serve_spec, dev)
+    by_phase["serve_quant"], _, quant_ref = timed(phase_serve_paged, dev,
+                                                  paged_memory)
+    by_phase["serve_quant_capacity"] = timed(phase_serve_quant_capacity, dev)
+    by_phase["serve_quant_spec"] = timed(phase_serve_spec, dev, quant=True)
+    by_phase["serve_kv_tier"], kv_ref = timed(phase_serve_kv_tier, dev)
+    by_phase["serve_sample"] = timed(phase_serve_sample, dev, greedy)
+    by_phase["serve_lora"], lora_ref = timed(phase_serve_lora, dev,
+                                             paged_ref, quant_ref)
+    by_phase["serve_telemetry"] = timed(phase_serve_telemetry, dev,
+                                        lora_ref, kv_ref["bf16"])
+    timed(phase_parity, dev)
+    by_phase["train"] = timed(phase_train, dev)
+    timed(phase_train_parity, dev)
+    by_phase["checkpoint"] = timed(phase_checkpoint, dev)
+    by_phase["sparse"] = timed(phase_sparse, dev)
+    by_phase["bert_train"] = timed(phase_bert_train, dev)
+    timed(phase_bert_parity, dev)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

@@ -1,0 +1,297 @@
+"""Multi-tenant LoRA adapter plane: registry + device residency pool
+(port of ``deepspeed_tpu/inference/adapters.py``; the shapes, the
+synthesis, the registry and the pool are copies, ``merge_adapter``
+computes over torch).
+
+S-LoRA / Punica (PAPERS.md) re-expressed in this repo's idioms
+(docs/serving.md "multi-tenant serving"): ONE base model serves many
+per-tenant low-rank adapters.  The adapters live in a host-side
+registry; a small pool of device slots holds the hot ones, and the
+decode/prefill/verify passes gather each request's adapter by an int32
+slot table on the device, so tenant mixes ride the same tick.
+
+The residency pool is managed exactly like KV pages
+(:class:`~deepspeed_tpu_torch.inference.scheduler.PagePool`): refcounted
+slots, LRU eviction of cold tenants, park-on-dry admission.  Slot 0 is
+the reserved ZERO adapter (all-zero A/B — the no-tenant arm computes a
+delta of exact zeros through the same gather), so requests with and
+without adapters share one tick too.
+
+The cold path — host weights -> device slot — is one unit of work under
+a ``Stage("adapter_fetch")`` (runtime/stages.py, docs/stages.md): a
+flaky fetch retries against the stage budget, exhaustion degrades to
+the synchronous copy with one loud warning, and
+``DS_STAGE_FAULT=adapter_fetch:fetch:<n>[+]`` chaos-tests the whole
+path without touching the pool's bookkeeping.
+
+Everything here is engine-thread-confined (the request Channel in
+front of the engine is the concurrent boundary), mirroring
+scheduler.py's contract.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict, deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..runtime.stages import Stage
+
+__all__ = [
+    "LORA_TARGET_SHAPES", "AdapterRegistry", "AdapterPool",
+    "adapter_param_shapes", "synth_adapter", "zero_adapter",
+    "merge_adapter",
+]
+
+#: per-layer base-weight shapes of the four LoRA-able matmuls as
+#: ``(d_in, out_dims)`` factories over the model width ``d`` —
+#: the single source the pool allocator, the synthesizer, and the
+#: dense-merge parity arm all read (models/gpt2.py owns the matching
+#: einsums).
+LORA_TARGET_SHAPES = {
+    "qkv_w": lambda d: (d, (3, d)),
+    "out_w": lambda d: (d, (d,)),
+    "fc_w": lambda d: (d, (4 * d,)),
+    "proj_w": lambda d: (4 * d, (d,)),
+}
+
+
+def adapter_param_shapes(n_layer: int, d_model: int, rank: int,
+                         targets) -> Dict[str, Tuple[tuple, tuple]]:
+    """``{target: (A shape, B shape)}`` for one adapter — layer-stacked
+    like ``params['blocks']``:
+    A ``[L, d_in, r]``, B ``[L, r, *out]``."""
+    out = {}
+    for t in targets:
+        if t not in LORA_TARGET_SHAPES:
+            raise ValueError(f"unknown lora target {t!r}; known: "
+                             f"{sorted(LORA_TARGET_SHAPES)}")
+        d_in, d_out = LORA_TARGET_SHAPES[t](d_model)
+        out[t] = ((n_layer, d_in, rank), (n_layer, rank) + d_out)
+    return out
+
+
+def synth_adapter(adapter_id: int, shapes, dtype=np.float32,
+                  std: float = 0.02) -> Dict[str, tuple]:
+    """Deterministically synthesize one adapter's host weights from its
+    id alone: ``{target: (A, B)}`` numpy arrays.  Every fleet replica
+    derives the SAME weights for the same tenant id — the adapter twin
+    of the shared-init-seed replica philosophy (docs/serving.md), so a
+    re-routed tenant decodes identically without shipping weights over
+    the wire.  Both factors are nonzero (unlike training-style zero-B
+    init) so parity tests exercise a real delta."""
+    if adapter_id <= 0:
+        raise ValueError("adapter ids are positive (0 = no adapter)")
+    weights = {}
+    for i, t in enumerate(sorted(shapes)):
+        a_shape, b_shape = shapes[t]
+        rng = np.random.default_rng([int(adapter_id), i])
+        a = rng.normal(0.0, std, a_shape).astype(dtype)
+        b = rng.normal(0.0, std, b_shape).astype(dtype)
+        weights[t] = (a, b)
+    return weights
+
+
+def zero_adapter(shapes, dtype=np.float32) -> Dict[str, tuple]:
+    """The reserved slot-0 adapter: all-zero factors, so the no-tenant
+    arm's gathered delta is mathematically zero through the shared
+    program."""
+    return {t: (np.zeros(a, dtype), np.zeros(b, dtype))
+            for t, (a, b) in shapes.items()}
+
+
+def merge_adapter(params, weights, scale: float):
+    """Dense-merge ``W + scale * A @ B`` into a COPY of the base params
+    — the parity/bench arm (one full merged model per tenant, the thing
+    the heterogeneous batch makes unnecessary).  ``params`` is the port's
+    tree of tensors; the delta is computed in fp32 on the params' device
+    and the merged weight cast back to its dtype, as the reference does
+    in numpy."""
+    import torch
+    blocks = dict(params["blocks"])
+    for t, (a, b) in weights.items():
+        w = blocks[t]
+        a = torch.as_tensor(np.asarray(a, np.float32), device=w.device)
+        b = torch.as_tensor(np.asarray(b, np.float32), device=w.device)
+        # A [L, d_in, r] x B [L, r, *out] -> delta [L, d_in, *out]
+        delta = torch.einsum("ldr,lr...->ld...", a, b) * scale
+        blocks[t] = (w.float() + delta).to(w.dtype)
+    out = dict(params)
+    out["blocks"] = blocks
+    return out
+
+
+class AdapterRegistry:
+    """The host tier: every known adapter's weights, capped at
+    ``serving.lora.max_adapters``.  Unknown ids synthesize
+    deterministically on first touch via ``make_weights`` (default
+    :func:`synth_adapter` over ``shapes``) — register explicit weights
+    with :meth:`register` for parity tests / real checkpoints."""
+
+    def __init__(self, max_adapters: int, shapes,
+                 make_weights: Optional[Callable[[int], dict]] = None):
+        self.max_adapters = int(max_adapters)
+        self.shapes = shapes
+        self._make = make_weights or (
+            lambda aid: synth_adapter(aid, shapes))
+        self._host: "OrderedDict[int, dict]" = OrderedDict()
+
+    def __len__(self):
+        return len(self._host)
+
+    def __contains__(self, adapter_id: int) -> bool:
+        return int(adapter_id) in self._host
+
+    def register(self, adapter_id: int, weights: dict) -> None:
+        aid = int(adapter_id)
+        if aid <= 0:
+            raise ValueError("adapter ids are positive (0 = no adapter)")
+        if aid not in self._host and len(self._host) >= self.max_adapters:
+            raise RuntimeError(
+                f"adapter registry full ({self.max_adapters}); raise "
+                "serving.lora.max_adapters")
+        for t, (a, b) in weights.items():
+            a_shape, b_shape = self.shapes[t]
+            if tuple(np.shape(a)) != a_shape or \
+                    tuple(np.shape(b)) != b_shape:
+                raise ValueError(
+                    f"adapter {aid} target {t!r}: shapes "
+                    f"{np.shape(a)}/{np.shape(b)} != {a_shape}/{b_shape}")
+        self._host[aid] = {t: (np.asarray(a), np.asarray(b))
+                           for t, (a, b) in weights.items()}
+
+    def get(self, adapter_id: int) -> dict:
+        """Host weights for ``adapter_id``, synthesizing (and caching)
+        on first touch."""
+        aid = int(adapter_id)
+        got = self._host.get(aid)
+        if got is None:
+            self.register(aid, self._make(aid))
+            got = self._host[aid]
+        return got
+
+
+class AdapterPool:
+    """Refcounted LRU residency over ``slots`` HBM adapter slots
+    (device indices 1..slots; 0 is the reserved zero adapter).
+
+    The KV :class:`~deepspeed_tpu_torch.inference.scheduler.PagePool`
+    discipline applied to weights: ``acquire`` pins a tenant's slot for
+    one request (cold tenants fetch host->HBM through the
+    ``adapter_fetch`` stage, evicting the least-recently-used COLD
+    resident when no slot is free), ``release`` unpins it; a refcount-0
+    resident stays hot — the next acquire is a free hit — until
+    eviction pressure reclaims it.  ``acquire`` on a dry pool (every
+    slot pinned) returns None with NO side effects: the engine parks
+    the request exactly like a pages-dry admission.
+
+    ``upload(slot, weights)`` is the engine's device-copy closure (an
+    in-place copy into the pools' slot); the pool never touches device
+    tensors itself.  Counters are plain ints — the engine's ``_flush`` owns
+    the telemetry registry (serve_adapter_{hits,faults}_total,
+    serve_adapters_resident)."""
+
+    def __init__(self, slots: int, registry: AdapterRegistry,
+                 upload: Callable[[int, dict], None],
+                 stage: Optional[Stage] = None):
+        self.slots = int(slots)
+        self.registry = registry
+        self.upload = upload
+        self.stage = stage or Stage(
+            "adapter_fetch",
+            fallback="synchronous host->HBM adapter copy (injection "
+                     "plane bypassed)")
+        self.free: deque = deque(range(1, self.slots + 1))
+        self._slot_of: Dict[int, int] = {}     # adapter id -> slot
+        self._adapter_in: Dict[int, int] = {}  # slot -> adapter id
+        self._refs: Dict[int, int] = {}        # slot -> pin count
+        #: refcount-0 residents in LRU order (oldest first) — the
+        #: eviction candidates
+        self._cold: "OrderedDict[int, int]" = OrderedDict()  # slot->aid
+        self.hits = 0
+        self.faults = 0
+        self.evictions = 0
+
+    # -- introspection ----------------------------------------------------
+    def resident(self) -> int:
+        """Resident adapters (pinned + cold), excluding slot 0."""
+        return len(self._slot_of)
+
+    def hot_ids(self) -> List[int]:
+        """Resident adapter ids — the ``adapters_hot`` heartbeat gauge
+        the reference's FleetRouter reads for tenant affinity."""
+        return sorted(self._slot_of)
+
+    def slot_of(self, adapter_id: int) -> Optional[int]:
+        return self._slot_of.get(int(adapter_id))
+
+    def refs(self, adapter_id: int) -> int:
+        slot = self._slot_of.get(int(adapter_id))
+        return 0 if slot is None else self._refs.get(slot, 0)
+
+    # -- the PagePool-shaped surface --------------------------------------
+    def acquire(self, adapter_id: int) -> Optional[int]:
+        """Pin ``adapter_id``'s slot for one request and return it.
+        0 is the always-resident zero adapter (no refcounting).  A cold
+        tenant fetches host->HBM (evicting the LRU cold resident when
+        no slot is free); every slot pinned -> None, side-effect-free
+        (the caller parks, exactly like a pages-dry admission)."""
+        aid = int(adapter_id)
+        if aid == 0:
+            return 0
+        slot = self._slot_of.get(aid)
+        if slot is not None:                    # resident: hot hit
+            if self._refs[slot] == 0:
+                self._cold.pop(slot, None)
+            self._refs[slot] += 1
+            self.hits += 1
+            return slot
+        if self.free:
+            slot = self.free.popleft()
+        elif self._cold:                        # evict the LRU cold one
+            slot, old = self._cold.popitem(last=False)
+            del self._slot_of[old]
+            del self._adapter_in[slot]
+            self.evictions += 1
+        else:
+            return None                         # dry: every slot pinned
+        try:
+            weights = self.stage.call(
+                "fetch",
+                lambda: self._fetch(slot, aid),
+                path=f"adapter={aid}")
+        except BaseException:
+            # non-transient (or degradation disabled): the slot must
+            # not leak — put it back before the error propagates
+            self.free.append(slot)
+            raise
+        del weights  # device copy done inside the stage unit
+        self._slot_of[aid] = slot
+        self._adapter_in[slot] = aid
+        self._refs[slot] = 1
+        self.faults += 1
+        return slot
+
+    def _fetch(self, slot: int, adapter_id: int):
+        """One unit of adapter_fetch stage work: host weights (registry
+        lookup / deterministic synthesis) + the device slot upload."""
+        weights = self.registry.get(adapter_id)
+        self.upload(slot, weights)
+        return weights
+
+    def release(self, adapter_id: int) -> None:
+        """Unpin one acquire.  Refcount 0 keeps the adapter RESIDENT
+        (cold, evictable) — the whole point of the pool: the tenant's
+        next request is a free hit."""
+        aid = int(adapter_id)
+        if aid == 0:
+            return
+        slot = self._slot_of.get(aid)
+        assert slot is not None, \
+            f"adapter {aid} released but not resident (double free?)"
+        refs = self._refs.get(slot, 0)
+        assert refs > 0, \
+            f"adapter {aid} slot {slot} deref'd below zero (double free)"
+        self._refs[slot] = refs - 1
+        if refs == 1:
+            self._cold[slot] = aid              # newest cold = last out

@@ -1,17 +1,19 @@
-"""ServeEngine — the KV-cached greedy decode engine (docs/serving.md),
-ported to PyTorch: the slot cache, the paged pool with prefix caching and
-chunked prefill, and greedy speculative decoding on both layouts.
+"""ServeEngine — the KV-cached decode engine (docs/serving.md), ported to
+PyTorch: the slot cache, the paged pool with prefix caching and chunked
+prefill, speculative decoding on both layouts, temperature sampling,
+multi-tenant LoRA adapters, quantized serving, the KV tier and the
+serving telemetry plane.
 
 Requests stream through a bounded queue into a FIXED pool of decode
 slots, and two steps serve every mix:
 
   prefill      one request's prompt (right-padded to the static
                ``serving.prefill_len`` bucket) → its K/V rows written
-               into the assigned slot (or its pages) + the first greedy
+               into the assigned slot (or its pages) + the first
                token.  Runs the flash-attention forward kernel on
                ``attn_impl="flash"``.
   decode tick  ONE masked tick for ALL slots at once: each active slot's
-               last token in, its next greedy token out, its K/V appended
+               last token in, its next token out, its K/V appended
                in place.  Free/finished slots ride along masked.  Runs the
                single-query decode kernel (slot cache) or the paged one.
 
@@ -40,6 +42,22 @@ acceptance emits exactly the non-speculative stream.  Rollback: the slot
 cache masks lengths back; the paged pool frees the pages only rejected
 speculation touched.
 
+Sampling (``serving.temperature > 0``, reference ``engine.py:178-190,
+832-926``): every emission site samples ``softmax(logits / T)`` with a
+``torch.Generator`` built on the engine's device from one host seed per
+model call (``fold_in(seed ^ 0x5eed, n)``, ``runtime/utils.py``); the
+draft samples its proposals and returns their distributions, and the
+verify pass accepts by rejection sampling (``inference/speculative.py``).
+Nothing is read back for it, and at temperature 0 no generator is built.
+
+Multi-tenant LoRA (``serving.lora``, paged only, reference ``engine.py:
+271-355, 929-955, 1331-1505``): ``hbm_adapter_slots + 1`` device pool
+slots per target (slot 0 the zero adapter) hold the hot tenants'
+factors; ``submit(adapter_id=t)`` resolves the tenant to a slot at
+admission (a cold tenant is uploaded under ``Stage("adapter_fetch")``,
+a dry pool parks the request), each slot's adapter index rides the tick
+as an int32 table, and tenants' prompts never share prefix-cache pages.
+
 Quantized serving (``serving.quantization``, reference ``engine.py:
 182-210, 387-447, 595-607``): ``weights: "int8"`` quantizes the target's
 (and the draft's) matmul weights once at build (``inference/quantize.py``)
@@ -63,15 +81,27 @@ serving work runs under one :class:`Stage` record ("serve", points
 graceful degradation and the ``DS_STAGE_FAULT``/``DS_STAGE_DELAY_S``
 spec apply as in the JAX engine.
 
+Telemetry (``telemetry.enabled``, reference ``engine.py:608-736,
+971-1182``): a :class:`~..telemetry.hub.TelemetryHub` under
+``telemetry.output_path`` gets the serve counters, gauges and
+histograms, host-side spans and per-request async traces (trace.json),
+one ``serve_request`` record per finished request and, every
+``serving.flush_interval_ticks`` ticks, the ``serve_*`` scalars
+(events.jsonl, read by ``python -m deepspeed_tpu_torch.telemetry
+summarize``) and the Prometheus file.  It reads nothing back from the
+card: a tick syncs exactly as it does without it.
+
 The engine runs on ``cuda:0`` unless the caller passes ``device``; with no
-CUDA device and no ``device`` it raises.  Config that this port does not
-cover yet raises ``NotImplementedError`` naming its ROADMAP.md item —
-nothing is silently ignored.
+CUDA device and no ``device`` it raises.  What this port does not cover
+yet (a mesh; KV-page migration, the serving fleet's) raises
+``NotImplementedError`` naming its ROADMAP.md item — nothing is silently
+ignored.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -86,7 +116,10 @@ from ..config import constants as C
 from ..models.gpt2 import GPT2Config, GPT2Model, _decode_attn_impl
 from ..runtime.engine_stages import wire_serve_stage_plane
 from ..runtime.stages import Channel, Stage
+from ..runtime.utils import fold_in, seeded_generator
+from ..telemetry.cli import _percentile
 from ..utils.logging import logger
+from .adapters import AdapterPool, AdapterRegistry, adapter_param_shapes
 from .kv_cache import (KVCacheSpec, PagedKVCacheSpec, init_cache,
                        init_paged_cache)
 from .kv_tier import KVTier, KVTierCorruptError, disk_fsync_enabled
@@ -121,19 +154,6 @@ def _unported(what: str, item: str):
         f"queue 1, {item}")
 
 
-def _refuse_unported(cfg: _ServeConfigView) -> None:
-    """Raise on every config knob whose path this port does not run yet."""
-    sv = cfg.serving
-    if sv.temperature > 0:
-        raise _unported("serving.temperature > 0 (sampling)",
-                        "item 7.3 (speculation and sampling)")
-    if sv.lora[C.SERVING_LORA_RANK] > 0:
-        raise _unported("serving.lora.rank > 0 (multi-tenant LoRA)",
-                        "item 7.5 (LoRA adapters)")
-    if cfg.telemetry.enabled:
-        raise _unported("telemetry.enabled", "item 5 (telemetry)")
-
-
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -155,7 +175,7 @@ def _to_device(tree, device):
 
 
 class ServeEngine:
-    """Continuous-batching greedy decode over a GPT-2-family model.
+    """Continuous-batching decode over a GPT-2-family model.
 
     ``model`` exposes the serving protocol (``GPT2Model`` does):
     ``prefill``/``decode_step`` on the slot cache, ``prefill_paged``/
@@ -174,7 +194,7 @@ class ServeEngine:
         self.device = _resolve_device(device)
         self.model = model
         cfg = _ServeConfigView(config)
-        _refuse_unported(cfg)
+        self.serving_config = cfg.serving
         mcfg = model.config
 
         self.max_seq_len = (cfg.serving.max_seq_len
@@ -197,6 +217,12 @@ class ServeEngine:
             self.decode_impl = cfg.serving.decode_impl
         #: draft-verify speculation (0 = off)
         self.spec_k = cfg.serving.speculate_k
+        #: the sampling temperature, fixed for the engine's lifetime (0 =
+        #: greedy: no generator is ever built)
+        self.temperature = cfg.serving.temperature
+        #: one host seed per sampling model call: fold_in(base, n)
+        self._rng_base = (seed ^ 0x5eed) if self.temperature > 0 else None
+        self._rng_n = 0
         self._spec_proposed_n = 0
         self._spec_accepted_n = 0
         self._spec_passes = 0
@@ -253,6 +279,7 @@ class ServeEngine:
                 max_len=self.max_seq_len, head_dim=mcfg.d_head,
                 dtype=kv_dtype)
             self.cache = init_cache(self.cache_spec, self.device)
+        self._build_lora_plane(cfg, mcfg, kv_dtype)
         if self.spec_k:
             self._build_spec_plane(cfg, mcfg, draft_params, seed)
 
@@ -275,6 +302,8 @@ class ServeEngine:
         # paged, the free pages; speculating, the live accept ratio)
         self.stage.depth_fn = (self._stage_depth if self.paged
                                or self.spec_k else self.queue.qsize)
+        self.stage.on_degrade = lambda st: self.dump_flight_record(
+            reason=f"stage {st.name!r} degraded to {st.fallback}")
 
         # -- KV tiering: park idle sessions' prefix-cache pages on host
         # and disk, stream them back on resume.  Off by default
@@ -295,7 +324,10 @@ class ServeEngine:
                 fsync=disk_fsync_enabled(kvt[C.SERVING_KV_TIER_FSYNC]),
                 max_failures=cfg.stages.max_stage_failures)
         wire_serve_stage_plane(self)
+        self._build_telemetry(cfg)
 
+        #: perf_counter epoch of the completion records' ``arrival_s``
+        self._epoch_t = time.perf_counter()
         self._rid = 0
         #: engine ticks (``step`` calls): the KV tier's idleness clock
         self._ticks = 0
@@ -308,8 +340,247 @@ class ServeEngine:
         self.verify_ticks = 0
         self._closed = False
         #: requests popped from the queue but not yet admitted — the
-        #: page-pool backpressure parking spot (admission order kept)
+        #: page-pool (and adapter-pool) backpressure parking spot
+        #: (admission order kept)
         self._pending: deque = deque()
+        self._latencies: deque = deque(maxlen=8192)
+        #: decode-phase (post-first-token) latencies only: the TPOT window
+        self._tpot_lat: deque = deque(maxlen=2048)
+        self._flush_every = cfg.serving.flush_interval_ticks
+        self._last_flush_t = time.perf_counter()
+        self._last_flush_tokens = 0
+        self._tokens_seen = 0
+
+    # -- multi-tenant LoRA: the adapter plane ----------------------------
+    def _build_lora_plane(self, cfg, mcfg, kv_dtype) -> None:
+        """The adapter pools, registry and residency pool (reference
+        ``engine.py:271-355``): per target, A ``[L, N, d_in, r]`` and B
+        ``[L, N, r, *out]`` in the master dtype with ``N =
+        hbm_adapter_slots + 1`` (slot 0 the zero adapter, never written),
+        and a host int32 table of each decode slot's pool slot.  rank 0
+        (the default): no pools, and every model call runs exactly the
+        code without adapters."""
+        lcfg = cfg.serving.lora
+        self.lora_rank = int(lcfg[C.SERVING_LORA_RANK])
+        self.lora = self.lora_rank > 0
+        self.lora_scale = (float(lcfg[C.SERVING_LORA_ALPHA]) / self.lora_rank
+                           if self.lora else 1.0)
+        self.adapters = None
+        self.adapter_bytes = 0
+        self._adapter_table = None
+        self._adapter_hits_seen = 0
+        self._adapter_faults_seen = 0
+        if not self.lora:
+            return
+        self.lora_targets = tuple(lcfg[C.SERVING_LORA_TARGETS])
+        n_aslots = int(lcfg[C.SERVING_LORA_HBM_SLOTS])
+        self._lora_shapes = adapter_param_shapes(
+            mcfg.n_layer, mcfg.d_model, self.lora_rank, self.lora_targets)
+        self._lora_pools = {}
+        for t in self.lora_targets:
+            a_shape, b_shape = self._lora_shapes[t]
+            self._lora_pools[t] = tuple(
+                torch.zeros((shp[0], n_aslots + 1) + shp[1:],
+                            dtype=kv_dtype, device=self.device)
+                for shp in (a_shape, b_shape))
+        self.adapter_bytes = sum(a.numel() * a.element_size()
+                                 + b.numel() * b.element_size()
+                                 for a, b in self._lora_pools.values())
+        self.adapter_registry = AdapterRegistry(
+            int(lcfg[C.SERVING_LORA_MAX_ADAPTERS]), self._lora_shapes)
+        self.adapter_stage = Stage(
+            "adapter_fetch", max_failures=cfg.stages.max_stage_failures,
+            fallback="synchronous host->HBM adapter copy (injection "
+                     "plane bypassed)")
+        self.adapters = AdapterPool(n_aslots, self.adapter_registry,
+                                    self._upload_adapter,
+                                    stage=self.adapter_stage)
+        #: host-owned per-slot adapter table, uploaded once a tick (dead
+        #: slots hold 0: the zero adapter's delta is exact zeros)
+        self._adapter_table = np.zeros((self.slots,), np.int32)
+
+    def _upload_adapter(self, slot: int, weights) -> None:
+        """Host->device copy of one adapter into pool slot ``slot`` of
+        every target (reference ``engine.py:929-939``): each factor cast
+        to the pool's dtype on the host (round to nearest even, as the
+        reference's ``astype``) and copied in place — synchronous, under
+        the ``adapter_fetch`` stage's ``fetch`` point."""
+        for t in self.lora_targets:
+            for pool, w in zip(self._lora_pools[t], weights[t]):
+                pool[:, slot].copy_(torch.from_numpy(
+                    np.ascontiguousarray(w, np.float32)).to(pool.dtype))
+
+    def register_adapter(self, adapter_id: int, weights=None):
+        """Register a tenant adapter (host-side).  ``weights=None``
+        synthesizes deterministic factors from the adapter id, so every
+        replica derives identical weights for the same tenant without
+        shipping bytes (reference ``engine.py:941-950``)."""
+        if not self.lora:
+            raise ValueError("serving.lora.rank is 0 — adapters disabled")
+        if weights is None:
+            return self.adapter_registry.get(adapter_id)
+        return self.adapter_registry.register(adapter_id, weights)
+
+    def _lora_kw(self, slots) -> Dict[str, Any]:
+        """The LoRA keyword arguments of the model's paged functions for
+        ``slots`` (a device int tensor, or an int for a prefill); none
+        with lora off."""
+        if not self.lora:
+            return {}
+        return {"lora": self._lora_pools, "adapter_slots": slots,
+                "lora_scale": self.lora_scale}
+
+    def _adapter_slots(self) -> Optional[torch.Tensor]:
+        """This tick's per-slot adapter table on the device (lora only)."""
+        if not self.lora:
+            return None
+        return torch.from_numpy(self._adapter_table).to(self.device)
+
+    # -- sampling: one generator per model call --------------------------
+    def _next_seed(self) -> Optional[int]:
+        """The next model call's host seed (reference ``_maybe_key``,
+        ``engine.py:920-926``): None at temperature 0, where nothing
+        samples."""
+        if self._rng_base is None:
+            return None
+        self._rng_n += 1
+        return fold_in(self._rng_base, self._rng_n)
+
+    def _generator(self, seed: Optional[int]):
+        """A ``torch.Generator`` on the engine's device seeded from a host
+        seed; None for None (greedy)."""
+        return None if seed is None else seeded_generator(seed, self.device)
+
+    def _select(self, logits: torch.Tensor) -> torch.Tensor:
+        """One emission site's next tokens: greedy, or sampled with the
+        next call's generator."""
+        return select_next_token(logits, self.temperature,
+                                 self._generator(self._next_seed()))
+
+    # -- telemetry ---------------------------------------------------------
+    def _build_telemetry(self, cfg) -> None:
+        """The hub and the serve registry metrics (reference ``engine.py:
+        608-731``).  Off (the default): ``self.telemetry`` is None and
+        every hook below is a no-op."""
+        self.telemetry = None
+        if not cfg.telemetry.enabled:
+            return
+        from ..telemetry.hub import TelemetryHub
+        out = cfg.telemetry.output_path or os.path.join(os.getcwd(),
+                                                        "telemetry")
+        self.telemetry = TelemetryHub(
+            out, trace=cfg.telemetry.trace,
+            compile_events=cfg.telemetry.compile_events,
+            memory=cfg.telemetry.memory,
+            storm_threshold=cfg.telemetry.recompile_storm_threshold,
+            device=self.device)
+        # the reference tracks each compiled program's retraces; eager
+        # torch compiles none, so each track() returns False
+        programs = {"decode_step": self._decode_tick,
+                    "prefill": self._admit_one}
+        if self.paged:
+            programs["copy_page"] = self._copy_page
+            programs["page_out"] = self._export_page_bytes
+            programs["page_in"] = self._import_page_bytes
+        if self.spec_k:
+            programs.update(verify_step=self._verify,
+                            draft_propose=self._propose,
+                            draft_prefill=self._draft_prefill)
+        if self.lora:
+            programs["adapter_upload"] = self._upload_adapter
+        for name, fn in programs.items():
+            self.telemetry.track_program(name, fn)
+        reg = self.telemetry.registry
+        self._tokens_total = reg.counter(
+            "serve_tokens_total", "generated tokens")
+        self._requests_total = reg.counter(
+            "serve_requests_total", "finished requests")
+        self._requests_failed = reg.counter(
+            "serve_requests_failed_total",
+            "requests finished with an error")
+        self._token_seconds = reg.histogram(
+            "serve_token_seconds",
+            "per-token latency (first token = time to first token)")
+        self._ttft_hist = reg.histogram(
+            "serve_ttft_seconds",
+            "time to first token: submit -> first generated token "
+            "(queue wait + prefill)")
+        self._queue_wait_hist = reg.histogram(
+            "serve_queue_wait_seconds",
+            "submit -> slot admission wait (the Orca iteration-"
+            "level scheduling number)")
+        self._active_gauge = reg.gauge(
+            "serve_active_slots", "slots decoding this tick")
+        reg.gauge("serve_param_bytes",
+                  "device bytes of the serving params (target + draft; "
+                  "int8 weights + scales under quantization)").set(
+                      self.param_bytes)
+        reg.gauge("serve_kv_bytes",
+                  "device bytes of the KV cache from its spec (both "
+                  "layouts; incl. quant scale sidecars + draft cache)").set(
+                      self.kv_bytes)
+        if self.paged:
+            reg.gauge("serve_pages_total",
+                      "allocatable KV pages (excludes the scratch page)"
+                      ).set(self.cache_spec.pages - 1)
+            self._free_pages_gauge = reg.gauge(
+                "serve_free_pages", "unallocated KV pages")
+            self._free_pages_gauge.set(self.pool.free_count)
+            self._prefix_hits = reg.counter(
+                "serve_prefix_hits_total",
+                "admissions that reused cached prefix pages")
+            self._prefix_misses = reg.counter(
+                "serve_prefix_misses_total",
+                "admissions that found no cached prefix")
+        if self.spec_k:
+            self._spec_proposed = reg.counter(
+                "serve_spec_proposed_total",
+                "draft tokens proposed to the verify program")
+            self._spec_accepted_ctr = reg.counter(
+                "serve_spec_accepted_total",
+                "accepted draft tokens actually emitted")
+            self._spec_len_hist = reg.histogram(
+                "serve_spec_accepted_len",
+                "tokens emitted per verify pass (accepted draft "
+                "prefix + the bonus token)")
+        if self.lora:
+            self._adapters_resident_gauge = reg.gauge(
+                "serve_adapters_resident",
+                "tenant adapters resident in HBM pool slots "
+                "(pinned + cold-evictable; excludes the reserved "
+                "zero adapter)")
+            self._adapter_hits_ctr = reg.counter(
+                "serve_adapter_hits_total",
+                "admissions whose adapter was already HBM-resident")
+            self._adapter_faults_ctr = reg.counter(
+                "serve_adapter_faults_total",
+                "cold-adapter admissions that fetched host->HBM "
+                "(the adapter_fetch stage point)")
+        if self.kv_tier is not None:
+            self._kv_parked_gauge = reg.gauge(
+                "serve_kv_parked_sessions",
+                "idle sessions parked off HBM in the host/disk KV "
+                "tier (parked digest-chain tails)")
+            self._kv_spill_ctr = reg.counter(
+                "serve_kv_spill_bytes_total",
+                "KV page bytes exported HBM -> host/disk by the "
+                "kv_spill stage")
+            self._kv_fetch_ctr = reg.counter(
+                "serve_kv_fetch_bytes_total",
+                "parked KV page bytes streamed back on session "
+                "resume by the kv_fetch stage")
+            self._kv_spill_seen = 0
+            self._kv_fetch_seen = 0
+
+        def _stage_counter(name, help, n):
+            reg.counter(name, help).inc(n)
+
+        self.stage.counter_fn = _stage_counter
+        if self.lora:
+            self.adapter_stage.counter_fn = _stage_counter
+        if self.kv_tier is not None:
+            self.kv_tier.spill_stage.counter_fn = _stage_counter
+            self.kv_tier.fetch_stage.counter_fn = _stage_counter
 
     # -- speculative decoding: the draft plane --------------------------
     def _build_spec_plane(self, cfg, mcfg, draft_params, seed: int) -> None:
@@ -358,8 +629,213 @@ class ServeEngine:
 
     # -- telemetry helpers ----------------------------------------------
     def _span(self, name: str, **args):
-        """No-op: telemetry is not ported yet (enabling it raises)."""
-        return contextlib.nullcontext()
+        """A host-side trace span (reference ``engine.py:972``); a no-op
+        context with telemetry off."""
+        if self.telemetry is None:
+            return contextlib.nullcontext()
+        return self.telemetry.span(name, cat="serve", **args)
+
+    @property
+    def _tracer(self):
+        tel = self.telemetry
+        return tel.tracer if tel is not None else None
+
+    # -- per-request causal trace + completion record ---------------------
+    def _begin_request_trace(self, req: Request) -> None:
+        """Open the request's async ``serve/request`` and
+        ``serve/queue_wait`` spans (reference ``engine.py:983-997``)."""
+        tr = self._tracer
+        if tr is None:
+            return
+        from ..telemetry.tracing import TraceContext
+        req.ctx = TraceContext.new()
+        req.span = tr.async_begin("serve/request", req.ctx.trace_id,
+                                  cat="serve", rid=req.rid)
+        req.queue_span = tr.async_begin("serve/queue_wait",
+                                        req.ctx.trace_id, cat="serve",
+                                        rid=req.rid)
+
+    def _end_queue_wait(self, req: Request) -> None:
+        """Admission: the queue-wait span ends and its histogram observes
+        submit -> admission."""
+        if req.queue_span is not None:
+            req.queue_span.end()
+            req.queue_span = None
+        if self.telemetry is not None:
+            self._queue_wait_hist.observe(req.admit_t - req.submit_t)
+
+    def _flow(self, kind: str, req: Request, **args) -> None:
+        """One ``serve/request`` flow event of ``req`` (``start`` in its
+        prefill span, ``step`` in each tick's span)."""
+        tr = self._tracer
+        if tr is not None and req.ctx is not None:
+            getattr(tr, "flow_" + kind)("serve/request", req.ctx,
+                                        cat="serve", rid=req.rid, **args)
+
+    def _end_request_trace(self, req: Request, reason=None,
+                           error=None) -> None:
+        """Close the request's spans and end its flow inside a
+        ``serve/finish`` (or ``serve/error``) span (reference
+        ``engine.py:999-1025``)."""
+        tr = self._tracer
+        args = {}
+        if reason is not None:
+            args["reason"] = reason
+        if error is not None:
+            args["error"] = repr(error)
+        if req.queue_span is not None:  # never admitted: close it now
+            req.queue_span.end(**args)
+            req.queue_span = None
+        if tr is not None and req.ctx is not None:
+            name = "serve/error" if error is not None else "serve/finish"
+            with tr.span(name, cat="serve", rid=req.rid, **args):
+                if req.admit_t:
+                    # the flow starts at admission: a request that failed
+                    # in the queue has none to end
+                    tr.flow_end("serve/request", req.ctx, cat="serve",
+                                rid=req.rid)
+            req.ctx = None
+        if req.span is not None:
+            req.span.end(**args)
+            req.span = None
+
+    def _write_request_record(self, req: Request) -> None:
+        """One ``serve_request`` record per request in events.jsonl
+        (reference ``engine.py:1027-1058``)."""
+        if self.telemetry is None:
+            return
+        decode = [float(t) for t in req.token_times[1:]]
+        rec = {
+            "rid": req.rid,
+            "prompt_len": len(req.prompt),
+            "arrival_s": round(req.submit_t - self._epoch_t, 6),
+            "tokens": len(req.tokens),
+            "finish_reason": req.finish_reason,
+            "error": repr(req.error) if req.error is not None else None,
+            "total_s": time.perf_counter() - req.submit_t,
+            "queue_wait_s": (req.admit_t - req.submit_t
+                             if req.admit_t else None),
+            "ttft_s": (float(req.token_times[0])
+                       if req.token_times else None),
+            "prefill_s": req.prefill_s if req.prefill_s else None,
+            "decode_tokens": len(decode),
+            "decode_s_sum": sum(decode),
+            "token_times_s": [round(t, 6) for t in decode[:512]],
+        }
+        if req.ctx is not None:
+            rec["trace_id"] = req.ctx.trace_id
+        self.telemetry.jsonl.write_event("serve_request", rec)
+
+    def dump_flight_record(self, reason: str = "manual", error=None):
+        """Dump the ``serve`` stage's event ring as
+        ``flightrec_<tick>.json`` (reference ``engine.py:1060-1082``):
+        fired on poison and degradation, callable on demand; never
+        raises, and None with telemetry off."""
+        if self.telemetry is None:
+            return None
+        try:
+            extra = {"active_slots": len(self.scheduler.active),
+                     "queued": self.queue.qsize()}
+            if self.paged:
+                extra["free_pages"] = self.pool.free_count
+                extra["pending"] = len(self._pending)
+            if self.spec_k:
+                extra["spec_accept_ratio"] = self._spec_ratio()
+            return self.telemetry.dump_flight_record(
+                {"serve": self.stage}, self._ticks, reason, error=error,
+                extra=extra)
+        except Exception:
+            logger.exception("serve flight-record dump failed "
+                             "(reason=%r)", reason)
+            return None
+
+    def _count_token(self, latency_s: float) -> None:
+        self._tokens_seen += 1
+        self._latencies.append(latency_s)
+        if self.telemetry is not None:
+            self._tokens_total.inc()
+            self._token_seconds.observe(latency_s)
+
+    def _flush(self) -> None:
+        """The serving scalars as one telemetry sync event (reference
+        ``engine.py:1091-1174``; the summarize CLI's serving rows read
+        exactly these).  Host counters only — the memory sampler here is
+        the one device-side read, and it reads allocator bookkeeping."""
+        if self.telemetry is None:
+            return
+        now = time.perf_counter()
+        dt = max(now - self._last_flush_t, 1e-9)
+        toks = self._tokens_seen - self._last_flush_tokens
+        lat = sorted(self._latencies)
+        scalars = {"serve_tokens_per_s": toks / dt,
+                   "serve_param_bytes": float(self.param_bytes),
+                   "serve_kv_bytes": float(self.kv_bytes)}
+        p50 = _percentile(lat, 0.50)
+        p99 = _percentile(lat, 0.99)
+        if p50 is not None:
+            scalars["serve_token_p50_s"] = p50
+            scalars["serve_token_p99_s"] = p99
+        tpot = self.tpot_p99()
+        if tpot is not None:
+            scalars["serve_tpot_p99_s"] = tpot
+        if self.paged:
+            usable = self.cache_spec.pages - 1
+            scalars["serve_free_pages"] = float(self.pool.free_count)
+            scalars["serve_page_utilization"] = (
+                self.pool.used_count / usable if usable else 0.0)
+            if self.prefix is not None:
+                tot = self.prefix.hits + self.prefix.misses
+                if tot:
+                    scalars["serve_prefix_hit_ratio"] = \
+                        self.prefix.hits / tot
+                scalars["serve_prefix_hit_tokens"] = \
+                    float(self.prefix.hit_tokens)
+                scalars["serve_page_cow_total"] = float(self.prefix.cow)
+        if self.spec_k and self._spec_passes:
+            scalars["serve_spec_accept_ratio"] = self._spec_ratio()
+            scalars["serve_spec_mean_accepted_len"] = (
+                (self._spec_accepted_n + self._spec_passes)
+                / self._spec_passes)
+        if self.lora:
+            pool = self.adapters
+            scalars["serve_adapters_resident"] = float(pool.resident())
+            scalars["serve_adapter_bytes"] = float(self.adapter_bytes)
+            scalars["serve_adapter_hits_total"] = float(pool.hits)
+            scalars["serve_adapter_faults_total"] = float(pool.faults)
+            scalars["serve_adapter_evictions_total"] = \
+                float(pool.evictions)
+            self._adapters_resident_gauge.set(pool.resident())
+            # counters advance by the pool's deltas since the last flush;
+            # the cumulative scalars above stay the summarize source
+            self._adapter_hits_ctr.inc(pool.hits - self._adapter_hits_seen)
+            self._adapter_faults_ctr.inc(
+                pool.faults - self._adapter_faults_seen)
+            self._adapter_hits_seen = pool.hits
+            self._adapter_faults_seen = pool.faults
+        if self.kv_tier is not None:
+            tier = self.kv_tier
+            scalars["serve_kv_parked_sessions"] = \
+                float(tier.parked_sessions)
+            scalars["serve_kv_spill_bytes_total"] = float(tier.spill_bytes)
+            scalars["serve_kv_fetch_bytes_total"] = float(tier.fetch_bytes)
+            p99r = tier.resume_p99_s()
+            if p99r is not None:
+                scalars["serve_kv_resume_p99_s"] = p99r
+            self._kv_parked_gauge.set(tier.parked_sessions)
+            self._kv_spill_ctr.inc(tier.spill_bytes - self._kv_spill_seen)
+            self._kv_fetch_ctr.inc(tier.fetch_bytes - self._kv_fetch_seen)
+            self._kv_spill_seen = tier.spill_bytes
+            self._kv_fetch_seen = tier.fetch_bytes
+        self.telemetry.on_sync(step=self._ticks, scalars=scalars)
+        self._last_flush_t = now
+        self._last_flush_tokens = self._tokens_seen
+
+    def tpot_p99(self) -> Optional[float]:
+        """Decode-phase p99 latency per token (TPOT) over the recent
+        window."""
+        if not self._tpot_lat:
+            return None
+        return _percentile(sorted(self._tpot_lat), 0.99)
 
     # -- request intake ---------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 16,
@@ -367,11 +843,12 @@ class ServeEngine:
                detach_kv: bool = False,
                adapter_id: int = 0) -> Request:
         """Enqueue one generation request (blocks on a full queue — the
-        open-loop backpressure point).  Greedy decoding; the first
-        generated token comes from the prefill logits.  ``detach_kv`` and
-        ``adapter_id`` keep the JAX engine's surface: KV migration
-        (the serving fleet) and LoRA are not ported, so both are
-        refused."""
+        open-loop backpressure point).  The first generated token comes
+        from the prefill logits.  ``adapter_id`` selects the tenant's LoRA
+        adapter (0 = the base model; needs ``serving.lora.rank > 0``);
+        admission resolves it to a device pool slot, parking on a dry pool
+        like a pages-dry admission.  ``detach_kv`` (KV migration, the
+        serving fleet's) is not ported and raises."""
         if self._closed:
             raise RuntimeError("ServeEngine is closed")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
@@ -403,7 +880,7 @@ class ServeEngine:
         adapter_id = int(adapter_id)
         if adapter_id < 0:
             raise ValueError("adapter_id must be >= 0 (0 = base model)")
-        if adapter_id > 0:
+        if adapter_id > 0 and not self.lora:
             raise ValueError(
                 f"adapter_id={adapter_id} but multi-tenant LoRA is off "
                 "(set serving.lora.rank > 0)")
@@ -413,6 +890,8 @@ class ServeEngine:
                       eos_id=(self.eos_id_default if eos_id is None
                               else int(eos_id)),
                       submit_t=time.perf_counter())
+        req.adapter_id = adapter_id
+        self._begin_request_trace(req)
         # Deliberate submission-side backpressure: submit() runs on the
         # caller's thread, and a full queue must block the caller (and a
         # closed one must reject) — the admission contract.
@@ -423,6 +902,7 @@ class ServeEngine:
                 "serve queue rejected the request (engine closed or "
                 f"poisoned){': ' + repr(err) if err else ''}")
             req.error = rej
+            self._end_request_trace(req, error=rej)
             raise rej
         return req
 
@@ -451,13 +931,13 @@ class ServeEngine:
     def _prefill(self, tokens: torch.Tensor, length: int, slot: int) -> int:
         """Prefill one padded prompt into ``slot``: ALL ``prefill_len``
         rows are written (the padded tail is garbage the length masks
-        out), then the first greedy token is read back."""
+        out), then the first token is read back."""
         logits, ks, vs = self.model.prefill(self.params, tokens)
         rows = tokens.shape[1]
         self.cache["k"][:, slot, :, :rows] = ks[:, 0]
         self.cache["v"][:, slot, :, :rows] = vs[:, 0]
         self.cache["lengths"][slot] = length
-        return int(select_next_token(logits[0, length - 1]))
+        return int(self._select(logits[0, length - 1]))
 
     def _scales(self) -> Dict[str, torch.Tensor]:
         """The int8 pool's scale sidecars as keyword arguments of the
@@ -468,15 +948,18 @@ class ServeEngine:
                 "v_scale": self.cache["v_scale"]}
 
     def _prefill_paged(self, tokens: np.ndarray, delta_len: int,
-                       prefix_len: int, row: np.ndarray, slot: int) -> int:
-        """One delta-aware prefill (or chunk) into ``slot``'s pages, then
-        the next greedy token after its last computed position."""
+                       prefix_len: int, row: np.ndarray, slot: int,
+                       aslot: int = 0) -> int:
+        """One delta-aware prefill (or chunk) into ``slot``'s pages, with
+        the tenant's adapter in pool slot ``aslot`` (lora only), then the
+        next token after its last computed position."""
         logits = self.model.prefill_paged(
             self.params, torch.from_numpy(tokens).to(self.device), delta_len,
             prefix_len, torch.from_numpy(row).to(self.device),
-            self.cache["k"], self.cache["v"], **self._scales())[0]
+            self.cache["k"], self.cache["v"], **self._scales(),
+            **self._lora_kw(aslot))[0]
         self.cache["lengths"][slot] = prefix_len + delta_len
-        return int(select_next_token(logits[0, delta_len - 1]))
+        return int(self._select(logits[0, delta_len - 1]))
 
     def _admit_one(self, req: Request) -> bool:
         """Admit one request (prefill + slot assignment).  Returns False
@@ -524,14 +1007,18 @@ class ServeEngine:
             dc["lengths"][slot] = len(req.prompt)
 
     def _admit_one_paged(self, req: Request) -> bool:
-        """Reference ``_admit_one_paged`` (``engine.py:1329-1505``)
-        without its LoRA branch: match the prefix, extend the match with
-        the KV tier's parked pages, COW a shared partial tail, allocate
-        the rest, then prefill the delta (or admit it for chunked
-        prefill)."""
+        """Reference ``_admit_one_paged`` (``engine.py:1329-1505``): match
+        the prefix in the tenant's namespace, extend the match with the KV
+        tier's parked pages, allocate the rest, pin the tenant's adapter
+        slot, COW a shared partial tail, then prefill the delta (or admit
+        it for chunked prefill).  A dry page pool or adapter pool parks the
+        request (False) with nothing held."""
         total_pages = -(-len(req.prompt) // self.page_len)
+        # tenant namespace: tenant A's KV pages are never matched by
+        # tenant B (or the base model); "" is the no-lora digest chain
+        ns = self._namespace(req)
         if self.prefix is not None:
-            shared_len, spages, cow = self.prefix.match(req.prompt)
+            shared_len, spages, cow = self.prefix.match(req.prompt, ns)
         else:
             shared_len, spages, cow = 0, [], False
         tpages: List[int] = []
@@ -545,7 +1032,7 @@ class ServeEngine:
             # records are not spent on a request that then parks; tier
             # failures fall back to the delta prefill below
             shared_len, tpages = self.kv_tier.resume(
-                req.prompt, "", shared_len, self._alloc_pages)
+                req.prompt, ns, shared_len, self._alloc_pages)
         fresh = self._alloc_pages(total_pages - len(spages) - len(tpages)
                                   + (1 if cow else 0))
         if fresh is None:
@@ -555,8 +1042,26 @@ class ServeEngine:
                 self.pool.deref(p)
             return False
         held = list(spages) + tpages + fresh
+        aslot = 0
+        if self.lora and req.adapter_id:
+            # tenant -> pool slot AFTER the page alloc, so a pages-dry
+            # park never holds an adapter pin; a dry adapter pool parks
+            # the request like a pages-dry admission
+            try:
+                got = self.adapters.acquire(req.adapter_id)
+            except BaseException:
+                for p in held:
+                    self.pool.deref(p)
+                raise
+            if got is None:
+                for p in held:
+                    self.pool.deref(p)
+                return False
+            aslot = got
         try:
+            # queue wait ends here, before any device work
             req.admit_t = time.perf_counter()
+            self._end_queue_wait(req)
             fi = 0
             if cow:
                 # divergent append into a shared partial page: copy it
@@ -586,6 +1091,7 @@ class ServeEngine:
                 req.prefilling = True
                 req.chunk_pos = 0
                 self._set_table_row(slot, row)
+                self._bind_adapter(req, slot, aslot)
                 return True
             tokens = np.zeros((1, self.prefill_len), np.int64)
             tokens[0, :len(delta)] = delta
@@ -594,15 +1100,20 @@ class ServeEngine:
             with self._span("serve/prefill", rid=req.rid,
                             prompt_len=len(req.prompt),
                             computed=len(delta), shared=shared_len):
+                self._flow("start", req)
                 first = self._prefill_paged(tokens, len(delta), shared_len,
-                                            row_np, self.scheduler.free[0])
+                                            row_np, self.scheduler.free[0],
+                                            aslot)
             if self.spec_k:
                 # the draft mirrors the FULL prompt (it has no prefix cache)
                 self._draft_prefill(req)
         except BaseException:
-            # roll back every page this admission still holds a ref on
+            # roll back every page (and the adapter pin) this admission
+            # still holds
             for p in held:
                 self.pool.deref(p)
+            if aslot:
+                self.adapters.release(req.adapter_id)
             raise
         now = time.perf_counter()
         req.prefill_s = now - req.admit_t
@@ -612,12 +1123,31 @@ class ServeEngine:
         req.shared_len = shared_len
         req.computed_len = len(delta)
         self._set_table_row(slot, row)
+        self._bind_adapter(req, slot, aslot)
         if self.prefix is not None:
             # register the freshly computed pages for future sharers
-            self.prefix.insert(req.prompt, row)
+            self.prefix.insert(req.prompt, row, ns)
         req.kv_len = len(req.prompt)
         self._first_token(req, slot, first, now)
         return True
+
+    @staticmethod
+    def _namespace(req: Request) -> str:
+        """The prefix-cache namespace of ``req``'s tenant."""
+        return f"adapter:{req.adapter_id}" if req.adapter_id else ""
+
+    def _bind_adapter(self, req: Request, slot: int, aslot: int) -> None:
+        if self.lora:
+            req.adapter_slot = aslot
+            self._adapter_table[slot] = aslot
+
+    def _release_adapter(self, req: Request, slot: int) -> None:
+        """Unpin the tenant's adapter (refcount 0 keeps it resident and
+        evictable) and point the dead slot at the zero adapter."""
+        if self.lora and req.adapter_id:
+            self.adapters.release(req.adapter_id)
+            self._adapter_table[slot] = 0
+            req.adapter_slot = 0
 
     def _note_prefix(self, shared_len: int, cow: bool) -> None:
         """Prefix-cache stats count successful admissions only."""
@@ -625,6 +1155,9 @@ class ServeEngine:
             self.prefix.note_admission(shared_len)
             if cow:
                 self.prefix.cow += 1
+            if self.telemetry is not None:
+                (self._prefix_hits if shared_len
+                 else self._prefix_misses).inc()
 
     def _set_table_row(self, slot: int, row: List[int]) -> None:
         self._table[slot, :] = 0
@@ -637,6 +1170,9 @@ class ServeEngine:
         req.tokens.append(first)
         req.token_times.append(now - req.submit_t)
         req.last_token = first
+        self._count_token(now - req.submit_t)
+        if self.telemetry is not None:
+            self._ttft_hist.observe(now - req.submit_t)
         reason = self.scheduler.finish_reason(req, first, self.max_seq_len)
         if reason is not None:
             self._finish(slot, reason)
@@ -645,8 +1181,10 @@ class ServeEngine:
         tokens = np.zeros((1, self.prefill_len), np.int64)
         tokens[0, :len(req.prompt)] = req.prompt
         req.admit_t = time.perf_counter()
+        self._end_queue_wait(req)
         with self._span("serve/prefill", rid=req.rid,
                         prompt_len=len(req.prompt)):
+            self._flow("start", req)
             first = self._prefill(torch.from_numpy(tokens).to(self.device),
                                   len(req.prompt), self.scheduler.free[0])
         if self.spec_k:
@@ -702,7 +1240,14 @@ class ServeEngine:
             # eviction = page frees + a zeroed (scratch) table row
             self._table[slot, :] = 0
             self._release_pages(req)
+        self._release_adapter(req, slot)
+        # record + trace close BEFORE done.set(): a waiter released by
+        # result() finds the artifacts already written
+        self._write_request_record(req)
+        self._end_request_trace(req, reason=reason)
         req.done.set()
+        if self.telemetry is not None:
+            self._requests_total.inc()
 
     # -- chunked prefill --------------------------------------------------
     def _prefill_chunk_tick(self) -> int:
@@ -724,9 +1269,12 @@ class ServeEngine:
         tokens[0, :len(chunk)] = chunk
         with self._span("serve/prefill_chunk", rid=req.rid, pos=pos,
                         chunk=len(chunk)):
+            if final:
+                self._flow("start", req)
             first = self._prefill_paged(tokens, len(chunk),
                                         req.shared_len + pos,
-                                        self._table[slot], slot)
+                                        self._table[slot], slot,
+                                        req.adapter_slot if self.lora else 0)
         req.chunk_pos = pos + len(chunk)
         req.kv_len = req.shared_len + req.chunk_pos
         if not final:
@@ -736,8 +1284,9 @@ class ServeEngine:
         req.prefill_s = now - req.admit_t
         req.kv_len = len(req.prompt)
         if self.prefix is not None:
-            # the pages are fully written now: register them
-            self.prefix.insert(req.prompt, req.pages)
+            # the pages are fully written now: register them under the
+            # namespace the admission matched with
+            self.prefix.insert(req.prompt, req.pages, self._namespace(req))
         if self.spec_k:
             self._draft_prefill(req, slot=slot)
         req.last_t = now
@@ -789,12 +1338,16 @@ class ServeEngine:
             return 0
         tokens, active = self._batch(active_map)
         with self._span("serve/decode_step", active=len(active_map)):
+            # per-tick decode attribution: each active request's flow
+            # steps through this tick's span (host appends only)
+            for req in active_map.values():
+                self._flow("step", req, tick=self._ticks)
             if self.paged:
                 out = self.model.decode_step_paged(
                     self.params, tokens, self.cache["k"], self.cache["v"],
                     torch.from_numpy(self._table).to(self.device),
                     self.cache["lengths"], active, impl=self.decode_impl,
-                    **self._scales())
+                    **self._scales(), **self._lora_kw(self._adapter_slots()))
                 logits, new_len = out[0], out[-1]
             else:
                 logits, _, _, new_len = self.model.decode_step(
@@ -803,7 +1356,7 @@ class ServeEngine:
             self.cache["lengths"] = new_len
             self.decode_ticks += 1
             # the per-token latency point: the pull is the device sync
-            next_host = select_next_token(logits).cpu().numpy()
+            next_host = self._select(logits).cpu().numpy()
         now = time.perf_counter()
         produced = 0
         for slot, req in active_map.items():
@@ -811,6 +1364,8 @@ class ServeEngine:
             req.kv_len += 1
             req.tokens.append(tok)
             req.token_times.append(now - req.last_t)
+            self._count_token(now - req.last_t)
+            self._tpot_lat.append(now - req.last_t)
             req.last_t = now
             req.last_token = tok
             produced += 1
@@ -820,27 +1375,41 @@ class ServeEngine:
                 self._finish(slot, reason)
         return produced
 
-    def _propose(self, tokens: torch.Tensor,
-                 active: torch.Tensor) -> torch.Tensor:
-        """k+1 chained greedy draft decode steps; returns the k proposals
-        [S, k] int32 on the device.  The extra step writes the last
-        proposal's K/V, so a fully accepted block leaves the draft cache
-        aligned with the target's."""
+    def _propose(self, tokens: torch.Tensor, active: torch.Tensor,
+                 seed: Optional[int] = None):
+        """k+1 chained draft decode steps (reference ``propose_fn``,
+        ``engine.py:832-853``); returns the k proposals [S, k] int32 on the
+        device and, sampling, the distributions they were drawn from,
+        ``softmax(logits / T)`` [S, k, V] fp32 (else None).  Step ``i``
+        samples with a generator of ``fold_in(seed, i)``.  The extra step
+        writes the last proposal's K/V, so a fully accepted block leaves
+        the draft cache aligned with the target's."""
         dc = self._draft_cache
-        props = []
+        props, qs = [], []
         tok = tokens
+        T = self.temperature
         for i in range(self.spec_k + 1):
             logits, _, _, dc["lengths"] = self.draft_model.decode_step(
                 self.draft_params, tok, dc["k"], dc["v"], dc["lengths"],
                 active, impl=self._draft_impl)
-            tok = select_next_token(logits.float())
+            lg = logits.float()
+            if seed is None:
+                tok = select_next_token(lg)
+            else:
+                tok = select_next_token(
+                    lg, T, self._generator(fold_in(seed, i)))
+                if i < self.spec_k:
+                    qs.append(torch.softmax(lg / T, dim=-1))
             if i < self.spec_k:
                 props.append(tok)
-        return torch.stack(props, dim=1)
+        return (torch.stack(props, dim=1),
+                torch.stack(qs, dim=1) if qs else None)
 
     def _verify(self, tokens: torch.Tensor, proposals: torch.Tensor,
-                active: torch.Tensor) -> np.ndarray:
-        """The widened target pass + greedy acceptance + the masked
+                active: torch.Tensor, qprobs: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> np.ndarray:
+        """The widened target pass + acceptance (greedy, or rejection
+        sampling against the draft's ``qprobs`` with ``rng``) + the masked
         lengths advance, all on the device; one read-back of ``[S, W+1]``:
         each slot's W emitted-token candidates then its accepted count."""
         tokens_w = torch.cat([tokens[:, None].to(torch.int32),
@@ -850,13 +1419,13 @@ class ServeEngine:
                 self.params, tokens_w, self.cache["k"], self.cache["v"],
                 torch.from_numpy(self._table).to(self.device),
                 self.cache["lengths"], active, impl=self.decode_impl,
-                **self._scales())[0]
+                **self._scales(), **self._lora_kw(self._adapter_slots()))[0]
         else:
             logits, _, _ = self.model.verify_step(
                 self.params, tokens_w, self.cache["k"], self.cache["v"],
                 self.cache["lengths"], active, impl=self.decode_impl)
         out_tok, accepted = speculative_accept(logits.float(), proposals,
-                                               None, 0.0)
+                                               qprobs, self.temperature, rng)
         adv = torch.where(active, accepted + 1, 0).to(torch.int32)
         self.cache["lengths"] = torch.clamp(
             self.cache["lengths"] + adv, max=self.max_seq_len)
@@ -880,11 +1449,15 @@ class ServeEngine:
         tokens, active = self._batch(active_map)
         with self._span("serve/draft_propose", active=len(active_map),
                         k=self.spec_k):
-            proposals = self._propose(tokens, active)
+            proposals, qprobs = self._propose(tokens, active,
+                                              self._next_seed())
         with self._span("serve/verify_step", active=len(active_map),
                         k=self.spec_k):
+            for req in active_map.values():
+                self._flow("step", req, tick=self._ticks)
             # the per-block latency point: the read-back is the sync
-            host = self._verify(tokens, proposals, active)
+            host = self._verify(tokens, proposals, active, qprobs,
+                                self._generator(self._next_seed()))
         now = time.perf_counter()
         produced = 0
         for slot, req in active_map.items():
@@ -897,8 +1470,10 @@ class ServeEngine:
                 # carries the pass latency, the rest arrive "free"
                 req.kv_len += 1
                 req.tokens.append(tok)
-                req.token_times.append((now - req.last_t) if used == 0
-                                       else 0.0)
+                lat = (now - req.last_t) if used == 0 else 0.0
+                req.token_times.append(lat)
+                self._count_token(lat)
+                self._tpot_lat.append(lat)
                 produced += 1
                 used += 1
                 reason = self.scheduler.finish_reason(
@@ -915,6 +1490,10 @@ class ServeEngine:
             self._spec_passes += 1
             self._spec_proposed_n += self.spec_k
             self._spec_accepted_n += used - 1
+            if self.telemetry is not None:
+                self._spec_proposed.inc(self.spec_k)
+                self._spec_accepted_ctr.inc(used - 1)
+                self._spec_len_hist.observe(used)
             if finished:
                 continue
             req.last_t = now
@@ -960,7 +1539,13 @@ class ServeEngine:
         except BaseException as e:
             self._poison(e)
             raise
+        if self.telemetry is not None:
+            self._active_gauge.set(len(self.scheduler.active))
+            if self.paged:
+                self._free_pages_gauge.set(self.pool.free_count)
         self._ticks += 1
+        if self._ticks % self._flush_every == 0:
+            self._flush()
         return n
 
     def run_until_idle(self, max_ticks: int = 100_000) -> int:
@@ -1030,13 +1615,21 @@ class ServeEngine:
 
     # -- failure + shutdown ----------------------------------------------
     def _fail_request(self, req: Request, err: BaseException) -> None:
+        """The one per-request failure path: record + trace close before
+        done.set()."""
         req.error = err
+        self._write_request_record(req)
+        self._end_request_trace(req, error=err)
         req.done.set()
+        if self.telemetry is not None:
+            self._requests_failed.inc()
 
     def _poison(self, err: BaseException) -> None:
         """A failed decode tick is fatal for every in-flight request (the
         cache may hold a half-written tick).  Typed propagation —
-        requests and submitters see the ORIGINAL exception."""
+        requests and submitters see the ORIGINAL exception; every
+        in-flight trace ends in an error span and the flight recorder
+        dumps."""
         self.queue.poison(err)
         self.stage.record_event("poison", error=repr(err))
         for slot in list(self.scheduler.active):
@@ -1044,9 +1637,11 @@ class ServeEngine:
             if self.paged:
                 self._table[slot, :] = 0
                 self._release_pages(req)
+            self._release_adapter(req, slot)
             self._fail_request(req, err)
         while self._pending:
             self._fail_request(self._pending.popleft(), err)
+        self.dump_flight_record(reason="serve poison", error=err)
 
     def _close_queue(self):
         err = RuntimeError("ServeEngine closed")
@@ -1064,6 +1659,11 @@ class ServeEngine:
             self._fail_request(req, err)
         if self.prefix is not None:
             self.prefix.clear()
+
+    def _close_telemetry(self):
+        if self.telemetry is not None:
+            self._flush()
+            self.telemetry.close()
 
     def close(self):
         """Idempotent: drain order is queue -> kv spill -> kv fetch ->

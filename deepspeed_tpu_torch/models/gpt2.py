@@ -20,9 +20,13 @@ serving is ported: a parameter tree from ``inference.quantize.
 quantize_gpt2_params`` (int8 matmul weights with ``<name>_scale``
 siblings) runs through :func:`_wscale`, and the paged functions take the
 int8 pool's ``k_scale``/``v_scale`` sidecars (quantize on write, the int8
-kernel arms on read).  Not ported yet (ROADMAP.md queue 1): LoRA (the
-``lora`` arguments raise, item 7.5), sequence-parallel attention,
-parameter streaming and the tensor-parallel specs.
+kernel arms on read).  Multi-tenant LoRA is ported: the paged functions
+take the layer-stacked adapter pools, each row's adapter slot and
+``alpha/r`` (:func:`_lora_rows`, :func:`_lora_bind`), and every matmul
+of a block adds its per-row delta ``(x·A)·B·(alpha/r)`` after the base
+product (:func:`_lora_delta`; plain ``torch.bmm``, no kernel).  Not
+ported yet (ROADMAP.md queue 1): sequence-parallel attention, parameter
+streaming and the tensor-parallel specs.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
 block and dropout site derives its own seed with ``runtime.utils.fold_in``
@@ -43,6 +47,7 @@ cached prefix length is a host branch here: the engine knows
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -234,7 +239,8 @@ class GPT2Model(TrainModule):
         return gpt2_prefill_paged(self.config, params, tokens, delta_len,
                                   prefix_len, page_row, k_pool, v_pool,
                                   k_scale=k_scale, v_scale=v_scale,
-                                  lora=lora)
+                                  lora=lora, adapter_slots=adapter_slots,
+                                  lora_scale=lora_scale)
 
     def decode_step_paged(self, params, tokens, k_pool, v_pool,
                           page_table, lengths, active,
@@ -246,7 +252,9 @@ class GPT2Model(TrainModule):
         return gpt2_decode_step_paged(self.config, params, tokens, k_pool,
                                       v_pool, page_table, lengths, active,
                                       impl=impl, k_scale=k_scale,
-                                      v_scale=v_scale, lora=lora)
+                                      v_scale=v_scale, lora=lora,
+                                      adapter_slots=adapter_slots,
+                                      lora_scale=lora_scale)
 
     def verify_step(self, params, tokens, k_cache, v_cache, lengths,
                     active, impl: Optional[str] = None):
@@ -265,7 +273,9 @@ class GPT2Model(TrainModule):
         return gpt2_verify_step_paged(self.config, params, tokens, k_pool,
                                       v_pool, page_table, lengths, active,
                                       impl=impl, k_scale=k_scale,
-                                      v_scale=v_scale, lora=lora)
+                                      v_scale=v_scale, lora=lora,
+                                      adapter_slots=adapter_slots,
+                                      lora_scale=lora_scale)
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -290,13 +300,80 @@ def _wscale(y, bp, name: str):
     return y if s is None else y * s.to(y.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` on the host (the reference's
+    ``jnp.asarray(scale, x.dtype)``), so no scalar is copied to the
+    device."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def _lora_delta(x, bp, name: str):
+    """The heterogeneous batched LoRA delta (reference ``models/gpt2.py:
+    368-385``): a bound block carries a ``<name>_lora`` entry of PER-ROW
+    factors — each batch row's own tenant adapter (:func:`_lora_bind`) —
+    and the delta is ``(x·A)·B · (alpha/r)``: two batched products in
+    ``x``'s dtype, then the scale rounded to that dtype.  The caller adds
+    it AFTER the base product and bias, as the reference does.  A block
+    without lora entries (training, serving with lora off) returns
+    None."""
+    lo = bp.get(name + "_lora")
+    if lo is None:
+        return None
+    a, b, out, scale = lo
+    if a.dtype != x.dtype:
+        a, b = a.to(x.dtype), b.to(x.dtype)
+    delta = torch.bmm(torch.bmm(x, a), b)           # [B, T, prod(out)]
+    return delta.view(*x.shape[:2], *out) * _rounded(scale, x.dtype)
+
+
+def _lora_rows(lora, adapter_slots):
+    """Every layer's per-row factors, one gather per factor: ``lora`` is
+    the layer-stacked pools ``{target: (A [L, N, d_in, r], B [L, N, r,
+    *out])}`` and ``adapter_slots`` each batch row's pool slot ([B] int
+    tensor, or one int for a prefill).  Returns ``{target: (the L layers'
+    A [B, d_in, r], their B [B, r, prod(out)], out)}``.  The reference
+    gathers layer by layer inside its scan; the rows are the same, and one
+    gather, flatten and unbind a factor keep a tick's host ops down (a
+    serving tick is host-bound)."""
+    if lora is None:
+        return None
+    if not torch.is_tensor(adapter_slots):
+        dev = next(iter(lora.values()))[0].device
+        adapter_slots = torch.tensor([int(adapter_slots)], device=dev)
+    idx = adapter_slots.reshape(-1).long()
+    return {t: (a[:, idx].unbind(0), b[:, idx].flatten(3).unbind(0),
+                tuple(b.shape[3:]))
+            for t, (a, b) in lora.items()}
+
+
+def _lora_bind(bp, lora_rows, i: int, scale: float):
+    """Layer ``i``'s per-row factors of :func:`_lora_rows` bound into the
+    block's params as ``<target>_lora`` entries (reference ``_lora_bind``,
+    ``models/gpt2.py:388-402``); slot 0 is the reserved zero adapter, so
+    rows with no tenant get an exact-zero delta."""
+    if lora_rows is None:
+        return bp
+    bp = dict(bp)
+    for t, (a, b, out) in lora_rows.items():
+        bp[t + "_lora"] = (a[i], b[i], out, scale)
+    return bp
+
+
+def _add_delta(y, d):
+    return y if d is None else y + d
+
+
 def gpt2_ffn(bp, h):
-    """fc → gelu (tanh approximation) → proj over normalized input."""
+    """fc → gelu (tanh approximation) → proj over normalized input, each
+    product with its LoRA delta when the block is bound."""
     y = (_wscale(h @ bp["fc_w"].to(h.dtype), bp, "fc_w")
          + bp["fc_b"].to(h.dtype))
+    y = _add_delta(y, _lora_delta(h, bp, "fc_w"))
     y = F.gelu(y, approximate="tanh")
-    return (_wscale(y @ bp["proj_w"].to(h.dtype), bp, "proj_w")
-            + bp["proj_b"].to(h.dtype))
+    z = (_wscale(y @ bp["proj_w"].to(h.dtype), bp, "proj_w")
+         + bp["proj_b"].to(h.dtype))
+    return _add_delta(z, _lora_delta(y, bp, "proj_w"))
 
 
 def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
@@ -307,6 +384,7 @@ def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
     w = bp["qkv_w"].to(h.dtype).reshape(D, 3 * D)
     qkv = (_wscale((h @ w).view(B, T, 3, D), bp, "qkv_w")
            + bp["qkv_b"].to(h.dtype))
+    qkv = _add_delta(qkv, _lora_delta(h, bp, "qkv_w"))     # [B, T, 3, D]
 
     def heads(t):
         return t.reshape(B, T, H, Dh).transpose(1, 2)
@@ -326,6 +404,7 @@ def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
     dt = torch.promote_types(attn.dtype, x.dtype)
     y = (_wscale(attn.to(dt) @ bp["out_w"].to(x.dtype).to(dt), bp, "out_w")
          + bp["out_b"].to(x.dtype))
+    y = _add_delta(y, _lora_delta(attn, bp, "out_w"))
     return x + _dropout(y, drop, rng)
 
 
@@ -482,15 +561,6 @@ def gpt2_decode_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
                               active, impl)
     logits = _logits(params, x)[:, 0]
     return logits, k_cache, v_cache, lengths + active.to(torch.int32)
-
-
-def _unported_arms(what: str, lora=None):
-    """Refuse the LoRA adapters (not ported)."""
-    if lora is not None:
-        raise NotImplementedError(
-            f"{what} with lora (multi-tenant adapters) is not ported to "
-            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 7.5 (LoRA "
-            "adapters)")
 
 
 # ---------------------------------------------------------------------------
@@ -684,8 +754,13 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
 
     The int8 pool: pass its fp32 sidecars ``k_scale``/``v_scale`` [L, P,
     H, page_len] (updated in place); the return grows to (logits, k_pool,
-    v_pool, k_scale, v_scale, new_lengths), as the reference's does."""
-    _unported_arms("gpt2_decode_step_paged", lora)
+    v_pool, k_scale, v_scale, new_lengths), as the reference's does.
+
+    Multi-tenant LoRA: ``lora`` is the layer-stacked adapter pools
+    ``{target: (A [L, N, d_in, r], B [L, N, r, *out])}``,
+    ``adapter_slots`` [S] int each slot's pool slot (0 = the zero
+    adapter) and ``lora_scale`` alpha/r; ``lora=None`` runs exactly the
+    code without adapters."""
     if impl is None:
         impl = _decode_attn_impl(cfg)
     page_len = k_pool.shape[3]
@@ -694,8 +769,10 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     positions = lengths.clamp(0, min(cap, cfg.n_positions) - 1)
     x = _embed(params, tokens, positions)[:, None]
     att_len = torch.where(active, lengths + 1, 0).to(torch.int32)
+    rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
-        x = gpt2_block_decode_paged(cfg, _layer(params["blocks"], i), x,
+        bp = _lora_bind(_layer(params["blocks"], i), rows, i, lora_scale)
+        x = gpt2_block_decode_paged(cfg, bp, x,
                                     k_pool[i], v_pool[i], page_table,
                                     positions, att_len, active, impl,
                                     **_layer_scales(k_scale, v_scale, i))
@@ -739,16 +816,18 @@ def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     allocated pages covering all W rows before the pass (and rolls back
     the ones the acceptance did not keep).  Returns (logits [S, W, V],
     k_pool, v_pool), and with the int8 pool's sidecars (logits, k_pool,
-    v_pool, k_scale, v_scale)."""
-    _unported_arms("gpt2_verify_step_paged", lora)
+    v_pool, k_scale, v_scale).  ``lora``/``adapter_slots``/``lora_scale``
+    as in :func:`gpt2_decode_step_paged`."""
     if impl is None:
         impl = _decode_attn_impl(cfg)
     S, W = tokens.shape
     cap = min(page_table.shape[1] * k_pool.shape[3], cfg.n_positions)
     positions, row_valid, row_lens = _verify_rows(lengths, active, W, cap)
     x = _embed(params, tokens, positions)
+    rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
-        x = gpt2_block_verify_paged(cfg, _layer(params["blocks"], i), x,
+        bp = _lora_bind(_layer(params["blocks"], i), rows, i, lora_scale)
+        x = gpt2_block_verify_paged(cfg, bp, x,
                                     k_pool[i], v_pool[i], page_table,
                                     positions, row_valid, row_lens, impl,
                                     **_layer_scales(k_scale, v_scale, i))
@@ -833,8 +912,11 @@ def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
     the token after absolute position ``prefix_len + i``; padding rows are
     garbage and write nothing.  With the int8 pool's sidecars
     ``k_scale``/``v_scale`` [L, P, H, page_len] (updated in place) the
-    return grows to (logits, k_pool, v_pool, k_scale, v_scale)."""
-    _unported_arms("gpt2_prefill_paged", lora)
+    return grows to (logits, k_pool, v_pool, k_scale, v_scale).
+
+    Multi-tenant LoRA: ``adapter_slots`` is the requesting tenant's pool
+    slot (an int, or a [1] int tensor), gathered from the same ``lora``
+    pools as the decode tick."""
     B, Tq = tokens.shape
     if Tq > cfg.n_positions:
         raise ValueError(
@@ -849,8 +931,10 @@ def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
     pos = (prefix_len + torch.arange(Tq, device=tokens.device)).clamp(
         0, cfg.n_positions - 1)
     x = _embed(params, tokens, pos[None])
+    rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
-        x = gpt2_block_prefill_paged(cfg, _layer(params["blocks"], i), x,
+        bp = _lora_bind(_layer(params["blocks"], i), rows, i, lora_scale)
+        x = gpt2_block_prefill_paged(cfg, bp, x,
                                      k_pool[i], v_pool[i], page_row,
                                      prefix_len, delta_len,
                                      **_layer_scales(k_scale, v_scale, i))

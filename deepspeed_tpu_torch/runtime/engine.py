@@ -124,7 +124,8 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
                      ("profiler.enabled", config.profiler_config.enabled),
                      ("wall_clock_breakdown", config.wall_clock_breakdown)):
         if on:
-            raise _unported(what, "item 5 (telemetry and utils)")
+            raise _unported(what, "item 5, the training half (telemetry "
+                            "and utils)")
 
 
 def resolve_device(device) -> torch.device:

@@ -2,11 +2,11 @@
 
 ``runtime/stages.py`` owns the shared async-stage primitives; this module
 owns how the engines use them.  The serving engine's drain-order graph is
-ported whole.  Of the training engine's graph only the checkpoint
-writer's entry is: its drain (a sync save waits out an in-flight async
-one) and its close (``engine.close()`` lands the last save).  The
-prefetch, offload and telemetry entries come with ROADMAP.md queue 1
-items 5 and 12.
+ported whole, its telemetry entry included.  Of the training engine's
+graph only the checkpoint writer's entry is: its drain (a sync save waits
+out an in-flight async one) and its close (``engine.close()`` lands the
+last save).  The prefetch, offload and telemetry entries come with
+ROADMAP.md queue 1 items 5 (the training half) and 12.
 """
 from __future__ import annotations
 
@@ -44,9 +44,10 @@ def wire_serve_stage_plane(serve) -> None:
     tier's parking and write its host-resident parked pages to the disk
     tier (``kv_spill``), then drop the remaining parked records
     (``kv_fetch`` — host/disk bytes only, no pool refs to return),
-    telemetry last.  Both kv entries are no-ops when the tier is off
-    (``serving.kv_tier.idle_park_ticks=0``); the telemetry entry is a
-    no-op until telemetry is ported (ROADMAP.md queue 1 item 5).
+    telemetry last, so the final flush still sees every tier counter.
+    Both kv entries are no-ops when the tier is off
+    (``serving.kv_tier.idle_park_ticks=0``), the telemetry entry when
+    ``telemetry.enabled`` is off.
     """
     serve._graph = StageGraph()
     serve._graph.register("serve_queue", close=serve._close_queue,
@@ -55,5 +56,5 @@ def wire_serve_stage_plane(serve) -> None:
                           drain=serve._drain_kv_spill)
     serve._graph.register("kv_fetch", close=serve._close_kv_fetch,
                           drain=lambda: None)
-    serve._graph.register("telemetry", close=lambda: None,
-                          drain=lambda: None)
+    serve._graph.register("telemetry", close=serve._close_telemetry,
+                          drain=serve._flush)

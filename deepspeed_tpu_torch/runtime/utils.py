@@ -1,5 +1,5 @@
 """Runtime numeric utilities — the port of ``deepspeed_tpu/runtime/utils.py``
-(norms and clipping), plus the host-side seed derivation the port uses in
+(norms and clipping, the structured memory snapshot), plus the host-side seed derivation the port uses in
 place of ``jax.random.fold_in`` and the helpers every model shares: the
 seeded dropout, a host uniform draw and ``params_from_numpy``.
 
@@ -44,6 +44,70 @@ def clip_by_global_norm(tree, max_norm: float, norm=None):
         norm = global_norm(leaves)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return [x * scale.to(x.dtype) for x in leaves], norm
+
+
+def collect_memory_stats(device=None) -> dict:
+    """Structured device + host memory snapshot (reference
+    ``runtime/utils.py:43``, the same dict schema) — the one collection
+    path the ``memory_status`` log line and the telemetry gauges
+    (``telemetry.memory.MemorySampler``) share.
+
+    Returns ``{"devices": [{"id", "platform", "bytes_in_use",
+    "peak_bytes_in_use", "bytes_limit"}, ...], "host_rss_bytes": int |
+    None}``: ``device`` (a CUDA device) alone, or every CUDA device when
+    it is None; none on the CPU.  Reads the caching allocator's
+    bookkeeping (``torch.cuda.memory_stats``), ``torch.cuda.mem_get_info``
+    and ``/proc/self/status`` — no stream is synchronized, so it is safe
+    at the engine's flush cadence."""
+    if device is not None:
+        device = torch.device(device)
+        ids = [device.index or 0] if device.type == "cuda" else []
+    else:
+        ids = (list(range(torch.cuda.device_count()))
+               if torch.cuda.is_available() else [])
+    devices = []
+    for i in ids:
+        stats = torch.cuda.memory_stats(i)
+        devices.append({
+            "id": i,
+            "platform": "gpu",
+            "bytes_in_use": stats.get("allocated_bytes.all.current"),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak"),
+            "bytes_limit": torch.cuda.mem_get_info(i)[1],
+        })
+    rss = None
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    rss = int(line.split()[1]) * 1024
+                    break
+    except OSError:
+        pass
+    return {"devices": devices, "host_rss_bytes": rss}
+
+
+def format_memory_status(stats: dict, message: str = "") -> str:
+    """Render ``collect_memory_stats()`` output as the reference's
+    ``memory_status`` line (first 8 devices, GiB with peaks, host RSS)."""
+    parts = []
+    for dev in stats.get("devices", [])[:8]:
+        used = (dev.get("bytes_in_use") or 0) / 2 ** 30
+        peak = (dev.get("peak_bytes_in_use") or 0) / 2 ** 30
+        lim = (dev.get("bytes_limit") or 0) / 2 ** 30
+        parts.append(f"{dev['id']}: {used:.2f}/{lim:.2f}GB peak {peak:.2f}")
+    rss = stats.get("host_rss_bytes")
+    if rss is not None:
+        parts.append(f"host RSS {rss / 2 ** 30:.2f}GB")
+    return (f"MEMORY {message}: " if message else "MEMORY: ") + \
+        ("; ".join(parts) if parts else "no stats available")
+
+
+def memory_status(message: str = "", device=None) -> str:
+    report = format_memory_status(collect_memory_stats(device), message)
+    from ..utils.logging import log_dist
+    log_dist(report, ranks=[0])
+    return report
 
 
 def fold_in(seed: Optional[int], data: int) -> Optional[int]:

@@ -1,0 +1,974 @@
+"""``python -m deepspeed_tpu_torch.telemetry summarize events.jsonl`` and
+``python -m deepspeed_tpu_torch.telemetry diagnose <dir>``
+(a copy of ``deepspeed_tpu/telemetry/cli.py``: both packages write the
+same events.jsonl records, so either CLI reads either package's files)
+
+Offline reports over the artifacts the hub writes: ``summarize`` turns
+an events.jsonl into p50/p95/p99 step time, samples/sec, serving
+latency attribution (queue/prefill/decode), liveness, and peak HBM;
+``diagnose`` correlates a flight-record dump (``flightrec_<step>.json``)
+with events.jsonl and trace.json into a post-mortem — which stage
+failed first, the queue-depth trajectory, and the original exception
+(docs/observability.md).  A serving-FLEET directory (a router's
+events.jsonl + ``replica_<id>/`` telemetry subdirs — docs/serving.md
+"serving fleet") additionally correlates per-replica flight records
+and the router's request ledger: first-failing replica, failover
+count, and dangling (submitted-but-never-completed) requests.  Both tolerate a torn final line (a killed
+run) and REPORT the skipped count instead of silently dropping it.
+This module is pure stdlib, but the ``-m`` entry point imports the
+``deepspeed_tpu_torch`` package (which imports torch) — on a box
+without the runtime stack, copy this one file and run it directly:
+``python cli.py summarize events.jsonl``.
+"""
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+import sys
+from typing import Dict, List, Optional
+
+
+def _percentile(sorted_vals: List[float], q: float) -> Optional[float]:
+    if not sorted_vals:
+        return None
+    if len(sorted_vals) == 1:
+        return sorted_vals[0]
+    pos = (len(sorted_vals) - 1) * q
+    lo = int(pos)
+    hi = min(lo + 1, len(sorted_vals) - 1)
+    frac = pos - lo
+    return sorted_vals[lo] * (1 - frac) + sorted_vals[hi] * frac
+
+
+def _slo_ok(ttft: Optional[float], tpot: Optional[float],
+            slo_ttft_s: float, slo_tpot_s: float) -> bool:
+    """THE goodput verdict (docs/serving.md "workload plane"): a
+    request is good only if its first token landed within the TTFT SLO
+    and its decode cadence held the TPOT SLO.  A request that never
+    produced a token fails; a one-token request has no decode phase
+    and passes TPOT vacuously.  One copy — telemetry/goodput.py and
+    the record-derived goodput row below share it."""
+    if ttft is None or ttft > slo_ttft_s:
+        return False
+    return tpot is None or tpot <= slo_tpot_s
+
+
+def _fmt_s(v: Optional[float]) -> str:
+    if v is None:
+        return "n/a"
+    if v < 1e-3:
+        return f"{v * 1e6:.0f}us"
+    if v < 1.0:
+        return f"{v * 1e3:.2f}ms"
+    return f"{v:.3f}s"
+
+
+def _fmt_bytes(v: Optional[float]) -> str:
+    if v is None:
+        return "n/a"
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(v) < 1024 or unit == "TiB":
+            return f"{v:.2f}{unit}"
+        v /= 1024
+    return f"{v:.2f}TiB"
+
+
+def summarize(path: str, out=None) -> dict:
+    # resolve stdout at call time (a definition-time default would pin
+    # the stream captured before any test/redirect wrapping)
+    out = out if out is not None else sys.stdout
+    steps = 0
+    dispatch: List[float] = []
+    synced: List[float] = []
+    sps: List[float] = []
+    overlap: List[float] = []
+    off_h2d: List[float] = []
+    off_adam: List[float] = []
+    disk_overlap: List[float] = []
+    disk_read: List[float] = []
+    disk_write: List[float] = []
+    pf_hits: List[float] = []
+    pf_wait: List[float] = []
+    ck_save: List[float] = []
+    ck_hidden: List[float] = []
+    sv_tps: List[float] = []
+    sv_p50: List[float] = []
+    sv_p99: List[float] = []
+    sv_page_util: List[float] = []
+    sv_free_pages: Optional[float] = None
+    sv_prefix_hit: Optional[float] = None
+    sv_prefix_tokens: Optional[float] = None
+    sv_cow: Optional[float] = None
+    sv_spec_accept: Optional[float] = None
+    sv_spec_mal: Optional[float] = None
+    sv_param_bytes: Optional[float] = None
+    sv_kv_bytes: Optional[float] = None
+    # multi-tenant adapter plane (docs/serving.md "multi-tenant
+    # serving"): residency is a gauge (last flush = the run's answer);
+    # hits/faults/evictions are cumulative counters
+    sv_adapters_resident: Optional[float] = None
+    sv_adapter_bytes: Optional[float] = None
+    sv_adapter_hits: Optional[float] = None
+    sv_adapter_faults: Optional[float] = None
+    sv_adapter_evictions: Optional[float] = None
+    # KV tier plane (docs/serving.md "KV tiering"): parked sessions is
+    # a gauge (last flush = the run's answer), spill/fetch bytes are
+    # cumulative, resume p99 is the last flush's window percentile
+    sv_kv_parked: Optional[float] = None
+    sv_kv_spill_bytes: Optional[float] = None
+    sv_kv_fetch_bytes: Optional[float] = None
+    sv_kv_resume_p99: Optional[float] = None
+    # goodput plane (docs/serving.md "workload plane"): the SLOs and
+    # the live tracker's verdict arrive as sync scalars; the
+    # per-request phases below recompute the same verdict offline
+    sv_goodput: Optional[float] = None
+    sv_goodput_n: Optional[float] = None
+    sv_slo_ttft: Optional[float] = None
+    sv_slo_tpot: Optional[float] = None
+    # per-request serving records (kind: serve_request) — the
+    # queue/prefill/decode latency attribution split
+    sv_requests = 0
+    sv_failed = 0
+    sv_queue_wait: List[float] = []
+    sv_ttft: List[float] = []
+    sv_decode: List[float] = []
+    sv_tpot: List[float] = []
+    #: (ttft, tpot, errored) per request for the record-derived
+    #: goodput row; arrival_s is optional (absent in pre-PR-17
+    #: artifacts — everything here tolerates that)
+    sv_phases: List[tuple] = []
+    sv_arrivals: List[float] = []
+    stragglers: Optional[float] = None
+    #: last metrics snapshot's heartbeat_age_s gauges (liveness row)
+    beat_ages: Dict[str, float] = {}
+    peak_hbm: Optional[float] = None
+    host_rss: Optional[float] = None
+    bad_lines = 0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                rec = json.loads(line)
+            except json.JSONDecodeError:
+                bad_lines += 1
+                continue
+            kind = rec.get("kind")
+            if kind == "step":
+                steps += 1
+                if rec.get("dispatch_s") is not None:
+                    dispatch.append(float(rec["dispatch_s"]))
+            elif kind == "sync":
+                if rec.get("step_avg_s") is not None:
+                    # one synced average per interval; weight by the
+                    # interval's step count so percentiles are per-step
+                    n = int(rec.get("steps") or 1)
+                    synced.extend([float(rec["step_avg_s"])] * n)
+                if rec.get("samples_per_sec") is not None:
+                    sps.append(float(rec["samples_per_sec"]))
+                scalars = rec.get("scalars") or {}
+                ov = scalars.get("offload_overlap_ratio")
+                if ov is not None:
+                    # weight by the interval's step count, same as the
+                    # step-time percentiles — a 1-step straggler interval
+                    # must not count like a full one
+                    overlap.extend([float(ov)]
+                                   * int(rec.get("steps") or 1))
+                    # attribution split for the overlap ratio: per-step
+                    # H2D upload and CPU-Adam time, same weighting
+                    n = int(rec.get("steps") or 1)
+                    if scalars.get("offload_h2d_s") is not None:
+                        off_h2d.extend(
+                            [float(scalars["offload_h2d_s"])] * n)
+                    if scalars.get("offload_cpu_adam_s") is not None:
+                        off_adam.extend(
+                            [float(scalars["offload_cpu_adam_s"])] * n)
+                dv = scalars.get("offload_disk_overlap_ratio")
+                if dv is not None:
+                    # disk tier (runtime/disk_offload.py): same
+                    # step-count weighting as the H2D overlap row
+                    n = int(rec.get("steps") or 1)
+                    disk_overlap.extend([float(dv)] * n)
+                    if scalars.get("disk_read_s") is not None:
+                        disk_read.extend(
+                            [float(scalars["disk_read_s"])] * n)
+                    if scalars.get("disk_write_s") is not None:
+                        disk_write.extend(
+                            [float(scalars["disk_write_s"])] * n)
+                ph = scalars.get("prefetch_hit_ratio")
+                if ph is not None:
+                    # async input pipeline: same step-count weighting
+                    pf_hits.extend([float(ph)]
+                                   * int(rec.get("steps") or 1))
+                pw = scalars.get("prefetch_wait_s")
+                if pw is not None:
+                    pf_wait.extend([float(pw)]
+                                   * int(rec.get("steps") or 1))
+                cs = scalars.get("ckpt_save_s")
+                if cs is not None:
+                    # per-save figures (one mean per interval, unweighted
+                    # like samples_per_sec — saves, not steps, are the unit)
+                    ck_save.append(float(cs))
+                ch = scalars.get("ckpt_async_overlap_s")
+                if ch is not None:
+                    ck_hidden.append(float(ch))
+                tps = scalars.get("serve_tokens_per_s")
+                if tps is not None:
+                    # serving engine flushes (one rate per interval,
+                    # unweighted like samples_per_sec)
+                    sv_tps.append(float(tps))
+                sp50 = scalars.get("serve_token_p50_s")
+                if sp50 is not None:
+                    sv_p50.append(float(sp50))
+                sp99 = scalars.get("serve_token_p99_s")
+                if sp99 is not None:
+                    sv_p99.append(float(sp99))
+                # paged KV pool (docs/serving.md): utilization averages
+                # over flushes; free pages / prefix stats are cumulative
+                # — the LAST flush is the run's answer
+                pu = scalars.get("serve_page_utilization")
+                if pu is not None:
+                    sv_page_util.append(float(pu))
+                fp = scalars.get("serve_free_pages")
+                if fp is not None:
+                    sv_free_pages = float(fp)
+                pr = scalars.get("serve_prefix_hit_ratio")
+                if pr is not None:
+                    sv_prefix_hit = float(pr)
+                pt = scalars.get("serve_prefix_hit_tokens")
+                if pt is not None:
+                    sv_prefix_tokens = float(pt)
+                cw = scalars.get("serve_page_cow_total")
+                if cw is not None:
+                    sv_cow = float(cw)
+                # speculative decoding (docs/serving.md): both scalars
+                # are cumulative over the run — the LAST flush is the
+                # run's answer
+                sa = scalars.get("serve_spec_accept_ratio")
+                if sa is not None:
+                    sv_spec_accept = float(sa)
+                sm = scalars.get("serve_spec_mean_accepted_len")
+                if sm is not None:
+                    sv_spec_mal = float(sm)
+                # serving memory plane (docs/serving.md "quantized
+                # serving"): static per engine — the last flush is the
+                # run's answer
+                pb = scalars.get("serve_param_bytes")
+                if pb is not None:
+                    sv_param_bytes = float(pb)
+                kb = scalars.get("serve_kv_bytes")
+                if kb is not None:
+                    sv_kv_bytes = float(kb)
+                # adapter pool (docs/serving.md "multi-tenant
+                # serving"): last flush is the run's answer for all
+                # five — residency is a point-in-time gauge, the rest
+                # are cumulative
+                ar = scalars.get("serve_adapters_resident")
+                if ar is not None:
+                    sv_adapters_resident = float(ar)
+                ab = scalars.get("serve_adapter_bytes")
+                if ab is not None:
+                    sv_adapter_bytes = float(ab)
+                ah = scalars.get("serve_adapter_hits_total")
+                if ah is not None:
+                    sv_adapter_hits = float(ah)
+                af = scalars.get("serve_adapter_faults_total")
+                if af is not None:
+                    sv_adapter_faults = float(af)
+                ae = scalars.get("serve_adapter_evictions_total")
+                if ae is not None:
+                    sv_adapter_evictions = float(ae)
+                # KV tier (docs/serving.md "KV tiering")
+                kp = scalars.get("serve_kv_parked_sessions")
+                if kp is not None:
+                    sv_kv_parked = float(kp)
+                ks = scalars.get("serve_kv_spill_bytes_total")
+                if ks is not None:
+                    sv_kv_spill_bytes = float(ks)
+                kf = scalars.get("serve_kv_fetch_bytes_total")
+                if kf is not None:
+                    sv_kv_fetch_bytes = float(kf)
+                kr = scalars.get("serve_kv_resume_p99_s")
+                if kr is not None:
+                    sv_kv_resume_p99 = float(kr)
+                # goodput scalars (telemetry/goodput.py flush): all
+                # cumulative — the LAST flush is the run's answer
+                gp = scalars.get("serve_goodput")
+                if gp is not None:
+                    sv_goodput = float(gp)
+                gn = scalars.get("serve_goodput_requests")
+                if gn is not None:
+                    sv_goodput_n = float(gn)
+                gt = scalars.get("serve_slo_ttft_s")
+                if gt is not None:
+                    sv_slo_ttft = float(gt)
+                gd = scalars.get("serve_slo_tpot_s")
+                if gd is not None:
+                    sv_slo_tpot = float(gd)
+                sg = scalars.get("straggler_detected_total")
+                if sg is not None:
+                    # cumulative counter: the last/maximum value is the
+                    # run's total detections
+                    stragglers = max(stragglers or 0.0, float(sg))
+            elif kind == "serve_request":
+                sv_requests += 1
+                if rec.get("error"):
+                    sv_failed += 1
+                if rec.get("queue_wait_s") is not None:
+                    sv_queue_wait.append(float(rec["queue_wait_s"]))
+                if rec.get("ttft_s") is not None:
+                    sv_ttft.append(float(rec["ttft_s"]))
+                for t in rec.get("token_times_s") or []:
+                    sv_decode.append(float(t))
+                # phase attribution for the goodput row: mean time per
+                # output token over the request's decode phase, plus
+                # the open-loop arrival stamp (optional — pre-PR-17
+                # records don't carry arrival_s and must still parse)
+                tpot = None
+                dn = rec.get("decode_tokens")
+                if dn:
+                    tpot = float(rec.get("decode_s_sum") or 0.0) \
+                        / int(dn)
+                    sv_tpot.append(tpot)
+                ttft = rec.get("ttft_s")
+                sv_phases.append(
+                    (float(ttft) if ttft is not None else None,
+                     tpot, bool(rec.get("error"))))
+                if rec.get("arrival_s") is not None:
+                    sv_arrivals.append(float(rec["arrival_s"]))
+            elif kind == "metrics":
+                # liveness: keep the LAST snapshot's per-host beat ages
+                ages = {m["labels"].get("host", "?"): float(m["value"])
+                        for m in rec.get("metrics") or []
+                        if m.get("name") == "heartbeat_age_s"
+                        and m.get("value") is not None}
+                if ages:
+                    beat_ages = ages
+            elif kind == "memory":
+                stats = rec.get("stats") or {}
+                for dev in stats.get("devices", []):
+                    p = dev.get("peak_bytes_in_use")
+                    if p is not None:
+                        peak_hbm = max(peak_hbm or 0, float(p))
+                rss = stats.get("host_rss_bytes")
+                if rss is not None:
+                    host_rss = max(host_rss or 0, float(rss))
+
+    source = "synced intervals"
+    times = sorted(synced)
+    if not times:
+        # dispatch latency is enqueue time, not device step time — still
+        # report it, loudly labelled (the JL006 bug class)
+        source = "DISPATCH-ONLY (no sync events; async enqueue latency, " \
+                 "not device step time)"
+        times = sorted(dispatch)
+    p50 = _percentile(times, 0.50)
+    p95 = _percentile(times, 0.95)
+    p99 = _percentile(times, 0.99)
+    avg_sps = sum(sps) / len(sps) if sps else None
+
+    avg_overlap = sum(overlap) / len(overlap) if overlap else None
+    avg_off_h2d = sum(off_h2d) / len(off_h2d) if off_h2d else None
+    avg_off_adam = sum(off_adam) / len(off_adam) if off_adam else None
+    avg_disk_overlap = (sum(disk_overlap) / len(disk_overlap)
+                        if disk_overlap else None)
+    avg_disk_read = sum(disk_read) / len(disk_read) if disk_read else None
+    avg_disk_write = (sum(disk_write) / len(disk_write)
+                      if disk_write else None)
+    avg_pf_hit = sum(pf_hits) / len(pf_hits) if pf_hits else None
+    avg_pf_wait = sum(pf_wait) / len(pf_wait) if pf_wait else None
+    avg_ck_save = sum(ck_save) / len(ck_save) if ck_save else None
+    avg_ck_hidden = sum(ck_hidden) / len(ck_hidden) if ck_hidden else None
+    avg_sv_tps = sum(sv_tps) / len(sv_tps) if sv_tps else None
+    # latency percentiles: the LAST flush covers the whole run's bounded
+    # latency window (the engine computes them cumulatively)
+    last_sv_p50 = sv_p50[-1] if sv_p50 else None
+    last_sv_p99 = sv_p99[-1] if sv_p99 else None
+    # the per-request attribution split: same interpolation as the
+    # registry's reservoirs, so these reconstruct the histogram p50/p99
+    sv_queue_wait.sort()
+    sv_ttft.sort()
+    sv_decode.sort()
+    sv_tpot.sort()
+    # record-derived goodput: when the SLO scalars are present, rescore
+    # every completion record with the same verdict the live tracker
+    # used — the two must agree, and an artifact with records but no
+    # tracker flush still gets a goodput answer
+    rec_goodput = None
+    ttft_miss = tpot_miss = None
+    if sv_slo_ttft is not None and sv_slo_tpot is not None and sv_phases:
+        good = 0
+        ttft_miss = tpot_miss = 0
+        for ttft, tpot, errored in sv_phases:
+            if ttft is None or ttft > sv_slo_ttft:
+                ttft_miss += 1
+            if tpot is not None and tpot > sv_slo_tpot:
+                tpot_miss += 1
+            if not errored and _slo_ok(ttft, tpot, sv_slo_ttft,
+                                       sv_slo_tpot):
+                good += 1
+        rec_goodput = good / len(sv_phases)
+
+    report = {
+        "steps": steps,
+        "step_time_source": source,
+        "p50_s": p50, "p95_s": p95, "p99_s": p99,
+        "samples_per_sec": avg_sps,
+        "offload_overlap_ratio": avg_overlap,
+        "offload_h2d_s": avg_off_h2d,
+        "offload_cpu_adam_s": avg_off_adam,
+        "offload_disk_overlap_ratio": avg_disk_overlap,
+        "disk_read_s": avg_disk_read,
+        "disk_write_s": avg_disk_write,
+        "prefetch_hit_ratio": avg_pf_hit,
+        "prefetch_wait_s": avg_pf_wait,
+        "ckpt_save_s": avg_ck_save,
+        "ckpt_async_overlap_s": avg_ck_hidden,
+        "serve_tokens_per_s": avg_sv_tps,
+        "serve_token_p50_s": last_sv_p50,
+        "serve_token_p99_s": last_sv_p99,
+        "serve_requests": sv_requests,
+        "serve_requests_failed": sv_failed,
+        "serve_queue_wait_p50_s": _percentile(sv_queue_wait, 0.50),
+        "serve_queue_wait_p99_s": _percentile(sv_queue_wait, 0.99),
+        "serve_ttft_p50_s": _percentile(sv_ttft, 0.50),
+        "serve_ttft_p99_s": _percentile(sv_ttft, 0.99),
+        "serve_decode_p50_s": _percentile(sv_decode, 0.50),
+        "serve_decode_p99_s": _percentile(sv_decode, 0.99),
+        "serve_tpot_p50_s": _percentile(sv_tpot, 0.50),
+        "serve_tpot_p99_s": _percentile(sv_tpot, 0.99),
+        "serve_goodput": sv_goodput,
+        "serve_goodput_requests": sv_goodput_n,
+        "serve_goodput_from_records": rec_goodput,
+        "serve_slo_ttft_s": sv_slo_ttft,
+        "serve_slo_tpot_s": sv_slo_tpot,
+        "serve_slo_ttft_miss": ttft_miss,
+        "serve_slo_tpot_miss": tpot_miss,
+        "serve_arrival_span_s": (max(sv_arrivals) - min(sv_arrivals)
+                                 if sv_arrivals else None),
+        "serve_page_utilization": (sum(sv_page_util) / len(sv_page_util)
+                                   if sv_page_util else None),
+        "serve_free_pages": sv_free_pages,
+        "serve_prefix_hit_ratio": sv_prefix_hit,
+        "serve_prefix_hit_tokens": sv_prefix_tokens,
+        "serve_page_cow_total": sv_cow,
+        "serve_spec_accept_ratio": sv_spec_accept,
+        "serve_spec_mean_accepted_len": sv_spec_mal,
+        "serve_param_bytes": sv_param_bytes,
+        "serve_kv_bytes": sv_kv_bytes,
+        "serve_adapters_resident": sv_adapters_resident,
+        "serve_adapter_bytes": sv_adapter_bytes,
+        "serve_adapter_hits_total": sv_adapter_hits,
+        "serve_adapter_faults_total": sv_adapter_faults,
+        "serve_adapter_evictions_total": sv_adapter_evictions,
+        "serve_kv_parked_sessions": sv_kv_parked,
+        "serve_kv_spill_bytes_total": sv_kv_spill_bytes,
+        "serve_kv_fetch_bytes_total": sv_kv_fetch_bytes,
+        "serve_kv_resume_p99_s": sv_kv_resume_p99,
+        "liveness_hosts": len(beat_ages) or None,
+        "liveness_max_age_s": (max(beat_ages.values())
+                               if beat_ages else None),
+        "straggler_detected_total": stragglers,
+        "peak_hbm_bytes": peak_hbm,
+        "host_rss_bytes": host_rss,
+        "bad_lines": bad_lines,
+    }
+    print(f"telemetry summary: {path}", file=out)
+    print(f"  steps recorded     {steps}", file=out)
+    print(f"  step time ({source})", file=out)
+    print(f"    p50 {_fmt_s(p50)}  p95 {_fmt_s(p95)}  p99 {_fmt_s(p99)}",
+          file=out)
+    if avg_sps is not None:
+        print(f"  samples/sec        {avg_sps:.1f}", file=out)
+    if avg_overlap is not None:
+        # streaming offload pipeline: 1.0 = the H2D param re-upload is
+        # fully hidden under the host Adam; 0 = serial (all tail)
+        io_txt = ""
+        if avg_off_h2d is not None and avg_off_adam is not None:
+            io_txt = (f"  (H2D {_fmt_s(avg_off_h2d)} vs Adam "
+                      f"{_fmt_s(avg_off_adam)})/step")
+        print(f"  offload H2D overlap {avg_overlap * 100:.0f}% hidden "
+              f"under host Adam{io_txt}", file=out)
+    if avg_disk_overlap is not None:
+        # disk tier: 1.0 = all per-leaf state reads/writes ran under
+        # the host Adam (three-tier pipeline); 0 = the serial
+        # read-update-write loop (degraded or DS_DISK_OFFLOAD_PIPELINE=0)
+        io_txt = ""
+        if avg_disk_read is not None and avg_disk_write is not None:
+            io_txt = (f"  (read {_fmt_s(avg_disk_read)} + write "
+                      f"{_fmt_s(avg_disk_write)})/step")
+        print(f"  disk tier          {avg_disk_overlap * 100:.0f}% of "
+              f"state I/O hidden under host Adam{io_txt}", file=out)
+    if avg_pf_hit is not None:
+        # async input pipeline: hit = batch already device-resident
+        # when the step asked; wait = the exposed input stall per step
+        wait_txt = (f"  wait {_fmt_s(avg_pf_wait)}/step"
+                    if avg_pf_wait is not None else "")
+        print(f"  input prefetch     hit {avg_pf_hit * 100:.0f}%"
+              f"{wait_txt}", file=out)
+    if avg_ck_save is not None:
+        # checkpointing: exposed = step-loop stall per save (sync: the
+        # whole serialize; async: just the snapshot D2H); hidden = the
+        # background write time the async writer kept off the hot path
+        hid_txt = (f"  hidden {_fmt_s(avg_ck_hidden)}/save (async)"
+                   if avg_ck_hidden is not None else "")
+        print(f"  checkpoint         exposed {_fmt_s(avg_ck_save)}/save"
+              f"{hid_txt}", file=out)
+    if avg_sv_tps is not None:
+        # serving engine (docs/serving.md): throughput + per-token
+        # latency (first token of a request = its time to first token)
+        lat_txt = ""
+        if last_sv_p50 is not None:
+            lat_txt = (f"  token p50 {_fmt_s(last_sv_p50)}"
+                       f"  p99 {_fmt_s(last_sv_p99)}")
+        print(f"  serving            {avg_sv_tps:.1f} tok/s{lat_txt}",
+              file=out)
+    if sv_requests:
+        # per-request latency attribution (docs/observability.md): the
+        # Orca-style split of where a request's time went — queue wait
+        # (scheduling pressure) vs prefill/TTFT vs per-token decode
+        fail_txt = f", {sv_failed} failed" if sv_failed else ""
+        print(f"  serve requests     {sv_requests}{fail_txt}", file=out)
+        print(f"    queue wait  p50 "
+              f"{_fmt_s(report['serve_queue_wait_p50_s'])}  p99 "
+              f"{_fmt_s(report['serve_queue_wait_p99_s'])}", file=out)
+        print(f"    ttft        p50 {_fmt_s(report['serve_ttft_p50_s'])}"
+              f"  p99 {_fmt_s(report['serve_ttft_p99_s'])}", file=out)
+        print(f"    decode/tok  p50 "
+              f"{_fmt_s(report['serve_decode_p50_s'])}  p99 "
+              f"{_fmt_s(report['serve_decode_p99_s'])}", file=out)
+    goodput = sv_goodput if sv_goodput is not None else rec_goodput
+    if goodput is not None:
+        # goodput (docs/serving.md "workload plane"): fraction of
+        # requests meeting BOTH phase SLOs, with the per-phase tails
+        # and miss counts that say WHICH SLO the load broke
+        slo_txt = ""
+        if sv_slo_ttft is not None and sv_slo_tpot is not None:
+            slo_txt = (f" (ttft<={_fmt_s(sv_slo_ttft)}, "
+                       f"tpot<={_fmt_s(sv_slo_tpot)})")
+        n_txt = int(sv_goodput_n) if sv_goodput_n is not None \
+            else len(sv_phases)
+        print(f"  goodput            {goodput * 100:.0f}% of {n_txt} "
+              f"requests met both SLOs{slo_txt}", file=out)
+        miss_txt = (f"  (miss {ttft_miss})"
+                    if ttft_miss is not None else "")
+        print(f"    ttft        p50 {_fmt_s(report['serve_ttft_p50_s'])}"
+              f"  p99 {_fmt_s(report['serve_ttft_p99_s'])}{miss_txt}",
+              file=out)
+        miss_txt = (f"  (miss {tpot_miss})"
+                    if tpot_miss is not None else "")
+        print(f"    tpot        p50 {_fmt_s(report['serve_tpot_p50_s'])}"
+              f"  p99 {_fmt_s(report['serve_tpot_p99_s'])}{miss_txt}",
+              file=out)
+        if report["serve_arrival_span_s"] is not None:
+            print(f"    arrivals    span "
+                  f"{_fmt_s(report['serve_arrival_span_s'])} "
+                  "(open-loop, from record arrival_s)", file=out)
+    if report["serve_page_utilization"] is not None:
+        # paged KV pool: mean fraction of allocatable pages in use; the
+        # free count is the last flush's headroom (docs/serving.md)
+        free_txt = (f"  free {int(report['serve_free_pages'])} pages"
+                    if report["serve_free_pages"] is not None else "")
+        print(f"  kv page pool       "
+              f"{report['serve_page_utilization'] * 100:.0f}% utilized"
+              f"{free_txt}", file=out)
+    if report["serve_prefix_hit_ratio"] is not None:
+        # prefix reuse: fraction of admissions that found cached prefix
+        # pages, the prompt tokens whose prefill they skipped, and the
+        # copy-on-write count (divergent appends into shared pages)
+        tok_txt = (f", {int(report['serve_prefix_hit_tokens'])} prompt "
+                   "tokens reused"
+                   if report["serve_prefix_hit_tokens"] else "")
+        cow_txt = (f", {int(report['serve_page_cow_total'])} COW"
+                   if report["serve_page_cow_total"] else "")
+        print(f"  prefix cache       "
+              f"{report['serve_prefix_hit_ratio'] * 100:.0f}% hit"
+              f"{tok_txt}{cow_txt}", file=out)
+    if report["serve_spec_mean_accepted_len"] is not None:
+        # speculative decoding: draft-token acceptance + tokens per
+        # target pass — the speedup denominator (wall/token tracks
+        # 1/mean-accepted-length, docs/serving.md)
+        acc_txt = (f"  accept {report['serve_spec_accept_ratio'] * 100:.0f}"
+                   "% of drafts"
+                   if report["serve_spec_accept_ratio"] is not None
+                   else "")
+        print(f"  speculation        "
+              f"{report['serve_spec_mean_accepted_len']:.2f} tokens/"
+              f"target pass{acc_txt}", file=out)
+    if sv_param_bytes is not None or sv_kv_bytes is not None:
+        # serving memory: device bytes of params (int8 + scales under
+        # weight quantization) and the KV cache spec (incl. quant
+        # sidecars) — the KV-byte claims bench legs used to recompute
+        # by hand now come from this one plane
+        print(f"  serving memory     params "
+              f"{_fmt_bytes(sv_param_bytes)}  kv "
+              f"{_fmt_bytes(sv_kv_bytes)}", file=out)
+    if sv_adapters_resident is not None:
+        # multi-tenant adapter plane: HBM slot residency + the pool's
+        # hit/fault/eviction ledger — faults are host->HBM fetches (a
+        # cold tenant's admission stall), evictions mean the hot set
+        # outgrew hbm_adapter_slots (docs/serving.md)
+        bytes_txt = (f" ({_fmt_bytes(sv_adapter_bytes)})"
+                     if sv_adapter_bytes else "")
+        ledger = ", ".join(
+            f"{name} {int(v)}" for name, v in
+            (("hits", sv_adapter_hits), ("faults", sv_adapter_faults),
+             ("evictions", sv_adapter_evictions)) if v is not None)
+        print(f"  adapters           {int(sv_adapters_resident)} "
+              f"resident{bytes_txt}"
+              f"{'  ' + ledger if ledger else ''}", file=out)
+    if sv_kv_parked is not None:
+        # KV tier: idle sessions parked off HBM + the spill/fetch byte
+        # ledger; resume p99 is the fetch-latency tail a parked
+        # session's return pays (docs/serving.md "KV tiering")
+        flow_txt = ""
+        if sv_kv_spill_bytes is not None \
+                or sv_kv_fetch_bytes is not None:
+            flow_txt = (f"  spilled {_fmt_bytes(sv_kv_spill_bytes)}"
+                        f"  fetched {_fmt_bytes(sv_kv_fetch_bytes)}")
+        res_txt = (f"  resume p99 {_fmt_s(sv_kv_resume_p99)}"
+                   if sv_kv_resume_p99 is not None else "")
+        print(f"  kv tier            {int(sv_kv_parked)} session(s) "
+              f"parked{flow_txt}{res_txt}", file=out)
+    if beat_ages:
+        # liveness (docs/elastic.md): supervisor-visible staleness made
+        # operator-visible — last beat age per host at the final sync
+        print(f"  liveness           {len(beat_ages)} host(s), last "
+              f"beat age max {_fmt_s(max(beat_ages.values()))}",
+              file=out)
+    if stragglers is not None:
+        # elastic fleet health: hosts flagged slower than the configured
+        # multiple of the fleet-median step time (docs/elastic.md)
+        print(f"  stragglers         {int(stragglers)} host(s) flagged "
+              "(step time > ratio x fleet median)", file=out)
+    print(f"  peak HBM           {_fmt_bytes(peak_hbm)}", file=out)
+    if host_rss is not None:
+        print(f"  peak host RSS      {_fmt_bytes(host_rss)}", file=out)
+    if bad_lines:
+        print(f"  (skipped {bad_lines} unparseable lines)", file=out)
+    return report
+
+
+def _read_jsonl_tolerant(path: str):
+    """(records, skipped) — a killed run's torn final line is counted,
+    never silently dropped."""
+    records: List[dict] = []
+    skipped = 0
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                skipped += 1
+    return records, skipped
+
+
+def diagnose(directory: str, out=None) -> dict:
+    """Post-mortem over a telemetry output directory: correlate the
+    newest ``flightrec_<step>.json`` with events.jsonl and trace.json —
+    which stage failed first, whether/what degraded, the queue-depth
+    trajectory leading up to it, and the original exception.  Every
+    artifact is optional (a crash may have lost some); truncated files
+    are tolerated and the skip counts reported."""
+    out = out if out is not None else sys.stdout
+    report: dict = {"directory": directory, "skipped_lines": 0}
+    print(f"telemetry diagnose: {directory}", file=out)
+
+    # -- flight record (newest by step) ---------------------------------
+    recs = glob.glob(os.path.join(directory, "flightrec_*.json"))
+
+    def _step_of(p):
+        try:
+            return int(os.path.basename(p)[len("flightrec_"):-len(".json")])
+        except ValueError:
+            return -1
+    flight = None
+    if recs:
+        path = max(recs, key=_step_of)
+        try:
+            with open(path) as f:
+                flight = json.load(f)
+        except (OSError, ValueError) as e:
+            print(f"  flight record {os.path.basename(path)}: "
+                  f"UNREADABLE ({e})", file=out)
+    if flight is None:
+        print("  flight record      none found", file=out)
+    else:
+        report["flightrec_step"] = flight.get("step")
+        report["reason"] = flight.get("reason")
+        report["error"] = flight.get("error")
+        print(f"  flight record      step {flight.get('step')} — "
+              f"{flight.get('reason')}", file=out)
+        if flight.get("error"):
+            print(f"  original exception {flight['error']}", file=out)
+        first_failure = None
+        degraded = []
+        for sname, st in (flight.get("stages") or {}).items():
+            if st.get("degraded"):
+                degraded.append(sname)
+            for ev in st.get("events") or []:
+                if ev.get("kind") in ("failure", "surfaced", "poison",
+                                      "job_failed"):
+                    if first_failure is None or \
+                            ev.get("t", 0) < first_failure[1].get("t", 0):
+                        first_failure = (sname, ev)
+        report["degraded_stages"] = sorted(degraded)
+        if degraded:
+            print(f"  degraded stage(s)  {', '.join(sorted(degraded))}",
+                  file=out)
+        if first_failure is not None:
+            sname, ev = first_failure
+            report["first_failure_stage"] = sname
+            report["first_failure_error"] = ev.get("error")
+            print(f"  first failure      stage {sname!r}: "
+                  f"{ev.get('error')}", file=out)
+            if report.get("error") is None:
+                report["error"] = ev.get("error")
+        for sname, st in sorted((flight.get("stages") or {}).items()):
+            depths = [ev["depth"] for ev in st.get("events") or []
+                      if ev.get("depth") is not None]
+            evn = len(st.get("events") or [])
+            if depths:
+                print(f"  stage {sname:<12} {evn} events; queue depth "
+                      f"{depths[0]} -> {depths[-1]} "
+                      f"(min {min(depths)}, max {max(depths)})",
+                      file=out)
+                report.setdefault("depth_trajectory", {})[sname] = {
+                    "first": depths[0], "last": depths[-1],
+                    "min": min(depths), "max": max(depths),
+                    "samples": len(depths)}
+            else:
+                print(f"  stage {sname:<12} {evn} events", file=out)
+
+    # -- events.jsonl correlation ---------------------------------------
+    records: List[dict] = []
+    events_path = os.path.join(directory, "events.jsonl")
+    if os.path.isfile(events_path):
+        records, skipped = _read_jsonl_tolerant(events_path)
+        report["skipped_lines"] = skipped
+        steps = [r.get("step") for r in records
+                 if r.get("kind") == "step" and r.get("step") is not None]
+        failed_reqs = [r for r in records
+                       if r.get("kind") == "serve_request"
+                       and r.get("error")]
+        report["last_step"] = max(steps) if steps else None
+        report["failed_requests"] = len(failed_reqs)
+        print(f"  events.jsonl       {len(records)} records, last step "
+              f"{report['last_step']}", file=out)
+        if failed_reqs:
+            r0 = failed_reqs[0]
+            print(f"  failed requests    {len(failed_reqs)} (first: "
+                  f"rid={r0.get('rid')} {r0.get('error')})", file=out)
+        if skipped:
+            print(f"  (skipped {skipped} malformed/torn events.jsonl "
+                  "line(s) — truncated final write of a killed run)",
+                  file=out)
+    else:
+        print("  events.jsonl       not present", file=out)
+
+    # -- serving-fleet correlation (docs/serving.md "serving fleet") ----
+    # a fleet directory holds the router's events.jsonl (fleet_* kinds)
+    # plus one replica_<id>/ telemetry subdir per replica — correlate
+    # them into the fleet post-mortem: which replica failed first, how
+    # many requests failed over, and which never completed (dangling)
+    replica_dirs = sorted(
+        p for p in glob.glob(os.path.join(directory, "replica_*"))
+        if os.path.isdir(p))
+    fleet_kinds = any(str(r.get("kind", "")).startswith("fleet_")
+                      or r.get("kind") in ("replica_dead", "spawn")
+                      for r in records)
+    if replica_dirs or fleet_kinds:
+        submits = {r.get("rid") for r in records
+                   if r.get("kind") == "fleet_submit"}
+        completes = {r.get("rid") for r in records
+                     if r.get("kind") == "fleet_request"}
+        dangling = sorted(x for x in submits - completes
+                          if x is not None)
+        deaths = [r for r in records if r.get("kind") == "replica_dead"]
+        failovers = sum(int(r.get("failed_over") or 0) for r in deaths)
+        midstream = [r for r in records
+                     if r.get("kind") == "fleet_request"
+                     and r.get("error")]
+        report["fleet_replica_dirs"] = len(replica_dirs)
+        report["fleet_failover_count"] = failovers
+        report["fleet_dangling_requests"] = len(dangling)
+        report["fleet_failed_requests"] = len(midstream)
+        print(f"  fleet              {len(replica_dirs)} replica "
+              f"dir(s), {len(deaths)} replica death(s), {failovers} "
+              "request(s) failed over", file=out)
+        if deaths:
+            d0 = min(deaths, key=lambda r: r.get("t", 0))
+            report["fleet_first_dead_replica"] = d0.get("replica")
+            print(f"  first replica dead replica {d0.get('replica')} — "
+                  f"{d0.get('reason')}", file=out)
+        # earliest failure event across the replicas' own flight
+        # records: the corpse that started the cascade
+        first_fail = None
+        for rd in replica_dirs:
+            for path in glob.glob(os.path.join(rd, "flightrec_*.json")):
+                try:
+                    with open(path) as f:
+                        doc = json.load(f)
+                except (OSError, ValueError):
+                    continue
+                for sname, st in (doc.get("stages") or {}).items():
+                    for ev in st.get("events") or []:
+                        if ev.get("kind") in ("failure", "poison",
+                                              "surfaced", "job_failed"):
+                            key = (ev.get("t", 0), os.path.basename(rd),
+                                   sname, ev.get("error"))
+                            if first_fail is None or key < first_fail:
+                                first_fail = key
+        if first_fail is not None:
+            _, rname, sname, ferr = first_fail
+            report["fleet_first_failing_replica"] = rname
+            print(f"  first failing      {rname} (stage {sname!r}): "
+                  f"{ferr}", file=out)
+        # per-role breakdown (disaggregated fleets, docs/serving.md
+        # "disaggregated fleet"): spawn records carry the role, and the
+        # migration records ARE the custody ledger — which phase of the
+        # fleet was dying, and where every migrated KV blob ended up
+        role_of = {r.get("replica"): r.get("role") for r in records
+                   if r.get("kind") == "spawn" and r.get("role")}
+        migrations = [r for r in records
+                      if r.get("kind") == "migration"]
+        if any(v != "mixed" for v in role_of.values()) or migrations:
+            by_role: dict = {}
+            for repid, role in sorted(
+                    (k, v) for k, v in role_of.items()
+                    if k is not None):
+                by_role.setdefault(role, []).append(repid)
+            report["fleet_roles"] = {k: len(v)
+                                     for k, v in by_role.items()}
+            for role in sorted(by_role):
+                ids = by_role[role]
+                role_deaths = [d for d in deaths
+                               if d.get("replica") in ids]
+                line = (f"  role {role:<13} {len(ids)} replica(s) "
+                        f"spawned, {len(role_deaths)} death(s)")
+                if role_deaths:
+                    d0 = min(role_deaths, key=lambda r: r.get("t", 0))
+                    report.setdefault("fleet_role_first_dead",
+                                      {})[role] = d0.get("replica")
+                    line += (f"; first dead replica "
+                             f"{d0.get('replica')} — "
+                             f"{d0.get('reason')}")
+                print(line, file=out)
+            if migrations:
+                taken = sum(1 for m in migrations
+                            if m.get("custody") == "router"
+                            and not m.get("requeued"))
+                handed = sum(1 for m in migrations
+                             if m.get("custody") == "decode")
+                requeued = sum(1 for m in migrations
+                               if m.get("requeued"))
+                report["fleet_migrations"] = handed
+                report["fleet_migration_requeued"] = requeued
+                line = (f"  migrations         {taken} KV blob(s) "
+                        f"into router custody, {handed} handed to "
+                        "decode replicas")
+                if requeued:
+                    line += (f", {requeued} re-dispatched after a "
+                             "decode-replica death")
+                print(line, file=out)
+        if midstream:
+            m0 = midstream[0]
+            print(f"  mid-stream failed  {len(midstream)} request(s) "
+                  f"(first: rid={m0.get('rid')} {m0.get('error')})",
+                  file=out)
+        if dangling:
+            shown = ", ".join(str(x) for x in dangling[:8])
+            more = "..." if len(dangling) > 8 else ""
+            print(f"  DANGLING requests  {len(dangling)} submitted but "
+                  f"never completed (rid {shown}{more}) — in flight "
+                  "at the failure", file=out)
+
+    # -- trace.json correlation -----------------------------------------
+    trace_path = os.path.join(directory, "trace.json")
+    if os.path.isfile(trace_path):
+        try:
+            with open(trace_path) as f:
+                doc = json.load(f)
+            evs = doc.get("traceEvents", [])
+            flows = [e for e in evs if e.get("ph") in ("s", "t", "f")]
+            starts = {e["id"] for e in flows if e["ph"] == "s"}
+            ends = {e["id"] for e in flows if e["ph"] == "f"}
+            dangling = len(starts - ends)
+            dropped = int((doc.get("otherData") or {})
+                          .get("dropped_events", 0))
+            report["trace_events"] = len(evs)
+            report["flow_events"] = len(flows)
+            report["dangling_flows"] = dangling
+            report["trace_dropped_events"] = dropped
+            note = ""
+            if dangling:
+                note = (f", {dangling} DANGLING flow(s) — work in "
+                        "flight at the failure")
+                if dropped:
+                    # a capped buffer can drop a flow's events; don't
+                    # let that masquerade as in-flight work
+                    note += (" (CAVEAT: trace buffer dropped "
+                             f"{dropped} events — dangling may be "
+                             "truncation, not in-flight work)")
+            elif dropped:
+                note = f" ({dropped} events dropped at the buffer cap)"
+            print(f"  trace.json         {len(evs)} events, "
+                  f"{len(flows)} flow events{note}", file=out)
+        except (OSError, ValueError) as e:
+            # a killed run can tear the trace mid-write; say so rather
+            # than crash the post-mortem
+            report["trace_unreadable"] = True
+            print(f"  trace.json         unreadable/truncated ({e})",
+                  file=out)
+    else:
+        print("  trace.json         not present", file=out)
+    return report
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m deepspeed_tpu_torch.telemetry",
+        description="offline reports over telemetry event files")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p_sum = sub.add_parser("summarize",
+                           help="p50/p95/p99 step time, samples/sec, "
+                                "peak HBM from an events.jsonl")
+    p_sum.add_argument("events", help="path to events.jsonl")
+    p_diag = sub.add_parser(
+        "diagnose",
+        help="post-mortem over a telemetry output dir (or a serving-"
+             "fleet dir): correlate flightrec_*.json + events.jsonl + "
+             "trace.json, plus per-replica flight records and the "
+             "router request ledger for fleet dirs")
+    p_diag.add_argument("directory",
+                        help="telemetry output directory (holds "
+                             "flightrec_*.json / events.jsonl / "
+                             "trace.json) or a fleet directory "
+                             "(router events.jsonl + replica_<id>/ "
+                             "subdirs)")
+    args = parser.parse_args(argv)
+    if args.cmd == "summarize":
+        try:
+            summarize(args.events)
+        except OSError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        return 0
+    if args.cmd == "diagnose":
+        if not os.path.isdir(args.directory):
+            print(f"error: {args.directory} is not a directory",
+                  file=sys.stderr)
+            return 2
+        diagnose(args.directory)
+        return 0
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

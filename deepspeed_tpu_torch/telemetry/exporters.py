@@ -1,0 +1,212 @@
+"""Exporters: JSONL event stream, Prometheus text format, SummaryWriter
+bridge.
+
+One registry, three read paths:
+
+  - ``JsonlExporter`` appends structured event records (step timings,
+    memory samples, periodic metric snapshots) that
+    ``python -m deepspeed_tpu_torch.telemetry summarize`` consumes offline.
+  - ``prometheus_text`` renders the registry in the Prometheus text
+    exposition format (counters/gauges as plain samples, histograms as
+    quantile summaries) for a node_exporter-style scrape file.
+  - ``SummaryWriterBridge`` pushes scalar views into the existing
+    ``utils.monitor.SummaryWriter`` so TensorBoard keeps working without
+    a second collection path.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import time
+from typing import Dict, Optional
+
+from .registry import Counter, Gauge, Histogram, MetricsRegistry
+
+
+class JsonlExporter:
+    """Append-only JSONL event file; flush/close idempotent.
+
+    Writes run on the TRAINING path (record_step buffers a line per
+    step), so I/O failure must degrade, not kill the run: the first
+    OSError (disk full, EIO, ...) logs one warning and disables the
+    exporter — the repo-wide 'never let observability kill the step'
+    rule (utils/timer.py states the same for timing)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        parent = os.path.dirname(path)
+        if parent:
+            os.makedirs(parent, exist_ok=True)
+        # "w", not "a": one run per file, consistent with trace.json /
+        # metrics.prom — appending would silently blend two runs' steps
+        # in summarize.  Point output_path at a per-run directory to
+        # keep history.
+        self._fh = open(path, "w")
+        self._closed = False
+        self._degraded = False
+
+    def _disable(self, exc: BaseException):
+        from ..utils.logging import logger
+        self._degraded = True
+        logger.warning(
+            "telemetry JSONL exporter disabled after write failure on "
+            "%s: %r (training continues; no further events recorded)",
+            self.path, exc)
+
+    def write_event(self, kind: str, data: dict, ts: Optional[float] = None):
+        if self._closed or self._degraded:
+            return
+        rec = {"kind": kind, "ts": time.time() if ts is None else ts}
+        rec.update(data)
+        try:
+            self._fh.write(json.dumps(rec) + "\n")
+        except (OSError, ValueError) as e:  # ValueError: closed file obj
+            self._disable(e)
+
+    def write_snapshot(self, registry: MetricsRegistry,
+                       step: Optional[int] = None):
+        self.write_event("metrics", {"step": step,
+                                     "metrics": registry.snapshot()})
+
+    def flush(self):
+        if self._closed or self._degraded:
+            return
+        try:
+            self._fh.flush()
+        except (OSError, ValueError) as e:
+            self._disable(e)
+
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        try:
+            self._fh.close()
+        except OSError:
+            pass
+
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    out = _NAME_RE.sub("_", name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _prom_labels(labels: Dict[str, str], extra: Optional[Dict] = None) -> str:
+    items = dict(labels)
+    if extra:
+        items.update(extra)
+    if not items:
+        return ""
+    body = ",".join(
+        '%s="%s"' % (_prom_name(str(k)),
+                     str(v).replace("\\", r"\\").replace('"', r'\"')
+                     .replace("\n", r"\n"))
+        for k, v in sorted(items.items()))
+    return "{" + body + "}"
+
+
+def _prom_value(v) -> str:
+    if v is None or (isinstance(v, float) and math.isnan(v)):
+        return "NaN"
+    return repr(float(v))
+
+
+def _prom_help(text: str) -> str:
+    """HELP-text escaping per the exposition format: backslash and
+    newline (label values additionally escape double quotes; HELP does
+    not).  A multi-line docstring-ish help must not tear the line-based
+    format."""
+    return text.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def prometheus_text(registry: MetricsRegistry) -> str:
+    """Prometheus text exposition format, one sample per line (every
+    non-comment line is ``name{labels} value`` — the acceptance test
+    parses line-by-line).  Every metric gets a ``# HELP`` line: metrics
+    registered without help text fall back to their own name, so a
+    scraper's metadata view never has silent gaps."""
+    lines = []
+    for m in registry.metrics():
+        name = _prom_name(m.name)
+        lines.append(f"# HELP {name} {_prom_help(m.help or m.name)}")
+        if isinstance(m, Counter):
+            lines.append(f"# TYPE {name} counter")
+            for key, v in m.series():
+                lines.append(f"{name}{_prom_labels(dict(key))} "
+                             f"{_prom_value(v)}")
+        elif isinstance(m, Gauge):
+            lines.append(f"# TYPE {name} gauge")
+            for key, v in m.series():
+                lines.append(f"{name}{_prom_labels(dict(key))} "
+                             f"{_prom_value(v)}")
+        elif isinstance(m, Histogram):
+            lines.append(f"# TYPE {name} summary")
+            for key, res in m.series():
+                labels = dict(key)
+                for q in (0.5, 0.95, 0.99):
+                    lines.append(
+                        f"{name}{_prom_labels(labels, {'quantile': q})} "
+                        f"{_prom_value(res.percentile(q))}")
+                lines.append(f"{name}_sum{_prom_labels(labels)} "
+                             f"{_prom_value(res.total)}")
+                lines.append(f"{name}_count{_prom_labels(labels)} "
+                             f"{_prom_value(res.count)}")
+    return "\n".join(lines) + "\n"
+
+
+def write_prometheus(registry: MetricsRegistry, path: str) -> str:
+    """Atomic-ish scrape-file write (tmp + rename) so a concurrent
+    scraper never reads a half-written exposition."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        f.write(prometheus_text(registry))
+    os.replace(tmp, path)
+    return path
+
+
+class SummaryWriterBridge:
+    """Mirror registry scalars into a SummaryWriter at sync points.
+
+    Counters/gauges land as their value, histograms as p50/p95 pairs —
+    all under a ``telemetry/`` tag prefix so they don't collide with the
+    engine's own ``Train/*`` scalars."""
+
+    def __init__(self, registry: MetricsRegistry, writer):
+        self.registry = registry
+        self.writer = writer
+
+    @staticmethod
+    def _tag(name: str, labels: Dict[str, str], suffix: str = "") -> str:
+        tag = "telemetry/" + name
+        if labels:
+            tag += "." + ".".join(f"{k}_{v}" for k, v in sorted(
+                labels.items()))
+        return tag + suffix
+
+    def push(self, step: int):
+        for m in self.registry.metrics():
+            if isinstance(m, (Counter, Gauge)):
+                for key, v in m.series():
+                    self.writer.add_scalar(self._tag(m.name, dict(key)),
+                                           float(v), step)
+            elif isinstance(m, Histogram):
+                for key, res in m.series():
+                    labels = dict(key)
+                    p50 = res.percentile(0.5)
+                    p95 = res.percentile(0.95)
+                    if p50 is not None:
+                        self.writer.add_scalar(
+                            self._tag(m.name, labels, ".p50"), p50, step)
+                    if p95 is not None:
+                        self.writer.add_scalar(
+                            self._tag(m.name, labels, ".p95"), p95, step)

@@ -1,0 +1,220 @@
+"""TelemetryHub — the facade the engine owns.
+
+One hub per engine wires registry + tracer + compile monitor + memory
+sampler + exporters together and exposes exactly two cadences:
+
+  ``record_step``  — every ``train_batch``; host-only (counter bump,
+                     histogram observe, buffered JSONL write).  MUST
+                     never touch a device buffer: the engine's async
+                     dispatch overlap is the thing being measured.
+  ``on_sync``      — at the engine's existing sync points (the periodic
+                     ``steps_per_print`` metrics materialization).  This
+                     is where the synced step-time histogram, memory
+                     gauges, compile samples, Prometheus scrape file,
+                     and flushes happen — telemetry rides the drain the
+                     engine was already paying for.
+
+``close()`` is idempotent and exports the Chrome trace.  (A copy of
+``deepspeed_tpu/telemetry/hub.py``; ``device`` names the engine's device
+for the memory sampler.)
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Optional
+
+from .compile_monitor import CompileMonitor
+from .exporters import JsonlExporter, SummaryWriterBridge, write_prometheus
+from .memory import MemorySampler
+from .registry import MetricsRegistry
+from .tracing import TraceRecorder
+
+EVENTS_FILE = "events.jsonl"
+TRACE_FILE = "trace.json"
+PROM_FILE = "metrics.prom"
+FLIGHTREC_PREFIX = "flightrec_"
+FLIGHTREC_VERSION = 1
+
+
+def write_flight_record(directory: str, stages, step: int, reason: str,
+                        error=None, extra: Optional[dict] = None) -> str:
+    """Dump the fault plane's recent history as ``flightrec_<step>.json``
+    (docs/observability.md: the flightrec schema).  ``stages`` maps
+    stage name -> an object exposing ``flight_snapshot()`` (the
+    :class:`~..runtime.stages.Stage` record).  tmp+rename so a reader
+    (or a second dump racing a crash) never sees a torn record; the
+    caller decides the trigger (poison, degradation, SIGTERM, anomaly,
+    on demand)."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{FLIGHTREC_PREFIX}{int(step)}.json")
+    payload = {
+        "version": FLIGHTREC_VERSION,
+        "reason": reason,
+        "step": int(step),
+        "time": time.time(),
+        "error": repr(error) if error is not None else None,
+        "stages": {name: st.flight_snapshot()
+                   for name, st in dict(stages).items()},
+    }
+    if extra:
+        payload["extra"] = extra
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f, default=repr)
+    os.replace(tmp, path)
+    return path
+
+
+class TelemetryHub:
+    def __init__(self, output_path: str, *,
+                 trace: bool = True,
+                 compile_events: bool = True,
+                 memory: bool = True,
+                 storm_threshold: int = 3,
+                 summary_writer=None,
+                 process_index: int = 0,
+                 device=None):
+        self.output_path = output_path
+        os.makedirs(output_path, exist_ok=True)
+        self.registry = MetricsRegistry()
+        self.tracer = (TraceRecorder(pid=process_index)
+                       if trace else None)
+        self.jsonl = JsonlExporter(os.path.join(output_path, EVENTS_FILE))
+        self.compile_monitor = None
+        if compile_events:
+            self.compile_monitor = CompileMonitor(
+                self.registry, storm_threshold=storm_threshold)
+            self.compile_monitor.install()
+        self.memory_sampler = (MemorySampler(self.registry, device)
+                              if memory else None)
+        self.bridge = (SummaryWriterBridge(self.registry, summary_writer)
+                       if summary_writer is not None else None)
+
+        self.steps_total = self.registry.counter(
+            "train_steps_total", "train_batch calls")
+        self.dispatch_seconds = self.registry.histogram(
+            "train_dispatch_seconds",
+            "host-side train_batch latency (enqueue, NOT device step "
+            "time — see train_step_seconds)")
+        self.step_seconds = self.registry.histogram(
+            "train_step_seconds",
+            "synced per-step wall time (interval average at each "
+            "steps_per_print materialization)")
+        self._interval_span = None
+        self._closed = False
+
+    # -- per-step (host-only, no syncs) ---------------------------------
+    def record_step(self, step: int, dispatch_s: float,
+                    samples: Optional[int] = None):
+        self.steps_total.inc()
+        self.dispatch_seconds.observe(dispatch_s)
+        data = {"step": int(step), "dispatch_s": float(dispatch_s)}
+        if samples is not None:
+            data["samples"] = int(samples)
+        self.jsonl.write_event("step", data)
+
+    def track_program(self, name: str, fn) -> bool:
+        if self.compile_monitor is None:
+            return False
+        return self.compile_monitor.track(name, fn)
+
+    def span(self, name: str, cat: str = "runtime", **args):
+        """Context manager; a no-op context when tracing is disabled."""
+        if self.tracer is None:
+            import contextlib
+            return contextlib.nullcontext()
+        return self.tracer.span(name, cat, **args)
+
+    # -- at the engine's existing sync points ---------------------------
+    def on_sync(self, step: int, *, interval_s: Optional[float] = None,
+                steps: Optional[int] = None,
+                samples_per_step: Optional[int] = None,
+                scalars: Optional[dict] = None):
+        if self._closed:
+            return
+        avg = None
+        if interval_s is not None and steps:
+            avg = interval_s / steps
+            self.step_seconds.observe(avg)
+        sync_data = {"step": int(step)}
+        if interval_s is not None:
+            sync_data["interval_s"] = float(interval_s)
+        if steps is not None:
+            sync_data["steps"] = int(steps)
+        if avg is not None:
+            sync_data["step_avg_s"] = avg
+        if samples_per_step is not None:
+            sync_data["samples_per_step"] = int(samples_per_step)
+            if avg:
+                sync_data["samples_per_sec"] = samples_per_step / avg
+        if scalars:
+            sync_data["scalars"] = {k: float(v) for k, v in scalars.items()}
+        self.jsonl.write_event("sync", sync_data)
+
+        if self.tracer is not None:
+            if self._interval_span is not None:
+                self._interval_span.end(steps=steps)
+            self._interval_span = self.tracer.begin(
+                "train/steps_interval", cat="train")
+
+        if self.memory_sampler is not None:
+            stats = self.memory_sampler.sample()
+            self.jsonl.write_event("memory", {"step": int(step),
+                                              "stats": stats})
+            if self.tracer is not None:
+                for dev in stats.get("devices", [])[:8]:
+                    if dev.get("bytes_in_use") is not None:
+                        self.tracer.counter(
+                            f"hbm/device{dev.get('id')}",
+                            {"bytes_in_use": dev["bytes_in_use"]})
+        if self.compile_monitor is not None:
+            self.compile_monitor.sample()
+
+        self.jsonl.write_snapshot(self.registry, step=step)
+        self.jsonl.flush()
+        try:
+            write_prometheus(self.registry,
+                             os.path.join(self.output_path, PROM_FILE))
+        except OSError:
+            # scrape file is best-effort on the training path; the JSONL
+            # exporter degrades itself with a warning on the same class
+            # of failure
+            pass
+        if self.bridge is not None:
+            self.bridge.push(step)
+
+    def dump_flight_record(self, stages, step: int, reason: str,
+                           error=None,
+                           extra: Optional[dict] = None) -> str:
+        """Flight-record dump into this hub's output directory; see
+        :func:`write_flight_record`.  Safe to call after ``close()``
+        (post-mortems happen at shutdown)."""
+        return write_flight_record(self.output_path, stages, step,
+                                   reason, error=error, extra=extra)
+
+    # -- shutdown -------------------------------------------------------
+    def close(self):
+        if self._closed:
+            return
+        self._closed = True
+        if self._interval_span is not None:
+            self._interval_span.end()
+            self._interval_span = None
+        if self.compile_monitor is not None:
+            self.compile_monitor.sample()
+            self.compile_monitor.uninstall()
+        try:
+            write_prometheus(self.registry,
+                             os.path.join(self.output_path, PROM_FILE))
+        except OSError:
+            pass
+        self.jsonl.write_snapshot(self.registry)
+        self.jsonl.close()
+        if self.tracer is not None:
+            try:
+                self.tracer.export(
+                    os.path.join(self.output_path, TRACE_FILE))
+            except OSError:
+                pass

@@ -1,0 +1,305 @@
+"""Span tracing → Chrome/Perfetto trace-event JSON.
+
+Spans are HOST-side intervals: ``span()`` stamps ``time.perf_counter``
+at enter/exit and appends one complete ("ph": "X") event — no device
+sync anywhere in this module.  For compiled-step work that means a span
+measures *dispatch* latency, which is exactly the point: the engine
+emits a ``train/steps_interval`` span at its periodic ``steps_per_print``
+materialization, and that synced interval is the ground truth the
+per-step dispatch spans are read against (the same discipline as
+``engine._report``; see docs/observability.md).  Unlike the
+``wall_clock_breakdown`` timers, tracing never adds a
+``block_until_ready`` to the step path.
+
+The exported file loads in ``chrome://tracing`` / Perfetto and in
+``json.loads`` — every event carries ``ph``/``ts``/``name`` (the
+acceptance contract tests assert).
+
+Causal tracing (docs/observability.md): a :class:`TraceContext` is the
+lightweight identity that rides an item across a stage boundary (a
+prefetched batch through its channel, a checkpoint job into the writer,
+a serve request through its queue), and the ``flow_start`` /
+``flow_step`` / ``flow_end`` methods emit Chrome *flow events*
+(``ph: s/t/f``) that draw causal arrows between the spans enclosing
+them — producer thread to consumer thread.  Flow events are plain
+host-side appends emitted INSIDE already-open spans, so the tested
+zero-added-device-syncs contract is untouched.  Chrome binds a flow by
+the (cat, id, name) triple; emit every phase of one flow with the same
+name.  ``flush_flows`` (called by ``export``) terminates flows still
+open at shutdown so an aborted run's arrows don't dangle.
+"""
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+_ids = itertools.count(1)
+
+
+def _next_id() -> int:
+    # itertools.count.__next__ is atomic under the GIL
+    return next(_ids)
+
+
+class TraceContext:
+    """Process-wide-unique identity for one unit of work crossing a
+    stage boundary.  ``trace_id`` is the Chrome flow id; ``span_id`` /
+    ``parent_id`` give nested hand-offs (``child()``) a lineage without
+    any global registry.  Deliberately tiny: it is attached to every
+    prefetched batch and serve request on hot paths."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id")
+
+    def __init__(self, trace_id: int, span_id: int = 0,
+                 parent_id: int = 0):
+        self.trace_id = int(trace_id)
+        self.span_id = int(span_id)
+        self.parent_id = int(parent_id)
+
+    @classmethod
+    def new(cls) -> "TraceContext":
+        return cls(trace_id=_next_id())
+
+    def child(self) -> "TraceContext":
+        """A hand-off one hop further down the same flow."""
+        return TraceContext(self.trace_id, span_id=_next_id(),
+                            parent_id=self.span_id)
+
+    def __repr__(self):
+        return (f"TraceContext(trace_id={self.trace_id}, "
+                f"span_id={self.span_id}, parent_id={self.parent_id})")
+
+
+class AsyncSpan:
+    """An open Chrome *async* event pair (``ph: b``/``e``), for
+    intervals that overlap other instances of themselves and cross
+    threads — per-request serving lifetimes.  Complete (``X``) events
+    assume a per-thread call stack and mis-render overlapping,
+    non-nested slices; async events are matched by (cat, id, name) and
+    render on their own track.  The ``b`` is emitted at construction on
+    the opening thread; ``end()`` (idempotent) emits the ``e`` wherever
+    the interval actually closes."""
+
+    __slots__ = ("_tracer", "name", "cat", "id", "_done")
+
+    def __init__(self, tracer: "TraceRecorder", name: str, cat: str,
+                 span_id: int, args: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.id = int(span_id)
+        self._done = False
+        tracer._emit_async("b", name, cat, self.id, args)
+
+    def end(self, **extra_args):
+        if self._done:
+            return
+        self._done = True
+        self._tracer._emit_async("e", self.name, self.cat, self.id,
+                                 extra_args or None)
+
+
+class SpanHandle:
+    """An open span; ``end()`` closes it (idempotent).  Used where a
+    ``with`` block cannot bracket the interval — e.g. a span opened at
+    dispatch and closed at the next periodic sync."""
+
+    __slots__ = ("_tracer", "name", "cat", "args", "_start", "_done")
+
+    def __init__(self, tracer: "TraceRecorder", name: str, cat: str,
+                 args: Optional[Dict[str, Any]]):
+        self._tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+        self._start = tracer._now_us()
+        self._done = False
+
+    def end(self, **extra_args):
+        if self._done:
+            return
+        self._done = True
+        args = dict(self.args or {})
+        args.update(extra_args)
+        self._tracer._emit_complete(self.name, self.cat, self._start,
+                                    self._tracer._now_us() - self._start,
+                                    args or None)
+
+
+class TraceRecorder:
+    """Thread-safe, bounded trace-event buffer.
+
+    ``max_events`` bounds memory for long runs; overflow increments a
+    drop counter that ``export`` records as metadata instead of silently
+    truncating (the no-silent-caps rule)."""
+
+    def __init__(self, process_name: str = "deepspeed_tpu_torch",
+                 pid: int = 0, max_events: int = 200_000):
+        self._lock = threading.Lock()
+        self._events: List[dict] = []
+        self._dropped = 0
+        self._origin = time.perf_counter()
+        self.pid = pid
+        self.process_name = process_name
+        self.max_events = max_events
+        self._tids: Dict[int, int] = {}
+        #: flows started but not yet finished: flow_id -> (name, cat);
+        #: flush_flows terminates them so arrows never dangle
+        self._open_flows: Dict[int, Tuple[str, str]] = {}
+
+    # -- clock / ids ----------------------------------------------------
+    def _now_us(self) -> float:
+        return (time.perf_counter() - self._origin) * 1e6
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        with self._lock:
+            tid = self._tids.get(ident)
+            if tid is None:
+                tid = self._tids[ident] = len(self._tids)
+            return tid
+
+    # -- recording ------------------------------------------------------
+    def _append(self, ev: dict, force: bool = False) -> bool:
+        """``force`` bypasses the cap — used ONLY for flow terminators,
+        whose count is bounded by the flow starts already admitted (a
+        dropped ``f`` would leave an ``s`` dangling and make diagnose
+        report phantom in-flight work on a healthy capped run)."""
+        with self._lock:
+            if not force and len(self._events) >= self.max_events:
+                self._dropped += 1
+                return False
+            self._events.append(ev)
+            return True
+
+    def _emit_complete(self, name: str, cat: str, ts_us: float,
+                       dur_us: float, args: Optional[dict]):
+        ev = {"name": name, "cat": cat, "ph": "X", "pid": self.pid,
+              "tid": self._tid(), "ts": round(ts_us, 3),
+              "dur": round(max(dur_us, 0.0), 3)}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    @contextlib.contextmanager
+    def span(self, name: str, cat: str = "runtime", **args):
+        handle = SpanHandle(self, name, cat, args or None)
+        try:
+            yield handle
+        finally:
+            handle.end()
+
+    def begin(self, name: str, cat: str = "runtime", **args) -> SpanHandle:
+        return SpanHandle(self, name, cat, args or None)
+
+    def _emit_async(self, ph: str, name: str, cat: str, span_id: int,
+                    args: Optional[dict]):
+        ev = {"name": name, "cat": cat, "ph": ph, "id": int(span_id),
+              "pid": self.pid, "tid": self._tid(),
+              "ts": round(self._now_us(), 3)}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    def async_begin(self, name: str, span_id: int, cat: str = "runtime",
+                    **args) -> AsyncSpan:
+        """Open an async (``b``/``e``) interval — overlap-safe and
+        cross-thread; use for per-request lifetimes where many
+        instances of the same name run concurrently."""
+        return AsyncSpan(self, name, cat, span_id, args or None)
+
+    def instant(self, name: str, cat: str = "runtime", **args):
+        ev = {"name": name, "cat": cat, "ph": "i", "s": "p",
+              "pid": self.pid, "tid": self._tid(),
+              "ts": round(self._now_us(), 3)}
+        if args:
+            ev["args"] = args
+        self._append(ev)
+
+    # -- flow events (causal arrows between spans) ----------------------
+    @staticmethod
+    def _flow_id(ctx) -> int:
+        return ctx if isinstance(ctx, int) else int(ctx.trace_id)
+
+    def _emit_flow(self, ph: str, name: str, cat: str, ctx,
+                   args: Optional[dict]) -> bool:
+        ev = {"name": name, "cat": cat, "ph": ph, "id": self._flow_id(ctx),
+              "pid": self.pid, "tid": self._tid(),
+              "ts": round(self._now_us(), 3)}
+        if ph == "f":
+            ev["bp"] = "e"  # bind to the enclosing slice, like s/t do
+        if args:
+            ev["args"] = args
+        # terminators ride past the cap: an admitted "s" must never be
+        # left dangling because its "f" arrived after the buffer filled
+        return self._append(ev, force=(ph == "f"))
+
+    def flow_start(self, name: str, ctx, cat: str = "flow", **args):
+        """Open a causal flow INSIDE the producer's span (``ph: s`` —
+        the arrow's tail binds to the enclosing slice).  ``ctx`` is a
+        :class:`TraceContext` or a bare int flow id."""
+        if self._emit_flow("s", name, cat, ctx, args or None):
+            with self._lock:
+                self._open_flows[self._flow_id(ctx)] = (name, cat)
+
+    def flow_step(self, name: str, ctx, cat: str = "flow", **args):
+        """Intermediate hand-off (``ph: t``) — e.g. each decode tick a
+        serve request participates in."""
+        self._emit_flow("t", name, cat, ctx, args or None)
+
+    def flow_end(self, name: str, ctx, cat: str = "flow", **args):
+        """Terminate the flow INSIDE the consumer's span (``ph: f`` with
+        ``bp: e`` — the arrowhead binds to the enclosing slice)."""
+        with self._lock:
+            self._open_flows.pop(self._flow_id(ctx), None)
+        self._emit_flow("f", name, cat, ctx, args or None)
+
+    def flush_flows(self) -> int:
+        """Terminate every still-open flow (a poisoned stage, a request
+        in flight at shutdown) so the trace has no dangling arrows;
+        ``export`` calls this.  Returns the number flushed."""
+        with self._lock:
+            pending = list(self._open_flows.items())
+            self._open_flows.clear()
+        for fid, (name, cat) in pending:
+            self._emit_flow("f", name, cat, fid, {"flushed": True})
+        return len(pending)
+
+    def counter(self, name: str, values: Dict[str, float],
+                cat: str = "runtime"):
+        """Chrome counter-track event ("ph": "C") — HBM over time renders
+        as a filled graph in the trace viewer."""
+        self._append({"name": name, "cat": cat, "ph": "C", "pid": self.pid,
+                      "tid": 0, "ts": round(self._now_us(), 3),
+                      "args": {k: float(v) for k, v in values.items()}})
+
+    # -- introspection / export -----------------------------------------
+    def events(self) -> List[dict]:
+        with self._lock:
+            return list(self._events)
+
+    @property
+    def dropped(self) -> int:
+        with self._lock:
+            return self._dropped
+
+    def export(self, path: str):
+        """Write the Chrome trace-event JSON object form."""
+        self.flush_flows()
+        with self._lock:
+            events = list(self._events)
+            dropped = self._dropped
+        meta = [{"name": "process_name", "ph": "M", "pid": self.pid,
+                 "tid": 0, "ts": 0,
+                 "args": {"name": self.process_name}}]
+        payload = {"traceEvents": meta + events,
+                   "displayTimeUnit": "ms"}
+        if dropped:
+            payload["otherData"] = {"dropped_events": dropped}
+        with open(path, "w") as f:
+            json.dump(payload, f)
+        return path

@@ -2,21 +2,30 @@
 """Where a serving tick of the PyTorch port's ServeEngine spends its time,
 on one NVIDIA card.
 
-    python3 profile_serve_torch.py [--ticks N] [--paged [--quant]] [--spec]
+    python3 profile_serve_torch.py [--ticks N] [--paged [--quant] [--lora]]
+                                   [--spec]
 
 Serves full-size GPT-2 small in bf16 (random weights from seed 0, the
 serving config and load of chip_smoke.py: 8 slots, max_seq_len 1024,
 prefill bucket 512, 12 prompts of 16-512 tokens).  ``--paged`` serves from
 the paged pool (page_len 16) instead of the slot cache, ``--quant`` (with
 ``--paged``) with int8 weights and the int8 pool (``quantization:
-{"weights": "int8", "kv": "int8"}``, the serve_quant phase); ``--spec`` makes
+{"weights": "int8", "kv": "int8"}``, the serve_quant phase), ``--lora``
+(with ``--paged``) with multi-tenant LoRA adapters (rank 16, alpha 32, all
+four targets, 4 pool slots; the 8 requests on tenants 0-4, as
+chip_smoke.py's serve_lora phase) and then also prints the device and
+host time of the LoRA products (``_lora_delta``) and gathers
+(``_lora_rows``) per tick, each under a ``torch.profiler.record_function``
+range; ``--spec`` makes
 every tick a speculative block (k = 4, a 2-layer draft cut from the
 target, as chip_smoke.py's serve_spec phase), so a "tick" is one draft
 propose plus one verify pass.  Once all 8 slots decode, it times N ticks
 on the host clock (each ends in the token read-back, which synchronises),
 then traces N more with ``torch.profiler`` and prints: wall per tick,
 tokens per tick, device busy time per tick by kernel name (top 12), the
-decode attention kernels' time per tick, the device's idle share and the
+host ops with the most host time of their own per tick (top 8, under the
+profiler), the decode attention kernels' time per tick, the device's
+idle share and the
 time of one 512-token prefill.  The trace goes to ``chiprun_out/serve_trace.json``.
 """
 import argparse
@@ -36,17 +45,22 @@ def main() -> None:
                     help="serve from the paged pool (page_len 16)")
     ap.add_argument("--quant", action="store_true",
                     help="int8 weights and the int8 pool (needs --paged)")
+    ap.add_argument("--lora", action="store_true",
+                    help="LoRA adapters on 5 tenants (needs --paged)")
     ap.add_argument("--spec", action="store_true",
                     help="speculative ticks (k 4, 2-layer draft)")
     args = ap.parse_args()
     if args.quant and not args.paged:
         ap.error("--quant needs --paged: the int8 pool is paged only")
+    if args.lora and not args.paged:
+        ap.error("--lora needs --paged: LoRA serving is paged only")
     import torch
     if not torch.cuda.is_available():
         sys.exit("profile_serve_torch: needs a CUDA device")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from deepspeed_tpu_torch.inference import ServeEngine
+    from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
 
     dev = torch.device("cuda", 0)
@@ -60,6 +74,19 @@ def main() -> None:
         serving["page_len"] = 16
     if args.quant:
         serving["quantization"] = {"weights": "int8", "kv": "int8"}
+    tenants = [0] * 8
+    if args.lora:
+        serving["lora"] = {"rank": 16, "alpha": 32.0, "hbm_adapter_slots": 4,
+                           "max_adapters": 8,
+                           "targets": ["qkv_w", "out_w", "fc_w", "proj_w"]}
+        tenants = [0, 1, 2, 3, 4, 1, 2, 3]
+        for name in ("_lora_delta", "_lora_rows"):
+            real = getattr(gpt2, name)
+
+            def ranged(*a, _real=real, _name=name, **k):
+                with torch.profiler.record_function(_name):
+                    return _real(*a, **k)
+            setattr(gpt2, name, ranged)
     draft = None
     if args.spec:
         serving.update(speculate_k=4, draft={"d_model": 768, "n_layer": 2,
@@ -77,7 +104,8 @@ def main() -> None:
                for n in rng.integers(16, 513, 12)]
     per_tick = 5 if args.spec else 1
     budget = per_tick * (2 * args.ticks + 8)
-    reqs = [eng.submit(p, max_new_tokens=budget) for p in prompts[:8]]
+    reqs = [eng.submit(p, max_new_tokens=budget, adapter_id=t)
+            for p, t in zip(prompts[:8], tenants)]
     eng.step()  # admits (prefills) all 8, then the first tick
     eng.step()
     torch.cuda.synchronize()
@@ -105,10 +133,12 @@ def main() -> None:
     prof.export_chrome_trace("chiprun_out/serve_trace.json")
 
     rows = []  # device-side events only: kernels and copies
+    ranges = ("_lora_delta", "_lora_rows")  # --lora's annotations
     for ev in prof.key_averages():
         dt = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type == DeviceType.CUDA and dt > 0:
+        if ev.device_type == DeviceType.CUDA and dt > 0 \
+                and ev.key not in ranges:
             rows.append((dt / args.ticks / 1e3, ev.count // args.ticks,
                          ev.key))
     rows.sort(reverse=True)
@@ -117,6 +147,8 @@ def main() -> None:
             else "decode tick")
     cache = ("int8 paged pool, int8 weights" if args.quant else
              "paged pool" if args.paged else "slot cache")
+    if args.lora:
+        cache += ", LoRA rank 16 on 5 tenants"
     print(f"{kind}, {cache}, 8 active slots: {tick_ms:.3f} ms wall "
           f"(unprofiled), {wall_ms:.3f} ms wall under the profiler; "
           f"{tokens_per_tick:.3f} tokens per tick")
@@ -139,6 +171,31 @@ def main() -> None:
     attn_ms = sum(r[0] for r in attn)
     print(f"decode attention kernels: {attn_ms:.4f} ms per tick over "
           f"{sum(r[1] for r in attn)} launches")
+    # the host side: the ops that took the most host time of their own
+    # per tick (under the profiler, which inflates every op alike)
+    host = sorted(((ev.self_cpu_time_total / args.ticks / 1e3,
+                    ev.count // args.ticks, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CPU), reverse=True)
+    print("host ms per tick by op (self time, under the profiler):")
+    for ms, n, key in host[:8]:
+        print(f"  {ms:9.4f} ms  x{n:<4d} {key[:90]}")
+    lora_ms, lora_host_ms = {}, {}
+    if args.lora:
+        # the device time of the kernels each range launched (a CPU-side
+        # event's device total) and the host time spent inside it
+        for ev in prof.key_averages():
+            if ev.key in ranges and ev.device_type == DeviceType.CPU:
+                lora_ms[ev.key] = getattr(
+                    ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0)) / args.ticks / 1e3
+                lora_host_ms[ev.key] = ev.cpu_time_total / args.ticks / 1e3
+        print(f"LoRA products (_lora_delta): "
+              f"{lora_ms.get('_lora_delta', 0.0):.4f} ms per tick on the "
+              f"device, {lora_host_ms.get('_lora_delta', 0.0):.4f} ms on "
+              f"the host (under the profiler); gathers (_lora_rows): "
+              f"{lora_ms.get('_lora_rows', 0.0):.4f} / "
+              f"{lora_host_ms.get('_lora_rows', 0.0):.4f} ms")
 
     # one 512-token prefill into a free slot (host clock, synchronised)
     eng.close()
@@ -149,7 +206,7 @@ def main() -> None:
         row[:32] = np.arange(1, 33)
 
         def prefill():
-            eng._prefill_paged(tokens, 512, 0, row, 0)
+            eng._prefill_paged(tokens, 512, 0, row, 0, int(args.lora))
     else:
         dev_tokens = torch.from_numpy(tokens).to(dev)
 
@@ -165,6 +222,8 @@ def main() -> None:
     print(f"one 512-token prefill (12 layers + logits + read-back): "
           f"{prefill_ms:.3f} ms")
     print(json.dumps({"paged": args.paged, "quant": args.quant,
+                      "lora": args.lora, "lora_ms": lora_ms,
+                      "lora_host_ms": lora_host_ms,
                       "spec": args.spec, "attention_kernel_ms": attn_ms,
                       "tick_ms": tick_ms, "profiled_tick_ms": wall_ms,
                       "tokens_per_tick": tokens_per_tick,

@@ -1,8 +1,8 @@
 """The port stands alone: no module of ``deepspeed_tpu_torch/`` (nor
 ``chip_smoke.py``) imports jax or the JAX package, every module imports
 with jax made unimportable, the serving engine runs on the card unless
-told otherwise, and every config knob whose path is not ported raises
-instead of being silently ignored.
+told otherwise, and every config knob or call whose path is not ported
+raises instead of being silently ignored.
 """
 import ast
 import hashlib
@@ -15,7 +15,6 @@ import pytest
 import torch
 
 import deepspeed_tpu_torch
-import deepspeed_tpu_torch.inference.engine as engine_mod
 from deepspeed_tpu_torch.inference import ServeEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 
@@ -97,41 +96,50 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # paged KV, KV tiering, greedy speculation and quantized serving are
-    # ported; the unported arms beside them (sampling on the tiered pool,
-    # LoRA on the paged pool, sampling) still raise.  The ids name the
-    # ported block each case rides on.
+    # paged KV, KV tiering, speculation, sampling, quantized serving, LoRA
+    # and telemetry are ported: each config builds, and on every one of
+    # them the serving knob still unported, KV-page migration (the serving
+    # fleet's), raises naming its item.  The ids name the block each case
+    # rides on.
     ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3},
-                  "temperature": 0.7}}, "7.3"),
-    ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "7.3"),
-    ({"serving": {"temperature": 0.7}}, "7.3"),
+                  "temperature": 0.7}}, "item 8"),
+    ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "item 8"),
+    ({"serving": {"temperature": 0.7}}, "item 8"),
     ({"serving": {"page_len": 8, "quantization": {"weights": "int8"},
-                  "lora": {"rank": 4}}}, "7.5"),
-    ({"telemetry": {"enabled": True}}, "item 5"),
+                  "lora": {"rank": 4}}}, "item 8"),
+    ({"telemetry": {"enabled": True}}, "item 8"),
 ], ids=["page_len", "speculate_k", "temperature", "quantization",
         "telemetry"])
-def test_unported_knob_raises_naming_its_roadmap_item(extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
-        ServeEngine(GPT2Model(TINY), extra, device="cpu")
+def test_unported_knob_raises_naming_its_roadmap_item(extra, item, tmp_path):
+    if "telemetry" in extra:
+        extra = {"telemetry": {"enabled": True,
+                               "output_path": str(tmp_path)}}
+    eng = ServeEngine(GPT2Model(TINY), extra, device="cpu")
+    for call in (lambda: eng.export_pages(None),
+                 lambda: eng.adopt_request([1], 1, 4, None, [])):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md.*{item}"):
+            call()
+    eng.close()
+    if "telemetry" in extra:
+        assert (tmp_path / "events.jsonl").is_file()
 
 
 def test_unported_paged_only_knobs_and_mesh_raise():
     """kv_tier and lora need page_len > 0 to parse at all; on the paged
-    engine (ported, chunked prefill and the KV tier included) lora raises
-    naming its item, and a mesh raises before anything else."""
-    extra = {"lora": {"rank": 4}}
-    cfg = engine_mod._ServeConfigView({"serving": {"page_len": 8,
-                                                   **extra}})
-    with pytest.raises(NotImplementedError, match="7.5"):
-        engine_mod._refuse_unported(cfg)
-    with pytest.raises(NotImplementedError, match="7.5"):
-        ServeEngine(GPT2Model(TINY), {"serving": {"page_len": 8, **extra}},
-                    device="cpu")
+    engine (chunked prefill, the KV tier and LoRA ported) a tenant's
+    request serves, KV-page migration (``detach_kv``) raises naming item
+    8, and a mesh raises naming item 9 before anything else."""
     eng = ServeEngine(GPT2Model(TINY), {"serving": {
-        "page_len": 8, "prefill_chunk_len": 4,
+        "page_len": 8, "prefill_chunk_len": 4, "lora": {"rank": 4},
         "kv_tier": {"idle_park_ticks": 3}}}, device="cpu")
-    assert eng.paged and eng.prefill_chunk_len == 4
+    assert eng.paged and eng.prefill_chunk_len == 4 and eng.lora
     assert eng.kv_tier is not None and eng.kv_tier.idle_park_ticks == 3
+    req = eng.submit([1, 2, 3], max_new_tokens=2, adapter_id=1)
+    eng.run_until_idle()
+    assert req.error is None and len(req.tokens) == 2
+    with pytest.raises(NotImplementedError, match="item 8"):
+        eng.submit([1, 2, 3], detach_kv=True)
     eng.close()
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")

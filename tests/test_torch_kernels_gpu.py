@@ -881,3 +881,136 @@ def test_block_sparse_entry_points_launch_or_raise(dev):
     with pytest.raises(ValueError, match="contiguous"):
         bs.block_sparse_fwd_cuda(x.transpose(2, 3).contiguous().transpose(
             2, 3), x, x, *luts[:2], 0.125, 16, groups)
+
+
+# ---------------------------------------------------------------------------
+# the samplers on the card (torch ops, no kernel of their own): the CPU
+# tests' statistical bars at GPT-2's vocab, a seed's draws bitwise
+# reproducible, and no host synchronization
+# ---------------------------------------------------------------------------
+
+
+def _zipf_logits(dev, vocab=50257, s=1.1, seed=0):
+    """Logits whose softmax falls off as rank^-s, ranks permuted."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.randperm(vocab, generator=g)
+    ranks = torch.empty(vocab)
+    ranks[perm] = torch.arange(1, vocab + 1, dtype=torch.float32)
+    return (-s * torch.log(ranks)).to(dev)
+
+
+def _chi2_p(obs, probs):
+    """Goodness-of-fit chi-square p over bins of expected count >= 5, the
+    rest pooled."""
+    import numpy as np
+    from scipy import stats
+    exp = probs * obs.sum()
+    big = exp >= 5
+    o = np.append(obs[big], obs[~big].sum())
+    e = np.append(exp[big], exp[~big].sum())
+    return stats.chisquare(o, e * o.sum() / e.sum()).pvalue
+
+
+def _gen(dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def test_select_next_token_on_card_matches_softmax(dev):
+    from deepspeed_tpu_torch.inference.speculative import select_next_token
+    logits = _zipf_logits(dev)
+    T, rows, chunks = 0.8, 4096, 8
+    g = _gen(dev, 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        draws = torch.cat([select_next_token(logits.expand(rows, -1), T, g)
+                           for _ in range(chunks)])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert draws.dtype == torch.int32
+    obs = torch.bincount(draws.long(), minlength=50257).cpu().double()
+    probs = torch.softmax(logits.double() / T, -1).cpu()
+    assert _chi2_p(obs.numpy(), probs.numpy()) >= 1e-3
+    again = select_next_token(logits.expand(rows, -1), T, _gen(dev, 1))
+    assert torch.equal(again, draws[:rows])
+
+
+def test_rejection_sampler_on_card(dev):
+    """S = 4096 rows of one block (k 4, GPT-2's vocab): the first emitted
+    token follows the target's softmax, the mean accepted length its
+    closed form; one seed gives the same output twice; no host sync."""
+    import math
+    from deepspeed_tpu_torch.inference.speculative import (
+        rejection_sample_accept, select_next_token)
+    S, k, V, T = 4096, 4, 50257, 0.8
+    tl = torch.stack([_zipf_logits(dev, seed=i) for i in range(k + 1)])
+    dl = tl[:k] + torch.randn(k, V, generator=_gen(dev, 2), device=dev)
+    p = torch.softmax(tl.double() / T, -1)
+    q = torch.softmax(dl / T, -1)
+    drafts = select_next_token(torch.log(q)[None].expand(S, k, V), 1.0,
+                               _gen(dev, 3))
+    args = (tl[None].expand(S, k + 1, V), drafts, q[None].expand(S, k, V),
+            T)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, acc = rejection_sample_accept(*args, _gen(dev, 4))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out2, acc2 = rejection_sample_accept(*args, _gen(dev, 4))
+    assert torch.equal(out, out2) and torch.equal(acc, acc2)
+    obs = torch.bincount(out[:, 0].long(), minlength=V).cpu().double()
+    assert _chi2_p(obs.numpy(), p[0].cpu().numpy()) >= 1e-3
+    alpha = torch.minimum(p[:k], q.double()).sum(-1).cpu()
+    expect = sum(float(torch.prod(alpha[:i + 1])) for i in range(k))
+    a = acc.double().cpu()
+    z = (float(a.mean()) - expect) / (float(a.std()) / math.sqrt(S))
+    assert abs(z) < 3.29, (float(a.mean()), expect)
+
+
+def test_lora_paged_decode_on_card_matches_cpu(dev):
+    """The paged decode step with adapters (three slots on three pool
+    slots, slot 0 the zero adapter) on the card against the CPU, fp32:
+    the LoRA products are torch bmm on both, the attention the paged
+    kernel against its plain version."""
+    from deepspeed_tpu_torch.inference.adapters import (
+        adapter_param_shapes, synth_adapter)
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2Model,
+                                                 gpt2_decode_step_paged)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GPT2Config(vocab_size=512, n_positions=128, d_model=128,
+                     n_layer=2, n_head=2)
+    params = GPT2Model(cfg).init(0)
+    shapes = adapter_param_shapes(2, 128, 8, ("qkv_w", "out_w", "fc_w",
+                                              "proj_w"))
+    pools = {t: (torch.zeros((2, 3) + a[1:]), torch.zeros((2, 3) + b[1:]))
+             for t, (a, b) in shapes.items()}
+    for slot, aid in ((1, 4), (2, 9)):
+        w = synth_adapter(aid, shapes)
+        for t in pools:
+            pools[t][0][:, slot] = torch.from_numpy(w[t][0])
+            pools[t][1][:, slot] = torch.from_numpy(w[t][1])
+    g = torch.Generator().manual_seed(5)
+    kp = torch.randn(2, 9, 2, 16, 64, generator=g)
+    vp = torch.randn(2, 9, 2, 16, 64, generator=g)
+    table = torch.tensor([[1, 2], [3, 4], [5, 6]], dtype=torch.int32)
+    lengths = torch.tensor([5, 17, 30], dtype=torch.int32)
+    toks = torch.tensor([7, 11, 13])
+    active = torch.ones(3, dtype=torch.bool)
+    slots = torch.tensor([0, 1, 2], dtype=torch.int32)
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {n: to(v, d) for n, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(to(v, d) for v in tree)
+        return tree.to(d)
+
+    outs = [gpt2_decode_step_paged(
+        cfg, to(params, d), toks.to(d), kp.clone().to(d),
+        vp.clone().to(d), table.to(d), lengths.to(d), active.to(d),
+        impl="pallas", lora=to(pools, d), adapter_slots=slots.to(d),
+        lora_scale=2.0)
+        for d in (torch.device("cpu"), dev)]
+    torch.cuda.synchronize()
+    for a, b in zip(*outs):
+        assert (a.cpu() - b.cpu()).abs().max().item() <= TOL[torch.float32]

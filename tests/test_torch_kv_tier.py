@@ -11,9 +11,8 @@ request served; a degraded spill going dormant; CRC flip, truncation and
 deletion of a parked page and a poisoned host copy all landing the typed
 ``KVTierCorruptError`` before any byte re-enters the pool, then recompute;
 the ``DSDISK1`` page-file dialect; the close-time drain; config
-validation.  Left out: ``test_kv_tier_telemetry_flows_to_summarize``
-(ROADMAP.md queue 1 item 5, telemetry; the ``serve_kv_*`` gauges wait
-for it).
+validation.  ``test_kv_tier_telemetry_flows_to_summarize`` (the
+``serve_kv_*`` scalars) runs in ``tests/test_torch_telemetry.py``.
 
 Against the JAX package: the two engines on the same fp32 weights with
 the tier on give equal greedy streams, equal shared prefixes and equal

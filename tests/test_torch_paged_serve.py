@@ -25,6 +25,7 @@ from deepspeed_tpu.models.gpt2 import (
 from deepspeed_tpu.runtime.stages import \
     reset_fault_injection as jax_reset_faults
 from deepspeed_tpu_torch.inference import ServeEngine
+from deepspeed_tpu_torch.inference.adapters import adapter_param_shapes
 from deepspeed_tpu_torch.inference.kv_cache import (PagedKVCacheSpec,
                                                     init_paged_cache)
 from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2Model,
@@ -127,7 +128,9 @@ def test_paged_model_refuses_int8_pool_and_lora(weights):
     """The paged decode step runs the int8 pool (quantize on write, the
     int8 arm on read: the token's row lands in the slot's page with its
     scale, and the logits equal the fp pool's within the quantization's
-    reach); LoRA still raises naming its item."""
+    reach).  LoRA composes with it: with every slot on the zero adapter
+    (pool slot 0, all zeros) the logits are the lora-off logits bit for
+    bit."""
     _, tree, cfg = weights
     params = params_from_numpy(tree)
     spec = PagedKVCacheSpec(layers=2, slots=1, heads=4, pages=3,
@@ -148,8 +151,20 @@ def test_paged_model_refuses_int8_pool_and_lora(weights):
                                                 > 0).all()
     assert (c["k_scale"][:, 2, :, 1:] == 0).all()   # one row written
     np.testing.assert_allclose(out[0].numpy(), ref[0].numpy(), atol=1e-2)
-    with pytest.raises(NotImplementedError, match="7.5"):
-        gpt2_decode_step_paged(*args, c["k"], c["v"], *tail, lora={})
+    shapes = adapter_param_shapes(2, 64, 4, ("qkv_w", "out_w", "fc_w",
+                                             "proj_w"))
+    pools = {t: (torch.zeros((2, 3) + a[1:]), torch.zeros((2, 3) + b[1:]))
+             for t, (a, b) in shapes.items()}
+    runs = []
+    for lora in (None, pools):
+        c2 = init_paged_cache(spec)
+        runs.append(gpt2_decode_step_paged(
+            *args, c2["k"], c2["v"], *tail, k_scale=c2["k_scale"],
+            v_scale=c2["v_scale"], lora=lora,
+            adapter_slots=torch.zeros(1, dtype=torch.int32),
+            lora_scale=2.0)[0])
+    assert torch.equal(runs[0], runs[1])
+    np.testing.assert_array_equal(runs[0].numpy(), out[0].numpy())
 
 
 # ---------------------------------------------------------------------------
