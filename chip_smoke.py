@@ -213,6 +213,37 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             under sync debug mode 'warn' the plain run makes as many
             synchronizing calls with telemetry as without; tokens/s with
             and without.
+22. fleet  (run after serve) the serving fleet (``FleetRouter``, replica
+            subprocesses of GPT-2 small with flash prefill on serve's slot
+            cache, random weights from the seed; the kernel libraries are
+            built before any replica spawns): fp32, a 1-replica fleet's
+            streams against a bare engine of the seed (near-tie rule);
+            bf16, 2 replicas over serve's 12 requests twice: the JSQ
+            split, tokens/s and TTFT/TPOT p50/p99 beside a bare engine's;
+            a replica killed once it streams: unstarted requests fail over,
+            started ones fail typed ``ReplicaFailure``, none is lost from
+            the ledger, the replica respawns; launches from each
+            replica's ``launches.json`` (its warm request included);
+23. fleet_disagg  (run after serve_paged) a prefill replica and a decode
+            replica on serve_paged's pool: fp32 streams against a bare
+            paged engine (near-tie rule), one migration a request and a
+            balanced custody ledger (one router and one decode record a
+            request); the decode replica killed mid-stream loses no
+            request and respawns; the bytes of one page and the
+            engine-level migration rate (export, adopt) of a 512-token
+            prompt, fp32 and bf16;
+24. train_telemetry  (run after checkpoint) phase 10's engine and config,
+            three runs of 4 steps on the same batches: (a) telemetry off,
+            (b) telemetry, tensorboard and the heartbeat on with an async
+            save after step 2, (c) (b) plus ``wall_clock_breakdown`` and a
+            profiler window over steps 2-3: the losses of (b) and (c)
+            equal (a)'s bitwise; (b)'s ``train_batch`` calls make as many
+            synchronizing calls as (a)'s (sync debug mode 'warn', (c)'s
+            printed); summarize reports the steps and samples trained and
+            one checkpoint save; trace.json holds the train/* and
+            checkpoint/* spans, the profiler's Chrome trace the three
+            flash kernels; a flight record dumped on demand parses; the
+            step walls and the timers' per-phase ms printed.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -222,6 +253,7 @@ Then one ``{"kernels": [...]}`` line and, last, the run's result line.
 Without a CUDA device, or without the package beside this file, it exits
 non-zero and prints no result.
 """
+import io
 import json
 import os
 import re
@@ -297,6 +329,13 @@ KV_TIER = {"idle_park_ticks": 1, "host_budget_pages": 8}
 KV_NEW_TOKENS, KV_IDLE_TICKS = 16, 400
 #: checkpoint phase: steps before the save and after it (the resume's)
 CKPT_STEPS = 3
+#: train_telemetry: steps in each of its three runs
+TEL_STEPS = 4
+#: the fleets' liveness bounds: a replica imports torch, initializes CUDA
+#: and GPT-2 small and serves its warm request (loading the kernel
+#: libraries phase_build built) before hello; after hello it beats every
+#: 0.1 s between ticks
+FLEET_SPAWN_TIMEOUT_S, FLEET_HEARTBEAT_TIMEOUT_S = 300.0, 60.0
 #: sampling: the serving temperature; the sampler phase's draws of one
 #: logits row (in chunks of rows) and its rejection-sampling calls at S 8
 TEMPERATURE = 0.8
@@ -2332,23 +2371,8 @@ def phase_parity(dev):
 def _counted():
     """Every kernel wrapper's launch count as (wrapper, attribute), by
     kernel name: the paged arms count their int8 pool launches apart."""
-    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
-    from deepspeed_tpu_torch.ops.kernels import decode_attention as da
-    from deepspeed_tpu_torch.ops.kernels import flash_attention as fa
-    fns = {"flash_fwd": fa.flash_attention,
-           "flash_bwd_dq": fa.flash_bwd_dq,
-           "flash_bwd_dkv": fa.flash_bwd_dkv,
-           "decode_attention": da.decode_attention,
-           "decode_paged": da.decode_attention_paged,
-           "decode_multi": da.decode_attention_multi,
-           "decode_paged_multi": da.decode_attention_paged_multi,
-           "block_sparse_fwd": bs.block_sparse_fwd,
-           "block_sparse_bwd_dq": bs.block_sparse_bwd_dq,
-           "block_sparse_bwd_dkv": bs.block_sparse_bwd_dkv}
-    out = {name: (fn, "launches") for name, fn in fns.items()}
-    for name in ("decode_paged", "decode_paged_multi"):
-        out[name + "_int8"] = (fns[name], "launches_int8")
-    return out
+    from deepspeed_tpu_torch.ops.kernels import launch_counters
+    return launch_counters()
 
 
 def _counts():
@@ -3103,6 +3127,502 @@ def phase_bert_parity(dev):
         fail(f"bert parity: losses differ by {worst} (relative)")
 
 
+def phase_train_telemetry(dev):
+    """phase_train's engine and config, three runs of TEL_STEPS steps on
+    the same batches from one seed: (a) telemetry off; (b) telemetry,
+    tensorboard and the heartbeat on, an async save after step 2; (c) (b)
+    plus wall_clock_breakdown and a profiler window over steps 2-3.  The
+    losses of (b) and (c) must equal (a)'s bitwise; (b)'s train_batch
+    calls must make as many synchronizing calls as (a)'s (sync debug mode
+    'warn'); summarize must report the steps and samples trained and one
+    checkpoint save; trace.json must hold checkpoint/* and train/* spans,
+    the profiler's Chrome trace the three flash kernels, and an on-demand
+    flight record must parse."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+    from deepspeed_tpu_torch.telemetry.cli import summarize
+
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    T, rows = cfg.n_positions, TRAIN_MICRO * TRAIN_GA
+    rng = np.random.default_rng(SEED + 7)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (rows, T + 1))).to(dev)
+               for _ in range(TEL_STEPS)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_tel_")
+    runs = {}
+    try:
+        _zero_counts()
+        for run in ("a", "b", "c"):
+            out = os.path.join(root, run)
+            extra = {}
+            if run != "a":
+                extra = {"telemetry": {"enabled": True, "output_path": out,
+                                       "heartbeat": True},
+                         "tensorboard": {"enabled": True,
+                                         "output_path": out,
+                                         "job_name": "tb"}}
+            if run == "c":
+                extra["wall_clock_breakdown"] = True
+                extra["profiler"] = {"enabled": True, "start_step": 2,
+                                     "num_steps": 2,
+                                     "output_path": os.path.join(out,
+                                                                 "prof")}
+            eng = deepspeed_tpu_torch.initialize(
+                model=GPT2Model(cfg), seed=SEED,
+                config={**_train_config({"bf16": {"enabled": True}},
+                                        TRAIN_MICRO, TRAIN_GA), **extra})[0]
+            losses, syncs, walls, timer_ms = [], 0, [], {}
+            for step, b in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss, n = _sync_count(lambda b=b: eng.train_batch(b))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                syncs += n
+                losses.append(loss)
+                if eng.timers is not None:
+                    for name, tm in eng.timers.timers.items():
+                        timer_ms.setdefault(name, []).append(
+                            tm.elapsed(reset=True) * 1e3)
+                if step == 1 and run != "a":
+                    eng.save_checkpoint(os.path.join(out, "ckpt"),
+                                        async_write=True)
+            flight = (eng.dump_flight_record(reason="smoke")
+                      if run != "a" else None)
+            eng.close()
+            runs[run] = {"losses": [float(x) for x in losses],
+                         "syncs": syncs, "walls": walls,
+                         "timers": timer_ms, "flight": flight,
+                         "out": out, "engine": eng}
+        torch.cuda.synchronize()
+        launches = _train_counts()
+        a, b, c = runs["a"], runs["b"], runs["c"]
+        for run in ("b", "c"):
+            if runs[run]["losses"] != a["losses"]:
+                fail(f"train_telemetry: run ({run})'s losses "
+                     f"{runs[run]['losses']} differ from the telemetry-off "
+                     f"run's {a['losses']}")
+        if b["syncs"] != a["syncs"]:
+            fail(f"train_telemetry: {b['syncs']} synchronizing calls with "
+                 f"telemetry, {a['syncs']} without")
+        checks = []
+        for run in ("b", "c"):
+            r = runs[run]
+            rep = summarize(os.path.join(r["out"], "events.jsonl"),
+                            out=io.StringIO())
+            with open(os.path.join(r["out"], "events.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            samples = sum(x.get("samples", 0) for x in recs
+                          if x["kind"] == "step")
+            snap = [x for x in recs if x["kind"] == "metrics"][-1]
+            counters = {m["name"]: m.get("value") for m in snap["metrics"]}
+            eng = r["engine"]
+            if rep["steps"] != TEL_STEPS or eng.global_steps != TEL_STEPS \
+                    or samples != TEL_STEPS * rows \
+                    or counters.get("train_steps_total") != TEL_STEPS \
+                    or counters.get("ckpt_saves_total") != 1 \
+                    or rep["bad_lines"] != 0 \
+                    or eng.get_skipped_steps() != 0:
+                fail(f"train_telemetry ({run}): summarize {rep['steps']} "
+                     f"steps, {samples} samples, counters {counters}, "
+                     f"skipped {eng.get_skipped_steps()}")
+            with open(os.path.join(r["out"], "trace.json")) as f:
+                names = {e["name"] for e in json.load(f)["traceEvents"]}
+            want = {"train/dispatch", "train/shard_batch",
+                    "checkpoint/save", "checkpoint/snapshot",
+                    "checkpoint/async_write", "checkpoint/save_model_plane",
+                    "checkpoint/save_optim_plane"}
+            if not want <= names:
+                fail(f"train_telemetry ({run}): trace.json lacks "
+                     f"{sorted(want - names)}")
+            with open(r["flight"]) as f:
+                rec = json.load(f)
+            if rec["reason"] != "smoke" or "ckpt_writer" not in \
+                    rec["stages"]:
+                fail(f"train_telemetry ({run}): flight record {rec}")
+            checks.append(f"({run}) {rep['steps']} steps, {samples} "
+                          f"samples = {samples * T} tokens, "
+                          f"ckpt_saves_total 1, "
+                          f"{len(names)} span names")
+        prof = os.path.join(c["out"], "prof")
+        traces = sorted(os.listdir(prof))
+        if len(traces) != 1:
+            fail(f"train_telemetry: profiler wrote {traces}")
+        with open(os.path.join(prof, traces[0])) as f:
+            kern = {e["name"] for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "kernel"}
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if not any(k in n for n in kern):
+                fail(f"train_telemetry: the profiler's trace names no "
+                     f"{k} kernel ({len(kern)} kernel names)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ms = lambda ws: " ".join(f"{w * 1e3:.1f}" for w in ws)  # noqa: E731
+    print(f"[train_telemetry] GPT-2 small bf16 (phase_train's config), "
+          f"{TEL_STEPS} steps x 3 runs: losses of (b) telemetry + "
+          f"tensorboard + heartbeat + async save and (c) + "
+          f"wall_clock_breakdown + profiler window equal (a) telemetry "
+          f"off bitwise ({' '.join(f'{x:.6f}' for x in a['losses'])})")
+    print(f"[train_telemetry] synchronizing calls in train_batch (sync "
+          f"debug mode 'warn'): (a) {a['syncs']}, (b) {b['syncs']}, (c) "
+          f"{c['syncs']} (the timers and the profiler window sync by "
+          f"design)")
+    print(f"[train_telemetry] step wall ms (synchronized around each "
+          f"call; a reading, not a claim): (a) {ms(a['walls'])}; (b) "
+          f"{ms(b['walls'])}; (c) {ms(c['walls'])}; {smi()}")
+    print("[train_telemetry] timers (c) ms per step: " + "; ".join(
+        f"{n} {' '.join(f'{v:.1f}' for v in vs)}"
+        for n, vs in sorted(c["timers"].items())))
+    print(f"[train_telemetry] {'; '.join(checks)}; the profiler's Chrome "
+          f"trace ({traces[0]}) names the flash_fwd, flash_bwd_dq and "
+          f"flash_bwd_dkv kernels; flight records parse")
+    return launches
+
+
+def _fleet_config(serving, replicas, dtype, **fleet_over):
+    """A fleet of GPT-2 small replicas with flash prefill, random weights
+    from SEED, on ``serving``; the liveness timeouts sized for a replica
+    that imports torch, initializes CUDA and the model and serves its warm
+    request before hello."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    m = GPT2_SMALL
+    return {"serving": dict(serving),
+            "fleet": {"replicas": replicas, "min_replicas": replicas,
+                      "max_replicas": replicas + 1, "slo_p99_s": 1e9,
+                      "spawn_timeout_s": FLEET_SPAWN_TIMEOUT_S,
+                      "heartbeat_timeout_s": FLEET_HEARTBEAT_TIMEOUT_S,
+                      "backoff_base_s": 0.2, **fleet_over},
+            "fleet_model": {"vocab_size": m.vocab_size,
+                            "n_positions": m.n_positions,
+                            "d_model": m.d_model, "n_layer": m.n_layer,
+                            "n_head": m.n_head, "attn_impl": "flash",
+                            "seed": SEED, "dtype": dtype}}
+
+
+def _replica_launches(fleet_dir):
+    """The sum of every replica's launches.json in ``fleet_dir`` (a
+    replica killed by SIGKILL writes none)."""
+    total = {}
+    for name in sorted(os.listdir(fleet_dir)):
+        path = os.path.join(fleet_dir, name, "launches.json")
+        if name.startswith("replica_") and os.path.isfile(path):
+            with open(path) as f:
+                for k, v in json.load(f).items():
+                    total[k] = total.get(k, 0) + v
+    return total
+
+
+def _add(total, more):
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def _ledger(fleet_dir):
+    with open(os.path.join(fleet_dir, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _bare_fleet_engine(cfg, dev):
+    """The engine a replica of ``cfg`` builds, in this process."""
+    import tempfile
+    from deepspeed_tpu_torch.inference.replica import build_engine
+    return build_engine(cfg, tempfile.gettempdir(), 99, device=dev)
+
+
+def _fleet_run(cfg, fleet_dir, prompts, new, kill=None):
+    """A router on ``cfg`` serving ``prompts``; ``kill`` names the role
+    ('mixed' or 'decode') of a replica to SIGKILL once it streams.
+    Returns the requests, the wall from submit to idle, and the victim."""
+    from deepspeed_tpu_torch.inference.fleet import FleetRouter
+    router = FleetRouter(cfg, fleet_dir=fleet_dir).start()
+    victim = None
+    try:
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=new) for p in prompts]
+        if kill is not None:
+            deadline = time.monotonic() + 120
+            while victim is None and time.monotonic() < deadline:
+                router.poll(0.01)
+                cands = [r for r in router.replicas.values()
+                         if r.role == kill and r.state == "ready"
+                         and any(q.started and q.replica == r.id
+                                 for q in reqs)]
+                if cands:
+                    victim = max(cands, key=lambda r: len(r.outstanding)).id
+            if victim is None:
+                fail(f"fleet: no {kill} replica streamed within 120 s")
+            router.kill_replica(victim)
+        router.run_until_idle(max_s=600)
+        wall = time.perf_counter() - t0
+        if kill is not None:
+            # the role floor respawns the victim's replacement
+            deadline = time.monotonic() + FLEET_SPAWN_TIMEOUT_S
+            while time.monotonic() < deadline and not any(
+                    r.id > victim and r.role == kill and r.state == "ready"
+                    for r in router.replicas.values()):
+                router.poll(0.05)
+            if not any(r.id > victim and r.role == kill
+                       and r.state == "ready"
+                       for r in router.replicas.values()):
+                fail(f"fleet: replica {victim} ({kill}) was not respawned")
+        migrations = router.migrations
+    finally:
+        router.close()
+    return reqs, wall, victim, migrations
+
+
+def _fleet_stats(reqs, fleet_dir):
+    """(tokens/s is computed by the caller) TTFT p50/p99 and per-request
+    TPOT p50/p99 (decode time over tokens after the first) from the
+    router's events.jsonl records."""
+    recs = {r["rid"]: r for r in _ledger(fleet_dir)
+            if r["kind"] == "fleet_request"}
+    ttft = [recs[q.rid]["ttft_s"] for q in reqs]
+    tpot = [(recs[q.rid]["total_s"] - recs[q.rid]["ttft_s"])
+            / max(len(q.tokens) - 1, 1) for q in reqs]
+    return ttft, tpot
+
+
+def _check_kill(label, reqs, fleet_dir, new):
+    from deepspeed_tpu_torch.inference.fleet import ReplicaFailure
+    failed = [r for r in reqs if r.error is not None]
+    if not all(r.started and isinstance(r.error, ReplicaFailure)
+               for r in failed):
+        fail(f"{label}: a failed request was unstarted or untyped: "
+             f"{[(r.rid, r.started, repr(r.error)) for r in failed]}")
+    ok = [r for r in reqs if r.error is None]
+    if not ok or not all(len(r.tokens) == new for r in ok):
+        fail(f"{label}: survivors incomplete")
+    recs = _ledger(fleet_dir)
+    submits = {r["rid"] for r in recs if r["kind"] == "fleet_submit"}
+    dones = {r["rid"] for r in recs if r["kind"] == "fleet_request"}
+    if submits != dones:
+        fail(f"{label}: requests lost from the ledger: "
+             f"{sorted(submits - dones)}")
+    return len(ok), len(failed), sum(r.failovers for r in reqs)
+
+
+def phase_fleet(dev):
+    """The serving fleet of GPT-2 small replicas (flash prefill, the
+    slot cache of phase_serve).  fp32: a 1-replica fleet's streams equal
+    a bare engine's of the same seed (near-tie rule).  bf16: 2 replicas,
+    the serve phase's 12 requests twice: the JSQ split, tokens/s and
+    TTFT/TPOT beside the bare engine's.  kill: a replica killed once it
+    streams: unstarted requests fail over, started ones fail typed, none
+    is lost, the replica respawns.  Launches: the replicas' launches.json
+    (their warm requests included)."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    prompts = _load()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fleet_")
+    launches = {}
+    try:
+        # fp32 parity: one replica against a bare engine of the seed
+        cfg = _fleet_config(SLOT_CFG, 1, "float32", max_replicas=1)
+        eng = _bare_fleet_engine(cfg, dev)
+        bare = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        eng.run_until_idle()
+        eng.close()
+        _check_requests("fleet bare fp32", bare)
+        d = os.path.join(root, "fp32")
+        reqs, _, _, _ = _fleet_run(cfg, d, prompts, NEW_TOKENS)
+        _check_requests("fleet fp32", reqs)
+        _add(launches, _replica_launches(d))
+        params = eng.params
+        dense_cfg = GPT2_SMALL
+        _compare_streams("1-replica fleet vs bare engine (fp32)", reqs,
+                         bare, prompts, dense_cfg, params)
+        del eng, params
+        torch.cuda.empty_cache()
+        # bf16: 2 replicas against the bare engine
+        load = prompts + prompts
+        cfg = _fleet_config(SLOT_CFG, 2, "bfloat16")
+        eng = _bare_fleet_engine(cfg, dev)
+        warm = eng.submit(list(range(16)), max_new_tokens=2)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bare = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in load]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        bare_wall = time.perf_counter() - t0
+        eng.close()
+        del eng, warm
+        torch.cuda.empty_cache()
+        _check_requests("fleet bare bf16", bare)
+        d = os.path.join(root, "bf16")
+        reqs, wall, _, _ = _fleet_run(cfg, d, load, NEW_TOKENS)
+        _check_requests("fleet bf16", reqs)
+        _add(launches, _replica_launches(d))
+        split = {}
+        for r in reqs:
+            split[r.replica] = split.get(r.replica, 0) + 1
+        ttft, tpot = _fleet_stats(reqs, d)
+        b_ttft = [r.token_times[0] for r in bare]
+        b_tpot = [sum(r.token_times[1:]) / (len(r.tokens) - 1)
+                  for r in bare]
+        tok = NEW_TOKENS * len(load)
+        # kill: 2 bf16 replicas, one killed once it streams
+        d = os.path.join(root, "kill")
+        kreqs, _, victim, _ = _fleet_run(cfg, d, load, NEW_TOKENS,
+                                         kill="mixed")
+        ok, failed, failovers = _check_kill("fleet kill", kreqs, d,
+                                            NEW_TOKENS)
+        _add(launches, _replica_launches(d))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    f = lambda xs: (f"p50 {_pct(xs, 0.5) * 1e3:.1f} ms p99 "  # noqa: E731
+                    f"{_pct(xs, 0.99) * 1e3:.1f} ms")
+    print(f"[fleet] fp32 1-replica fleet of GPT-2 small (flash prefill, "
+          f"slot cache, {N_REQ} requests x {NEW_TOKENS} tokens): streams "
+          f"against a bare engine of seed {SEED} under the near-tie rule")
+    print(f"[fleet] bf16 2 replicas, {len(load)} requests: JSQ split "
+          f"{dict(sorted(split.items()))}; {tok / wall:.1f} tokens/s "
+          f"(submit to idle, {wall:.2f} s) vs the bare engine's "
+          f"{tok / bare_wall:.1f} tokens/s ({bare_wall:.2f} s); TTFT "
+          f"{f(ttft)} vs {f(b_ttft)}; TPOT (per-request mean) {f(tpot)} "
+          f"vs {f(b_tpot)}; {smi()}")
+    print(f"[fleet] kill: replica {victim} killed once it streamed: "
+          f"{ok} requests completed ({failovers} failovers), {failed} "
+          f"started ones failed typed ReplicaFailure, none lost; the "
+          f"replica respawned")
+    print(f"[fleet] replica launches (launches.json, warm requests "
+          f"included): " + ", ".join(f"{k} {v}" for k, v in
+                                     sorted(launches.items()) if v))
+    if not launches.get("flash_fwd") or not launches.get("decode_attention"):
+        fail(f"fleet: replicas launched {launches}")
+    return launches
+
+
+def _migration_rate(dev, cfg, prompt):
+    """One engine of ``cfg`` in this process: a detach_kv prefill of
+    ``prompt``, its pages exported (device to host) and adopted back
+    (host to device), each timed: (bytes of one page, pages, export MB/s,
+    import MB/s)."""
+    import torch
+    eng = _bare_fleet_engine(cfg, dev)
+    times = []
+    for _ in range(3):
+        req = eng.submit(prompt, max_new_tokens=1, detach_kv=True)
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payloads = eng.export_pages(req)
+        t1 = time.perf_counter()
+        eng.release_detached(req)
+        adopted = eng.adopt_request(prompt, req.tokens[0], 1, None,
+                                    payloads)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        eng.run_until_idle()
+        times.append((t1 - t0, t2 - t1))
+        if adopted is None:
+            fail("fleet_disagg: adoption found no room")
+    eng.close()
+    nbytes = sum(len(p) for p in payloads)
+    exp = min(t for t, _ in times)
+    imp = min(t for _, t in times)
+    return len(payloads[0]), len(payloads), nbytes / exp / 1e6, \
+        nbytes / imp / 1e6
+
+
+def phase_fleet_disagg(dev):
+    """The disaggregated fleet: a prefill replica and a decode replica of
+    GPT-2 small on the serve_paged phase's pool (page_len 16, chunks of
+    128).  fp32: the serve phase's 12 requests stream a bare paged
+    engine's tokens (near-tie rule), every one migrates, and the custody
+    ledger has one router and one decode record a request.  decode kill:
+    the decode replica killed mid-stream loses no request and respawns.
+    Then one page's bytes and the engine-level migration rate (export,
+    adopt) of a 512-token prompt."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    prompts = _load()
+    root = tempfile.mkdtemp(prefix="chip_smoke_disagg_")
+    launches = {}
+    roles = {"roles": {"prefill": 1, "decode": 1}, "max_replicas": 3}
+    try:
+        cfg = _fleet_config(PAGED_CFG, 2, "float32", **roles)
+        eng = _bare_fleet_engine(cfg, dev)
+        bare = [eng.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        eng.run_until_idle()
+        params = eng.params
+        eng.close()
+        _check_requests("fleet_disagg bare fp32", bare)
+        d = os.path.join(root, "fp32")
+        reqs, wall, _, migrations = _fleet_run(cfg, d, prompts,
+                                               NEW_TOKENS)
+        _check_requests("fleet_disagg fp32", reqs)
+        _add(launches, _replica_launches(d))
+        _compare_streams("disaggregated fleet vs bare paged engine (fp32)",
+                         reqs, bare, prompts, GPT2_SMALL, params)
+        del eng, params
+        torch.cuda.empty_cache()
+        recs = _ledger(d)
+        mig = [r for r in recs if r["kind"] == "migration"]
+        rids = sorted(r.rid for r in reqs)
+        for custody in ("router", "decode"):
+            got = sorted(m["rid"] for m in mig if m["custody"] == custody)
+            if got != rids:
+                fail(f"fleet_disagg: {custody} custody records {got}, "
+                     f"requests {rids}")
+        if migrations != len(prompts) or not all(r.migrated for r in reqs):
+            fail(f"fleet_disagg: {migrations} migrations for "
+                 f"{len(prompts)} requests")
+        mbytes = sum(m["bytes"] for m in mig if m["custody"] == "router")
+        mpages = sum(m["pages"] for m in mig if m["custody"] == "router")
+        # decode kill
+        d = os.path.join(root, "kill")
+        kreqs, _, victim, _ = _fleet_run(cfg, d, prompts, NEW_TOKENS,
+                                         kill="decode")
+        ok, failed, failovers = _check_kill("fleet_disagg kill", kreqs, d,
+                                            NEW_TOKENS)
+        _add(launches, _replica_launches(d))
+        # one page's bytes and the migration rate at the engine, fp32 and
+        # bf16, on a 512-token prompt
+        long_prompt = [int(t) for t in np.random.default_rng(SEED).integers(
+            0, GPT2_SMALL.vocab_size, PROMPT_MAX)]
+        rates = {dt: _migration_rate(dev, _fleet_config(
+            PAGED_CFG, 2, dt, **roles), long_prompt)
+            for dt in ("float32", "bfloat16")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[fleet_disagg] fp32 prefill 1 + decode 1 (page_len "
+          f"{PAGED_CFG['page_len']}, chunks of "
+          f"{PAGED_CFG['prefill_chunk_len']}), {N_REQ} requests x "
+          f"{NEW_TOKENS} tokens in "
+          f"{wall:.2f} s: {migrations} migrations ({mpages} pages, "
+          f"{mbytes} B over the wire), custody ledger balanced (one "
+          f"router and one decode record a request)")
+    print(f"[fleet_disagg] decode kill: replica {victim} killed mid-stream:"
+          f" {ok} requests completed ({failovers} failovers), {failed} "
+          f"started ones failed typed ReplicaFailure, none lost; a decode "
+          f"replica respawned")
+    for dt, (page, n, exp, imp) in rates.items():
+        print(f"[fleet_disagg] {dt} migration of a {PROMPT_MAX}-token "
+              f"prompt at the engine: {n} pages of {page} B; export "
+              f"(device to host) {exp:.1f} MB/s, adopt (host to device) "
+              f"{imp:.1f} MB/s; {smi()}")
+    print(f"[fleet_disagg] replica launches (launches.json, warm requests "
+          f"included): " + ", ".join(f"{k} {v}" for k, v in
+                                     sorted(launches.items()) if v))
+    if not launches.get("flash_fwd") or not launches.get("decode_paged"):
+        fail(f"fleet_disagg: replicas launched {launches}")
+    return launches
+
+
 def timed(phase, *args, **kwargs):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -3132,8 +3652,10 @@ def main() -> None:
     timed(phase_sampler, dev)
     by_phase = {}
     by_phase["serve"], greedy = timed(phase_serve, dev)
+    by_phase["fleet"] = timed(phase_fleet, dev)
     by_phase["serve_paged"], paged_memory, paged_ref = timed(
         phase_serve_paged, dev)
+    by_phase["fleet_disagg"] = timed(phase_fleet_disagg, dev)
     by_phase["serve_spec"] = timed(phase_serve_spec, dev)
     by_phase["serve_quant"], _, quant_ref = timed(phase_serve_paged, dev,
                                                   paged_memory)
@@ -3149,6 +3671,7 @@ def main() -> None:
     by_phase["train"] = timed(phase_train, dev)
     timed(phase_train_parity, dev)
     by_phase["checkpoint"] = timed(phase_checkpoint, dev)
+    by_phase["train_telemetry"] = timed(phase_train_telemetry, dev)
     by_phase["sparse"] = timed(phase_sparse, dev)
     by_phase["bert_train"] = timed(phase_bert_train, dev)
     timed(phase_bert_parity, dev)

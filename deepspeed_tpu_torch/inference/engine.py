@@ -92,8 +92,10 @@ summarize``) and the Prometheus file.  It reads nothing back from the
 card: a tick syncs exactly as it does without it.
 
 The engine runs on ``cuda:0`` unless the caller passes ``device``; with no
-CUDA device and no ``device`` it raises.  What this port does not cover
-yet (a mesh; KV-page migration, the serving fleet's) raises
+CUDA device and no ``device`` it raises.  KV-page migration (the
+disaggregated fleet's ``detach_kv``, ``export_pages`` and
+``adopt_request``) ships each page as the JAX engine's payload, byte for
+byte.  What this port does not cover yet (a mesh) raises
 ``NotImplementedError`` naming its ROADMAP.md item — nothing is silently
 ignored.
 """
@@ -830,6 +832,11 @@ class ServeEngine:
         self._last_flush_t = now
         self._last_flush_tokens = self._tokens_seen
 
+    def hot_adapters(self) -> List[int]:
+        """Adapter ids resident in device pool slots (the replica
+        heartbeat's tenant-affinity gauge)."""
+        return self.adapters.hot_ids() if self.lora else []
+
     def tpot_p99(self) -> Optional[float]:
         """Decode-phase p99 latency per token (TPOT) over the recent
         window."""
@@ -847,8 +854,12 @@ class ServeEngine:
         from the prefill logits.  ``adapter_id`` selects the tenant's LoRA
         adapter (0 = the base model; needs ``serving.lora.rank > 0``);
         admission resolves it to a device pool slot, parking on a dry pool
-        like a pages-dry admission.  ``detach_kv`` (KV migration, the
-        serving fleet's) is not ported and raises."""
+        like a pages-dry admission.
+
+        ``detach_kv`` (paged only) marks a KV-migration source: when the
+        request finishes, its pages stay alive for :meth:`export_pages`
+        instead of freeing — the disaggregated fleet's prefill leg
+        (``release_detached`` frees them after the transfer)."""
         if self._closed:
             raise RuntimeError("ServeEngine is closed")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
@@ -874,9 +885,6 @@ class ServeEngine:
             raise ValueError(
                 "detach_kv (KV-migration handoff) requires the paged "
                 "layout (serving.page_len > 0)")
-        if detach_kv:
-            raise _unported("detach_kv (KV-page migration)",
-                            "item 8 (serving fleet)")
         adapter_id = int(adapter_id)
         if adapter_id < 0:
             raise ValueError("adapter_id must be >= 0 (0 = base model)")
@@ -891,6 +899,7 @@ class ServeEngine:
                               else int(eos_id)),
                       submit_t=time.perf_counter())
         req.adapter_id = adapter_id
+        req.detach_kv = bool(detach_kv)
         self._begin_request_trace(req)
         # Deliberate submission-side backpressure: submit() runs on the
         # caller's thread, and a full queue must block the caller (and a
@@ -916,16 +925,165 @@ class ServeEngine:
                 raise self.queue.err
             return None
 
-    # -- KV-page migration (the serving fleet) is not ported --------------
-    def export_pages(self, req: Request):
-        raise _unported("KV-page migration (export_pages)",
-                        "item 8 (serving fleet)")
+    # -- KV-page migration (disaggregated fleet) --------------------------
+    def page_leaf_nbytes(self) -> List[int]:
+        """Per-leaf byte lengths inside ONE exported page payload — the
+        binary frame header's validation contract (both ends of a
+        migration run the same config, so these must agree)."""
+        return [self.cache[k][:, 0].numel() * self.cache[k].element_size()
+                for k in self._page_leaves()]
 
-    def adopt_request(self, prompt, first_token: int, max_new_tokens: int,
-                      eos_id: Optional[int], page_payloads,
-                      adapter_id: int = 0):
-        raise _unported("KV-page migration (adopt_request)",
-                        "item 8 (serving fleet)")
+    def export_pages(self, req: Request) -> List[bytes]:
+        """A finished ``detach_kv`` request's KV pages as raw bytes, one
+        payload per page: the page's leaf slices (``[:, pid]``)
+        concatenated in ``_page_leaves`` order, the JAX engine's payload
+        byte for byte.  Whole pages ship (a partial tail's dead rows are
+        masked by lengths on the importing side).  Each leaf's pages are
+        gathered in one device copy and read back in one.  Call
+        :meth:`release_detached` after the payloads hit the wire."""
+        if not self.paged or not req.pages:
+            raise RuntimeError(
+                "export_pages needs a paged engine and a finished "
+                "detach_kv request still holding its pages")
+        with self._span("serve/page_out", rid=req.rid,
+                        pages=len(req.pages)):
+            return self._export_pages(req.pages)
+
+    def release_detached(self, req: Request) -> None:
+        """Drop the pages a ``detach_kv`` finish kept alive — the
+        export's payloads are on the wire, the pages are admissible
+        capacity again."""
+        self._release_pages(req)
+
+    def adopt_request(self, prompt, first_token: int,
+                      max_new_tokens: int,
+                      eos_id: Optional[int],
+                      page_payloads: List[bytes],
+                      adapter_id: int = 0) -> Optional[Request]:
+        """Adopt a migrated request mid-decode (docs/serving.md
+        "disaggregated fleet"): import its exported KV pages into freshly
+        allocated local pages (page ids are replica-local — the table is
+        rebuilt), restore the slot's cache length, and resume decoding
+        from ``first_token`` on the next tick.  The page count, the
+        adapter and every payload's size are checked before any page is
+        allocated or any byte lands.  Returns None when no slot, pages or
+        adapter slot are free yet — the caller parks and retries, the
+        same backpressure contract as admission."""
+        if not self.paged:
+            raise RuntimeError("KV adoption requires the paged layout")
+        prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+        need = -(-len(prompt) // self.page_len)
+        if need != len(page_payloads):
+            raise ValueError(
+                f"migrated request ships {len(page_payloads)} pages "
+                f"but a {len(prompt)}-token prompt needs {need}")
+        adapter_id = int(adapter_id)
+        if adapter_id > 0 and not self.lora:
+            raise ValueError(
+                f"migrated request carries adapter_id={adapter_id} but "
+                "multi-tenant LoRA is off on this replica")
+        page_nb = sum(self.page_leaf_nbytes())
+        for payload in page_payloads:
+            if len(payload) != page_nb:
+                raise ValueError(
+                    f"migrated page payload is {len(payload)} bytes; this "
+                    f"pool's page is {page_nb} (config mismatch between "
+                    "migration endpoints)")
+        if not self.scheduler.has_free():
+            return None
+        pages = self._alloc_pages(need)
+        if pages is None:
+            return None
+        aslot = 0
+        if self.lora and adapter_id:
+            # same ordering as admission: adapter pin AFTER page alloc,
+            # pool-dry parks (deterministic synthesis means this replica
+            # derives the identical weights locally — no adapter bytes
+            # ride the migration payload)
+            try:
+                got = self.adapters.acquire(adapter_id)
+            except BaseException:
+                for p in pages:
+                    self.pool.deref(p)
+                raise
+            if got is None:
+                for p in pages:
+                    self.pool.deref(p)
+                return None
+            aslot = got
+        self._rid += 1
+        now = time.perf_counter()
+        req = Request(rid=self._rid, prompt=prompt,
+                      max_new_tokens=int(max_new_tokens),
+                      eos_id=(self.eos_id_default if eos_id is None
+                              else int(eos_id)),
+                      submit_t=now)
+        req.admit_t = now
+        req.adapter_id = adapter_id
+        try:
+            with self._span("serve/page_in", rid=req.rid, pages=need):
+                self._import_pages(pages, page_payloads)
+        except BaseException:
+            for p in pages:
+                self.pool.deref(p)
+            if aslot:
+                self.adapters.release(adapter_id)
+            raise
+        slot = self.scheduler.admit(req, now=now)
+        req.pages = list(pages)
+        req.shared_len = 0
+        req.computed_len = len(prompt)
+        req.kv_len = len(prompt)
+        self._set_table_row(slot, pages)
+        self._bind_adapter(req, slot, aslot)
+        self.cache["lengths"][slot] = len(prompt)
+        if self.spec_k:
+            # the draft has no imported pages — mirror the prompt into
+            # its slot cache the ordinary way (draft prefill is cheap)
+            self._draft_prefill(req, slot=slot)
+        # the first token was generated (and latency-counted) on the
+        # prefill replica; record it here without double-counting
+        req.tokens.append(int(first_token))
+        req.token_times.append(0.0)
+        req.last_token = int(first_token)
+        req.last_t = now
+        reason = self.scheduler.finish_reason(req, int(first_token),
+                                              self.max_seq_len)
+        if reason is not None:
+            self._finish(slot, reason)
+        return req
+
+    def _export_pages(self, pages: List[int]) -> List[bytes]:
+        """Pool pages ``pages`` as one payload each: the page's leaf
+        slices (``[:, pid]``) concatenated in ``_page_leaves`` order, one
+        gather and one device-to-host copy per leaf."""
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        # [L, n, ...] -> [n, L, ...]: page i's slice of a leaf is then one
+        # contiguous run of bytes, laid out as cache[k][:, pid]
+        leaves = [self.cache[k].index_select(1, idx).transpose(0, 1)
+                  .contiguous().view(torch.uint8).cpu().numpy()
+                  .reshape(len(pages), -1)
+                  for k in self._page_leaves()]
+        return [b"".join(leaf[i].tobytes() for leaf in leaves)
+                for i in range(len(pages))]
+
+    def _import_pages(self, pages: List[int],
+                      payloads: List[bytes]) -> None:
+        """Payloads of ``_export_pages``' layout into pool pages
+        ``pages``: one host-to-device copy and one scatter per leaf."""
+        n = len(pages)
+        raw = np.frombuffer(bytearray(b"".join(payloads)),
+                            np.uint8).reshape(n, -1)
+        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        off = 0
+        for k, nb in zip(self._page_leaves(), self.page_leaf_nbytes()):
+            ref = self.cache[k]
+            part = torch.from_numpy(np.ascontiguousarray(
+                raw[:, off:off + nb])).to(self.device)
+            src = part.view(ref.dtype).view((n, ref.shape[0])
+                                            + tuple(ref.shape[2:]))
+            ref.index_copy_(1, idx, src.transpose(0, 1))
+            off += nb
 
     # -- admission (prefill) ----------------------------------------------
     def _prefill(self, tokens: torch.Tensor, length: int, slot: int) -> int:
@@ -1237,9 +1395,12 @@ class ServeEngine:
     def _finish(self, slot: int, reason: str) -> None:
         req = self.scheduler.release(slot, reason)
         if self.paged:
-            # eviction = page frees + a zeroed (scratch) table row
+            # eviction = page frees + a zeroed (scratch) table row — except
+            # a KV-migration source (detach_kv), whose pages stay held for
+            # export_pages; release_detached frees them after the transfer
             self._table[slot, :] = 0
-            self._release_pages(req)
+            if not req.detach_kv:
+                self._release_pages(req)
         self._release_adapter(req, slot)
         # record + trace close BEFORE done.set(): a waiter released by
         # result() finds the artifacts already written
@@ -1575,29 +1736,19 @@ class ServeEngine:
         in ``_page_leaves`` order — the KV tier's spill unit (it CRC-
         stamps the bytes before the page's pool ref is released)."""
         with self._span("serve/kv_spill", page=pid):
-            return b"".join(
-                self.cache[k][:, pid].contiguous().view(torch.uint8)
-                .cpu().numpy().tobytes() for k in self._page_leaves())
+            return self._export_pages([pid])[0]
 
     def _import_page_bytes(self, pid: int, payload: bytes) -> None:
         """Import one parked page payload into pool page ``pid`` — the KV
         tier's fetch unit.  A payload of another size than this pool's
         page is a corrupt record, raised typed before any byte lands."""
-        parts, off = [], 0
-        for k in self._page_leaves():
-            ref = self.cache[k][:, pid]
-            nb = ref.numel() * ref.element_size()
-            parts.append((ref, off, nb))
-            off += nb
-        if off != len(payload):
+        page_nb = sum(self.page_leaf_nbytes())
+        if len(payload) != page_nb:
             raise KVTierCorruptError(
                 f"parked page payload is {len(payload)} bytes; this "
-                f"pool's page is {off}")
-        buf = torch.frombuffer(bytearray(payload), dtype=torch.uint8)
+                f"pool's page is {page_nb}")
         with self._span("serve/kv_fetch", page=pid):
-            for ref, o, nb in parts:
-                src = buf[o:o + nb].view(ref.dtype).view(ref.shape)
-                ref.copy_(src.to(self.device))
+            self._import_pages([pid], [payload])
 
     def _drain_kv_spill(self):
         """Write every host-resident parked page to the disk tier (when

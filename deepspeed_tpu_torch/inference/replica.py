@@ -1,0 +1,428 @@
+"""One serving-fleet replica: an ordinary :class:`ServeEngine` behind
+a wire socket (``python -m deepspeed_tpu_torch.inference.replica`` —
+spawned by ``inference/fleet.py``, docs/serving.md "serving fleet"; a
+port of ``deepspeed_tpu/inference/replica.py``).
+
+The replica is deliberately boring: it builds a model from the config's
+``fleet_model`` block (deterministic — every replica of a fleet holds
+IDENTICAL params because they share the init seed, which is what makes
+failover re-dispatch emit the same greedy stream) on ``--device`` (the
+card by default; ``cpu`` only when the router is asked for it — with no
+CUDA device and no ``--device cpu`` the replica raises and never serves
+on the CPU), connects OUT to the
+router's listening socket, says hello, and then pumps three things in
+one single-threaded loop:
+
+  frames in    ``submit`` → ``ServeEngine.submit`` (a per-request
+               failure — bad prompt, closed queue — answers with an
+               ``error`` frame and the pool keeps serving: the Orca
+               isolation the engine already provides);
+               ``shutdown`` → drain in-flight requests, then exit 0.
+  engine tick  ``ServeEngine.step()`` whenever there is work — the
+               SAME stage-runtime serving loop as a bare engine, so
+               poison/drain/degradation, ``DS_STAGE_FAULT`` /
+               ``DS_STAGE_DELAY_S`` chaos and the flight recorder all
+               apply unchanged.  An engine POISON (a failed tick kills
+               every in-flight request — the cache was donated) exits
+               the process with rc 13 WITHOUT error frames: the
+               router's failover path re-dispatches the queued-but-
+               unstarted requests and typed-fails the mid-stream ones,
+               and the original exception is in this replica's flight
+               record (``<fleet_dir>/replica_<id>/flightrec_*.json`` —
+               the corpse the recorder captured).
+  frames out   ``admit`` the moment the engine assigns a slot (the
+               router stamps queue wait — the SLO signal), ``token``
+               for newly generated ids, ``done``/``error`` on finish.
+
+Disaggregated roles (docs/serving.md "disaggregated fleet"): the
+router spawns each replica with ``--role`` (prefill / decode / mixed).
+A ``submit`` frame carrying ``migrate: true`` runs the prefill leg
+only — one token with ``detach_kv``, then the finished request's KV
+pages stream back as ``migrate_out`` + binary page frames and the
+local pages free.  A ``migrate_in`` frame (+ its page frames) adopts
+a migrated request mid-decode; adoption backpressures host-side like
+any admission.  The role itself steers nothing here — the ROUTER
+decides who prefills and who decodes; the replica just executes both
+halves of the handoff.
+
+Liveness + load: every loop writes a heartbeat into the shared fleet
+dir (``telemetry/heartbeat.py``) carrying the serving gauges the
+router's join-shortest-queue balancer and per-role autoscaler read —
+``role``, ``serve_active_slots``, request-queue depth,
+``serve_free_pages`` (paged), ``serve_tpot_p99_s`` (the decode-SLO
+gauge), the speculation accept ratio.  Telemetry (when enabled) lands
+in ``<fleet_dir>/replica_<id>/`` so ``python -m deepspeed_tpu_torch.
+telemetry diagnose <fleet_dir>`` can correlate the whole fleet
+post-mortem.  At close the replica writes its kernel wrappers' launch
+counts to ``<fleet_dir>/replica_<id>/launches.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import select
+import socket
+import sys
+import time
+from collections import deque
+from typing import Dict
+
+#: exit code of an engine poison — the router reads any nonzero exit
+#: as replica death; 13 just makes the corpse recognizable in logs
+POISON_EXIT_CODE = 13
+
+#: minimum wall seconds between heartbeat writes (a 1ms decode tick
+#: must not turn the beat file into an fsync storm)
+BEAT_INTERVAL_S = 0.1
+
+
+class _Tracked:
+    """Router-rid → engine-request bridge: how many tokens were already
+    streamed, and whether admission was reported.  ``migrate`` marks a
+    prefill-leg request whose finish exports KV pages instead of a
+    ``done`` frame; adopted requests start with the first token already
+    streamed by their prefill replica (``sent=1``, admission already
+    stamped)."""
+
+    def __init__(self, req, migrate: bool = False, sent: int = 0,
+                 admit_sent: bool = False):
+        self.req = req
+        self.sent = sent
+        self.admit_sent = admit_sent
+        self.migrate = migrate
+
+
+def build_engine(cfg: dict, fleet_dir: str, replica_id: int, device=None):
+    """Model + ServeEngine from the fleet config: the ``fleet_model``
+    block names a GPT-2 geometry, an init seed shared by every replica
+    (identical params ⇒ identical greedy streams ⇒ failover and
+    single-replica parity are exact) and the parameter ``dtype``
+    (``float32`` by default, or ``bfloat16``).  ``device`` is the card
+    (``cuda:0``) when None: ``ServeEngine`` raises without CUDA unless
+    the caller names the CPU."""
+    import torch
+
+    from ..models.gpt2 import GPT2Config, GPT2Model
+    from .engine import ServeEngine
+    mspec = cfg.get("fleet_model")
+    if not isinstance(mspec, dict):
+        raise SystemExit(
+            "replica: config needs a 'fleet_model' block "
+            "({vocab_size, n_positions, d_model, n_layer, n_head, "
+            "attn_impl, seed}) — the deterministic model every replica "
+            "of the fleet builds")
+    gcfg = GPT2Config(
+        vocab_size=int(mspec.get("vocab_size", 256)),
+        n_positions=int(mspec.get("n_positions", 64)),
+        d_model=int(mspec.get("d_model", 64)),
+        n_layer=int(mspec.get("n_layer", 2)),
+        n_head=int(mspec.get("n_head", 4)),
+        remat=None,
+        attn_impl=mspec.get("attn_impl", "dense"))
+    model = GPT2Model(gcfg)
+    dtype = getattr(torch, str(mspec.get("dtype", "float32")))
+    engine_cfg = dict(cfg)
+    tel = dict(cfg.get("telemetry") or {})
+    if tel.get("enabled"):
+        # each replica's telemetry (events, traces, the poison flight
+        # record) lands in its own subdir of the fleet directory
+        tel["output_path"] = os.path.join(fleet_dir,
+                                          f"replica_{replica_id}")
+        engine_cfg["telemetry"] = tel
+    device = torch.device(device or "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "replica: no CUDA device; a replica serves on the card "
+            "unless it is spawned with --device cpu")
+    params = model.init(int(mspec.get("seed", 0)), device=device,
+                        dtype=dtype)
+    return ServeEngine(model, engine_cfg, params=params, device=device,
+                       seed=int(mspec.get("seed", 0)))
+
+
+def write_launch_counts(fleet_dir: str, replica_id: int) -> str:
+    """``<fleet_dir>/replica_<id>/launches.json``: this process's kernel
+    launches (the warm request's included), tmp+rename."""
+    d = os.path.join(fleet_dir, f"replica_{replica_id}")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "launches.json")
+    from ..ops.kernels import launch_counters
+    with open(path + ".tmp", "w") as f:
+        json.dump({name: int(getattr(fn, attr)) for name, (fn, attr)
+                   in launch_counters().items()}, f)
+    os.replace(path + ".tmp", path)
+    return path
+
+
+def _beat_extra(eng, replica_id: int, backlog_n: int = 0,
+                role: str = "mixed") -> dict:
+    extra = {
+        "replica": replica_id,
+        #: the per-role autoscaler's grouping dimension (and the
+        #: heartbeat_age_s{role=} label in the router's metrics)
+        "role": role,
+        "serve_active_slots": len(eng.scheduler.active),
+        # the JSQ load gauge counts EVERY queued request this replica
+        # holds: engine channel + parked admissions + the socket-side
+        # overflow backlog
+        "serve_queue_depth": (eng.queue.qsize() + len(eng._pending)
+                              + backlog_n),
+    }
+    if eng.paged:
+        extra["serve_free_pages"] = eng.pool.free_count
+    if eng.lora:
+        # the router's tenant-affinity signal: adapters this replica
+        # already holds in HBM slots (a dispatch here skips the
+        # cold-adapter host->HBM fetch)
+        extra["adapters_hot"] = eng.hot_adapters()
+    if eng.spec_k:
+        extra["spec_accept_ratio"] = eng._spec_ratio()
+    tpot = eng.tpot_p99()
+    if tpot is not None:
+        # the decode-phase SLO gauge the per-role autoscaler defends
+        # (docs/serving.md "disaggregated fleet")
+        extra["serve_tpot_p99_s"] = round(tpot, 6)
+    return extra
+
+
+def serve(router_addr, replica_id: int, fleet_dir: str,
+          cfg: dict, role: str = "mixed", device=None) -> int:
+    from ..telemetry.heartbeat import HeartbeatWriter
+    from .wire import (BinaryFrame, FrameReader, drain_socket,
+                       send_binary_frame, send_frame)
+
+    eng = build_engine(cfg, fleet_dir, replica_id, device=device)
+    hb = HeartbeatWriter(fleet_dir, process_index=replica_id)
+    sock = socket.create_connection(router_addr, timeout=30.0)
+    sock.settimeout(10.0)
+    reader = FrameReader()
+    # warm up BEFORE saying hello: the router's spawn_timeout_s covers
+    # the torch import, CUDA init, the init and this first request, but
+    # after hello only heartbeat_timeout_s guards liveness — and the
+    # replica can't beat while blocked inside its first tick, which on
+    # the card loads the kernel libraries and makes the first launches
+    # (cuBLAS handles too).  eos_id=-1 never matches a token, so the
+    # warm request is guaranteed to reach a decode tick (spec mode: a
+    # draft-propose + verify pass).
+    warm = eng.submit([0], max_new_tokens=2, eos_id=-1)
+    eng.run_until_idle()
+    assert warm.error is None, f"warmup failed: {warm.error!r}"
+    send_frame(sock, {"kind": "hello", "replica": replica_id,
+                      "pid": os.getpid(), "role": role})
+    hb.beat(0, extra=_beat_extra(eng, replica_id, role=role))
+    last_beat = time.monotonic()
+
+    live: Dict[int, _Tracked] = {}
+    #: migrate_in transfers still collecting their binary page frames:
+    #: rid -> (header, payload list)
+    inbound: Dict[int, tuple] = {}
+    #: complete transfers waiting for a free slot/pages — adoption
+    #: backpressure parks here, FIFO like the engine's _pending
+    adoptions: deque = deque()
+    #: submit frames not yet handed to the engine: the engine's
+    #: request Channel is a BLOCKING bounded queue, and a single-
+    #: threaded replica that blocks in submit() can never step the
+    #: engine to free the space it is waiting for — so overflow parks
+    #: here (host-side, cheap) and drains as the engine makes room
+    backlog: deque = deque()
+    qcap = eng.queue.capacity or (1 << 30)
+    shutting_down = False
+
+    def flush_outputs() -> None:
+        for rid in list(live):
+            tr = live[rid]
+            req = tr.req
+            if not tr.admit_sent and req.admit_t:
+                tr.admit_sent = True
+                send_frame(sock, {"kind": "admit", "rid": rid})
+            n = len(req.tokens)
+            if n > tr.sent:
+                send_frame(sock, {"kind": "token", "rid": rid,
+                                  "toks": req.tokens[tr.sent:n]})
+                tr.sent = n
+            if req.done.is_set():
+                if req.error is not None:
+                    send_frame(sock, {"kind": "error", "rid": rid,
+                                      "error": repr(req.error)})
+                elif tr.migrate:
+                    # prefill leg complete: export the detached KV
+                    # pages as one bounded binary frame per page, then
+                    # free them — custody passes to the router the
+                    # moment migrate_out and every page frame are on
+                    # the wire (a death mid-export leaves the router
+                    # holding a partial blob it discards)
+                    payloads = eng.export_pages(req)
+                    leaves = eng.page_leaf_nbytes()
+                    send_frame(sock, {
+                        "kind": "migrate_out", "rid": rid,
+                        "first_token": req.tokens[0],
+                        "kv_len": len(req.prompt),
+                        "pages": len(payloads),
+                        "page_bytes": sum(len(p) for p in payloads)})
+                    for seq, payload in enumerate(payloads):
+                        send_binary_frame(
+                            sock, {"kind": "page", "rid": rid,
+                                   "seq": seq, "leaves": leaves},
+                            payload)
+                    eng.release_detached(req)
+                else:
+                    send_frame(sock, {
+                        "kind": "done", "rid": rid,
+                        "reason": req.finish_reason,
+                        "tokens_total": len(req.tokens)})
+                del live[rid]
+
+    def try_adopt() -> None:
+        """Admit parked migrate_in transfers while capacity allows —
+        the engine returns None under slot/page pressure and the head
+        transfer stays parked (admission order preserved)."""
+        while adoptions:
+            hdr, payloads = adoptions[0]
+            rid = hdr["rid"]
+            try:
+                req = eng.adopt_request(
+                    hdr["prompt"], hdr["first_token"],
+                    hdr.get("max_new_tokens", 16), hdr.get("eos_id"),
+                    payloads, adapter_id=hdr.get("adapter_id", 0))
+            except Exception as e:
+                adoptions.popleft()
+                send_frame(sock, {"kind": "error", "rid": rid,
+                                  "error": repr(e)})
+                continue
+            if req is None:
+                return
+            adoptions.popleft()
+            # the prefill replica already streamed the first token and
+            # the router stamped admission at the ORIGINAL prefill
+            live[rid] = _Tracked(req, sent=1, admit_sent=True)
+
+    try:
+        while True:
+            frames, closed = drain_socket(sock, reader)
+            if closed:
+                # the router is gone: nothing to stream to — exit
+                # cleanly, a new router incarnation respawns us
+                break
+            for frame in frames:
+                kind = frame.get("kind")
+                if kind == "submit" and not shutting_down:
+                    backlog.append(frame)
+                elif kind == "migrate_in" and not shutting_down:
+                    # header first; its binary page frames follow on
+                    # the same socket (ordered — TCP)
+                    inbound[frame["rid"]] = (frame, [])
+                elif kind == "page":
+                    entry = inbound.get(frame.get("rid"))
+                    if entry is not None and isinstance(frame,
+                                                        BinaryFrame):
+                        entry[1].append(frame.payload)
+                        if len(entry[1]) >= entry[0].get("pages", 0):
+                            del inbound[frame.get("rid")]
+                            adoptions.append(entry)
+                elif kind == "shutdown":
+                    shutting_down = True
+            # hand backlog to the engine only while its bounded queue
+            # has room — submit() must NEVER block this loop (the loop
+            # is the only thing that steps the engine to make room)
+            while backlog and eng.queue.qsize() < qcap:
+                frame = backlog.popleft()
+                rid = frame["rid"]
+                migrate = bool(frame.get("migrate"))
+                try:
+                    # a migrating submit is the PREFILL LEG only: one
+                    # token (TTFT), pages detached for export — the
+                    # router gave the decode budget to whoever adopts
+                    req = eng.submit(
+                        frame["prompt"],
+                        max_new_tokens=(1 if migrate else
+                                        frame.get("max_new_tokens",
+                                                  16)),
+                        eos_id=frame.get("eos_id"),
+                        detach_kv=migrate,
+                        adapter_id=frame.get("adapter_id", 0))
+                except Exception as e:
+                    # per-request isolation: a bad prompt answers
+                    # typed, the pool keeps serving
+                    send_frame(sock, {"kind": "error", "rid": rid,
+                                      "error": repr(e)})
+                    continue
+                live[rid] = _Tracked(req, migrate=migrate)
+            try_adopt()
+            busy = (eng.scheduler.active or eng._pending
+                    or eng.queue.qsize() or backlog or adoptions)
+            if busy:
+                try:
+                    eng.step()
+                except BaseException:
+                    # POISON: the engine already failed every in-flight
+                    # request and dumped its flight record (the corpse);
+                    # exit nonzero and let the router's failover path
+                    # sort started from unstarted
+                    return POISON_EXIT_CODE
+            flush_outputs()
+            if shutting_down and not live and not busy and not inbound:
+                break
+            now = time.monotonic()
+            if now - last_beat >= BEAT_INTERVAL_S:
+                last_beat = now
+                hb.beat(eng._ticks,
+                        extra=_beat_extra(eng, replica_id,
+                                          len(backlog), role=role))
+            if not busy:
+                try:
+                    select.select([sock], [], [], 0.02)
+                except (OSError, ValueError):
+                    break
+    except (BrokenPipeError, ConnectionResetError, socket.timeout):
+        # router vanished mid-send — same clean exit as EOF above
+        return 0
+    finally:
+        try:
+            eng.close()
+        except Exception:
+            pass
+        try:
+            write_launch_counts(fleet_dir, replica_id)
+        except OSError:
+            pass
+        try:
+            sock.close()
+        except OSError:
+            pass
+    return 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m deepspeed_tpu_torch.inference.replica",
+        description="one serving-fleet replica (spawned by "
+                    "inference/fleet.py)")
+    parser.add_argument("--router", required=True,
+                        help="host:port of the fleet router's "
+                             "listening socket")
+    parser.add_argument("--replica-id", type=int, required=True)
+    parser.add_argument("--fleet-dir", required=True,
+                        help="shared fleet directory (heartbeats + "
+                             "per-replica telemetry)")
+    parser.add_argument("--config", required=True,
+                        help="ds_config.json with serving/telemetry/"
+                             "fleet_model blocks")
+    parser.add_argument("--role", default="mixed",
+                        choices=("prefill", "decode", "mixed"),
+                        help="phase specialization (disaggregated "
+                             "fleet; the router decides who prefills "
+                             "and who decodes)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device to serve on (default cuda; "
+                             "cpu only when the router is asked for it)")
+    args = parser.parse_args(argv)
+    host, _, port = args.router.rpartition(":")
+    with open(args.config) as f:
+        cfg = json.load(f)
+    return serve((host, int(port)), args.replica_id, args.fleet_dir,
+                 cfg, role=args.role, device=args.device)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -74,8 +74,7 @@ _M32 = 0xFFFFFFFF
 
 def _tel_span(engine, name: str, **args):
     """Per-plane telemetry span via the engine's hub (nullcontext when
-    the engine has none, as every port engine does until telemetry is
-    ported)."""
+    telemetry is off or the caller is not a full engine)."""
     span = getattr(engine, "_tel_span", None)
     if span is None:
         return contextlib.nullcontext()
@@ -777,7 +776,17 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
     step-loop-exposed cost of an async save) and return a write job."""
     from . import precision
 
+    tracer = getattr(getattr(engine, "telemetry", None), "tracer", None)
+    ctx = None
     with _tel_span(engine, "checkpoint/snapshot", tag=tag):
+        if tracer is not None:
+            # causal arrow: flow opened inside the submitting step's
+            # save/snapshot span, terminated inside the writer's
+            # async_write span (host-side appends only)
+            from ..telemetry.tracing import TraceContext
+            ctx = TraceContext.new()
+            tracer.flow_start("checkpoint/job", ctx, cat="checkpoint",
+                              tag=tag)
         master_tree, opt_tree = engine._canonical_state()
         module_params = precision.cast_to_compute(
             master_tree, engine.compute_dtype)
@@ -807,20 +816,39 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
 
     def run():
         eng = eng_ref()
+        t0 = time.perf_counter()
         span = (_tel_span(eng, "checkpoint/async_write", tag=tag)
                 if async_write and eng is not None
                 else contextlib.nullcontext())
         with _tel_sink(eng), span:
+            run_tracer = getattr(getattr(eng, "telemetry", None),
+                                 "tracer", None)
+            if ctx is not None and run_tracer is not None:
+                # inside the write span: sync saves close the flow in
+                # the save span itself, async saves on the writer thread
+                run_tracer.flow_end("checkpoint/job", ctx,
+                                    cat="checkpoint", tag=tag)
             _write_checkpoint_files(
                 save_dir, tag, ckpt_dir, tmp_dir, model_plane,
                 optim_plane, meta, save_latest, cfg.keep_last_n,
                 cfg.retry,
                 span=lambda name: _tel_span(eng, name, tag=tag),
                 data_plane=data_plane)
+        if async_write and eng is not None:
+            acc = getattr(eng, "_ckpt_interval_acc", None)
+            if acc is not None:
+                # write wall time hidden behind training (the
+                # ckpt_async_overlap_s scalar), per WRITTEN save, under
+                # the engine's lock: the telemetry sync's read-and-reset
+                # runs on the training thread
+                with getattr(eng, "_ckpt_acc_lock",
+                             contextlib.nullcontext()):
+                    acc["overlap_s"] += time.perf_counter() - t0
+                    acc["writes"] = acc.get("writes", 0) + 1
         return ckpt_dir
 
     return CheckpointJob(tag=tag, tmp_dir=tmp_dir, final_dir=ckpt_dir,
-                         run=run)
+                         run=run, ctx=ctx)
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -866,7 +894,8 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     if async_write:
         if writer is None:
             writer = engine._ckpt_writer = AsyncCheckpointWriter(
-                stage=getattr(engine, "_ckpt_stage", None))
+                stage=getattr(engine, "_stage_records",
+                              {}).get("ckpt_writer"))
         writer.submit(job)
         return ckpt_dir
     with _tel_sink(engine):

@@ -32,11 +32,26 @@ Checkpoints (``save_checkpoint``/``load_checkpoint``,
 ``checkpoint`` block's async saves run on a daemon writer that ``close()``
 drains, and ``checkpoint.sigterm_save`` installs the preemption hook, its
 save deferred to the step boundary when the signal lands inside
-``train_batch``.  Every other config knob whose path is not ported
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+``train_batch``.
+
+The telemetry plane (docs/observability.md) is the JAX engine's:
+``tensorboard`` scalars buffered to the ``steps_per_print`` sync, the
+``telemetry`` hub (``train/*`` and ``checkpoint/*`` spans as host stamps,
+``record_step`` per step, ``on_sync`` at the periodic sync), the heartbeat
+and straggler monitor, the opt-in anomaly trigger, the flight recorder,
+the ``profiler`` window (a ``torch.profiler`` capture exported as a Chrome
+trace under ``profiler.output_path``) and the ``wall_clock_breakdown``
+timers (which synchronize the card every step, as the reference's do).
+Every other config knob whose path is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import os
+import statistics
+import threading
 import time
 import weakref
 from typing import Any, Callable, List, NamedTuple, Optional
@@ -48,10 +63,10 @@ from ..config import constants as C
 from ..utils.logging import log_dist, logger
 from . import precision
 from .dataloader import DeepSpeedDataLoader, supports_iter_state
-from .engine_stages import close_ckpt_stage
+from .engine_stages import (finish_close, pop_stage_errors, stage_degraded,
+                            wire_stage_plane)
 from .lr_schedules import get_lr_schedule
 from .resilience import AsyncCheckpointWriter
-from .stages import Stage
 from .utils import clip_by_global_norm, fold_in, global_norm, tree_leaves
 from ..ops.adam import fused_adam
 from ..ops.lamb import fused_lamb
@@ -118,14 +133,6 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
         raise ValueError(f"Unknown optimizer {name!r}")
     if config.sparse_gradients_enabled:
         raise _unported("sparse_gradients", "item 11 (runtime/csr_tensor)")
-    for what, on in (("telemetry.enabled", config.telemetry_config.enabled),
-                     ("tensorboard.enabled",
-                      config.tensorboard_config.enabled),
-                     ("profiler.enabled", config.profiler_config.enabled),
-                     ("wall_clock_breakdown", config.wall_clock_breakdown)):
-        if on:
-            raise _unported(what, "item 5, the training half (telemetry "
-                            "and utils)")
 
 
 def resolve_device(device) -> torch.device:
@@ -226,25 +233,118 @@ class DeepSpeedEngine:
         self.training_dataloader = (
             self.deepspeed_io(training_data, collate_fn=collate_fn)
             if training_data is not None else None)
+        self._tb_pending: list = []
+        self._init_telemetry(config)
+        # one fault plane (docs/stages.md): stage records + drain graph
+        wire_stage_plane(self)
         self._init_checkpointing(config)
+        self._init_finalizer()
+        # the trace window (torch.profiler) and the per-phase timers;
+        # enabling the timers syncs the card every step (the reference's
+        # wall_clock_breakdown likewise cuda-synchronizes)
+        self._profiler = None
+        self._profiler_active = None
+        if config.profiler_config.enabled:
+            self._profiler = config.profiler_config
+        self.timers = None
+        if config.wall_clock_breakdown:
+            from ..utils.timer import SynchronizedWallClockTimer
+            self.timers = SynchronizedWallClockTimer(self.device)
         log_dist(
             f"DeepSpeedEngine: device={self.device} zero_stage=0 "
             f"dtype={self.compute_dtype} "
             f"micro_bs={self.micro_batch_size} "
             f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
 
+    def _init_telemetry(self, config) -> None:
+        """TensorBoard scalars, the telemetry hub, the heartbeat and
+        straggler monitor, the anomaly trigger and the flight recorder's
+        one-dump-per-failure-class flag (reference ``engine.py:764-870``).
+        Per-step recording is host-only; everything that reads the card
+        rides the ``steps_per_print`` sync."""
+        self.summary_writer = None
+        if config.tensorboard_config.enabled:
+            from ..utils.monitor import SummaryWriter
+            self.summary_writer = SummaryWriter(
+                output_path=config.tensorboard_config.output_path,
+                job_name=config.tensorboard_config.job_name)
+            # scalars are buffered until the steps_per_print sync; the
+            # writer's own flush()/close() drain the buffer first so
+            # either shutdown path sees every step.  The wrappers hold
+            # the engine weakly: the GC finalizer keeps the WRITER alive
+            # until the engine dies.
+            _orig_flush = self.summary_writer.flush
+            _orig_close = self.summary_writer.close
+            eng_ref = weakref.ref(self)
+
+            def _flush_all():
+                eng = eng_ref()
+                if eng is not None:
+                    eng._flush_tensorboard()
+                _orig_flush()
+
+            def _close_all():
+                eng = eng_ref()
+                if eng is not None:
+                    eng._flush_tensorboard()
+                _orig_close()
+            self.summary_writer.flush = _flush_all
+            self.summary_writer.close = _close_all
+        tcfg = config.telemetry_config
+        self.telemetry = None
+        if tcfg.enabled:
+            from ..telemetry import TelemetryHub
+            self.telemetry = TelemetryHub(
+                tcfg.output_path or os.path.join(os.getcwd(), "telemetry"),
+                trace=bool(tcfg.trace),
+                compile_events=bool(tcfg.compile_events),
+                memory=bool(tcfg.memory),
+                storm_threshold=tcfg.recompile_storm_threshold,
+                summary_writer=self.summary_writer,
+                device=self.device)
+            # the reference tracks each compiled program's retraces;
+            # eager torch compiles none, so track() returns False
+            self.telemetry.track_program("train_step", self._train_step)
+        # elastic-training liveness (docs/elastic.md): a heartbeat file
+        # each step when DS_HEARTBEAT_DIR is exported (the supervisor)
+        # or telemetry.heartbeat is on; the straggler monitor reads the
+        # fleet's files at the periodic sync.  Not gated on the hub.
+        self._heartbeat = None
+        self._straggler_monitor = None
+        hb_dir = os.environ.get("DS_HEARTBEAT_DIR", "")
+        if not hb_dir and tcfg.heartbeat:
+            hb_dir = tcfg.heartbeat_dir or os.path.join(
+                tcfg.output_path or os.path.join(os.getcwd(), "telemetry"),
+                "heartbeats")
+        if hb_dir:
+            from ..telemetry.heartbeat import (HeartbeatWriter,
+                                               StragglerMonitor)
+            self._heartbeat = HeartbeatWriter(hb_dir, process_index=0)
+            self._straggler_monitor = StragglerMonitor(
+                ratio=float(tcfg.straggler_ratio))
+        # one-shot anomaly trigger (opt-in via telemetry.anomaly_ratio):
+        # a slow interval or a self-straggler flag fires ONE flight dump
+        # and one bounded profiler capture
+        self._anomaly_ratio = float(tcfg.anomaly_ratio)
+        self._anomaly_trail = collections.deque(maxlen=32)
+        self._anomaly_fired = False
+        self._anomaly_profiling = None
+        # flight recorder: one post-mortem dump per failure class
+        self._flightrec_poison_dumped = False
+
     def _init_checkpointing(self, config) -> None:
         """The async checkpoint writer (its thread starts with the first
         async save) under its ``ckpt_writer`` stage record — a writer
         that exhausts the stage's failure budget degrades to synchronous
-        saves — and the opt-in SIGTERM preemption hook."""
-        self._ckpt_stage = Stage(
-            "ckpt_writer",
-            max_failures=config.stages_config.max_stage_failures,
-            fallback="synchronous saves")
-        self._ckpt_writer = AsyncCheckpointWriter(stage=self._ckpt_stage)
-        # a dropped engine's in-flight save still lands
-        self._finalizer = weakref.finalize(self, self._ckpt_writer.close)
+        saves — the exposed-stall accounting the telemetry sync reads,
+        and the opt-in SIGTERM preemption hook."""
+        self._ckpt_writer = AsyncCheckpointWriter(
+            stage=self._stage_records["ckpt_writer"])
+        self._ckpt_interval_acc = {"save_s": 0.0, "overlap_s": 0.0,
+                                   "saves": 0, "writes": 0}
+        # guards the acc against the writer thread's overlap_s updates
+        # racing the telemetry sync's read-and-reset
+        self._ckpt_acc_lock = threading.Lock()
         self._ckpt_last_save_dir = None
         self.last_ckpt_error = None
         self.last_loaded_data_iter_state = None
@@ -256,6 +356,18 @@ class DeepSpeedEngine:
             from .resilience import install_preemption_handler
             self._preemption_handler = install_preemption_handler(
                 self, ckc.save_dir or None)
+
+    def _init_finalizer(self) -> None:
+        """GC/exit finalizer: a dropped engine's in-flight save lands
+        first, then its buffered scalars and trace file flush.  It holds
+        only the output objects (not the engine), so the engine stays
+        collectable."""
+        closeables = (self._ckpt_writer,) + tuple(
+            c for c in (self.summary_writer, self.telemetry)
+            if c is not None)
+        self._finalizer = weakref.finalize(
+            self, _close_quietly, closeables, tb_pending=self._tb_pending,
+            writer=self.summary_writer)
 
     # ------------------------------------------------------------------
     # configuration
@@ -424,10 +536,19 @@ class DeepSpeedEngine:
         batch of ``train_batch_size`` samples; returns the mean loss as a
         device scalar (no host sync).  A SIGTERM landing inside the step
         parks the preemption save until the step's end, where the state
-        is whole again."""
+        is whole again.  A failing step dumps the fault plane's recent
+        history once (the flight recorder); StopIteration is the end of
+        an epoch, never a failure."""
         self._in_step = True
         try:
             return self._train_batch_inner(batch, data_iter)
+        except BaseException as e:
+            if not isinstance(e, StopIteration) \
+                    and not self._flightrec_poison_dumped:
+                self._flightrec_poison_dumped = True
+                self.dump_flight_record(reason="train_batch failure",
+                                        error=e)
+            raise
         finally:
             self._in_step = False
             h = self._deferred_preempt
@@ -445,16 +566,313 @@ class DeepSpeedEngine:
         t0 = time.time()
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
-        packed = self._train_step(self._place_train_batch(batch))
-        self._last_packed = packed
-        self._last_metrics = None
+        if self.timers is not None:
+            self.timers("train_batch_data").start()
+        self._profiler_window_tick()
+        # telemetry spans are HOST stamps (perf_counter + a list append):
+        # a dispatch span measures enqueue latency, and the periodic
+        # on_sync emits the synced ground truth — no read of the card is
+        # added per step
+        with self._tel_span("train/shard_batch", cat="data",
+                            prefetched=False):
+            placed = self._place_train_batch(batch)
+        if self.timers is not None:
+            self.timers("train_batch_data").stop()
+            self.timers("train_batch_step").start()
+        # the POST-increment step number, so the span correlates with
+        # record_step / on_sync / the report line for the same batch
+        with self._tel_span("train/dispatch", cat="train",
+                            step=self.global_steps + 1):
+            packed = self._train_step(placed)
+            self._last_packed = packed
+            self._last_metrics = None
+        if self.timers is not None:
+            # materializing the metrics is the device sync
+            _ = self.last_metrics
+            self.timers("train_batch_step").stop()
         self.global_steps += 1
         self.micro_steps += int(self.gradient_accumulation_steps)
         # enqueue time only: the synced rate comes from _report's interval
-        self._step_times = (self._step_times + [time.time() - t0])[-10:]
+        dispatch_s = time.time() - t0
+        self._step_times = (self._step_times + [dispatch_s])[-10:]
+        if self._heartbeat is not None:
+            # liveness beat (an atomic small-file write); step_s is the
+            # wall between beats, which the straggler monitor medians
+            self._heartbeat.beat(self.global_steps)
+            if self.telemetry is not None:
+                self.telemetry.registry.gauge(
+                    "heartbeat_step",
+                    "last step this process heartbeat for (elastic "
+                    "liveness)").set(self.global_steps)
+        if self.telemetry is not None:
+            self.telemetry.record_step(self.global_steps, dispatch_s,
+                                       samples=int(self.train_batch_size))
+        if self.summary_writer is not None:
+            # buffer the device metrics; the flush rides the
+            # steps_per_print sync instead of reading every step
+            self._tb_pending.append(
+                (self.global_steps,
+                 self._last_packed if self._last_metrics is None
+                 else self._last_metrics))
+            if len(self._tb_pending) >= 1000:
+                self._flush_tensorboard()
         if self.global_steps % self.config.steps_per_print == 0:
+            if self.timers is not None:
+                self.timers.log(["train_batch_data", "train_batch_step"])
+            # interval bookkeeping BEFORE _report (which resets it): the
+            # telemetry sync reuses the same synced wall-clock window
+            prev_t = getattr(self, "_last_report", None)
+            prev_step = getattr(self, "_last_report_step", 0)
             self._report(self.last_metrics)
+            self._flush_tensorboard()
+            if self.telemetry is not None:
+                self._telemetry_sync(prev_t, prev_step)
         return packed[0]
+
+    def _tel_span(self, name: str, cat: str = "runtime", **args):
+        """Telemetry span context — a nullcontext when telemetry is off,
+        so call sites stay unconditional.  Host-side stamps only; never
+        a device sync."""
+        tel = getattr(self, "telemetry", None)
+        if tel is None:
+            return contextlib.nullcontext()
+        return tel.span(name, cat=cat, **args)
+
+    def _start_capture(self):
+        """A started ``torch.profiler`` capture of the host and, on a
+        CUDA engine, the card's kernels."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    @staticmethod
+    def _export_capture(prof, out_dir: str, name: str) -> str:
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, name)
+        prof.export_chrome_trace(path)
+        return path
+
+    def _profiler_window_tick(self):
+        """Open/close the capture window around train_batch calls: steps
+        ``[start_step, start_step + num_steps)`` are traced."""
+        p = self._profiler
+        if p is None:
+            return
+        if (self._profiler_active is None
+                and p.start_step <= self.global_steps
+                < p.start_step + p.num_steps):
+            # upper bound matters: a run resumed from a checkpoint past the
+            # window must not open a stray one-step trace
+            self._anomaly_stop()  # defensive: one capture at a time
+            self._profiler_active = self._start_capture()
+        elif (self._profiler_active is not None
+              and self.global_steps >= p.start_step + p.num_steps):
+            self.stop_profiler()
+
+    def stop_profiler(self):
+        """Finalize the trace window (idempotent; also the escape hatch if
+        training ends inside it): a Chrome trace
+        ``<profiler.output_path>/trace_steps<a>-<b>.json``."""
+        prof = self._profiler_active
+        if prof is None:
+            return
+        with self._tel_span("profiler/stop_trace", cat="profiler",
+                            step=self.global_steps):
+            # device sync: the window must contain the work — one of the
+            # engine's existing sync points telemetry rides
+            _ = self.last_metrics
+            prof.stop()
+        self._profiler_active = None
+        p = self._profiler
+        self._profiler = None
+        path = self._export_capture(
+            prof, p.output_path,
+            f"trace_steps{p.start_step}-{self.global_steps - 1}.json")
+        log_dist(f"profiler: Chrome trace written to {path}", ranks=[0])
+
+    def _telemetry_sync(self, prev_t, prev_step):
+        """Telemetry's periodic drain, riding the steps_per_print sync
+        that ``_report``'s metrics read already paid for: the synced
+        step-time histogram, memory gauges, checkpoint stalls, the
+        heartbeat fleet's health and the exporters' flushes.  The first
+        interval has no synced baseline (prev_t is None) and records no
+        step-time sample."""
+        m = self.last_metrics
+        steps = self.global_steps - prev_step
+        interval = (self._last_report - prev_t) if prev_t is not None \
+            else None
+        # anomaly check FIRST: it also closes a previous trigger's
+        # bounded capture, and it must run before the straggler block —
+        # a straggler-arm fire later in THIS sync would otherwise open a
+        # capture this same sync immediately stops
+        self._anomaly_check(interval / steps
+                            if interval is not None and steps else None)
+        scalars = {}
+        if m is not None:
+            scalars = {"loss": float(m.loss),
+                       "grad_norm": float(m.grad_norm),
+                       "loss_scale": float(m.loss_scale),
+                       "lr": float(m.lr)}
+        ca = self._ckpt_interval_acc
+        if ca["saves"]:
+            # exposed per-save stall (sync: the whole serialize; async:
+            # just the host snapshot) and the background write time the
+            # async path hid — summarize's checkpoint row.  Read-and-
+            # reset under the lock: the writer thread adds overlap_s
+            with self._ckpt_acc_lock:
+                scalars["ckpt_save_s"] = ca["save_s"] / ca["saves"]
+                if ca["overlap_s"] > 0:
+                    # per WRITTEN save (coalesced submissions never wrote)
+                    scalars["ckpt_async_overlap_s"] = (
+                        ca["overlap_s"] / max(ca.get("writes", 0), 1))
+                ca.update(save_s=0.0, overlap_s=0.0, saves=0, writes=0)
+        if self._straggler_monitor is not None \
+                and self._heartbeat is not None:
+            # fleet health from the shared heartbeat dir: flag hosts
+            # whose step time exceeds straggler_ratio × the fleet
+            # median; detections count ONCE per flagged episode
+            from ..telemetry.heartbeat import beat_ages, read_heartbeats
+            beats = read_heartbeats(self._heartbeat.directory)
+            age_gauge = self.telemetry.registry.gauge(
+                "heartbeat_age_s",
+                "seconds since each host's last heartbeat (elastic "
+                "liveness; stale = hung host)")
+            for key, age in beat_ages(beats).items():
+                age_gauge.set(age, host=key)
+            rep = self._straggler_monitor.update(beats)
+            if rep["new_stragglers"]:
+                self.telemetry.registry.counter(
+                    "straggler_detected_total",
+                    "hosts flagged slower than straggler_ratio x the "
+                    "fleet median step time").inc(
+                    len(rep["new_stragglers"]))
+                logger.warning(
+                    "straggler(s) detected: %s (fleet median %.3fs/step, "
+                    "ratio %.1fx)", ", ".join(rep["new_stragglers"]),
+                    rep["median_step_s"] or 0.0,
+                    self._straggler_monitor.ratio)
+                self_key = (f"{self._heartbeat.host}/"
+                            f"{self._heartbeat.process_index}")
+                if self_key in rep["new_stragglers"]:
+                    # the anomaly trigger's straggler arm: THIS host is
+                    # the slow one — capture it while it is still slow
+                    self._fire_anomaly(
+                        f"this host flagged as straggler ({self_key})")
+            scalars["straggler_detected_total"] = float(
+                self._straggler_monitor.flagged_total)
+        self.telemetry.on_sync(
+            self.global_steps,
+            interval_s=interval,
+            steps=steps if interval is not None else None,
+            samples_per_step=int(self.train_batch_size),
+            scalars=scalars)
+
+    def _flush_tensorboard(self):
+        if self.summary_writer is None or not self._tb_pending:
+            return
+        # in-place drain: the GC finalizer holds this SAME list object
+        _drain_tb_pending(self._tb_pending, self.summary_writer)
+
+    # ------------------------------------------------------------------
+    # flight recorder + anomaly trigger (docs/observability.md)
+    # ------------------------------------------------------------------
+    def dump_flight_record(self, reason: str = "manual", error=None,
+                           directory: Optional[str] = None
+                           ) -> Optional[str]:
+        """Dump every stage's bounded event ring (call outcomes, queue
+        depths, failures, degradations) as ``flightrec_<step>.json`` for
+        post-mortem (``python -m deepspeed_tpu_torch.telemetry
+        diagnose``).  Fired on a train_batch failure, a stage
+        degradation, the SIGTERM preemption hook and the anomaly trigger;
+        callable on demand.  Never raises; returns the path, or None when
+        no telemetry output directory exists to hold it."""
+        try:
+            if directory is None:
+                if self.telemetry is None:
+                    logger.warning(
+                        "flight record NOT dumped (%s): telemetry is "
+                        "disabled and no directory was given", reason)
+                    return None
+                directory = self.telemetry.output_path
+            from ..telemetry.hub import write_flight_record
+            extra = {}
+            if self.last_ckpt_error is not None:
+                extra["last_ckpt_error"] = repr(self.last_ckpt_error)
+            if getattr(self, "last_stage_error", None) is not None:
+                extra["last_stage_error"] = repr(self.last_stage_error)
+            path = write_flight_record(
+                directory, getattr(self, "_stage_records", {}),
+                self.global_steps, reason, error=error,
+                extra=extra or None)
+            logger.warning("flight record dumped to %s (%s)", path,
+                           reason)
+            return path
+        except Exception:
+            logger.exception("flight-record dump failed (reason=%r)",
+                             reason)
+            return None
+
+    def _anomaly_stop(self):
+        """Close a trigger-opened capture (bounded: the window is one
+        sync interval — or engine.close, whichever first)."""
+        prof = self._anomaly_profiling
+        if prof is None:
+            return
+        self._anomaly_profiling = None
+        try:
+            prof.stop()
+            self._export_capture(
+                prof, os.path.join(self.telemetry.output_path,
+                                   "anomaly_profile"),
+                f"trace_step{self.global_steps}.json")
+            log_dist("anomaly profiler capture closed", ranks=[0])
+        except Exception as e:
+            logger.warning("anomaly profiler capture stop failed: %s", e)
+
+    def _fire_anomaly(self, reason: str):
+        """One-shot (per run) anomaly response: a flight-record dump and
+        a bounded profiler capture.  Opt-in — inert unless
+        ``telemetry.anomaly_ratio`` is set."""
+        if self._anomaly_ratio <= 0 or self._anomaly_fired:
+            return
+        self._anomaly_fired = True
+        logger.warning(
+            "telemetry anomaly trigger: %s — dumping a flight record "
+            "and starting ONE bounded profiler capture", reason)
+        self.dump_flight_record(reason=f"anomaly: {reason}")
+        if self.telemetry is None or self._profiler_active is not None \
+                or self._profiler is not None:
+            # never stack on a user-configured capture window, open OR
+            # still pending
+            return
+        try:
+            self._anomaly_profiling = self._start_capture()
+        except Exception as e:
+            logger.warning("anomaly profiler capture failed to "
+                           "start: %s", e)
+
+    def _anomaly_check(self, avg: Optional[float]):
+        """Step-time arm of the anomaly trigger, at the periodic sync:
+        fire when this interval's per-step time exceeds
+        ``telemetry.anomaly_ratio`` × the trailing median.  Also where a
+        previous trigger's capture closes (bounded to one interval)."""
+        self._anomaly_stop()
+        if avg is None:
+            return
+        if (self._anomaly_ratio > 0 and not self._anomaly_fired
+                and len(self._anomaly_trail) >= 4):
+            med = statistics.median(self._anomaly_trail)
+            if med > 0 and avg > self._anomaly_ratio * med:
+                self._fire_anomaly(
+                    f"interval step time {avg:.4f}s/step > "
+                    f"{self._anomaly_ratio:g}x trailing median "
+                    f"{med:.4f}s/step")
+        # appended AFTER the check: the anomalous interval must not
+        # dilute its own baseline
+        self._anomaly_trail.append(avg)
 
     def eval_batch(self, batch=None, data_iter=None) -> torch.Tensor:
         """Forward-only loss on one micro-batch (``train=False``).  A
@@ -526,13 +944,25 @@ class DeepSpeedEngine:
         if async_write is None:
             async_write = bool(self.config.checkpoint_config.async_save)
         if async_write:
-            async_write = not self._ckpt_stage.degraded
+            # a degraded writer saves synchronously (docs/stages.md)
+            async_write = not stage_degraded(self, "ckpt_writer")
         from .checkpointing import save_checkpoint
-        out = save_checkpoint(self, save_dir, tag=tag,
-                              client_state=client_state,
-                              save_latest=save_latest,
-                              async_write=bool(async_write))
+        t0 = time.perf_counter()
+        with self._tel_span("checkpoint/save", cat="checkpoint",
+                            step=self.global_steps,
+                            **{"async": bool(async_write)}):
+            out = save_checkpoint(self, save_dir, tag=tag,
+                                  client_state=client_state,
+                                  save_latest=save_latest,
+                                  async_write=bool(async_write))
         self._ckpt_last_save_dir = save_dir
+        # exposed stall only: an async save returns after the snapshot,
+        # so this is the number the ckpt_save_s telemetry scalar reports
+        # (the background write lands in overlap_s via the writer job)
+        with self._ckpt_acc_lock:
+            acc = self._ckpt_interval_acc
+            acc["save_s"] += time.perf_counter() - t0
+            acc["saves"] += 1
         return out
 
     def load_checkpoint(self, load_dir, tag=None,
@@ -543,11 +973,12 @@ class DeepSpeedEngine:
         returns ``(load_path, client_state)``, ``(None, None)`` when
         ``load_dir`` holds no ``latest``."""
         from .checkpointing import load_checkpoint
-        return load_checkpoint(
-            self, load_dir, tag=tag,
-            load_optimizer_states=load_optimizer_states,
-            load_lr_scheduler_states=load_lr_scheduler_states,
-            load_module_only=load_module_only)
+        with self._tel_span("checkpoint/load", cat="checkpoint"):
+            return load_checkpoint(
+                self, load_dir, tag=tag,
+                load_optimizer_states=load_optimizer_states,
+                load_lr_scheduler_states=load_lr_scheduler_states,
+                load_module_only=load_module_only)
 
     def _canonical_state(self):
         """(master, optimizer state) in the JAX engine's tree form: the
@@ -609,21 +1040,39 @@ class DeepSpeedEngine:
 
     def _ckpt_writer_tick(self):
         """Pre-step surfacing of a failed async save (it poisoned only
-        that save; training continues and the next save retries)."""
+        that save; training continues and the next save retries): it
+        lands in ``last_ckpt_error`` and the failure counter."""
         err = self._ckpt_writer.pop_error()
         if err is not None:
             self.last_ckpt_error = err
+            if self.telemetry is not None:
+                self.telemetry.registry.counter(
+                    "ckpt_save_failures_total",
+                    "checkpoint saves that failed (async writer or sync)",
+                ).inc()
+        # post-close stage failures land in last_stage_error
+        pop_stage_errors(self)
 
+    # ------------------------------------------------------------------
+    # shutdown
+    # ------------------------------------------------------------------
     def close(self):
-        """Drain the async checkpoint writer (a save that fails while it
-        drains lands in ``last_ckpt_error``), release the preemption
-        hook; idempotent."""
+        """Drain and stop every stage in THE documented order (ckpt
+        writer -> telemetry flush; docs/stages.md), then release the
+        preemption hook and the GC finalizer.  Idempotent.  A close-time
+        failure never aborts the drain mid-order: every stage still
+        closes, the errors land in ``stage_errors``/``last_stage_error``,
+        and the FIRST one re-raises."""
         self._pending_micros = []
-        close_ckpt_stage(self)
-        ph = self._preemption_handler
-        if ph is not None and not ph.fired:
-            ph.uninstall()
-        self._finalizer.detach()
+        try:
+            self.stop_profiler()  # no-op unless a window is open
+        except Exception:
+            pass
+        try:
+            self._anomaly_stop()  # a trigger-opened capture must land
+        except Exception:
+            pass
+        finish_close(self)
 
     # ------------------------------------------------------------------
     # introspection / logging
@@ -678,3 +1127,36 @@ class DeepSpeedEngine:
             f"lr={metrics.lr:.3e} loss_scale={metrics.loss_scale:.1f} "
             f"skipped={self.get_skipped_steps()} "
             f"samples/sec={tput:.1f}", ranks=[0])
+
+
+def _drain_tb_pending(pending, writer):
+    """Flush buffered (step, packed metrics) records into the summary
+    writer.  Mutates ``pending`` IN PLACE (clear, not rebind) so the GC
+    finalizer — which holds the same list object — always sees the live
+    buffer."""
+    for step, rec in pending:
+        if isinstance(rec, StepMetrics):
+            loss, lr, scale = rec.loss, rec.lr, rec.loss_scale
+        else:
+            vec = rec.tolist()
+            loss, lr, scale = vec[0], vec[4], vec[2]
+        writer.add_scalar("Train/loss", float(loss), step)
+        writer.add_scalar("Train/lr", float(lr), step)
+        writer.add_scalar("Train/loss_scale", float(scale), step)
+    pending.clear()
+
+
+def _close_quietly(objs, tb_pending=None, writer=None):
+    """GC-finalizer body: drain buffered scalars, then close the
+    checkpoint writer and the observability outputs.  Never raises (it
+    runs during interpreter shutdown)."""
+    try:
+        if tb_pending and writer is not None:
+            _drain_tb_pending(tb_pending, writer)
+    except Exception:
+        pass
+    for obj in objs:
+        try:
+            obj.close()
+        except Exception:
+            pass

@@ -1,18 +1,141 @@
-"""The engines' stage planes (docs/stages.md): wiring, not policy.
+"""The engines' stage planes (docs/stages.md): wiring, not policy (a port
+of ``deepspeed_tpu/runtime/engine_stages.py``).
 
 ``runtime/stages.py`` owns the shared async-stage primitives; this module
-owns how the engines use them.  The serving engine's drain-order graph is
-ported whole, its telemetry entry included.  Of the training engine's
-graph only the checkpoint writer's entry is: its drain (a sync save waits
-out an in-flight async one) and its close (``engine.close()`` lands the
-last save).  The prefetch, offload and telemetry entries come with
-ROADMAP.md queue 1 items 5 (the training half) and 12.
+owns how the engines use them — the training engine's persistent
+per-subsystem :class:`~.stages.Stage` records, the telemetry counter hook,
+the degradation dump, and THE documented drain order with its close/drain
+entries.
+
+THE training drain order (rationale in docs/stages.md): an in-flight
+checkpoint save is not droppable, so its stage drains (and surfaces
+failures) before telemetry flushes last, still seeing every stage's final
+spans and counters —
+
+    ckpt writer -> telemetry flush
+
+The JAX engine's graph opens with the prefetch, offload-upload and disk
+write-back entries; they come with ROADMAP.md queue 1 item 12 (the port
+runs its ``data_prefetch`` inline, and has no offload yet).
+
+The serving engine has its own graph with the same discipline
+(``wire_serve_stage_plane``) —
+
+    serve queue -> kv spill -> kv fetch -> telemetry flush
 """
 from __future__ import annotations
 
-from .stages import StageGraph
+import weakref
+
+from .stages import Stage, StageGraph
+
+#: (stage name, inline/serial fallback named in the degradation warning)
+ENGINE_STAGES = (
+    ("ckpt_writer", "synchronous saves"),
+)
 
 
+def wire_stage_plane(engine) -> None:
+    """Install the stage records and THE drain-order graph on ``engine``.
+
+    The counter hook holds the engine WEAKLY: stage records ride worker
+    threads (GC roots), and a strong capture would pin the engine for
+    process lifetime.  The graph's entries resolve engine attributes at
+    call time (``getattr``), so wiring happens before the checkpoint
+    writer exists and close stays correct on partially-built engines.
+    """
+    eng_ref = weakref.ref(engine)
+
+    def _stage_counter(name, help, n):
+        eng = eng_ref()
+        if eng is not None and eng.telemetry is not None:
+            eng.telemetry.registry.counter(name, help).inc(n)
+
+    def _stage_degrade_dump(st):
+        # flight recorder (docs/observability.md): a degradation is the
+        # moment the history explaining it is still in the rings — dump
+        # before it scrolls off.  Runs on the degrading worker's thread;
+        # dump_flight_record never raises.
+        eng = eng_ref()
+        if eng is not None:
+            eng.dump_flight_record(
+                reason=f"stage {st.name!r} degraded to {st.fallback}")
+
+    engine._stage_records = {}
+    for sname, fallback in ENGINE_STAGES:
+        st = Stage(sname,
+                   max_failures=engine.config.stages_config
+                   .max_stage_failures,
+                   fallback=fallback)
+        st.counter_fn = _stage_counter
+        st.on_degrade = _stage_degrade_dump
+        engine._stage_records[sname] = st
+    engine.last_stage_error = None
+    #: every surfaced stage error, oldest first (bounded) — one tick
+    #: can pop several stages' failures and ``last_stage_error`` only
+    #: carries the newest
+    engine.stage_errors = []
+
+    graph = StageGraph()
+    graph.register("ckpt_writer",
+                   close=lambda: close_ckpt_stage(engine),
+                   drain=lambda: drain_ckpt_stage(engine))
+    graph.register("telemetry",
+                   close=lambda: close_telemetry_stage(engine),
+                   drain=engine._flush_tensorboard)
+    engine._stage_graph = graph
+
+
+def stage_degraded(engine, name: str) -> bool:
+    """True when the named stage exhausted its failure budget — the
+    engine's hot paths pin their serial/inline equivalent on this."""
+    recs = getattr(engine, "_stage_records", None)
+    return bool(recs) and name in recs and recs[name].degraded
+
+
+def pop_stage_errors(engine) -> None:
+    """Land stage failures whose natural reporting path was gone in
+    ``engine.last_stage_error`` — the training thread's advertised
+    surface, ticked pre-step alongside the checkpoint writer's.  All of
+    them are retained in ``engine.stage_errors`` (bounded, oldest
+    dropped) so an earlier stage's error is never silently replaced by a
+    later one."""
+    for st in getattr(engine, "_stage_records", {}).values():
+        err = st.pop_error()
+        if err is not None:
+            engine.last_stage_error = err
+            engine.stage_errors.append(err)
+            del engine.stage_errors[:-16]
+
+
+def finish_close(engine) -> None:
+    """The tail of ``engine.close()``: run THE drain order, release the
+    preemption hook and the GC finalizer, then surface any close-time
+    failures.  ``close_all`` never aborts mid-order, so every stage
+    still closed; the errors land in ``stage_errors``/
+    ``last_stage_error`` and the FIRST re-raises so an explicit caller
+    sees the shutdown was not clean (a GC finalizer swallows it like
+    any finalizer exception — the hook/finalizer release above already
+    happened, so a later explicit close stays idempotent)."""
+    errors = engine._stage_graph.close_all()
+    pop_stage_errors(engine)
+    ph = getattr(engine, "_preemption_handler", None)
+    if ph is not None and not ph.fired:
+        ph.uninstall()
+    if getattr(engine, "_finalizer", None) is not None:
+        engine._finalizer.detach()
+        engine._finalizer = None
+    if errors:
+        for _name, err in errors:
+            engine.last_stage_error = err
+            engine.stage_errors.append(err)
+        del engine.stage_errors[:-16]
+        raise errors[0][1]
+
+
+# ---------------------------------------------------------------------------
+# the training graph's entries, in THE drain order
+# ---------------------------------------------------------------------------
 def drain_ckpt_stage(engine) -> None:
     """Wait out an in-flight async save WITHOUT stopping the writer
     (sync-save ordering); its failure, if any, surfaces exactly like the
@@ -24,15 +147,30 @@ def drain_ckpt_stage(engine) -> None:
 
 
 def close_ckpt_stage(engine) -> None:
-    """Close the checkpoint writer: an in-flight async save must land,
-    and a failure surfaces in ``last_ckpt_error`` rather than vanishing
-    with the daemon thread."""
+    """Close the checkpoint writer BEFORE telemetry: an in-flight async
+    save must land (its spans/counters included), and a failure surfaces
+    in ``last_ckpt_error`` rather than vanishing with the daemon
+    thread."""
     w = getattr(engine, "_ckpt_writer", None)
     if w is not None:
         w.close()
         engine._ckpt_writer_tick()
 
 
+def close_telemetry_stage(engine) -> None:
+    """Flush buffered scalars and close the hub + summary writer — LAST,
+    after every stage that emits telemetry has drained."""
+    engine._flush_tensorboard()
+    tel = getattr(engine, "telemetry", None)
+    if tel is not None:
+        tel.close()
+    if engine.summary_writer is not None:
+        engine.summary_writer.close()
+
+
+# ---------------------------------------------------------------------------
+# the serving engine's stage graph, in ITS drain order
+# ---------------------------------------------------------------------------
 def wire_serve_stage_plane(serve) -> None:
     """Install the serving engine's drain-order graph (docs/stages.md;
     the fence's second line):

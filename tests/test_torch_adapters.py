@@ -14,9 +14,9 @@ stream equal to the JAX engine's (a flip allowed only on a near tie, top-2
 logit gap below 1e-3, reported with its gap).
 
 Not here: ``:348`` (dp2 x tp2 sharding) waits for ROADMAP.md queue 1 item
-9, ``:557,616`` (fleet affinity and replica reroute) for item 8, and
-``:377`` (a compiled program's cache size) has no counterpart in eager
-PyTorch.
+9; ``:557,616`` (fleet affinity and replica reroute) are in
+``tests/test_torch_fleet.py``; ``:377`` (a compiled program's cache size)
+has no counterpart in eager PyTorch.
 """
 import numpy as np
 import pytest

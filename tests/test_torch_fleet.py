@@ -1,0 +1,1193 @@
+"""The port's serving fleet (``deepspeed_tpu_torch/inference/{fleet,
+replica,wire}.py``, ``launcher/supervise.py``): the router's unit cases of
+``tests/test_fleet.py`` run on the port's router over fake socket
+replicas (JSQ, failover, autoscaling with hysteresis, give-up, custody on
+every death, the events ledger, ``diagnose``), the LoRA tenant-affinity
+and replica-death cases of ``tests/test_adapters.py``, and end-to-end
+fleets of CPU replicas (the port's engines, spawned with ``--device
+cpu``): a 1-replica fleet equals the bare port engine, the disaggregated
+fleet's streams and custody ledger, and a decode kill that loses nothing.
+"""
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import pytest
+
+from deepspeed_tpu_torch.config import DeepSpeedConfigError
+from deepspeed_tpu_torch.config.config import DeepSpeedFleetConfig
+from deepspeed_tpu_torch.inference.fleet import (FleetClosedError,
+                                                 FleetGiveUpError,
+                                                 FleetRouter,
+                                                 ReplicaFailure)
+from deepspeed_tpu_torch.inference.wire import (BinaryFrame, FrameReader,
+                                                drain_socket,
+                                                send_binary_frame,
+                                                send_frame)
+from deepspeed_tpu_torch.runtime.stages import reset_fault_injection
+from deepspeed_tpu_torch.telemetry.heartbeat import (HeartbeatWriter,
+                                                     StragglerMonitor,
+                                                     beat_ages,
+                                                     read_heartbeats)
+
+_CHAOS_ENVS = ("DS_STAGE_FAULT", "DS_STAGE_DELAY_S")
+
+
+@pytest.fixture(autouse=True)
+def _clean_faults(monkeypatch):
+    for env in _CHAOS_ENVS:
+        monkeypatch.delenv(env, raising=False)
+    reset_fault_injection()
+    yield
+    reset_fault_injection()
+
+
+# ---------------------------------------------------------------------------
+# heartbeat serving gauges (the fleet's JSQ payload)
+# ---------------------------------------------------------------------------
+
+
+def test_heartbeat_extra_gauges_roundtrip_and_core_keys_win(tmp_path):
+    w = HeartbeatWriter(str(tmp_path), process_index=3)
+    assert w.beat(7, step_s=0.5, extra={
+        "serve_active_slots": 2, "serve_queue_depth": 5,
+        "serve_free_pages": 11, "spec_accept_ratio": 0.75,
+        # a hostile gauge must never mask liveness: core keys win
+        "time": 1.0, "step": 999})
+    beats = read_heartbeats(str(tmp_path))
+    (rec,) = beats.values()
+    assert rec["serve_active_slots"] == 2
+    assert rec["serve_queue_depth"] == 5
+    assert rec["serve_free_pages"] == 11
+    assert rec["spec_accept_ratio"] == 0.75
+    assert rec["step"] == 7          # core beat fields won
+    assert rec["time"] > 1e9
+    # richer schema tolerated by every existing reader
+    ages = beat_ages(beats)
+    assert list(ages) and all(a >= 0 for a in ages.values())
+    rep = StragglerMonitor(ratio=2.0).update(beats)
+    assert rep["hosts"] == 1
+
+
+# ---------------------------------------------------------------------------
+# fleet config block
+# ---------------------------------------------------------------------------
+
+
+def test_fleet_config_defaults_and_validation():
+    cfg = DeepSpeedFleetConfig({})
+    assert (cfg.replicas, cfg.min_replicas, cfg.max_replicas) == (1, 1, 4)
+    assert cfg.slo_p99_s == 2.0
+    cfg = DeepSpeedFleetConfig({"fleet": {"replicas": 2,
+                                          "max_replicas": 8,
+                                          "slo_p99_s": 0.5}})
+    assert cfg.replicas == 2 and cfg.slo_p99_s == 0.5
+    for bad in ({"replicas": 0}, {"min_replicas": 3, "max_replicas": 2},
+                {"replicas": 9}, {"slo_p99_s": 0},
+                {"scale_up_window_s": -1}, {"max_restarts": -1},
+                {"heartbeat_timeout_s": -2}, {"replicas": True},
+                {"backoff_base_s": "fast"}):
+        with pytest.raises(DeepSpeedConfigError):
+            DeepSpeedFleetConfig({"fleet": bad})
+
+
+def test_fleet_roles_config_validation():
+    cfg = DeepSpeedFleetConfig(
+        {"fleet": {"roles": {"prefill": 1, "decode": 2},
+                   "max_replicas": 4}})
+    assert cfg.roles == {"prefill": 1, "decode": 2}
+    assert cfg.replicas == 3          # roles size the fleet
+    # an explicit matching replicas count is redundant but legal
+    cfg = DeepSpeedFleetConfig(
+        {"fleet": {"roles": {"prefill": 1, "mixed": 1},
+                   "replicas": 2}})
+    assert cfg.replicas == 2
+    assert DeepSpeedFleetConfig({}).roles is None
+    for bad in (
+            # replicas contradicting the role sum
+            {"roles": {"prefill": 1, "decode": 1}, "replicas": 3},
+            # prefill with nowhere to migrate to
+            {"roles": {"prefill": 2}},
+            {"roles": {"prefill": 1, "frontend": 1}},  # unknown role
+            {"roles": {}},                             # empty map
+            {"roles": {"decode": 0}},                  # count < 1
+            {"roles": "prefill"},                      # not a dict
+            {"slo_ttft_s": -1},
+            {"slo_tpot_s": "fast"}):
+        with pytest.raises(DeepSpeedConfigError):
+            DeepSpeedFleetConfig({"fleet": bad})
+
+
+# ---------------------------------------------------------------------------
+# router semantics over fake socket replicas (the launch_fn test seam)
+# ---------------------------------------------------------------------------
+
+
+class FakeProc:
+    """Popen-shaped handle the router supervises."""
+
+    def __init__(self):
+        self.rc = None
+        self.terminated = False
+
+    def poll(self):
+        return self.rc
+
+    def terminate(self):
+        self.terminated = True
+        if self.rc is None:
+            self.rc = -15
+
+    def kill(self):
+        self.rc = -9
+
+    def wait(self, timeout=None):
+        if self.rc is None:
+            raise subprocess.TimeoutExpired("fake", timeout or 0)
+        return self.rc
+
+
+class FakeReplica:
+    """A scripted replica: real socket to the router, test-driven
+    frames."""
+
+    def __init__(self, addr, replica_id):
+        self.id = replica_id
+        self.proc = FakeProc()
+        self.sock = socket.create_connection(addr, timeout=5.0)
+        self.sock.settimeout(5.0)
+        self.reader = FrameReader()
+        self.submits = []
+        self.saw_shutdown = False
+        send_frame(self.sock, {"kind": "hello", "replica": replica_id,
+                               "pid": 0})
+
+    def pump(self):
+        frames, _ = drain_socket(self.sock, self.reader)
+        self.submits.extend(f for f in frames
+                            if f.get("kind") == "submit")
+        if any(f.get("kind") == "shutdown" for f in frames):
+            self.saw_shutdown = True
+        return frames
+
+    def admit(self, rid):
+        send_frame(self.sock, {"kind": "admit", "rid": rid})
+
+    def tokens(self, rid, toks):
+        send_frame(self.sock, {"kind": "token", "rid": rid,
+                               "toks": list(toks)})
+
+    def done(self, rid, reason="length", total=None):
+        send_frame(self.sock, {"kind": "done", "rid": rid,
+                               "reason": reason,
+                               "tokens_total": total})
+
+    def error(self, rid, err="boom"):
+        send_frame(self.sock, {"kind": "error", "rid": rid,
+                               "error": err})
+
+    def die(self, rc=13):
+        self.proc.rc = rc
+        self.sock.close()
+
+
+class Fleet:
+    """Router + fake-replica harness with a fake autoscale clock."""
+
+    def __init__(self, tmp_path, fleet=None):
+        self.clock = [1000.0]
+        self.fakes = {}
+        # term_grace_s small: fake procs never exit on their own, and
+        # close()'s graceful-drain window would otherwise wait it out
+        cfg = {"fleet": {"heartbeat_timeout_s": 0.0,
+                         "backoff_base_s": 0.01,
+                         "term_grace_s": 0.2,
+                         "spawn_timeout_s": 1e9, **(fleet or {})}}
+        self.router = FleetRouter(
+            cfg, fleet_dir=str(tmp_path / "fleet"),
+            spawn_fn=self._spawn, now_fn=lambda: self.clock[0])
+
+    def _spawn(self, replica_id, attempt):
+        fake = FakeReplica(self.router.addr, replica_id)
+        self.fakes[replica_id] = fake
+        return fake.proc
+
+    def start(self):
+        self.router.start()
+        return self
+
+    def pump(self, n=6):
+        """A few router+fake iterations — localhost frames land fast,
+        but never assume a single poll saw them."""
+        for _ in range(n):
+            self.router.poll(0.01)
+            for f in self.fakes.values():
+                if f.proc.rc is None:
+                    f.pump()
+
+    def advance(self, dt):
+        self.clock[0] += dt
+
+
+def test_jsq_tie_breaks_deterministically_lowest_id(tmp_path):
+    fl = Fleet(tmp_path, {"replicas": 2, "max_replicas": 2}).start()
+    try:
+        reqs = [fl.router.submit([1, 2], max_new_tokens=4)
+                for _ in range(4)]
+        deadline = time.monotonic() + 5
+        while (len(fl.fakes[0].submits) + len(fl.fakes[1].submits) < 4
+               and time.monotonic() < deadline):
+            fl.pump(1)
+        # equal loads tie-break to the LOWEST replica id, alternating
+        # as outstanding counts grow: r0 gets rids 1,3 — r1 gets 2,4
+        assert [f["rid"] for f in fl.fakes[0].submits] == [1, 3]
+        assert [f["rid"] for f in fl.fakes[1].submits] == [2, 4]
+        assert [r.replica for r in reqs] == [0, 1, 0, 1]
+    finally:
+        fl.router.close()
+
+
+def test_jsq_reads_heartbeat_queue_gauges(tmp_path):
+    fl = Fleet(tmp_path, {"replicas": 2, "max_replicas": 2}).start()
+    try:
+        # replica 0 reports a deep engine-side queue via its beat: the
+        # next admission must go to replica 1 despite the id tie
+        w = HeartbeatWriter(fl.router.fleet_dir, process_index=0)
+        w.beat(1, extra={"serve_queue_depth": 5,
+                         "serve_active_slots": 2})
+        fl.router._last_beats_read = 0.0  # bypass the read throttle
+        fl.router.poll(0.01)
+        assert fl.router._beats[0]["serve_queue_depth"] == 5
+        fl.router.submit([1], max_new_tokens=2)
+        deadline = time.monotonic() + 5
+        while not fl.fakes[1].submits and time.monotonic() < deadline:
+            fl.pump(1)
+        assert [f["rid"] for f in fl.fakes[1].submits] == [1]
+        assert not fl.fakes[0].submits
+    finally:
+        fl.router.close()
+
+
+def test_failover_queued_vs_midstream(tmp_path):
+    """THE failover contract: a dead replica's queued-but-unstarted
+    requests re-dispatch (order preserved, completing normally); the
+    one whose tokens already streamed fails typed ReplicaFailure."""
+    fl = Fleet(tmp_path, {"replicas": 2, "max_replicas": 2}).start()
+    try:
+        r1 = fl.router.submit([1], max_new_tokens=4)
+        r2 = fl.router.submit([2], max_new_tokens=4)
+        r3 = fl.router.submit([3], max_new_tokens=4)
+        deadline = time.monotonic() + 5
+        while len(fl.fakes[0].submits) < 2 and \
+                time.monotonic() < deadline:
+            fl.pump(1)
+        assert [f["rid"] for f in fl.fakes[0].submits] == [1, 3]
+        # rid 1 starts streaming on replica 0; rid 3 stays queued there
+        fl.fakes[0].admit(1)
+        fl.fakes[0].tokens(1, [42, 43])
+        fl.pump()
+        assert r1.started and r1.tokens == [42, 43]
+        assert not r3.started
+        fl.fakes[0].die(13)
+        deadline = time.monotonic() + 5
+        while not r1.done.is_set() and time.monotonic() < deadline:
+            fl.pump(1)
+        # mid-stream: typed failure naming the replica
+        assert isinstance(r1.error, ReplicaFailure)
+        assert r1.error.replica == 0
+        with pytest.raises(ReplicaFailure):
+            r1.result(timeout=1)
+        # queued-but-unstarted: failed over to replica 1, completes
+        deadline = time.monotonic() + 5
+        while len(fl.fakes[1].submits) < 2 and \
+                time.monotonic() < deadline:
+            fl.pump(1)
+        assert [f["rid"] for f in fl.fakes[1].submits] == [2, 3]
+        assert r3.failovers == 1 and r3.error is None
+        fl.fakes[1].admit(2)
+        fl.fakes[1].tokens(2, [7])
+        fl.fakes[1].done(2, total=1)
+        fl.fakes[1].admit(3)
+        fl.fakes[1].tokens(3, [8, 9])
+        fl.fakes[1].done(3, total=2)
+        fl.pump()
+        assert r2.result(timeout=5) == [7]
+        assert r3.result(timeout=5) == [8, 9]
+        # a completed request resets the give-up budget
+        assert fl.router._consec_failures == 0
+    finally:
+        fl.router.close()
+
+
+def test_replica_error_frame_fails_one_request_only(tmp_path):
+    """Per-request isolation (the engine's Orca discipline, surfaced
+    through the wire): an ``error`` frame fails exactly that request —
+    the replica keeps its slot pool and the fleet keeps routing."""
+    fl = Fleet(tmp_path, {"replicas": 1, "max_replicas": 1}).start()
+    try:
+        r1 = fl.router.submit([1], max_new_tokens=2)
+        r2 = fl.router.submit([2], max_new_tokens=2)
+        deadline = time.monotonic() + 5
+        while len(fl.fakes[0].submits) < 2 and \
+                time.monotonic() < deadline:
+            fl.pump(1)
+        fl.fakes[0].error(1, "ValueError('empty prompt')")
+        fl.fakes[0].admit(2)
+        fl.fakes[0].tokens(2, [5])
+        fl.fakes[0].done(2, total=1)
+        fl.pump()
+        assert r1.error is not None and "empty prompt" in str(r1.error)
+        assert r2.result(timeout=5) == [5]
+        assert 0 in fl.router.replicas  # replica survived
+    finally:
+        fl.router.close()
+
+
+def test_autoscale_up_on_sustained_breach_with_hysteresis_and_max(
+        tmp_path):
+    fl = Fleet(tmp_path, {"replicas": 1, "max_replicas": 3,
+                          "slo_p99_s": 1.0, "scale_up_window_s": 10.0,
+                          "scale_down_window_s": 1e6}).start()
+    try:
+        # a request nobody admits: its age IS the breach signal (a
+        # wedged fleet produces no admission samples at all)
+        fl.router.submit([1], max_new_tokens=2)
+        fl.pump()
+        fl.advance(2.0)          # older than the SLO -> breach begins
+        fl.pump(1)
+        assert len(fl.router.replicas) == 1  # breach not sustained yet
+        fl.advance(5.0)
+        fl.pump(1)
+        assert len(fl.router.replicas) == 1  # still inside the window
+        fl.advance(6.0)          # breach sustained > scale_up_window_s
+        fl.pump(1)
+        assert len(fl.router.replicas) == 2  # scaled up
+        # hysteresis: the scale event reset the breach clock — no
+        # second spawn until ANOTHER full window of sustained breach
+        fl.advance(3.0)
+        fl.pump(2)
+        assert len(fl.router.replicas) == 2
+        fl.advance(11.0)
+        fl.pump(2)
+        assert len(fl.router.replicas) == 3
+        # max clamp: breach may rage on, the fleet stays at max
+        fl.advance(30.0)
+        fl.pump(3)
+        assert len(fl.router.replicas) == 3
+    finally:
+        fl.router.close()
+
+
+def test_autoscale_down_on_sustained_slack_with_min_clamp(tmp_path):
+    fl = Fleet(tmp_path, {"replicas": 2, "min_replicas": 1,
+                          "max_replicas": 2, "slo_p99_s": 1.0,
+                          "scale_up_window_s": 10.0,
+                          "scale_down_window_s": 20.0}).start()
+    try:
+        # serve one request quickly: a healthy, then idle, fleet
+        r = fl.router.submit([1], max_new_tokens=2)
+        deadline = time.monotonic() + 5
+        while not fl.fakes[0].submits and time.monotonic() < deadline:
+            fl.pump(1)
+        fl.fakes[0].admit(1)
+        fl.fakes[0].tokens(1, [3])
+        fl.fakes[0].done(1, total=1)
+        fl.pump()
+        assert r.result(timeout=5) == [3]
+        # slack begins; not sustained yet -> no retire
+        fl.advance(25.0)   # ages the wait sample out of both windows
+        fl.pump(1)
+        assert len(fl.router.replicas) == 2
+        fl.advance(21.0)   # slack sustained > scale_down_window_s
+        fl.pump(1)
+        draining = [rep for rep in fl.router.replicas.values()
+                    if rep.state == "draining"]
+        assert [rep.id for rep in draining] == [1]  # highest id drains
+        # the drained retiree exits 0 and is reaped
+        deadline = time.monotonic() + 5
+        while 1 in fl.router.replicas and time.monotonic() < deadline:
+            fl.fakes[1].pump()
+            if fl.fakes[1].saw_shutdown:
+                fl.fakes[1].proc.rc = 0
+            fl.router.poll(0.01)
+        assert sorted(fl.router.replicas) == [0]
+        # min clamp: slack forever, but the floor holds
+        fl.advance(50.0)
+        fl.pump(2)
+        fl.advance(50.0)
+        fl.pump(2)
+        assert sorted(fl.router.replicas) == [0]
+    finally:
+        fl.router.close()
+
+
+def test_give_up_typed_after_consecutive_spawn_failures(tmp_path):
+    calls = []
+
+    def bad_spawn(replica_id, attempt):
+        calls.append(replica_id)
+        raise RuntimeError("no capacity")
+
+    router = FleetRouter(
+        {"fleet": {"replicas": 1, "max_restarts": 2,
+                   "backoff_base_s": 0.01, "backoff_max_s": 0.02}},
+        fleet_dir=str(tmp_path / "fleet"), spawn_fn=bad_spawn)
+    queued = router.submit([1], max_new_tokens=2)
+    with pytest.raises(FleetGiveUpError) as ei:
+        router.start()
+    assert ei.value.restarts == 3          # budget 2 -> third strike
+    assert "no capacity" in ei.value.last_failure
+    assert len(calls) == 3
+    # the give-up failed every in-flight request typed and dumped the
+    # supervisor flight record for the post-mortem
+    assert isinstance(queued.error, FleetGiveUpError)
+    rec_path = os.path.join(router.fleet_dir,
+                            "flightrec_supervisor.json")
+    with open(rec_path) as f:
+        rec = json.load(f)
+    assert rec["stages"]["fleet"]["events"]
+    # closed: further submits are refused
+    with pytest.raises(RuntimeError):
+        router.submit([1])
+
+
+def test_spawn_timeout_counts_as_failure(tmp_path):
+    """A replica that never says hello is a failed spawn: killed,
+    counted against the give-up budget."""
+    fl = Fleet(tmp_path, {"replicas": 1, "max_restarts": 0})
+    fl.router.cfg = DeepSpeedFleetConfig(
+        {"fleet": {"replicas": 1, "max_restarts": 0,
+                   "spawn_timeout_s": 5.0, "backoff_base_s": 0.01}})
+
+    def mute_spawn(replica_id, attempt):
+        proc = FakeProc()
+        fl.fakes[replica_id] = type("F", (), {"proc": proc})()
+        return proc
+
+    fl.router.spawn_fn = mute_spawn
+    fl.router._spawn("initial")
+    fl.advance(6.0)  # past spawn_timeout_s
+    with pytest.raises(FleetGiveUpError):
+        fl.router.poll(0.01)
+
+
+def test_garbage_connection_cannot_crash_router(tmp_path):
+    """A port scanner (or corrupt framing) on the router's listen port
+    fails ITSELF — poll keeps routing and real replicas keep serving."""
+    fl = Fleet(tmp_path, {"replicas": 1, "max_replicas": 1}).start()
+    try:
+        scanner = socket.create_connection(fl.router.addr, timeout=5.0)
+        scanner.sendall(b"\xff\xff\xff\xffGARBAGE")  # >16MiB length prefix
+        fl.pump()  # must not raise
+        r1 = fl.router.submit([1], max_new_tokens=2)
+        deadline = time.monotonic() + 5
+        while not fl.fakes[0].submits and time.monotonic() < deadline:
+            fl.pump(1)
+        fl.fakes[0].admit(1)
+        fl.fakes[0].tokens(1, [9])
+        fl.fakes[0].done(1, total=1)
+        fl.pump()
+        assert r1.result(timeout=5) == [9]
+        scanner.close()
+    finally:
+        fl.router.close()
+
+
+def test_close_fails_inflight_typed_and_is_idempotent(tmp_path):
+    fl = Fleet(tmp_path, {"replicas": 1, "max_replicas": 1}).start()
+    r1 = fl.router.submit([1], max_new_tokens=2)
+    fl.pump()
+    fl.router.close()
+    assert isinstance(r1.error, FleetClosedError)
+    with pytest.raises(FleetClosedError):
+        r1.result(timeout=1)
+    fl.router.close()  # idempotent
+    assert fl.fakes[0].proc.rc is not None  # replica torn down
+
+
+def test_fleet_events_ledger_and_heartbeat_age_metrics(tmp_path):
+    """The router's events.jsonl is the fleet's request ledger +
+    per-replica liveness export: every submit has a completion record,
+    and metrics records carry heartbeat_age_s{replica=...}."""
+    fl = Fleet(tmp_path, {"replicas": 1, "max_replicas": 1}).start()
+    try:
+        w = HeartbeatWriter(fl.router.fleet_dir, process_index=0)
+        w.beat(1, extra={"serve_active_slots": 0})
+        r1 = fl.router.submit([1], max_new_tokens=2)
+        deadline = time.monotonic() + 5
+        while not fl.fakes[0].submits and time.monotonic() < deadline:
+            fl.pump(1)
+        fl.fakes[0].admit(1)
+        fl.fakes[0].tokens(1, [4])
+        fl.fakes[0].done(1, total=1)
+        fl.pump()
+        assert r1.result(timeout=5) == [4]
+        fl.router._last_beats_read = 0.0
+        fl.router._last_metrics_write = 0.0
+        fl.router.poll(0.01)
+    finally:
+        fl.router.close()
+    recs = []
+    with open(os.path.join(fl.router.fleet_dir, "events.jsonl")) as f:
+        for line in f:
+            recs.append(json.loads(line))
+    kinds = [r["kind"] for r in recs]
+    assert "fleet_submit" in kinds and "fleet_request" in kinds
+    done = next(r for r in recs if r["kind"] == "fleet_request")
+    assert done["rid"] == 1 and done["error"] is None
+    assert done["queue_wait_s"] is not None
+    # the LAST metrics record: the first may predate the beat file
+    mrec = [r for r in recs if r["kind"] == "metrics"][-1]
+    ages = [m for m in mrec["metrics"]
+            if m["name"] == "heartbeat_age_s"]
+    assert ages and ages[0]["labels"]["replica"] == "0"
+    assert ages[0]["value"] is not None and ages[0]["value"] >= 0
+
+
+# ---------------------------------------------------------------------------
+# diagnose: the fleet-directory post-mortem
+# ---------------------------------------------------------------------------
+
+
+def test_diagnose_fleet_directory_correlation(tmp_path, capsys):
+    from deepspeed_tpu_torch.telemetry.cli import diagnose
+    d = tmp_path / "fleet"
+    (d / "replica_0").mkdir(parents=True)
+    (d / "replica_1").mkdir()
+    with open(d / "replica_0" / "flightrec_5.json", "w") as f:
+        json.dump({"version": 1, "reason": "serve poison", "step": 5,
+                   "error": "RuntimeError('boom')",
+                   "stages": {"serve": {"events": [
+                       {"t": 100.0, "kind": "poison",
+                        "error": "RuntimeError('boom')"}]}}}, f)
+    events = [
+        {"kind": "fleet_submit", "t": 99.0, "rid": 1},
+        {"kind": "fleet_submit", "t": 99.1, "rid": 2},
+        {"kind": "fleet_submit", "t": 99.2, "rid": 3},
+        {"kind": "replica_dead", "t": 100.5, "replica": 0,
+         "reason": "replica 0 exited rc=13", "failed_over": 1},
+        {"kind": "fleet_request", "t": 101.0, "rid": 1,
+         "error": "ReplicaFailure('mid-stream')", "started": True,
+         "failovers": 0},
+        {"kind": "fleet_request", "t": 101.5, "rid": 2, "error": None,
+         "started": True, "failovers": 1, "queue_wait_s": 0.3},
+    ]
+    with open(d / "events.jsonl", "w") as f:
+        for e in events:
+            f.write(json.dumps(e) + "\n")
+    report = diagnose(str(d))
+    out = capsys.readouterr().out
+    assert report["fleet_replica_dirs"] == 2
+    assert report["fleet_failover_count"] == 1
+    assert report["fleet_dangling_requests"] == 1   # rid 3 never done
+    assert report["fleet_failed_requests"] == 1
+    assert report["fleet_first_dead_replica"] == 0
+    assert report["fleet_first_failing_replica"] == "replica_0"
+    assert "failed over" in out and "DANGLING" in out
+    assert "replica_0" in out
+
+
+def test_diagnose_non_fleet_dir_unchanged(tmp_path, capsys):
+    """A plain telemetry dir must not grow fleet rows."""
+    from deepspeed_tpu_torch.telemetry.cli import diagnose
+    with open(tmp_path / "events.jsonl", "w") as f:
+        f.write(json.dumps({"kind": "step", "step": 1}) + "\n")
+    report = diagnose(str(tmp_path))
+    out = capsys.readouterr().out
+    assert "failed over" not in out and "DANGLING" not in out
+    assert "fleet_failover_count" not in report
+    assert "fleet_replica_dirs" not in report
+
+
+def test_diagnose_fleet_per_role_breakdown_and_custody(tmp_path,
+                                                       capsys):
+    """A disaggregated fleet dir: diagnose breaks replicas down per
+    role (first dead replica per role) and summarizes the migration
+    custody ledger — taken into router custody, handed to decode,
+    re-dispatched after a decode-replica death."""
+    from deepspeed_tpu_torch.telemetry.cli import diagnose
+    d = tmp_path / "fleet"
+    d.mkdir()
+    events = [
+        {"kind": "spawn", "t": 1.0, "replica": 0, "role": "prefill"},
+        {"kind": "spawn", "t": 1.1, "replica": 1, "role": "decode"},
+        {"kind": "spawn", "t": 9.0, "replica": 2, "role": "decode"},
+        {"kind": "fleet_submit", "t": 10.0, "rid": 1},
+        {"kind": "migration", "t": 10.5, "rid": 1,
+         "custody": "router", "src": 0, "pages": 2, "bytes": 128},
+        {"kind": "migration", "t": 10.6, "rid": 1,
+         "custody": "decode", "dst": 1, "pages": 2, "bytes": 128},
+        {"kind": "replica_dead", "t": 11.0, "replica": 1,
+         "reason": "replica 1 exited rc=-9", "failed_over": 0},
+        {"kind": "migration", "t": 11.0, "rid": 1,
+         "custody": "router", "requeued": True, "src": 1},
+        {"kind": "migration", "t": 11.2, "rid": 1,
+         "custody": "decode", "dst": 2, "pages": 2, "bytes": 128},
+        {"kind": "fleet_request", "t": 12.0, "rid": 1, "error": None,
+         "started": True, "migrated": True, "prefill_replica": 0,
+         "decode_replica": 2},
+    ]
+    with open(d / "events.jsonl", "w") as f:
+        for e in events:
+            f.write(json.dumps(e) + "\n")
+    report = diagnose(str(d))
+    out = capsys.readouterr().out
+    assert report["fleet_roles"] == {"prefill": 1, "decode": 2}
+    assert report["fleet_role_first_dead"] == {"decode": 1}
+    assert report["fleet_migrations"] == 2        # handed to decode
+    assert report["fleet_migration_requeued"] == 1
+    assert "role prefill" in out and "role decode" in out
+    assert "first dead replica 1" in out
+    assert "re-dispatched after a decode-replica death" in out
+    # a homogeneous (all-mixed, no migrations) ledger grows no role rows
+    d2 = tmp_path / "homog"
+    d2.mkdir()
+    with open(d2 / "events.jsonl", "w") as f:
+        f.write(json.dumps({"kind": "spawn", "t": 1.0, "replica": 0,
+                            "role": "mixed"}) + "\n")
+    report2 = diagnose(str(d2))
+    out2 = capsys.readouterr().out
+    assert "fleet_roles" not in report2
+    assert "role mixed" not in out2
+
+
+# ---------------------------------------------------------------------------
+# disaggregated roles: steering, migration custody, per-role autoscale
+# (fake socket replicas — custody transitions are deterministic here)
+# ---------------------------------------------------------------------------
+
+
+def _wait_for(cond, pump, timeout=5.0):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        pump()
+    assert cond(), "condition never held"
+
+
+def test_roles_admissions_steer_to_prefill_with_migrate_flag(tmp_path):
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 2}).start()
+    try:
+        assert {r.id: r.role for r in fl.router.replicas.values()} \
+            == {0: "prefill", 1: "decode"}
+        fl.router.submit([1, 2], max_new_tokens=4)
+        fl.router.submit([3], max_new_tokens=1)
+        _wait_for(lambda: len(fl.fakes[0].submits) == 2,
+                  lambda: fl.pump(1))
+        # both admissions went to the prefill replica; the multi-token
+        # one carries the migrate flag, the single-token one serves in
+        # place (its generation IS its prefill)
+        flags = {f["rid"]: f.get("migrate") for f in fl.fakes[0].submits}
+        assert flags == {1: True, 2: None}
+        assert not fl.fakes[1].submits
+    finally:
+        fl.router.close()
+
+
+def test_migration_custody_handoff_and_completion(tmp_path):
+    """The happy-path custody chain: prefill replica streams the first
+    token + KV blob, the router takes custody, hands blob + request to
+    the decode replica byte-intact, and the decode replica finishes the
+    stream — ledger transitions agree."""
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 2}).start()
+    d = fl.router.fleet_dir
+    try:
+        r = fl.router.submit([1, 2, 3], max_new_tokens=4)
+        _wait_for(lambda: fl.fakes[0].submits, lambda: fl.pump(1))
+        p0 = fl.fakes[0]
+        p0.admit(1)
+        p0.tokens(1, [42])
+        send_frame(p0.sock, {"kind": "migrate_out", "rid": 1,
+                             "first_token": 42, "kv_len": 3,
+                             "pages": 2, "page_bytes": 128})
+        send_binary_frame(p0.sock, {"kind": "page", "rid": 1,
+                                    "seq": 0}, b"A" * 64)
+        send_binary_frame(p0.sock, {"kind": "page", "rid": 1,
+                                    "seq": 1}, b"B" * 64)
+        got = []
+
+        def _pump_decode():
+            fl.router.poll(0.01)
+            got.extend(fl.fakes[1].pump())
+        _wait_for(lambda: sum(1 for f in got
+                              if f.get("kind") == "page") == 2,
+                  _pump_decode)
+        assert [f.get("kind") for f in got] == ["migrate_in", "page",
+                                               "page"]
+        mi = got[0]
+        assert mi["prompt"] == [1, 2, 3]
+        assert mi["first_token"] == 42
+        assert mi["max_new_tokens"] == 4   # the ORIGINAL budget
+        assert isinstance(got[1], BinaryFrame)
+        assert got[1].payload == b"A" * 64
+        assert got[2].payload == b"B" * 64
+        # a PREFILL token never flips the failover boundary
+        assert r.tokens == [42] and not r.started
+        assert r.migrated and r.prefill_replica == 0 \
+            and r.decode_replica == 1
+        fl.fakes[1].tokens(1, [43, 44, 45])
+        fl.fakes[1].done(1, total=4)
+        assert r.result(timeout=5) == [42, 43, 44, 45]
+        assert r.started and r.error is None
+    finally:
+        fl.router.close()
+    recs = [json.loads(line) for line in open(
+        os.path.join(d, "events.jsonl"))]
+    mig = [x for x in recs if x["kind"] == "migration"]
+    assert [m["custody"] for m in mig] == ["router", "decode"]
+    assert mig[0]["src"] == 0 and mig[1]["dst"] == 1
+    assert mig[1]["pages"] == 2 and mig[1]["bytes"] == 128
+    req_recs = [x for x in recs if x["kind"] == "fleet_request"]
+    assert req_recs[-1]["migrated"] is True
+    assert req_recs[-1]["prefill_replica"] == 0
+    assert req_recs[-1]["decode_replica"] == 1
+
+
+def test_migration_prefill_death_mid_blob_requeues_from_scratch(
+        tmp_path):
+    """Kill the prefill replica while its KV blob is HALF received:
+    the partial blob is discarded, the request requeues unstarted with
+    its stream stamps cleared (the caller never saw the first token),
+    and the role floor respawns a PREFILL replica that re-runs it."""
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 3}).start()
+    try:
+        r = fl.router.submit([5, 6], max_new_tokens=4)
+        _wait_for(lambda: fl.fakes[0].submits, lambda: fl.pump(1))
+        p0 = fl.fakes[0]
+        p0.admit(1)
+        p0.tokens(1, [42])
+        send_frame(p0.sock, {"kind": "migrate_out", "rid": 1,
+                             "first_token": 42, "kv_len": 2,
+                             "pages": 2, "page_bytes": 128})
+        send_binary_frame(p0.sock, {"kind": "page", "rid": 1,
+                                    "seq": 0}, b"A" * 64)
+        fl.pump()
+        assert r.tokens == [42] and not r.started
+        p0.die(9)
+        fl.advance(1.0)          # past the respawn backoff
+
+        def _pump():
+            fl.advance(0.05)
+            fl.pump(1)
+        _wait_for(lambda: any(i >= 2 and fl.fakes[i].submits
+                              for i in fl.fakes), _pump, timeout=10)
+        (new_id,) = [i for i in fl.fakes if i >= 2]
+        assert fl.router.replicas[new_id].role == "prefill"
+        resub = fl.fakes[new_id].submits[0]
+        assert resub["rid"] == 1 and resub.get("migrate") is True
+        # restarted from scratch: no leaked tokens/stamps, failover
+        # counted, nothing lost
+        assert r.tokens == [] and r.ttft_s is None
+        assert r.failovers == 1 and not r.done.is_set()
+        assert not fl.router._migrate_queue
+    finally:
+        fl.router.close()
+
+
+def test_migration_decode_death_reships_blob_zero_lost(tmp_path):
+    """Kill the decode replica AFTER the blob was handed over but
+    before it streamed: custody snaps back to the router, which
+    re-ships the SAME bytes to the replacement decode replica — the
+    request completes with its prefill work intact (never re-run)."""
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 3}).start()
+    d = fl.router.fleet_dir
+    try:
+        r = fl.router.submit([7, 8, 9], max_new_tokens=3)
+        _wait_for(lambda: fl.fakes[0].submits, lambda: fl.pump(1))
+        p0 = fl.fakes[0]
+        p0.admit(1)
+        p0.tokens(1, [10])
+        send_frame(p0.sock, {"kind": "migrate_out", "rid": 1,
+                             "first_token": 10, "kv_len": 3,
+                             "pages": 1, "page_bytes": 32})
+        send_binary_frame(p0.sock, {"kind": "page", "rid": 1,
+                                    "seq": 0}, b"K" * 32)
+        got1 = []
+
+        def _pump1():
+            fl.router.poll(0.01)
+            got1.extend(fl.fakes[1].pump())
+        _wait_for(lambda: any(f.get("kind") == "page" for f in got1),
+                  _pump1)
+        fl.fakes[1].die(9)
+        fl.advance(1.0)
+        got2 = []
+
+        def _pump2():
+            fl.advance(0.05)
+            fl.router.poll(0.01)
+            for i, f in list(fl.fakes.items()):
+                if f.proc.rc is not None:
+                    continue
+                frames = f.pump()
+                if i >= 2:
+                    got2.extend(frames)
+        _wait_for(lambda: any(f.get("kind") == "page" for f in got2),
+                  _pump2, timeout=10)
+        (new_id,) = [i for i in fl.fakes if i >= 2]
+        assert fl.router.replicas[new_id].role == "decode"
+        pages = [f for f in got2 if f.get("kind") == "page"]
+        assert pages[0].payload == b"K" * 32    # the SAME bytes
+        assert r.failovers == 1 and r.tokens == [10]
+        fl.fakes[new_id].tokens(1, [11, 12])
+        fl.fakes[new_id].done(1, total=3)
+        assert r.result(timeout=5) == [10, 11, 12]
+    finally:
+        fl.router.close()
+    recs = [json.loads(line) for line in open(
+        os.path.join(d, "events.jsonl"))]
+    mig = [x for x in recs if x["kind"] == "migration"]
+    assert [m["custody"] for m in mig] == ["router", "decode",
+                                           "router", "decode"]
+    assert mig[2].get("requeued") is True
+    req_recs = [x for x in recs if x["kind"] == "fleet_request"]
+    assert req_recs[-1]["error"] is None       # zero lost
+
+
+def test_roles_autoscale_decode_tpot_breach_spawns_decode(tmp_path):
+    """Decode replicas beating a TPOT p99 over fleet.slo_tpot_s for a
+    sustained window scale the DECODE role up — prefill stays put."""
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 4, "slo_tpot_s": 0.1,
+                          "scale_up_window_s": 5.0,
+                          "scale_down_window_s": 600.0}).start()
+    try:
+        w = HeartbeatWriter(fl.router.fleet_dir, process_index=1)
+        w.beat(1, extra={"serve_tpot_p99_s": 0.5})
+        fl.router._last_beats_read = 0.0
+        fl.router.poll(0.01)           # breach clock starts
+        fl.advance(6.0)
+        w.beat(2, extra={"serve_tpot_p99_s": 0.5})
+        fl.router._last_beats_read = 0.0
+        fl.router.poll(0.01)           # sustained past the window
+        new = [r for r in fl.router.replicas.values() if r.id >= 2]
+        assert [r.role for r in new] == ["decode"]
+        assert fl.router._role_target == {"prefill": 1, "decode": 2}
+    finally:
+        fl.router.close()
+
+
+def test_roles_autoscale_prefill_breach_spawns_prefill(tmp_path):
+    """Admission-wait p99 over the TTFT SLO scales the PREFILL role —
+    the phase that admissions actually queue behind."""
+    fl = Fleet(tmp_path, {"roles": {"prefill": 1, "decode": 1},
+                          "max_replicas": 4, "slo_ttft_s": 1.0,
+                          "scale_up_window_s": 5.0,
+                          "scale_down_window_s": 600.0}).start()
+    try:
+        fl.router._wait_samples.append((fl.router._now(), 5.0))
+        fl.router.poll(0.01)
+        fl.advance(6.0)
+        fl.router._wait_samples.append((fl.router._now(), 5.0))
+        fl.router.poll(0.01)
+        new = [r for r in fl.router.replicas.values() if r.id >= 2]
+        assert [r.role for r in new] == ["prefill"]
+        assert fl.router._role_target == {"prefill": 2, "decode": 1}
+    finally:
+        fl.router.close()
+
+
+# ---------------------------------------------------------------------------
+# subprocess e2e: real replicas behind the router
+# ---------------------------------------------------------------------------
+
+
+
+
+def test_diagnose_cli_reads_router_ledger_and_give_up_record(tmp_path):
+    """``python -m deepspeed_tpu_torch.telemetry diagnose <fleet_dir>``
+    on a real router's directory after a give-up: the router's
+    events.jsonl and its ``flightrec_supervisor.json`` post-mortem."""
+    def bad_spawn(replica_id, attempt):
+        raise RuntimeError("no replica binary")
+
+    router = FleetRouter(
+        {"fleet": {"replicas": 1, "max_restarts": 1,
+                   "backoff_base_s": 0.01, "backoff_max_s": 0.02}},
+        fleet_dir=str(tmp_path / "fleet"), spawn_fn=bad_spawn)
+    router.submit([1], max_new_tokens=2)
+    with pytest.raises(FleetGiveUpError):
+        router.start()
+    d = router.fleet_dir
+    assert os.path.isfile(os.path.join(d, "flightrec_supervisor.json"))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "deepspeed_tpu_torch.telemetry",
+         "diagnose", d], capture_output=True, text=True, timeout=120,
+        cwd=root)
+    assert out.returncode == 0, out.stderr
+    assert "no replica binary" in out.stdout
+    assert "DANGLING" not in out.stdout     # the give-up failed it typed
+
+
+def test_spawn_argv_names_port_replica_and_device(tmp_path):
+    """The production spawn runs the port's replica module with the
+    router's device: the card by default, the CPU only when asked."""
+    for device, want in ((None, "cuda"), ("cpu", "cpu")):
+        router = FleetRouter({"fleet": {"replicas": 1}},
+                             fleet_dir=str(tmp_path / str(device)),
+                             device=device)
+        try:
+            argv = router.spawn_argv(3)
+        finally:
+            router.close()
+        assert argv[:3] == [sys.executable, "-m",
+                            "deepspeed_tpu_torch.inference.replica"]
+        assert argv[argv.index("--device") + 1] == want
+        assert argv[argv.index("--replica-id") + 1] == "3"
+
+
+# ---------------------------------------------------------------------------
+# LoRA tenant affinity (tests/test_adapters.py's fleet cases)
+# ---------------------------------------------------------------------------
+
+
+def test_fleet_affinity_bounded_by_slack(tmp_path):
+    """Tenant affinity picks the replica advertising the adapter hot —
+    but only within ADAPTER_AFFINITY_SLACK of the JSQ minimum, so a
+    hot tenant can never starve the queue balance."""
+    fl = Fleet(tmp_path, {"replicas": 2, "max_replicas": 2}).start()
+    try:
+        router = fl.router
+        assert FleetRouter.ADAPTER_AFFINITY_SLACK == 2
+        w1 = HeartbeatWriter(router.fleet_dir, process_index=1)
+        w1.beat(1, extra={"adapters_hot": [7]})
+        router._last_beats_read = 0.0
+        router.poll(0.01)
+        assert router._pick_replica(adapter_id=7).id == 1
+        assert router._pick_replica().id == 0          # plain JSQ tie
+        assert router._pick_replica(adapter_id=9).id == 0  # nobody hot
+        w1.beat(2, extra={"adapters_hot": [7],
+                          "serve_queue_depth": 3,
+                          "serve_active_slots": 0})
+        router._last_beats_read = 0.0
+        router.poll(0.01)
+        assert router._pick_replica(adapter_id=7).id == 0
+        w1.beat(3, extra={"adapters_hot": [7],
+                          "serve_queue_depth": 2,
+                          "serve_active_slots": 0})
+        router._last_beats_read = 0.0
+        router.poll(0.01)
+        assert router._pick_replica(adapter_id=7).id == 1
+    finally:
+        fl.router.close()
+
+
+# ---------------------------------------------------------------------------
+# subprocess e2e over CPU replicas of the port's engine
+# ---------------------------------------------------------------------------
+
+
+def _e2e_config(replicas, *, slots=4, telemetry=False, **fleet_over):
+    return {
+        "serving": {"slots": slots, "max_seq_len": 64,
+                    "prefill_len": 8, "queue_capacity": 256,
+                    "flush_interval_ticks": 5},
+        "telemetry": {"enabled": telemetry},
+        "fleet": {"replicas": replicas, "min_replicas": 1,
+                  "max_replicas": max(replicas, 2),
+                  "slo_p99_s": 30.0, "scale_up_window_s": 5.0,
+                  "scale_down_window_s": 600.0,
+                  "spawn_timeout_s": 120.0, "backoff_base_s": 0.2,
+                  "heartbeat_timeout_s": 60.0, **fleet_over},
+        "fleet_model": {"vocab_size": 128, "n_positions": 64,
+                        "d_model": 32, "n_layer": 2, "n_head": 4,
+                        "attn_impl": "dense", "seed": 0},
+    }
+
+
+def _prompts(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, 128, (5,))]
+            for _ in range(n)]
+
+
+def _disagg_config(*, telemetry=False, chunk=4, **fleet_over):
+    cfg = _e2e_config(2, telemetry=telemetry,
+                      roles={"prefill": 1, "decode": 1}, **fleet_over)
+    cfg["serving"].update({"prefill_len": 16, "page_len": 4,
+                           "pages": 64, "prefill_chunk_len": chunk})
+    return cfg
+
+
+def _long_prompts(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, 128, (11,))]
+            for _ in range(n)]
+
+
+def _bare_streams(cfg, tmp_path, prompts, new):
+    from deepspeed_tpu_torch.inference.replica import build_engine
+    eng = build_engine(cfg, str(tmp_path / "bare"), 99, device="cpu")
+    reqs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    eng.run_until_idle()
+    eng.close()
+    return [r.tokens for r in reqs], [r.finish_reason for r in reqs]
+
+
+def _ledger(d):
+    with open(os.path.join(d, "events.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_e2e_single_replica_fleet_matches_bare_engine(tmp_path):
+    """The parity bar: a 1-replica fleet of the port's CPU replicas emits
+    the bare port engine's greedy stream (identical params from the
+    shared fleet_model seed), and the replica writes its telemetry and
+    its launch counts under its own subdir."""
+    cfg = _e2e_config(1, telemetry=True)
+    prompts = _prompts(6)
+    bare_toks, bare_reasons = _bare_streams(cfg, tmp_path, prompts, 6)
+    d = str(tmp_path / "fleet")
+    router = FleetRouter(cfg, fleet_dir=d, device="cpu")
+    try:
+        router.start()
+        reqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        router.run_until_idle(max_s=120)
+        assert [r.tokens for r in reqs] == bare_toks
+        assert [r.finish_reason for r in reqs] == bare_reasons
+        assert all(r.queue_wait_s is not None for r in reqs)
+    finally:
+        router.close()
+    rep_dir = os.path.join(d, "replica_0")
+    assert os.path.isfile(os.path.join(rep_dir, "events.jsonl"))
+    with open(os.path.join(rep_dir, "launches.json")) as f:
+        launches = json.load(f)
+    # CPU tensors run the plain versions: no kernel launched
+    assert set(launches) >= {"flash_fwd", "decode_attention",
+                             "decode_paged"}
+    assert all(v == 0 for v in launches.values())
+
+
+def test_e2e_disagg_stream_parity_and_custody_ledger(tmp_path):
+    """A prefill/decode fleet with chunked prefill emits the bare paged
+    engine's greedy stream — every request migrated over binary page
+    frames — and the custody ledger balances: one router and one decode
+    record a request."""
+    cfg = _disagg_config(telemetry=True)
+    prompts = _long_prompts(8)
+    bare_toks, _ = _bare_streams(cfg, tmp_path, prompts, 6)
+    d = str(tmp_path / "fleet")
+    router = FleetRouter(cfg, fleet_dir=d, device="cpu")
+    try:
+        router.start()
+        assert sorted(r.role for r in router.replicas.values()) \
+            == ["decode", "prefill"]
+        reqs = [router.submit(p, max_new_tokens=6) for p in prompts]
+        router.run_until_idle(max_s=120)
+        assert [r.tokens for r in reqs] == bare_toks
+        assert all(r.error is None and r.migrated for r in reqs)
+        assert all(r.ttft_s is not None for r in reqs)
+        assert router.migrations == len(prompts)
+    finally:
+        router.close()
+    recs = _ledger(d)
+    mig = [r for r in recs if r["kind"] == "migration"]
+    for custody in ("router", "decode"):
+        assert sorted(m["rid"] for m in mig if m["custody"] == custody) \
+            == sorted(r.rid for r in reqs)
+    assert all(m["bytes"] > 0 for m in mig if m["custody"] == "router")
+    done = [r for r in recs if r["kind"] == "fleet_request"]
+    assert {r["prefill_replica"] for r in done} == {0}
+    assert {r["decode_replica"] for r in done} == {1}
+
+
+def test_e2e_disagg_decode_kill_zero_lost(tmp_path, monkeypatch):
+    """Kill the DECODE replica mid-run: router-custody blobs re-ship to
+    the respawned decode replica, started casualties fail typed
+    ``ReplicaFailure``, none is lost silently, and a decode replica
+    comes back."""
+    monkeypatch.setenv("DS_STAGE_DELAY_S", "serve:0.05")
+    reset_fault_injection()
+    cfg = _disagg_config(max_replicas=3)
+    d = str(tmp_path / "fleet")
+    router = FleetRouter(cfg, fleet_dir=d, device="cpu")
+    try:
+        router.start()
+        reqs = [router.submit(p, max_new_tokens=8)
+                for p in _long_prompts(10, seed=3)]
+        deadline = time.monotonic() + 60
+        victim = None
+        while time.monotonic() < deadline:
+            router.poll(0.02)
+            decode = [r for r in router.replicas.values()
+                      if r.role == "decode" and r.state == "ready"]
+            if decode and decode[0].outstanding:
+                victim = decode[0].id
+                break
+        assert victim is not None, "decode replica never took work"
+        router.kill_replica(victim)
+        router.run_until_idle(max_s=120)
+        failed = [r for r in reqs if r.error is not None]
+        assert all(r.started for r in failed)       # zero lost
+        assert all(isinstance(r.error, ReplicaFailure) for r in failed)
+        survivors = [r for r in reqs if r.error is None]
+        assert survivors and all(len(r.tokens) == 8 for r in survivors)
+    finally:
+        router.close()
+    recs = _ledger(d)
+    submits = {r["rid"] for r in recs if r["kind"] == "fleet_submit"}
+    dones = {r["rid"] for r in recs if r["kind"] == "fleet_request"}
+    assert submits == dones                         # nothing dangling
+    assert any(r["kind"] == "replica_dead" for r in recs)
+    respawns = [r for r in recs if r["kind"] == "spawn"
+                and r["reason"] != "initial"]
+    assert any(r.get("role") == "decode" for r in respawns)
+
+
+def test_e2e_lora_fleet_replica_death_reroutes(tmp_path, monkeypatch):
+    """CPU replicas with tenants spread across them: killing one
+    re-routes its queued tenant requests to a survivor that synthesizes
+    the SAME adapter weights locally — zero queued-but-unstarted
+    requests lost, survivors' streams whole, and the survivor's
+    heartbeat (``hot_adapters``) advertises the re-routed tenants."""
+    monkeypatch.setenv("DS_STAGE_DELAY_S", "serve:0.05")
+    reset_fault_injection()
+    cfg = _e2e_config(2, slo_p99_s=1e9)
+    cfg["serving"].update({"page_len": 8, "pages": 64,
+                           "lora": {"rank": 4, "alpha": 8.0,
+                                    "hbm_adapter_slots": 4,
+                                    "max_adapters": 32}})
+    router = FleetRouter(cfg, fleet_dir=str(tmp_path / "fleet"),
+                         device="cpu")
+    rng = np.random.default_rng(3)
+    try:
+        router.start()
+        initial = sorted(router.replicas)
+        reqs = [router.submit(
+            [int(t) for t in rng.integers(0, 128, (5,))],
+            max_new_tokens=8, adapter_id=1 + (i % 3))
+            for i in range(16)]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            router.poll(0.02)
+            started_by = {rid: any(r.started and r.replica == rid
+                                   for r in reqs)
+                          for rid in initial}
+            if all(started_by.values()):
+                break
+        assert all(started_by.values()), "replicas never streamed"
+        victim = max(router.replicas.values(),
+                     key=lambda r: len(r.outstanding)).id
+        router.kill_replica(victim)
+        router.run_until_idle(max_s=120)
+        failed = [r for r in reqs if r.error is not None]
+        assert all(r.started for r in failed)   # zero unstarted lost
+        assert all(isinstance(r.error, ReplicaFailure) for r in failed)
+        survivors = [r for r in reqs if r.error is None]
+        assert survivors and all(len(r.tokens) == 8 for r in survivors)
+        assert sum(r.failovers for r in reqs) > 0
+        router._last_beats_read = 0.0
+        router.poll(0.05)
+        hot = [set(b.get("adapters_hot") or [])
+               for b in router._beats.values()]
+        assert any(h & {1, 2, 3} for h in hot), router._beats
+    finally:
+        router.close()

@@ -96,18 +96,18 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
-    # paged KV, KV tiering, speculation, sampling, quantized serving, LoRA
-    # and telemetry are ported: each config builds, and on every one of
-    # them the serving knob still unported, KV-page migration (the serving
-    # fleet's), raises naming its item.  The ids name the block each case
-    # rides on.
+    # paged KV, KV tiering, speculation, sampling, quantized serving, LoRA,
+    # telemetry and KV-page migration are ported: each config builds, and
+    # with every one of them the serving knob still unported, a mesh
+    # (data/tensor-parallel serving), raises naming its item.  The ids
+    # name the block each case rides on.
     ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3},
-                  "temperature": 0.7}}, "item 8"),
-    ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "item 8"),
-    ({"serving": {"temperature": 0.7}}, "item 8"),
+                  "temperature": 0.7}}, "item 9"),
+    ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "item 9"),
+    ({"serving": {"temperature": 0.7}}, "item 9"),
     ({"serving": {"page_len": 8, "quantization": {"weights": "int8"},
-                  "lora": {"rank": 4}}}, "item 8"),
-    ({"telemetry": {"enabled": True}}, "item 8"),
+                  "lora": {"rank": 4}}}, "item 9"),
+    ({"telemetry": {"enabled": True}}, "item 9"),
 ], ids=["page_len", "speculate_k", "temperature", "quantization",
         "telemetry"])
 def test_unported_knob_raises_naming_its_roadmap_item(extra, item, tmp_path):
@@ -115,12 +115,16 @@ def test_unported_knob_raises_naming_its_roadmap_item(extra, item, tmp_path):
         extra = {"telemetry": {"enabled": True,
                                "output_path": str(tmp_path)}}
     eng = ServeEngine(GPT2Model(TINY), extra, device="cpu")
-    for call in (lambda: eng.export_pages(None),
-                 lambda: eng.adopt_request([1], 1, 4, None, [])):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md.*{item}"):
-            call()
+    if eng.paged:
+        # KV-page migration is ported: a request with no pages held has
+        # nothing to export, and a short payload list is refused typed
+        with pytest.raises(RuntimeError, match="detach_kv"):
+            eng.export_pages(eng.submit([1], max_new_tokens=1))
+        with pytest.raises(ValueError, match="pages"):
+            eng.adopt_request([1], 1, 4, None, [])
     eng.close()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+        ServeEngine(GPT2Model(TINY), extra, mesh=object(), device="cpu")
     if "telemetry" in extra:
         assert (tmp_path / "events.jsonl").is_file()
 
@@ -128,8 +132,9 @@ def test_unported_knob_raises_naming_its_roadmap_item(extra, item, tmp_path):
 def test_unported_paged_only_knobs_and_mesh_raise():
     """kv_tier and lora need page_len > 0 to parse at all; on the paged
     engine (chunked prefill, the KV tier and LoRA ported) a tenant's
-    request serves, KV-page migration (``detach_kv``) raises naming item
-    8, and a mesh raises naming item 9 before anything else."""
+    request serves, a ``detach_kv`` request keeps its pages for
+    ``export_pages`` until ``release_detached``, and a mesh raises naming
+    item 9 before anything else."""
     eng = ServeEngine(GPT2Model(TINY), {"serving": {
         "page_len": 8, "prefill_chunk_len": 4, "lora": {"rank": 4},
         "kv_tier": {"idle_park_ticks": 3}}}, device="cpu")
@@ -138,8 +143,16 @@ def test_unported_paged_only_knobs_and_mesh_raise():
     req = eng.submit([1, 2, 3], max_new_tokens=2, adapter_id=1)
     eng.run_until_idle()
     assert req.error is None and len(req.tokens) == 2
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.submit([1, 2, 3], detach_kv=True)
+    det = eng.submit([1, 2, 3], max_new_tokens=1, detach_kv=True)
+    eng.run_until_idle()
+    held = list(det.pages)
+    assert len(held) == 1 and all(eng.pool.refs.get(p) for p in held)
+    assert [len(p) for p in eng.export_pages(det)] \
+        == [sum(eng.page_leaf_nbytes())]
+    refs = {p: eng.pool.refs[p] for p in held}
+    eng.release_detached(det)
+    assert det.pages is None
+    assert all(eng.pool.refs.get(p, 0) == refs[p] - 1 for p in held)
     eng.close()
     with pytest.raises(NotImplementedError, match="item 9"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")
@@ -180,8 +193,13 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"sparse_gradients": True}, "item 11"),
     ({"progressive_layer_drop": {"enabled": True},
       "pipeline": {"stages": 2}}, "item 10"),
-    ({"telemetry": {"enabled": True}}, "item 5"),
-    ({"tensorboard": {"enabled": True}}, "item 5"),
+    # the telemetry plane is ported; with it on, the unported arms of
+    # ZeRO 3 and host offload still raise
+    ({"telemetry": {"enabled": True}, "zero_optimization": {"stage": 3},
+      "bf16": {"enabled": True}}, "item 9"),
+    ({"tensorboard": {"enabled": True}, "wall_clock_breakdown": True,
+      "zero_optimization": {"stage": 2, "cpu_offload": True},
+      "bf16": {"enabled": True}}, "item 12"),
     # checkpointing is ported; a checkpoint of a ZeRO-partitioned state
     # waits for item 9
     ({"checkpoint": {"async_save": True, "sigterm_save": True},
@@ -224,3 +242,25 @@ def test_unported_training_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 11"):
         model.loss_fn(model.init(0), torch.zeros(1, 5, dtype=torch.long),
                       None, train=False)
+
+
+def test_replica_without_device_raises_when_cuda_is_absent(tmp_path,
+                                                            monkeypatch):
+    """A fleet replica spawned without ``--device cpu`` on a machine with
+    no CUDA device raises before it connects to the router: it never
+    serves on the CPU."""
+    from deepspeed_tpu_torch.inference.replica import build_engine, main
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {"serving": {"slots": 1, "max_seq_len": 32, "prefill_len": 8},
+           "fleet_model": {"vocab_size": 64, "n_positions": 32,
+                           "d_model": 64, "n_layer": 1, "n_head": 1}}
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        build_engine(cfg, str(tmp_path), 0)
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--router", "127.0.0.1:9", "--replica-id", "0",
+              "--fleet-dir", str(tmp_path), "--config", str(path)])
+    eng = build_engine(cfg, str(tmp_path), 0, device="cpu")
+    assert eng.device.type == "cpu"
+    eng.close()

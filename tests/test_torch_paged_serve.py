@@ -297,11 +297,19 @@ def test_paged_submit_validation_and_unported_migration(weights):
                       params=params_from_numpy(tree), device="cpu")
     with pytest.raises(ValueError, match="KV pages"):
         eng.submit(_tokens(17, 1))           # 3 pages, 2 usable
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.submit(_tokens(3, 1), detach_kv=True)
-    for call in (lambda: eng.export_pages(None),
-                 lambda: eng.adopt_request([1], 1, 4, None, [])):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()
-    assert eng._stage_depth() == {"depth": 0, "free_pages": 2}
+    # KV-page migration is ported: a detach_kv request keeps its page for
+    # export_pages until release_detached; a request holding no pages has
+    # nothing to export, and a payload list of the wrong length is refused
+    req = eng.submit(_tokens(3, 1), max_new_tokens=1, detach_kv=True)
+    eng.run_until_idle()
+    assert req.error is None and len(req.pages) == 1
+    assert [len(p) for p in eng.export_pages(req)] \
+        == [sum(eng.page_leaf_nbytes())]
+    eng.release_detached(req)
+    with pytest.raises(RuntimeError, match="detach_kv"):
+        eng.export_pages(req)
+    with pytest.raises(ValueError, match="pages"):
+        eng.adopt_request([1], 1, 4, None, [])
+    assert eng._stage_depth()["depth"] == 0
     eng.close()
+    assert eng.pool.refs == {}
