@@ -244,6 +244,26 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             checkpoint/* spans, the profiler's Chrome trace the three
             flash kernels; a flight record dumped on demand parses; the
             step walls and the timers' per-phase ms printed.
+25. train_zero  (run last) data parallelism and ZeRO on
+            ``torch.distributed``: the script sets the env contract
+            (``MASTER_ADDR`` 127.0.0.1, a free ``MASTER_PORT``, ``RANK``
+            0, ``WORLD_SIZE`` 1) and ``initialize()`` joins a real NCCL
+            process group of one rank; phase 10's model and config
+            (GPT-2 small, 8 x 1024 tokens, accumulation 2, bf16, dropout
+            0.1, remat block) at ZeRO stages 0, 1, 2 and 3, 1 + 4 steps
+            each: the losses of stages 1-3 equal stage 0's bitwise (at one
+            rank every collective is a one-rank NCCL call and every value
+            the same), flash launches 2·L·A, L·A and L·A a step, no host
+            sync in the 4 steps (sync debug mode 'error'), a
+            ``torch.profiler`` trace of one stage-3 step holds the c10d
+            ``nccl:*`` ranges (their device work printed), step ms and
+            peak memory a stage; then BERT-large with LAMB at stage 1
+            (``examples/bert_pretrain.py``'s configuration) and at stage
+            0, 1 + 3 steps each: losses finite, falling and bitwise equal;
+            then whether NCCL takes two ranks on the one card (two
+            processes, printed, never a failure: the answer is a fact of
+            the machine).  The process group is destroyed and the env
+            restored after.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -253,6 +273,7 @@ Then one ``{"kernels": [...]}`` line and, last, the run's result line.
 Without a CUDA device, or without the package beside this file, it exits
 non-zero and prints no result.
 """
+import gc
 import io
 import json
 import os
@@ -2467,6 +2488,234 @@ def phase_train(dev):
     return launches
 
 
+ZERO_STAGES = (0, 1, 2, 3)
+ZERO_STEPS, BERT_ZERO_STEPS = 4, 3
+#: the env contract train_zero sets for initialize()
+ZERO_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
+NCCL_PROBE_TIMEOUT_S = 90
+
+_NCCL_PROBE = r"""
+import datetime, os, sys
+import torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=sys.argv[2], rank=rank,
+                        world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+x = torch.full((4,), float(rank + 1), device="cuda")
+dist.all_reduce(x)
+torch.cuda.synchronize()
+print("sum", x.tolist(), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_two_ranks_on_one_card() -> str:
+    """Two processes join one 2-rank NCCL group, both on cuda:0, and
+    all-reduce: what NCCL does there (a fact of the machine, printed)."""
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    env = dict(os.environ, NCCL_DEBUG="WARN")
+    procs = [subprocess.Popen([sys.executable, "-c", _NCCL_PROBE, str(r),
+                               init], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=NCCL_PROBE_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, _ = p.communicate()
+            out = f"timed out after {NCCL_PROBE_TIMEOUT_S} s\n{out}"
+        outs.append((p.returncode, out))
+    if all(rc == 0 and "sum [3.0" in out for rc, out in outs):
+        return "accepted: both ranks all-reduced to 3.0"
+    text = [ln for _, out in outs for ln in out.splitlines()]
+    lines = ([ln for ln in text if "Duplicate GPU" in ln]
+             or [ln for ln in text if "rror" in ln])
+    return (f"refused (exit codes {[rc for rc, _ in outs]}): "
+            + (lines[0].strip()[:300] if lines else outs[0][1][-300:]))
+
+
+def _nccl_trace(eng, tokens) -> dict:
+    """One step under ``torch.profiler``: the c10d ``nccl:*`` ranges and
+    the device work NCCL issued (kernels or copies), count and device ms
+    each."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        eng.train_batch(tokens)
+        torch.cuda.synchronize()
+    host, device = {}, {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+        if e.key.startswith("nccl:"):
+            host[e.key] = (e.count, dev_us / 1e3)
+        elif "nccl" in e.key.lower() or e.key.startswith("Memcpy DtoD"):
+            device[e.key] = (e.count, dev_us / 1e3)
+    return {"ranges": host, "device": device}
+
+
+def _zero_run(label, build, batch, steps, dev, trace=False):
+    """One engine: 1 warm step (the NCCL communicators start), then
+    ``steps`` counted steps under sync debug mode 'error'.  Returns the
+    losses, launches, step ms, peak MiB and (``trace``) the NCCL trace."""
+    import torch
+    import torch.distributed as dist
+    gc.collect()    # earlier engines' reference cycles: each stage's
+    torch.cuda.empty_cache()    # peak then counts its own engine alone
+    eng = build()
+    if eng.mesh.is_local or dist.get_backend() != "nccl":
+        fail(f"{label}: the engine is not on an NCCL process group")
+    if eng.device != dev:
+        fail(f"{label}: initialize() placed the engine on {eng.device}")
+    losses = [eng.train_batch(batch)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(steps):
+            losses.append(eng.train_batch(batch))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _train_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    out = {"losses": [float(x) for x in losses], "launches": launches,
+           "step_ms": wall / steps * 1e3, "peak_mib": peak,
+           "skipped": eng.get_skipped_steps()}
+    if trace:
+        out["trace"] = _nccl_trace(eng, batch)
+    eng.close()
+    return out
+
+
+def phase_train_zero(dev):
+    """Data parallelism and ZeRO 0-3 through ``initialize()`` on a real
+    NCCL process group of one rank: GPT-2 small (phase train's model and
+    config) and BERT-large with LAMB."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE, BertModel
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+
+    saved = {k: os.environ.get(k) for k in ZERO_ENV}
+    os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(_free_port()), "RANK": "0",
+                       "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+    total = {k: 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    try:
+        cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                                  remat="block")
+        T = cfg.n_positions
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (TRAIN_MICRO * TRAIN_GA, T + 1))).to(dev)
+        L, A = cfg.n_layer, TRAIN_GA
+        want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+                "flash_bwd_dkv": L * A}
+        runs = {}
+        for stage in ZERO_STAGES:
+            def build(stage=stage):
+                conf = _train_config({"bf16": {"enabled": True}},
+                                     TRAIN_MICRO, TRAIN_GA)
+                conf["zero_optimization"] = {"stage": stage}
+                return deepspeed_tpu_torch.initialize(
+                    model=GPT2Model(cfg), seed=SEED, config=conf)[0]
+            r = runs[stage] = _zero_run(f"train_zero stage {stage}", build,
+                                        tokens, ZERO_STEPS, dev,
+                                        trace=stage == 3)
+            for name, per_step in want.items():
+                total[name] += r["launches"][name]
+                if r["launches"][name] != per_step * ZERO_STEPS:
+                    fail(f"train_zero stage {stage}: {name} launched "
+                         f"{r['launches'][name]} times in {ZERO_STEPS} "
+                         f"steps, expected {per_step} per step")
+            if not all(np.isfinite(r["losses"])) or r["skipped"]:
+                fail(f"train_zero stage {stage}: losses {r['losses']}, "
+                     f"{r['skipped']} skipped steps")
+            print(f"[train_zero] GPT-2 small bf16 ZeRO stage {stage} on "
+                  f"NCCL (world 1): {r['step_ms']:.1f} ms per step over "
+                  f"{ZERO_STEPS} steps, peak memory {r['peak_mib']:.1f} "
+                  f"MiB; losses {' '.join(f'{x:.6f}' for x in r['losses'])}")
+        base = runs[0]["losses"]
+        for stage in ZERO_STAGES[1:]:
+            if runs[stage]["losses"] != base:
+                fail(f"train_zero: stage {stage}'s losses "
+                     f"{runs[stage]['losses']} differ from stage 0's {base}")
+        print(f"[train_zero] stages 1-3's losses equal stage 0's bitwise "
+              f"({len(base)} steps each)")
+        print(f"[train_zero] launches per step, every stage: flash_fwd "
+              f"{want['flash_fwd']} (= 2 x {L} x {A}), flash_bwd_dq "
+              f"{want['flash_bwd_dq']}, flash_bwd_dkv {want['flash_bwd_dkv']}"
+              f" (= {L} x {A}); {ZERO_STEPS} steps a stage queued with no "
+              "host sync (torch.cuda sync debug mode 'error')")
+        trace = runs[3]["trace"]
+        if not trace["ranges"]:
+            fail("train_zero: the stage-3 step's trace holds no nccl:* op")
+        print("[train_zero] stage-3 step trace, c10d NCCL ranges (calls, "
+              "device ms): " + "; ".join(
+                  f"{k} {c} {ms:.3f}" for k, (c, ms) in
+                  sorted(trace["ranges"].items())))
+        print("[train_zero] device work under them (calls, device ms): "
+              + ("; ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in
+                           sorted(trace["device"].items()))
+                 or "none recorded (one rank: NCCL moves nothing)"))
+
+        bcfg = dataclasses.replace(BERT_LARGE, remat="block")
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in mlm_batch(
+            BERT_MICRO, BERT_SEQ, bcfg.vocab_size, SEED).items()}
+        bert = {}
+        for stage in (1, 0):
+            def build(stage=stage):
+                conf = lamb_config({"bf16": {"enabled": True}}, BERT_MICRO)
+                conf["zero_optimization"] = {"stage": stage}
+                return deepspeed_tpu_torch.initialize(
+                    model=BertModel(bcfg), seed=SEED, config=conf)[0]
+            r = bert[stage] = _zero_run(f"train_zero BERT stage {stage}",
+                                        build, batch, BERT_ZERO_STEPS, dev)
+            for name in total:
+                total[name] += r["launches"][name]
+            print(f"[train_zero] BERT-large bf16 LAMB ZeRO stage {stage}: "
+                  f"{r['step_ms']:.1f} ms per step, peak memory "
+                  f"{r['peak_mib']:.1f} MiB; losses "
+                  f"{' '.join(f'{x:.6f}' for x in r['losses'])}")
+        losses = bert[1]["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"train_zero: BERT LAMB stage 1 losses not finite and "
+                 f"falling: {losses}")
+        if losses != bert[0]["losses"]:
+            fail(f"train_zero: BERT LAMB stage 1 losses {losses} differ "
+                 f"from stage 0's {bert[0]['losses']}")
+        print("[train_zero] BERT-large LAMB stage 1 (examples/"
+              "bert_pretrain.py's configuration) runs; its losses equal "
+              "stage 0's bitwise")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"[train_zero] NCCL with two ranks on the one card: "
+          f"{_nccl_two_ranks_on_one_card()}")
+    return total
+
+
 def _dir_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(root) for f in files)
@@ -3675,6 +3924,7 @@ def main() -> None:
     by_phase["sparse"] = timed(phase_sparse, dev)
     by_phase["bert_train"] = timed(phase_bert_train, dev)
     timed(phase_bert_parity, dev)
+    by_phase["train_zero"] = timed(phase_train_zero, dev)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

@@ -192,7 +192,8 @@ class ServeEngine:
                  seed: int = 0, device=None, draft_params=None):
         if mesh is not None:
             raise _unported("a mesh (data/tensor-parallel serving)",
-                            "item 9 (data/tensor parallel)")
+                            "item 9 (its serving half: data/tensor-"
+                            "parallel serving)")
         self.device = _resolve_device(device)
         self.model = model
         cfg = _ServeConfigView(config)

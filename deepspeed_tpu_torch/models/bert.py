@@ -7,8 +7,11 @@ The parameter tree keeps the JAX package's names, shapes and layouts (the
 weights move across with :func:`params_from_numpy`.  The attention is the
 flash kernels (``attn_impl="flash"``: non-causal, the padding mask as their
 additive key mask) or the dense arm.  The large products stay
-``torch.matmul``, as the JAX package leaves them to XLA.  The
-tensor-parallel partition specs and the pipelined BERT
+``torch.matmul``, as the JAX package leaves them to XLA.  ZeRO 1–3 and
+data parallelism run BERT as any model (``runtime/zero.py``; the engine
+fetches the ``layers`` one at a time, and the masked-LM loss is
+normalized by the global micro-batch's label count).  BERT's
+tensor-parallel forward (the specs are ported) and the pipelined BERT
 (``models/bert_pipe.py``) are not ported yet (ROADMAP.md queue 1, items 9
 and 10).
 
@@ -33,6 +36,8 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.transformer import (DeepSpeedTransformerConfig,
                                DeepSpeedTransformerLayer)
 from ..ops.transformer.transformer import _layer_norm
+from ..parallel import collectives as col
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..runtime.module import TrainModule
 from ..runtime.utils import dropout, fold_in, host_uniform
 from ..runtime.utils import params_from_numpy  # noqa: F401
@@ -92,6 +97,10 @@ class BertModel(TrainModule):
     -100 for unmasked positions, ``next_sentence_label`` [B], and
     ``pld_theta`` (progressive layer drop's keep probability).
     """
+
+    #: the layer-stacked subtree the training engine fetches one layer at
+    #: a time (``runtime/zero.py``)
+    stacked_layers = "layers"
 
     def __init__(self, config: BertConfig):
         self.config = config
@@ -155,6 +164,31 @@ class BertModel(TrainModule):
                     else {n: a.to(dtype) for n, a in v.items()})
                 for k, v in params.items()}
 
+    def param_partition_specs(self, params) -> Dict[str, Any]:
+        """The JAX package's Megatron placement on the ``model`` axis (a
+        tuple of axis names per dim); ZeRO composes ``data`` with it."""
+        m = MODEL_AXIS
+        return {
+            "word_embeddings": (m, None),
+            "position_embeddings": (),
+            "token_type_embeddings": (),
+            "emb_ln_scale": (), "emb_ln_bias": (),
+            "layers": {
+                "attn_qkvw": (None, None, None, m),
+                "attn_qkvb": (None, None, m),
+                "attn_ow": (None, m, None), "attn_ob": (),
+                "attn_nw": (), "attn_nb": (),
+                "inter_w": (None, None, m), "inter_b": (None, m),
+                "output_w": (None, m, None), "output_b": (),
+                "norm_w": (), "norm_b": (),
+            },
+            "pooler_w": (), "pooler_b": (),
+            "mlm_transform_w": (), "mlm_transform_b": (),
+            "mlm_ln_scale": (), "mlm_ln_bias": (),
+            "mlm_bias": (m,),
+            "nsp_w": (), "nsp_b": (),
+        }
+
     def encode(self, params, input_ids, token_type_ids=None,
                attention_mask=None, rng: Optional[int] = None,
                train: bool = True, pld_theta: Optional[float] = None):
@@ -165,6 +199,7 @@ class BertModel(TrainModule):
         host from the layer's seed; a dropped layer passes its input
         through and launches nothing.  Eval ignores it."""
         cfg = self.config
+        _refuse_tensor_parallel(getattr(params["layers"], "mesh", None))
         B, T = input_ids.shape
         if T > cfg.max_position_embeddings:
             raise ValueError(
@@ -188,21 +223,30 @@ class BertModel(TrainModule):
                 * -10000.0
         L = cfg.num_hidden_layers
         layers = params["layers"]
-        # one unbind per leaf: its backward stacks the layer grads once
-        per_layer = [dict(zip(layers, leaves)) for leaves in
-                     zip(*(a.unbind(0) for a in layers.values()))]
-        for i, lp in enumerate(per_layer):
+        layer = getattr(layers, "layer", None)
+        if layer is None:
+            # one unbind per leaf: its backward stacks the layer grads once
+            layer = [dict(zip(layers, leaves)) for leaves in
+                     zip(*(a.unbind(0) for a in layers.values()))
+                     ].__getitem__
+        for i in range(L):
             lrng = fold_in(rng, i)
             if pld_theta is not None and train:
                 p_keep = 1.0 - (i / L) * (1.0 - pld_theta)
                 if not host_uniform(fold_in(lrng, 131)) < p_keep:
                     continue
             if cfg.remat == "block" and torch.is_grad_enabled():
-                x = checkpoint(self.layer, lp, x, add_mask, lrng, train,
-                               use_reentrant=False, preserve_rng_state=False)
+                # an engine's layer fetch runs inside: the recompute
+                # fetches (gathers) the layer again
+                x = checkpoint(self._layer_at, layer, i, x, add_mask, lrng,
+                               train, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = self.layer(lp, x, add_mask, lrng, train)
+                x = self._layer_at(layer, i, x, add_mask, lrng, train)
         return x
+
+    def _layer_at(self, layer, i, x, add_mask, rng, train):
+        return self.layer(layer(i), x, add_mask, rng, train)
 
     def apply(self, params, batch, rng: Optional[int] = None,
               train: bool = True):
@@ -236,10 +280,26 @@ class BertModel(TrainModule):
             logp = torch.log_softmax(mlm_logits.float(), dim=-1)
             nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
             mask = (labels >= 0).float()
-            loss = loss + (nll * mask).sum() / mask.sum().clamp_min(1.0)
+            count = mask.sum()
+            mesh = getattr(params["layers"], "mesh", None)
+            if mesh is not None:
+                # the global micro-batch's label count: the engine's mean
+                # over data ranks is then the JAX loss over the global
+                # micro-batch
+                count = col.psum(count, mesh, DATA_AXIS) \
+                    / mesh.axis_size(DATA_AXIS)
+            loss = loss + (nll * mask).sum() / count.clamp_min(1.0)
         nsl = batch.get("next_sentence_label")
         if nsl is not None:
             logp = torch.log_softmax(nsp_logits.float(), dim=-1)
             loss = loss - torch.gather(logp, -1,
                                        nsl.long()[:, None]).mean()
         return loss
+
+
+def _refuse_tensor_parallel(mesh) -> None:
+    if mesh is not None and mesh.axis_size(MODEL_AXIS) > 1:
+        raise NotImplementedError(
+            "BERT's tensor-parallel forward (tp > 1) is not ported to "
+            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 9 (its "
+            "serving half, with BERT's tensor parallelism)")

@@ -24,9 +24,16 @@ kernel arms on read).  Multi-tenant LoRA is ported: the paged functions
 take the layer-stacked adapter pools, each row's adapter slot and
 ``alpha/r`` (:func:`_lora_rows`, :func:`_lora_bind`), and every matmul
 of a block adds its per-row delta ``(x·A)·B·(alpha/r)`` after the base
-product (:func:`_lora_delta`; plain ``torch.bmm``, no kernel).  Not
-ported yet (ROADMAP.md queue 1): sequence-parallel attention, parameter
-streaming and the tensor-parallel specs.
+product (:func:`_lora_delta`; plain ``torch.bmm``, no kernel).  Megatron
+tensor parallelism is ported (:meth:`GPT2Model.param_partition_specs`):
+under the training engine's mesh the blocks run on the rank's pieces —
+``qkv_w`` and ``fc_w`` column-parallel (the rank's heads ``r·H/tp …
+(r+1)·H/tp``), ``out_w`` and ``proj_w`` row-parallel (all-reduce, then
+the replicated bias), ``wte`` vocab-parallel where ``V % tp == 0`` (a
+masked lookup plus all-reduce, and a vocab-parallel cross-entropy) and
+replicated where it does not divide (GPT-2's 50257).  Not ported yet
+(ROADMAP.md queue 1): sequence-parallel attention and parameter
+streaming.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
 block and dropout site derives its own seed with ``runtime.utils.fold_in``
@@ -34,7 +41,10 @@ block and dropout site derives its own seed with ``runtime.utils.fold_in``
 dropouts build their ``torch.Generator`` from that seed inside the block,
 so ``remat="block"`` (``torch.utils.checkpoint``) replays the same masks
 when it recomputes a block.  The attention dropout is the flash kernel's
-position hash, seeded by the same kind of integer.
+position hash, seeded by the same kind of integer.  Under a mesh the
+hidden dropouts draw their mask over the global micro-batch's rows and
+keep the rank's, and the flash hash takes the global (batch, head) ids
+(``bh_affine``), so training does not depend on the layout.
 
 Unlike the JAX functions, the serving steps (:func:`gpt2_decode_step`,
 :func:`gpt2_verify_step`, their paged twins and :func:`gpt2_prefill_paged`)
@@ -65,6 +75,8 @@ from ..ops.kernels.decode_attention import (_default_scale,
 from ..ops.kernels.flash_attention import flash_attention, mha
 from ..runtime.module import TrainModule
 from ..runtime.utils import dropout as _dropout
+from ..parallel import collectives as col
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..runtime.utils import fold_in, params_from_numpy  # noqa: F401
 from ..runtime.utils import seeded_generator as _generator
 
@@ -128,8 +140,35 @@ GPT2_XL = GPT2Config(d_model=1600, n_layer=48, n_head=25)            # 1.5B
 class GPT2Model(TrainModule):
     """Causal LM with tied input/output embeddings and next-token loss."""
 
+    #: the layer-stacked subtree the training engine fetches one layer at
+    #: a time (``runtime/zero.py``)
+    stacked_layers = "blocks"
+
     def __init__(self, config: GPT2Config):
         self.config = config
+
+    def param_partition_specs(self, params) -> Dict[str, Any]:
+        """Megatron column/row-parallel placement on the ``model`` axis
+        (the JAX package's, a tuple of axis names per dim)."""
+        m = MODEL_AXIS
+        return {
+            "wte": (m, None),           # vocab-parallel embedding
+            "wpe": (),
+            "ln_f_scale": (),
+            "ln_f_bias": (),
+            "blocks": {
+                "ln1_scale": (), "ln1_bias": (),
+                "qkv_w": (None, None, None, m),   # column parallel
+                "qkv_b": (None, None, m),
+                "out_w": (None, m, None),         # row parallel
+                "out_b": (),
+                "ln2_scale": (), "ln2_bias": (),
+                "fc_w": (None, None, m),          # column parallel
+                "fc_b": (None, m),
+                "proj_w": (None, m, None),        # row parallel
+                "proj_b": (),
+            },
+        }
 
     def init(self, seed: int, device=None,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -185,26 +224,35 @@ class GPT2Model(TrainModule):
             raise ValueError(
                 f"sequence length {T} exceeds n_positions={cfg.n_positions}")
         tokens = tokens.long()
-        x = params["wte"][tokens] + params["wpe"][:T][None]
-        x = _dropout(x, cfg.embd_dropout if train else 0.0,
-                     fold_in(rng, 997))
         blocks = params["blocks"]
-        # one unbind per leaf: its backward stacks the layer grads once,
-        # where indexing each layer would add a full-stack zero tensor per
-        # layer
-        per_layer = [dict(zip(blocks, leaves)) for leaves in
-                     zip(*(a.unbind(0) for a in blocks.values()))]
-        for i, bp in enumerate(per_layer):
+        # the training engine's mesh (tensor parallelism, the data rows),
+        # None outside it
+        mesh = getattr(blocks, "mesh", None)
+        x = _embed_tokens(cfg, params["wte"], tokens, mesh) \
+            + params["wpe"][:T][None]
+        x = _dropout(x, cfg.embd_dropout if train else 0.0,
+                     fold_in(rng, 997), data_rows(mesh, B))
+        layer = getattr(blocks, "layer", None)
+        if layer is None:
+            # one unbind per leaf: its backward stacks the layer grads
+            # once, where indexing each layer would add a full-stack zero
+            # tensor per layer
+            layer = [dict(zip(blocks, leaves)) for leaves in
+                     zip(*(a.unbind(0) for a in blocks.values()))
+                     ].__getitem__
+        for i in range(cfg.n_layer):
             lrng = fold_in(rng, i)
             if cfg.remat == "block" and torch.is_grad_enabled():
                 # the blocks draw no global RNG (their seeds are host
-                # integers), so there is no RNG state to stash and restore
-                x = checkpoint(gpt2_block_forward, cfg, bp, x, lrng, train,
-                               use_reentrant=False, preserve_rng_state=False)
+                # integers), so there is no RNG state to stash and
+                # restore; an engine's layer fetch runs inside, so the
+                # recompute fetches (gathers) the layer again
+                x = checkpoint(_block_at, cfg, layer, i, x, lrng, train,
+                               mesh, use_reentrant=False,
+                               preserve_rng_state=False)
             else:
-                x = gpt2_block_forward(cfg, bp, x, lrng, train)
-        x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
-        return x @ params["wte"].to(x.dtype).T
+                x = _block_at(cfg, layer, i, x, lrng, train, mesh)
+        return _logits(params, x, _vocab_parallel(cfg, params, mesh))
 
     def loss_fn(self, params, batch, rng: Optional[int],
                 train: bool = True) -> torch.Tensor:
@@ -214,6 +262,10 @@ class GPT2Model(TrainModule):
         tokens = batch["input_ids"] if isinstance(batch, dict) else batch
         logits = self.apply(params, tokens[:, :-1], rng, train)
         targets = tokens[:, 1:].long()
+        mesh = _vocab_parallel(self.config, params,
+                               getattr(params["blocks"], "mesh", None))
+        if mesh is not None:
+            return _vocab_parallel_nll(logits, targets, mesh).mean()
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])
         return nll.mean()
@@ -285,6 +337,52 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dt)
+
+
+def data_rows(mesh, n: int):
+    """``(offset, total)`` of this rank's ``n`` rows in the global
+    micro-batch the dropouts draw over, None without a mesh."""
+    if mesh is None:
+        return None
+    return mesh.axis_index(DATA_AXIS) * n, mesh.axis_size(DATA_AXIS) * n
+
+
+def _vocab_parallel(cfg: GPT2Config, params, mesh):
+    """``mesh`` when ``wte`` is this rank's vocab-parallel piece (fewer
+    rows than the vocabulary), else None."""
+    if mesh is None or params["wte"].shape[0] == cfg.vocab_size:
+        return None
+    return mesh
+
+
+def _embed_tokens(cfg: GPT2Config, wte, tokens, mesh):
+    """``wte[tokens]``; on a vocab-parallel piece, the rank's rows
+    looked up (zeros for tokens another rank holds) and all-reduced over
+    ``model``."""
+    if _vocab_parallel(cfg, {"wte": wte}, mesh) is None:
+        return wte[tokens]
+    n = wte.shape[0]
+    local = tokens - mesh.axis_index(MODEL_AXIS) * n
+    mine = (local >= 0) & (local < n)
+    e = torch.where(mine[..., None], wte[local.clamp(0, n - 1)], 0.0)
+    return col.reduce_from_axis(e.to(wte.dtype), mesh, MODEL_AXIS)
+
+
+def _vocab_parallel_nll(logits, targets, mesh):
+    """Per-token NLL over vocab-parallel logits [B, T, V/tp] (Megatron's
+    vocab-parallel cross-entropy, in fp32): the max, the sum of
+    exponentials and the target's logit each all-reduced over
+    ``model``."""
+    lf = logits.float()
+    n = lf.shape[-1]
+    m = col.pmax(lf.max(dim=-1).values.detach(), mesh, MODEL_AXIS)
+    sumexp = col.reduce_from_axis((lf - m[..., None]).exp().sum(dim=-1),
+                                  mesh, MODEL_AXIS)
+    local = targets - mesh.axis_index(MODEL_AXIS) * n
+    mine = (local >= 0) & (local < n)
+    t = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    t = col.reduce_from_axis(torch.where(mine, t, 0.0), mesh, MODEL_AXIS)
+    return sumexp.log() + m - t
 
 
 def _wscale(y, bp, name: str):
@@ -364,61 +462,83 @@ def _add_delta(y, d):
     return y if d is None else y + d
 
 
-def gpt2_ffn(bp, h):
+def gpt2_ffn(bp, h, mesh=None):
     """fc → gelu (tanh approximation) → proj over normalized input, each
-    product with its LoRA delta when the block is bound."""
+    product with its LoRA delta when the block is bound.  Under a mesh
+    ``fc`` is column-parallel and ``proj`` row-parallel: the partial
+    products are all-reduced over ``model`` before the bias."""
+    if mesh is not None:
+        h = col.copy_to_axis(h, mesh, MODEL_AXIS)
     y = (_wscale(h @ bp["fc_w"].to(h.dtype), bp, "fc_w")
          + bp["fc_b"].to(h.dtype))
     y = _add_delta(y, _lora_delta(h, bp, "fc_w"))
     y = F.gelu(y, approximate="tanh")
-    z = (_wscale(y @ bp["proj_w"].to(h.dtype), bp, "proj_w")
-         + bp["proj_b"].to(h.dtype))
+    z = _wscale(y @ bp["proj_w"].to(h.dtype), bp, "proj_w")
+    if mesh is not None:
+        z = col.reduce_from_axis(z, mesh, MODEL_AXIS)
+    z = z + bp["proj_b"].to(h.dtype)
     return _add_delta(z, _lora_delta(y, bp, "proj_w"))
 
 
-def gpt2_qkv_heads(cfg: GPT2Config, bp, x):
-    """ln1 → fused qkv → per-head split, [B, H, T, Dh] each (views)."""
+def gpt2_qkv_heads(cfg: GPT2Config, bp, x, mesh=None):
+    """ln1 → fused qkv → per-head split, [B, H, T, Dh] each (views).
+    Under a mesh ``qkv_w`` is the rank's column-parallel piece
+    ``[d, 3, d/tp]`` and the heads are its ``H/tp``."""
     B, T, D = x.shape
-    H, Dh = cfg.n_head, cfg.d_head
+    Dl, Dh = bp["qkv_w"].shape[-1], cfg.d_head
     h = _layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
-    w = bp["qkv_w"].to(h.dtype).reshape(D, 3 * D)
-    qkv = (_wscale((h @ w).view(B, T, 3, D), bp, "qkv_w")
+    if mesh is not None:
+        h = col.copy_to_axis(h, mesh, MODEL_AXIS)
+    w = bp["qkv_w"].to(h.dtype).reshape(D, 3 * Dl)
+    qkv = (_wscale((h @ w).view(B, T, 3, Dl), bp, "qkv_w")
            + bp["qkv_b"].to(h.dtype))
-    qkv = _add_delta(qkv, _lora_delta(h, bp, "qkv_w"))     # [B, T, 3, D]
+    qkv = _add_delta(qkv, _lora_delta(h, bp, "qkv_w"))    # [B, T, 3, Dl]
 
     def heads(t):
-        return t.reshape(B, T, H, Dh).transpose(1, 2)
+        return t.reshape(B, T, Dl // Dh, Dh).transpose(1, 2)
 
     return heads(qkv[:, :, 0]), heads(qkv[:, :, 1]), heads(qkv[:, :, 2])
 
 
 def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
-                      rng: Optional[int] = None):
+                      rng: Optional[int] = None, mesh=None):
     """heads → output projection → dropout → residual (the sublayer's
     tail, shared with the serving paths, which pass ``drop=0``).  An
     ``attn`` of a wider type than ``x`` (the fp32 output of the dense
     decode over a dequantized int8 pool) promotes the product and the
-    residual, as the reference's jnp promotion does."""
+    residual, as the reference's jnp promotion does.  Under a mesh
+    ``out_w`` is row-parallel: the partial product is all-reduced over
+    ``model`` before the bias."""
     B, H, T, Dh = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, H * Dh)
     dt = torch.promote_types(attn.dtype, x.dtype)
-    y = (_wscale(attn.to(dt) @ bp["out_w"].to(x.dtype).to(dt), bp, "out_w")
-         + bp["out_b"].to(x.dtype))
+    y = _wscale(attn.to(dt) @ bp["out_w"].to(x.dtype).to(dt), bp, "out_w")
+    if mesh is not None:
+        y = col.reduce_from_axis(y, mesh, MODEL_AXIS)
+    y = y + bp["out_b"].to(x.dtype)
     y = _add_delta(y, _lora_delta(attn, bp, "out_w"))
-    return x + _dropout(y, drop, rng)
+    return x + _dropout(y, drop, rng, data_rows(mesh, B))
 
 
 def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
-                       train: bool):
+                       train: bool, mesh=None):
     """ln1 → attention → residual (the block minus its FFN sublayer)."""
     B, T, D = x.shape
     r1, r2 = fold_in(rng, 0), fold_in(rng, 1)
     drop = cfg.dropout if train else 0.0
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)
     if cfg.attn_impl == "flash":
-        # the flash kernels, probability dropout hashed in-kernel
+        # the flash kernels, probability dropout hashed in-kernel; under
+        # a mesh over the global (batch, head) ids of the rank's rows and
+        # heads
+        bh = None
+        if mesh is not None:
+            H, Hl = cfg.n_head, q.shape[1]
+            bh = (mesh.axis_index(DATA_AXIS) * B * H
+                  + mesh.axis_index(MODEL_AXIS) * Hl, Hl, H)
         attn = mha(q, k, v, dropout_rate=drop, causal=True,
-                   dropout_seed=None if r1 is None else r1 & _M32)
+                   dropout_seed=None if r1 is None else r1 & _M32,
+                   bh_affine=bh)
     elif cfg.attn_impl == "dense":
         gen = _generator(r1, x.device) if drop > 0.0 else None
         attn = causal_attention(q, k, v, dropout_rate=drop, dropout_rng=gen)
@@ -431,19 +551,25 @@ def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r}: expected 'flash', 'dense', "
             "'ring', or 'ulysses'")
-    return gpt2_attn_project(bp, x, attn, drop, r2)
+    return gpt2_attn_project(bp, x, attn, drop, r2, mesh)
 
 
 def gpt2_block_forward(cfg: GPT2Config, bp, x, rng: Optional[int],
-                       train: bool):
+                       train: bool, mesh=None):
     """One pre-LN transformer block over one layer's params — the training
-    forward's block math."""
+    forward's block math (over the rank's tensor-parallel pieces under a
+    mesh)."""
     r_attn, r3 = fold_in(rng, 0), fold_in(rng, 1)
     drop = cfg.dropout if train else 0.0
-    x = gpt2_attn_sublayer(cfg, bp, x, r_attn, train)
+    x = gpt2_attn_sublayer(cfg, bp, x, r_attn, train, mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    h = gpt2_ffn(bp, h)
-    return x + _dropout(h, drop, r3)
+    h = gpt2_ffn(bp, h, mesh)
+    return x + _dropout(h, drop, r3, data_rows(mesh, x.shape[0]))
+
+
+def _block_at(cfg: GPT2Config, layer, i: int, x, rng, train: bool, mesh):
+    """Block ``i`` over the params ``layer(i)`` fetches."""
+    return gpt2_block_forward(cfg, layer(i), x, rng, train, mesh)
 
 
 def _decode_attn_impl(cfg: GPT2Config) -> str:
@@ -466,8 +592,13 @@ def _embed(params, tokens, positions):
     return params["wte"][tokens.long()] + params["wpe"][positions.long()]
 
 
-def _logits(params, x):
+def _logits(params, x, vocab_mesh=None):
+    """Tied output head over ``wte``'s rows: the whole vocabulary, or
+    under ``vocab_mesh`` (a vocab-parallel ``wte``) the rank's slice of
+    it, the input's gradient all-reduced over ``model``."""
     x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    if vocab_mesh is not None:
+        x = col.copy_to_axis(x, vocab_mesh, MODEL_AXIS)
     return x @ params["wte"].to(x.dtype).T
 
 

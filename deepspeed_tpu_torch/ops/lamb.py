@@ -5,7 +5,10 @@ The JAX package computes the update with XLA and no Pallas kernel, so the
 port computes it with torch ops on fp32 state.  The trust ratio is taken
 per LEAF of the parameter tree, as the JAX ``tree.map`` takes it: a
 stacked ``layers/*`` leaf of BERT gets one ratio over all its layers, not
-one per layer, so the port's trajectory stays on the reference's.  The
+one per layer, so the port's trajectory stays on the reference's.  Under
+ZeRO or tensor parallelism a rank holds a piece of a leaf: ``leaf_sums``
+(the engine's ``ZeroRuntime.leaf_sums``) turns each leaf's local sums of
+squares into the whole leaf's, so the ratio is the whole leaf's.  The
 step count and the learning rate stay device tensors: an update reads
 nothing back to the host.
 
@@ -35,7 +38,8 @@ def fused_lamb(lr: ScalarOrSchedule = 1e-3,
                weight_decay: float = 0.0,
                max_coeff: float = 10.0,
                min_coeff: float = 0.01,
-               bias_correction: bool = True) -> GradientTransformation:
+               bias_correction: bool = True,
+               leaf_sums=None) -> GradientTransformation:
     b1, b2 = betas
 
     def init_fn(params):
@@ -56,12 +60,19 @@ def fused_lamb(lr: ScalarOrSchedule = 1e-3,
             c1, c2 = 1 - b1 ** c, 1 - b2 ** c
         else:
             c1 = c2 = 1.0
+        rs = adam_direction(mu, nu, c1, c2, eps)
+        if weight_decay != 0.0:
+            rs = [r + weight_decay * p.float() for r, p in zip(rs, params)]
+        # [n_leaves, 2]: each leaf's weight and update sums of squares
+        sq = torch.stack([torch.stack([p.float().square().sum(),
+                                       r.square().sum()])
+                          for p, r in zip(params, rs)])
+        if leaf_sums is not None:
+            sq = leaf_sums(sq)
+        norms = sq.sqrt()
         updates = []
-        for r, p in zip(adam_direction(mu, nu, c1, c2, eps), params):
-            p32 = p.float()
-            if weight_decay != 0.0:
-                r = r + weight_decay * p32
-            w_norm, r_norm = p32.norm(), r.norm()
+        for i, r in enumerate(rs):
+            w_norm, r_norm = norms[i, 0], norms[i, 1]
             trust = torch.where((w_norm > 0) & (r_norm > 0),
                                 (w_norm / r_norm).clamp(min_coeff,
                                                         max_coeff),

@@ -21,8 +21,9 @@ package writes for the same tree.  bfloat16 leaves are stored as their
 with torch, not ``ml_dtypes``).
 
 The port keeps its optimizer moments as lists in the params' leaf order
-and its PRNG state as host integers; the engine's ``_canonical_state``
-re-nests the moments onto the param tree, and a host seed travels as the
+and its PRNG state as host integers; the engine's ``_checkpoint_state``
+re-nests the moments onto the param tree (each leaf as the rank's
+``ShardPiece``), and a host seed travels as the
 two ``uint32`` words of the ``rng``/``data_rng`` leaves (high word first,
 as ``jax.random.PRNGKey`` lays out a 64-bit seed).  Inside the port a seed
 round-trips exactly, so save → load → continue is bitwise.  Across
@@ -40,9 +41,16 @@ retention GC after a verified save, orphaned ``*.tmp`` sweep, and
 ``io_retry`` around every read and write with the ``ckpt`` stage fault
 points.
 
-One process: a manifest entry written by a multi-process JAX run
-(``"sharded": true``) raises ``NotImplementedError`` naming ROADMAP.md
-queue 1 item 9.
+Several processes (data/tensor parallelism, ZeRO): the JAX package's
+multi-process format.  A leaf split across ranks is written as each
+rank's piece, ``leaf_{i:05d}.proc{rank}_0.npy``, with the rank's index
+file ``leaf_{i:05d}.proc{rank}.json`` (``[[start, stop], …]`` per dim,
+CRC32, byte length); replicas of a piece are written once, and rank 0
+writes the manifest entry ``{"sharded": true, …}``, the whole leaves and
+``meta.json``.  Load merges exactly the ranges a rank needs from whatever
+pieces the files hold, so the data-parallel size and the ZeRO stage may
+change between save and load, in either package.  Async and SIGTERM
+saves are one process's (the engine refuses them across processes).
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 
 from ..utils.logging import log_dist, logger
+from .zero import ShardPiece
 from .resilience import (AsyncCheckpointWriter, CheckpointCorruptError,
                          CheckpointError, CheckpointJob,
                          CheckpointMissingError, CKPT_CORRUPT,
@@ -398,26 +407,114 @@ def _split_merge_compatible(src: tuple, dst: tuple) -> bool:
     return all(d == 1 for d in src[i:]) and all(d == 1 for d in dst[j:])
 
 
-def _refuse_sharded(key: str, dirpath: str) -> None:
-    raise NotImplementedError(
-        f"checkpoint leaf {key!r} in {dirpath} was saved sharded across "
-        "processes; multi-process checkpoints are not ported to "
-        "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 9 (data/tensor "
-        "parallel)")
+def _dtype_names(t: torch.Tensor) -> Tuple[str, str]:
+    """(logical, storage) dtype names of a tensor as the manifests record
+    them: bf16/fp8 are stored as their unsigned bit patterns."""
+    logical = _TORCH_BITS.get(t.dtype)
+    if logical is not None:
+        return logical, np.dtype(_BITS_VIEW[t.element_size()][1]).name
+    name = torch.empty(0, dtype=t.dtype).numpy().dtype.name
+    return name, name
+
+
+def _shard_index_files(dirpath: str, leaf: int) -> List[str]:
+    import glob
+    return sorted(glob.glob(os.path.join(dirpath,
+                                         f"leaf_{leaf:05d}.proc*.json")))
+
+
+def _box_overlap(index, box):
+    """The overlap of a shard's ``[[start, stop], …]`` with ``box`` as
+    (slices into the shard, slices into the box), or None."""
+    src, dst = [], []
+    for (a, b), (c, d) in zip(index, box):
+        lo, hi = max(a, c), min(b, d)
+        if lo >= hi:
+            return None
+        src.append(slice(lo - a, hi - a))
+        dst.append(slice(lo - c, hi - c))
+    return tuple(src), tuple(dst)
+
+
+def _merge_shards(dirpath: str, key: str, entry: dict, box,
+                  retry: RetryPolicy) -> np.ndarray:
+    """The ``box`` of a sharded leaf, read from exactly the shard files
+    that overlap it (every piece CRC-checked); a box the files do not
+    cover whole is corruption."""
+    sd = {"bfloat16": np.dtype(np.uint16),
+          "float8_e4m3fn": np.dtype(np.uint8),
+          "float8_e5m2": np.dtype(np.uint8)}.get(
+        entry.get("store_dtype", entry["dtype"])) \
+        or np.dtype(entry.get("store_dtype", entry["dtype"]))
+    out = np.zeros([b - a for a, b in box], sd)
+    idx_files = _shard_index_files(dirpath, int(entry["leaf"]))
+    if not idx_files:
+        raise CheckpointCorruptError(
+            f"sharded checkpoint leaf {key!r}: no shard index files in "
+            f"{dirpath}")
+    covered = 0
+    for jf in idx_files:
+        for shard in _read_json(jf, "shard index", retry):
+            ov = _box_overlap(shard["index"], box)
+            if ov is None:
+                continue
+            spath = os.path.join(dirpath, shard["file"])
+            data = _read_npy(spath, retry, key)
+            _verify_leaf(data, shard, key, spath)
+            out[ov[1]] = data[ov[0]]
+            covered += int(np.prod([s.stop - s.start for s in ov[1]]))
+    if covered != out.size:
+        raise CheckpointCorruptError(
+            f"sharded checkpoint leaf {key!r} in {dirpath}: its shard files "
+            f"cover {covered} of the {out.size} elements this rank needs")
+    return out
 
 
 # ---------------------------------------------------------------------------
 # tree save / load
 # ---------------------------------------------------------------------------
 def save_tree(dirpath: str, tree: Any,
-              retry: RetryPolicy = DEFAULT_RETRY) -> str:
+              retry: RetryPolicy = DEFAULT_RETRY,
+              process_index: int = 0) -> str:
     """Write every leaf of ``tree`` as .npy files plus a manifest mapping
     JAX key-paths to files (with per-leaf CRC32 + byte length).  Returns
-    the SHA-256 hex digest of the manifest as written, so ``meta.json``
-    can pin it."""
+    the SHA-256 hex digest of the manifest as written (rank 0; "" on the
+    other ranks), so ``meta.json`` can pin it.
+
+    A ``ShardPiece`` leaf that is not the whole leaf is one rank's piece:
+    its first holder writes it as ``leaf_{i:05d}.proc{rank}_0.npy``, and
+    every rank writes its index file ``leaf_{i:05d}.proc{rank}.json``
+    (empty where it holds only replicas).  Whole leaves, and the
+    manifest, are rank 0's.  Every rank must call this function."""
     os.makedirs(dirpath, exist_ok=True)
     manifest: Dict[str, Dict[str, Any]] = {}
     for i, (key, leaf) in enumerate(tree_flatten_with_keys(tree)):
+        if isinstance(leaf, ShardPiece):
+            if not leaf.whole:
+                indices = []
+                if leaf.write:
+                    store, _ = _to_storage(leaf.tensor)
+                    fname = f"leaf_{i:05d}.proc{process_index}_0.npy"
+                    _write_npy(os.path.join(dirpath, fname), store, retry)
+                    indices.append({"file": fname,
+                                    "index": [list(b) for b in leaf.box],
+                                    "crc32": _crc32_arr(store),
+                                    "nbytes": int(store.nbytes)})
+                _write_bytes(
+                    os.path.join(dirpath,
+                                 f"leaf_{i:05d}.proc{process_index}.json"),
+                    json.dumps(indices).encode(), retry,
+                    point="shard_index")
+                if process_index == 0:
+                    logical, stored = _dtype_names(leaf.tensor)
+                    manifest[key] = {"sharded": True, "leaf": i,
+                                     "dtype": logical,
+                                     "store_dtype": stored,
+                                     "shape": list(leaf.shape)}
+                continue
+            leaf = leaf.tensor
+        if process_index != 0:
+            continue
         store, logical = _to_storage(leaf)
         fname = f"leaf_{i:05d}.npy"
         _write_npy(os.path.join(dirpath, fname), store, retry)
@@ -428,6 +525,8 @@ def save_tree(dirpath: str, tree: Any,
             "crc32": _crc32_arr(store),
             "nbytes": int(store.nbytes),
         }
+    if process_index != 0:
+        return ""
     data = json.dumps(manifest, indent=1).encode()
     _write_bytes(os.path.join(dirpath, "manifest.json"), data, retry,
                  point="manifest")
@@ -435,7 +534,10 @@ def save_tree(dirpath: str, tree: Any,
 
 
 def _leaf_meta(tleaf) -> Tuple[tuple, Optional[torch.dtype], Any]:
-    """(shape, torch dtype or None, device or None) of a template leaf."""
+    """(shape, torch dtype or None, device or None) of a template leaf
+    (a ``ShardPiece``'s whole shape)."""
+    if isinstance(tleaf, ShardPiece):
+        return tleaf.shape, tleaf.tensor.dtype, tleaf.tensor.device
     if isinstance(tleaf, torch.Tensor):
         return tuple(tleaf.shape), tleaf.dtype, tleaf.device
     arr = np.asarray(tleaf)
@@ -446,8 +548,10 @@ def load_tree(dirpath: str, target: Any, strict: bool = True,
               retry: RetryPolicy = DEFAULT_RETRY) -> Any:
     """Load leaves by key-path into the structure of ``target``: a tensor
     leaf becomes a tensor of its dtype on its device, a numpy leaf a
-    numpy array of its dtype.  Each leaf read is verified against its
-    manifest CRC32/byte length (when present) and a mismatch raises
+    numpy array of its dtype, a ``ShardPiece`` the tensor of its box
+    (merged from the shard files that overlap it when the leaf was saved
+    sharded).  Each leaf read is verified against its manifest
+    CRC32/byte length (when present) and a mismatch raises
     ``CheckpointCorruptError`` naming the leaf and file BEFORE any engine
     state is touched."""
     manifest = _read_json(os.path.join(dirpath, "manifest.json"),
@@ -462,14 +566,25 @@ def load_tree(dirpath: str, target: Any, strict: bool = True,
             log_dist(f"checkpoint {dirpath}: no entry for {key!r}; "
                      "keeping the engine's current value", ranks=[0])
             return tleaf
-        if entry.get("sharded"):
-            _refuse_sharded(key, dirpath)
-        fpath = os.path.join(dirpath, entry["file"])
-        arr = _read_npy(fpath, retry, key)
-        _verify_leaf(arr, entry, key, fpath)
-        val = _from_storage(arr, entry["dtype"])
         tshape, tdtype, tdev = _leaf_meta(tleaf)
-        if tuple(val.shape) != tshape:
+        box = (tleaf.box if isinstance(tleaf, ShardPiece)
+               else tuple((0, n) for n in tshape))
+        if entry.get("sharded"):
+            if tuple(entry["shape"]) != tshape:
+                raise ValueError(
+                    f"checkpoint leaf {key!r} has shape "
+                    f"{tuple(entry['shape'])}, engine expects {tshape} — "
+                    "model/optimizer config mismatch")
+            val = _from_storage(
+                _merge_shards(dirpath, key, entry, box, retry),
+                entry["dtype"])
+            box = None
+        else:
+            fpath = os.path.join(dirpath, entry["file"])
+            arr = _read_npy(fpath, retry, key)
+            _verify_leaf(arr, entry, key, fpath)
+            val = _from_storage(arr, entry["dtype"])
+        if box is not None and tuple(val.shape) != tshape:
             if _split_merge_compatible(tuple(val.shape), tshape):
                 # size-preserving layout change (dims split or merged,
                 # row-major order unchanged): reshape, loudly
@@ -483,6 +598,8 @@ def load_tree(dirpath: str, target: Any, strict: bool = True,
                     f"checkpoint leaf {key!r} has shape {tuple(val.shape)}"
                     f", engine expects {tshape} — model/optimizer config "
                     "mismatch")
+        if box is not None and isinstance(tleaf, ShardPiece):
+            val = val[tuple(slice(a, b) for a, b in box)]
         if tdtype is not None:
             t = val if isinstance(val, torch.Tensor) else \
                 torch.from_numpy(_c_order(val))
@@ -593,7 +710,10 @@ def _verify_manifest_files(plane_dir: str, manifest: dict, deep: bool,
                            retry: RetryPolicy) -> Optional[str]:
     for key, entry in manifest.items():
         if entry.get("sharded"):
-            _refuse_sharded(key, plane_dir)
+            err = _verify_shard_files(plane_dir, key, entry, deep, retry)
+            if err:
+                return err
+            continue
         fpath = os.path.join(plane_dir, entry["file"])
         if not os.path.isfile(fpath):
             return f"{key!r}: file {fpath} is missing"
@@ -611,6 +731,34 @@ def _verify_manifest_files(plane_dir: str, manifest: dict, deep: bool,
     return None
 
 
+def _verify_shard_files(plane_dir: str, key: str, entry: dict, deep: bool,
+                        retry: RetryPolicy) -> Optional[str]:
+    """A sharded leaf's index files and the shard files they list."""
+    idx_files = _shard_index_files(plane_dir, int(entry["leaf"]))
+    if not idx_files:
+        return f"{key!r}: no shard index files in {plane_dir}"
+    for jf in idx_files:
+        try:
+            shards = _read_json(jf, "shard index", retry)
+        except CheckpointCorruptError as e:
+            return str(e)
+        for shard in shards:
+            fpath = os.path.join(plane_dir, shard["file"])
+            if not os.path.isfile(fpath):
+                return f"{key!r}: shard file {fpath} is missing"
+            nbytes = shard.get("nbytes")
+            if nbytes is not None and os.path.getsize(fpath) < int(nbytes):
+                return (f"{key!r}: shard file {fpath} is smaller than its "
+                        f"{nbytes} recorded data bytes (truncated)")
+            if deep:
+                try:
+                    _verify_leaf(_read_npy(fpath, retry, key), shard, key,
+                                 fpath)
+                except CheckpointCorruptError as e:
+                    return str(e)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # engine-level save
 # ---------------------------------------------------------------------------
@@ -620,6 +768,8 @@ def _host_snapshot(tree: Any) -> Any:
     ``.cpu()`` is the live tensor itself), so an async writer must own
     its bytes before training continues."""
     def snap(_key, x):
+        if isinstance(x, ShardPiece):
+            return x.with_tensor(x.tensor.detach().to("cpu", copy=True))
         if isinstance(x, torch.Tensor):
             return x.detach().to("cpu", copy=True)
         return np.array(x, copy=True)
@@ -644,30 +794,45 @@ def _write_checkpoint_files(save_dir: str, tag: str, ckpt_dir: str,
                             optim_plane: Any, meta: dict,
                             save_latest: bool, keep_last_n: int,
                             retry: RetryPolicy, span=None,
-                            data_plane: Any = None) -> str:
+                            data_plane: Any = None,
+                            process_index: int = 0,
+                            barrier: Optional[Callable[[], None]] = None
+                            ) -> str:
     """The single serialization path sync and async saves share (which
     is what makes async == sync bitwise): tmp-dir staging, per-plane
     manifests with CRCs, meta with manifest digests, fsync, verification
     of the STAGED dir, swap-rename, ``latest`` update, then retention GC
-    — destruction strictly AFTER the new save verifies."""
+    — destruction strictly AFTER the new save verifies.  Across several
+    processes every rank writes its pieces between ``barrier`` calls and
+    rank 0 stages the directory, writes the rest and publishes."""
     span = span or (lambda name: contextlib.nullcontext())
+    barrier = barrier or (lambda: None)
+    rank0 = process_index == 0
     # injected write latency (overlap proofs): DS_STAGE_DELAY_S=ckpt:sec
     # or its legacy DS_CKPT_DELAY_S alias
     from .stages import injected_delay
     delay = injected_delay("ckpt")
     if delay > 0:
         time.sleep(delay)
-    if os.path.isdir(tmp_dir):
+    if rank0 and os.path.isdir(tmp_dir):
         import shutil
         io_retry(lambda: shutil.rmtree(tmp_dir), f"clear {tmp_dir}", retry,
                  on_retry=_on_retry)
-    os.makedirs(tmp_dir, exist_ok=True)
+    if rank0:
+        os.makedirs(tmp_dir, exist_ok=True)
+    barrier()
     with span("checkpoint/save_model_plane"):
         model_digest = save_tree(os.path.join(tmp_dir, "model"),
-                                 model_plane, retry=retry)
+                                 model_plane, retry=retry,
+                                 process_index=process_index)
     with span("checkpoint/save_optim_plane"):
         optim_digest = save_tree(os.path.join(tmp_dir, "optim"),
-                                 optim_plane, retry=retry)
+                                 optim_plane, retry=retry,
+                                 process_index=process_index)
+    barrier()
+    if not rank0:
+        barrier()
+        return ckpt_dir
     meta = dict(meta)
     meta["format_version"] = CKPT_FORMAT_VERSION
     meta["manifest_digests"] = {"model": model_digest,
@@ -687,6 +852,7 @@ def _write_checkpoint_files(save_dir: str, tag: str, ckpt_dir: str,
             "GC skipped, nothing was deleted")
     _publish_staged(save_dir, tag, ckpt_dir, tmp_dir, save_latest,
                     keep_last_n, retry)
+    barrier()
     log_dist(f"saved checkpoint {ckpt_dir}", ranks=[0])
     return ckpt_dir
 
@@ -774,8 +940,6 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
                     async_write: bool) -> CheckpointJob:
     """Snapshot the state to the host NOW when ``async_write`` (the only
     step-loop-exposed cost of an async save) and return a write job."""
-    from . import precision
-
     tracer = getattr(getattr(engine, "telemetry", None), "tracer", None)
     ctx = None
     with _tel_span(engine, "checkpoint/snapshot", tag=tag):
@@ -787,9 +951,8 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
             ctx = TraceContext.new()
             tracer.flow_start("checkpoint/job", ctx, cat="checkpoint",
                               tag=tag)
-        master_tree, opt_tree = engine._canonical_state()
-        module_params = precision.cast_to_compute(
-            master_tree, engine.compute_dtype)
+        master_tree, opt_tree = engine._checkpoint_state()
+        module_params = _cast_pieces(master_tree, engine.compute_dtype)
         model_plane = {"module": module_params}
         optim_plane = _optim_plane(engine, master_tree, opt_tree)
         if async_write:
@@ -813,6 +976,15 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
         "client_state": client_state or {},
     }
     eng_ref = weakref.ref(engine)
+    mesh = getattr(engine, "mesh", None)
+    process_index = mesh.rank if mesh is not None else 0
+    barrier = None
+    if mesh is not None and mesh.size > 1:
+        import torch.distributed as dist
+        group = mesh.group("world")
+
+        def barrier():
+            dist.barrier(group=group)
 
     def run():
         eng = eng_ref()
@@ -833,7 +1005,8 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
                 optim_plane, meta, save_latest, cfg.keep_last_n,
                 cfg.retry,
                 span=lambda name: _tel_span(eng, name, tag=tag),
-                data_plane=data_plane)
+                data_plane=data_plane, process_index=process_index,
+                barrier=barrier)
         if async_write and eng is not None:
             acc = getattr(eng, "_ckpt_interval_acc", None)
             if acc is not None:
@@ -849,6 +1022,17 @@ def _build_save_job(engine, save_dir: str, tag: str, ckpt_dir: str,
 
     return CheckpointJob(tag=tag, tmp_dir=tmp_dir, final_dir=ckpt_dir,
                          run=run, ctx=ctx)
+
+
+def _cast_pieces(tree, dtype):
+    """The master tree cast to the compute dtype, pieces kept pieces."""
+    from . import precision
+
+    def cast(_key, x):
+        if isinstance(x, ShardPiece):
+            return x.with_tensor(precision.cast_to_compute(x.tensor, dtype))
+        return precision.cast_to_compute(x, dtype)
+    return tree_map_with_keys(cast, tree)
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -872,6 +1056,12 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(save_dir, tag)
     tmp_dir = ckpt_dir + ".tmp"
     cfg = _ckpt_config(engine)
+    mesh = getattr(engine, "mesh", None)
+    if async_write and mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "an async checkpoint save across processes is not ported to "
+            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 9 (its "
+            "remaining half)")
     writer: Optional[AsyncCheckpointWriter] = getattr(
         engine, "_ckpt_writer", None)
     if not async_write and writer is not None and writer.in_flight():
@@ -882,9 +1072,10 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
 
     with _tel_sink(engine):
         # hygiene: reclaim orphaned <*>.tmp dirs from crashed saves,
-        # skipping the live writer's dirs
+        # skipping the live writer's dirs (rank 0's job)
         keep = writer.active_tmp() if writer is not None else set()
-        removed = sweep_tmp(save_dir, keep=keep, retry=cfg.retry)
+        removed = (sweep_tmp(save_dir, keep=keep, retry=cfg.retry)
+                   if mesh is None or mesh.rank == 0 else 0)
         _count("ckpt_gc_removed_total",
                "old checkpoint tags + orphaned tmp dirs reclaimed",
                removed)
@@ -1013,8 +1204,6 @@ def _load_into_engine(engine, ckpt_dir: str, load_optimizer_states: bool,
     (manifest digest first, then per-leaf CRC inside load_tree); any
     corruption raises BEFORE engine state is replaced, so a caller can
     walk to an older tag safely."""
-    from . import precision
-
     meta = _read_json(os.path.join(ckpt_dir, "meta.json"), "meta.json",
                       retry)
     digests = meta.get("manifest_digests") or {}
@@ -1048,7 +1237,7 @@ def _load_into_engine(engine, ckpt_dir: str, load_optimizer_states: bool,
             "iterator starts FRESH — the resumed run will replay or "
             "skip data relative to the interrupted one (model/optimizer "
             "state restore exactly)", ckpt_dir)
-    tmpl_master, tmpl_opt = engine._canonical_state()
+    tmpl_master, tmpl_opt = engine._checkpoint_state()
     rng_seed = data_seed = None
     if use_optim:
         check_digest("optim")
@@ -1062,8 +1251,7 @@ def _load_into_engine(engine, ckpt_dir: str, load_optimizer_states: bool,
     else:
         # fp16-cast restore: module weights promoted to a fresh fp32 master
         check_digest("model")
-        module_tmpl = precision.cast_to_compute(
-            tmpl_master, engine.compute_dtype)
+        module_tmpl = _cast_pieces(tmpl_master, engine.compute_dtype)
         with _tel_span(engine, "checkpoint/load_model_plane"):
             loaded = load_tree(os.path.join(ckpt_dir, "model"),
                                {"module": module_tmpl}, retry=retry)

@@ -10,7 +10,7 @@ batch drawn exactly the one the saved loader would have drawn.
 from __future__ import annotations
 
 import copy
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 
@@ -62,12 +62,19 @@ class RepeatingLoader:
 
 class DeepSpeedDataLoader:
     """Batch iterator over an indexable dataset of dicts/tuples of arrays
-    (or arrays), yielding stacked global batches."""
+    (or arrays), yielding stacked global batches.
+
+    ``data_shard = (grad_acc, dp, rank)``: yield only data rank ``rank``'s
+    rows of each global batch, ``[grad_acc · micro, ...]`` — the rows the
+    JAX engine places on that data coordinate
+    (``batch.reshape(grad_acc, dp, micro, ...)[:, rank]``)."""
 
     def __init__(self, dataset, batch_size: int,
                  collate_fn: Optional[Callable] = None,
                  shuffle: bool = False, seed: int = 0,
-                 drop_last: bool = True):
+                 drop_last: bool = True,
+                 data_shard: Optional[Tuple[int, int, int]] = None):
+        self.data_shard = data_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.collate_fn = collate_fn or _default_collate
@@ -116,7 +123,9 @@ class DeepSpeedDataLoader:
         for i in range(start, self.len):
             idx = order[i * self.batch_size:(i + 1) * self.batch_size]
             self._batch_idx = i + 1
-            yield self.collate_fn([self.dataset[int(j)] for j in idx])
+            batch = self.collate_fn([self.dataset[int(j)] for j in idx])
+            yield (batch if self.data_shard is None
+                   else rank_rows(batch, *self.data_shard))
 
     def state_dict(self) -> dict:
         """JSON-able iteration position."""
@@ -153,6 +162,22 @@ class DeepSpeedDataLoader:
         # epoch -1: the saved loader was never iterated, start fresh
         self._resume_idx = (None if self._epoch < 0
                             else int(self._batch_idx))
+
+
+def rank_rows(batch, grad_acc: int, dp: int, rank: int):
+    """Data rank ``rank``'s rows of a global batch: every leaf's
+    ``x.reshape(grad_acc, dp, micro, ...)[:, rank]`` flattened back to
+    ``[grad_acc · micro, ...]`` (the JAX engine's row placement)."""
+    def take(x):
+        x = np.asarray(x)
+        mb = x.shape[0] // (grad_acc * dp)
+        return x.reshape((grad_acc, dp, mb) + x.shape[1:])[:, rank] \
+            .reshape((grad_acc * mb,) + x.shape[1:])
+    if isinstance(batch, dict):
+        return {k: take(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(take(v) for v in batch)
+    return take(batch)
 
 
 def _default_collate(samples):

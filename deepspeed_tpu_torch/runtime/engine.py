@@ -18,11 +18,29 @@ Randomness is host integers (``runtime/module.py``): the step's seed is
 ``fold_in(rng, global_steps)`` and micro-batch i's ``fold_in(step, i)``,
 as the JAX step folds its PRNG key.
 
-Scope: ZeRO stage 0 on one device, fp32/bf16/fp16 (dynamic loss scale
-with hysteresis, skip on overflow), clipping, Adam/AdamW or LAMB, the
-four lr schedules, progressive layer drop (θ advanced each step and put
-into every micro-batch dict as a host float), ``eval_batch`` and the
-forward/backward/step facade.  The
+Scope: data and tensor parallelism over a ``parallel.Mesh`` of
+``torch.distributed`` ranks (NCCL on the card, gloo on the CPU) with ZeRO
+stages 0–3 (``runtime/zero.py``: the fp32 master and the moments sharded
+from stage 1, the grads reduce-scattered from stage 2, the compute
+params gathered per block from stage 3), fp32/bf16/fp16 (dynamic loss
+scale with hysteresis, skip on overflow), clipping, Adam/AdamW or LAMB,
+the four lr schedules, progressive layer drop (θ advanced each step and
+put into every micro-batch dict as a host float), ``eval_batch`` and the
+forward/backward/step facade.
+
+The data-parallel step (the JAX engine's ``_scan_scaled_grads``,
+``constrain_grads`` and multi-process batch contract): each rank feeds
+its own data coordinate's rows ``[grad_acc · micro, ...]`` (ranks that
+differ only in ``model`` feed the same rows; ``deepspeed_io`` gives each
+rank those rows); the grads are summed over the micro-steps in fp32 and
+reduced over ``data`` (all-reduced at the boundary at stages 0–1,
+reduce-scattered in the backward at stages 2–3); the overflow flag is
+all-reduced with max, so every rank skips the same step; the global norm
+and LAMB's trust ratios are the whole logical leaves' (a leaf's piece
+sums reduced over its groups, a replicated leaf counted once); the loss
+is the global mean, the same on every rank.  At one rank the same
+collectives run (a one-rank NCCL group on the card); an engine with no
+process group runs them as one-rank identities.  The
 ``data_prefetch`` block (on by default) runs inline here: the batch is
 moved to the card inside ``train_batch``, a device tensor passes
 straight through.
@@ -43,7 +61,10 @@ the ``profiler`` window (a ``torch.profiler`` capture exported as a Chrome
 trace under ``profiler.output_path``) and the ``wall_clock_breakdown``
 timers (which synchronize the card every step, as the reference's do).
 Every other config knob whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``NotImplementedError`` naming its ROADMAP.md item: the pipeline (item
+10); sequence, experts, 1-bit Adam and ``sparse_gradients`` (item 11);
+offload (item 12); and async or SIGTERM saves across several processes
+(item 9's remaining half).
 """
 from __future__ import annotations
 
@@ -60,6 +81,10 @@ import numpy as np
 import torch
 
 from ..config import constants as C
+from ..parallel import collectives as col
+from ..parallel.distributed import is_initialized, local_rank
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, build_mesh,
+                             mesh_axis_size, single_device_mesh)
 from ..utils.logging import log_dist, logger
 from . import precision
 from .dataloader import DeepSpeedDataLoader, supports_iter_state
@@ -67,7 +92,8 @@ from .engine_stages import (finish_close, pop_stage_errors, stage_degraded,
                             wire_stage_plane)
 from .lr_schedules import get_lr_schedule
 from .resilience import AsyncCheckpointWriter
-from .utils import clip_by_global_norm, fold_in, global_norm, tree_leaves
+from .utils import clip_by_global_norm, fold_in, tree_leaves
+from .zero import ZeroRuntime, ZeroShardingPlan
 from ..ops.adam import fused_adam
 from ..ops.lamb import fused_lamb
 from .progressive_layer_drop import ProgressiveLayerDrop
@@ -106,22 +132,27 @@ def _unported(what: str, item: str):
         f"queue 1, {item}")
 
 
+def check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(
+            f"mesh must be a deepspeed_tpu_torch.parallel.Mesh "
+            f"(parallel.build_mesh), got {type(mesh).__name__}")
+
+
 def refuse_unported(config, optimizer=None, mesh=None) -> None:
     """Raise on every config knob whose training path this port does not
     run yet (defaults never raise)."""
-    if mesh is not None:
-        raise _unported("a device mesh", "item 9 (data/tensor parallel)")
-    if config.world_size != 1:
-        raise _unported(f"world_size={config.world_size} (dp > 1)",
-                        "item 9 (data/tensor parallel)")
     zc = config.zero_config
     if zc.cpu_offload:
         raise _unported("zero_optimization.cpu_offload",
                         "item 12 (offload and input pipeline)")
-    if config.zero_optimization_stage > 0 or zc.pg_correctness_test:
+    check_mesh(mesh)
+    if mesh is not None and mesh.size > 1 and (
+            config.checkpoint_config.async_save
+            or config.checkpoint_config.sigterm_save):
         raise _unported(
-            f"zero_optimization.stage={config.zero_optimization_stage}",
-            "item 9 (data/tensor parallel and ZeRO 1-3)")
+            "checkpoint.async_save / sigterm_save across processes",
+            "item 9 (its remaining half)")
     if config.pipeline_config.stages != C.PIPELINE_STAGES_DEFAULT:
         raise _unported("pipeline.stages > 1", "item 10 (pipeline)")
     name = config.optimizer_name
@@ -136,14 +167,14 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
 
 
 def resolve_device(device) -> torch.device:
-    """``cuda:0`` by default; raises without CUDA unless the caller names
-    a device."""
+    """``cuda:LOCAL_RANK`` by default; raises without CUDA unless the
+    caller names a device."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "DeepSpeedEngine trains on the card by default and found no "
                 "CUDA device; pass device='cpu' to train on the CPU")
-        return torch.device("cuda", 0)
+        return torch.device("cuda", local_rank())
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"DeepSpeedEngine: device {device} requested but "
@@ -182,12 +213,23 @@ class DeepSpeedEngine:
                  seed: int = 0,
                  training_data=None,
                  collate_fn=None,
-                 device=None):
-        refuse_unported(config, optimizer)
+                 device=None,
+                 mesh=None):
+        self.device = resolve_device(device)
+        if mesh is None:
+            mesh = build_mesh() if is_initialized() else single_device_mesh()
+        refuse_unported(config, optimizer, mesh)
         self.module = model
         self.config = config
-        self.device = resolve_device(device)
-        self.dp_world_size = 1
+        self.mesh = mesh
+        self.dp_world_size = mesh_axis_size(mesh, DATA_AXIS)
+        if config.world_size != self.dp_world_size:
+            raise ValueError(
+                f"DeepSpeedConfig was built for world_size="
+                f"{config.world_size} but the mesh's data axis is "
+                f"{self.dp_world_size}; construct the config with the "
+                "mesh's data-axis size (deepspeed_tpu_torch.initialize "
+                "does this)")
         self.compute_dtype = precision.select_compute_dtype(
             config.fp16_enabled, config.bf16_enabled)
         self.micro_batch_size = _CallableInt(
@@ -197,8 +239,6 @@ class DeepSpeedEngine:
         self.train_batch_size = _CallableInt(config.train_batch_size)
 
         self._lr_schedule = self._resolve_lr_schedule(lr_schedule)
-        self.optimizer = (optimizer if optimizer is not None
-                          else self._build_basic_optimizer())
         self.progressive_layer_drop = (
             ProgressiveLayerDrop(theta=config.pld_config.theta,
                                  gamma=config.pld_config.gamma)
@@ -209,7 +249,33 @@ class DeepSpeedEngine:
 
         if params is None:
             params = model.init(seed, device=self.device)
-        master = _tree_map(lambda x: _master_leaf(x, self.device), params)
+        full = _tree_map(lambda x: _master_leaf(x, self.device), params)
+        specs = getattr(model, "param_partition_specs", None)
+        self.zero_plan = ZeroShardingPlan(
+            stage=config.zero_optimization_stage, mesh=mesh,
+            base_param_specs=specs(full) if specs is not None else None,
+            params=full)
+        self.zero_stage = self.zero_plan.stage
+        self._zero = ZeroRuntime(self.zero_plan, full, self.compute_dtype,
+                                 stacked=getattr(model, "stacked_layers",
+                                                 None))
+        # each rank keeps its pieces: the tensor-parallel piece, and from
+        # stage 1 its data shard of it
+        rt = self._zero
+        pieces = []
+        for i, x in enumerate(tree_leaves(full)):
+            p = rt.piece(x, i, rt.master_split(i))
+            pieces.append(p if p.numel() == x.numel() else p.clone())
+        master = _unflatten_like(full, pieces)
+        del full
+        rt.set_sources(pieces)
+        # the one input of every parameter fetch that requires grad, so
+        # the fetches' backward (the gradient reduction) runs
+        self._anchor = torch.zeros((), device=self.device,
+                                   requires_grad=True)
+        self._pg_check_pending = bool(config.zero_config.pg_correctness_test)
+        self.optimizer = (optimizer if optimizer is not None
+                          else self._build_basic_optimizer())
         scaler, self.loss_scale_config = precision.from_fp16_config(
             config.fp16, device=self.device)
         self.state = TrainState(
@@ -251,7 +317,9 @@ class DeepSpeedEngine:
             from ..utils.timer import SynchronizedWallClockTimer
             self.timers = SynchronizedWallClockTimer(self.device)
         log_dist(
-            f"DeepSpeedEngine: device={self.device} zero_stage=0 "
+            f"DeepSpeedEngine: device={self.device} "
+            f"zero_stage={self.zero_stage} dp={self.dp_world_size} "
+            f"tp={mesh_axis_size(mesh, MODEL_AXIS)} "
             f"dtype={self.compute_dtype} "
             f"micro_bs={self.micro_batch_size} "
             f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
@@ -319,7 +387,8 @@ class DeepSpeedEngine:
         if hb_dir:
             from ..telemetry.heartbeat import (HeartbeatWriter,
                                                StragglerMonitor)
-            self._heartbeat = HeartbeatWriter(hb_dir, process_index=0)
+            self._heartbeat = HeartbeatWriter(hb_dir,
+                                              process_index=self.mesh.rank)
             self._straggler_monitor = StragglerMonitor(
                 ratio=float(tcfg.straggler_ratio))
         # one-shot anomaly trigger (opt-in via telemetry.anomaly_ratio):
@@ -395,7 +464,8 @@ class DeepSpeedEngine:
         if self.config.optimizer_name == C.LAMB_OPTIMIZER:
             return fused_lamb(*args,
                               max_coeff=params.pop("max_coeff", 10.0),
-                              min_coeff=params.pop("min_coeff", 0.01))
+                              min_coeff=params.pop("min_coeff", 0.01),
+                              leaf_sums=self._zero.leaf_sums)
         return fused_adam(*args,
                           adam_w_mode=params.pop("adam_w_mode", True),
                           bias_correction=params.pop("bias_correction",
@@ -412,38 +482,92 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _scaled_grads(self, batch, scaler, step_rng):
-        """Accumulate fp32 grads of the scaled micro-batch losses on the
-        master and unscale by ``loss_scale * grad_acc``.  Returns (grads in
-        tree_leaves order, scaled losses)."""
-        master = self.state.master_params
-        leaves = tree_leaves(master)
+    def _scaled_grads(self, batch, scaler, step_rng, sharded=None):
+        """Sum fp32 grads of the scaled micro-batch losses over the
+        micro-steps and the data ranks (``runtime/zero.py``; ``sharded``
+        overrides the stage's gradient placement — False is the plain
+        all-reduce the partitioning check compares with) and unscale by
+        ``loss_scale * grad_acc * dp``.  Returns (grads in tree_leaves
+        order, in the master's placement; scaled losses)."""
+        rt = self._zero
         ga = int(self.gradient_accumulation_steps)
+        rt.start_grads(self.zero_stage >= 2 if sharded is None
+                       else sharded)
         scaled_losses = []
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            for i in range(ga):
-                mb = _tree_map(lambda x: x[i], batch)
-                if self.progressive_layer_drop is not None \
-                        and isinstance(mb, dict):
-                    # a host float: the model's layer draws never sync
-                    mb["pld_theta"] = self.progressive_layer_drop.get_theta()
-                params = precision.cast_to_compute(master,
-                                                   self.compute_dtype)
-                loss = self.module.loss_fn(params, mb, fold_in(step_rng, i),
-                                           train=True)
-                scaled = precision.scale_loss(loss.float(), scaler)
-                scaled.backward()
-                scaled_losses.append(scaled.detach())
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in leaves]
-        finally:
-            for p in leaves:
-                p.grad = None
-                p.requires_grad_(False)
-        inv = (1.0 / (scaler.loss_scale * ga)).float()
+        for i in range(ga):
+            mb = _tree_map(lambda x: x[i], batch)
+            if self.progressive_layer_drop is not None \
+                    and isinstance(mb, dict):
+                # a host float: the model's layer draws never sync
+                mb["pld_theta"] = self.progressive_layer_drop.get_theta()
+            params = rt.compute_tree(self._anchor)
+            loss = self.module.loss_fn(params, mb, fold_in(step_rng, i),
+                                       train=True)
+            scaled = precision.scale_loss(loss.float(), scaler)
+            scaled.backward()
+            scaled_losses.append(scaled.detach())
+        grads = rt.finish_grads()
+        inv = (1.0 / (scaler.loss_scale * (ga * self.dp_world_size))).float()
         return [g * inv for g in grads], scaled_losses
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """The L2 norm of the logical gradient tree (every rank gets it)."""
+        sq = torch.stack([g.float().square().sum() for g in grads])
+        return self._zero.leaf_sums(sq[:, None])[:, 0].sum().sqrt()
+
+    def _all_finite(self, grads) -> torch.Tensor:
+        """Every rank's grads finite (the non-finite flag all-reduced with
+        max, so every rank skips the same step)."""
+        bad = (~precision.grads_finite(grads)).float()
+        return col.pmax(bad, self.mesh, "world") == 0
+
+    # ------------------------------------------------------------------
+    # partitioning correctness (the JAX engine's pg_correctness_test and
+    # verify_gradient_partitioning)
+    # ------------------------------------------------------------------
+    def verify_gradient_partitioning(self, batch=None, data_iter=None,
+                                     rtol: float = 2e-5,
+                                     atol: float = 2e-5):
+        """Compute one batch's gradients twice — through the stage's
+        placement (reduce-scattered from stage 2) and through the plain
+        all-reduce — and assert they match on every rank's pieces.
+        Returns ``{"max_abs_diff", "max_rel_diff"}`` (the maxima over
+        every rank)."""
+        if batch is None:
+            if data_iter is None:
+                raise ValueError(
+                    "verify_gradient_partitioning needs a batch or "
+                    "data_iter")
+            batch = next(data_iter)
+        return self._run_pg_correctness(self._place_train_batch(batch),
+                                        rtol=rtol, atol=atol)
+
+    def _run_pg_correctness(self, placed, rtol=2e-5, atol=2e-5):
+        scaler = self.state.scaler
+        rng = fold_in(self._rng, self.global_steps)
+        g_plan, _ = self._scaled_grads(placed, scaler, rng)
+        g_ref, _ = self._scaled_grads(placed, scaler, rng, sharded=False)
+        stats = torch.zeros(3, dtype=torch.float64, device=self.device)
+        with torch.no_grad():
+            for a, b in zip(g_plan, g_ref):
+                a, b = a.double(), b.double()
+                diff = (a - b).abs()
+                if diff.numel():
+                    stats[0] = torch.maximum(stats[0], diff.max())
+                    stats[1] = torch.maximum(stats[1], (
+                        diff / b.abs().clamp_min(1e-12)).max())
+                stats[2] += (~torch.isclose(a, b, rtol=rtol,
+                                            atol=atol)).sum()
+        max_abs, max_rel, bad = col.pmax(stats, self.mesh,
+                                         "world").tolist()
+        if bad:
+            raise AssertionError(
+                f"pg_correctness_test FAILED: partitioned grads diverge "
+                f"from the replicated reduction on {int(bad)} elements "
+                f"(max_abs={max_abs:.3e} max_rel={max_rel:.3e})")
+        log_dist(f"pg_correctness_test OK: max_abs={max_abs:.3e} "
+                 f"max_rel={max_rel:.3e}", ranks=[0])
+        return {"max_abs_diff": max_abs, "max_rel_diff": max_rel}
 
     @torch.no_grad()
     def _apply_update(self, grads, finite):
@@ -469,14 +593,18 @@ class DeepSpeedEngine:
         step_rng = fold_in(self._rng, self.global_steps)
         grads, scaled_losses = self._scaled_grads(batch, scaler, step_rng)
         with torch.no_grad():
-            finite = precision.grads_finite(grads)
-            grad_norm = global_norm(grads)
+            finite = self._all_finite(grads)
+            grad_norm = self._global_norm(grads)
             if self.gradient_clipping > 0:
                 grads, _ = clip_by_global_norm(grads, self.gradient_clipping,
                                                norm=grad_norm)
         new_opt = self._apply_update(grads, finite)
         with torch.no_grad():
-            mean_loss = torch.stack(scaled_losses).mean() / scaler.loss_scale
+            # stages 1-2: the compute copy all-gathered from the shards
+            self._zero.set_sources(tree_leaves(st.master_params))
+            mean_loss = col.pmean(
+                torch.stack(scaled_losses).mean() / scaler.loss_scale,
+                self.mesh, DATA_AXIS)
             new_scaler = precision.update_scale(scaler, finite,
                                                 self.loss_scale_config)
             new_skipped = st.skipped_steps + (~finite).to(torch.int32)
@@ -496,9 +624,14 @@ class DeepSpeedEngine:
     # batches
     # ------------------------------------------------------------------
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
+        """A loader of global batches that yields this rank's rows of
+        each (its data coordinate's, ``[grad_acc · micro, ...]``)."""
         return DeepSpeedDataLoader(
             dataset, batch_size=batch_size or self.train_batch_size,
-            collate_fn=collate_fn)
+            collate_fn=collate_fn,
+            data_shard=(int(self.gradient_accumulation_steps),
+                        self.dp_world_size,
+                        self.mesh.axis_index(DATA_AXIS)))
 
     def _to_device(self, x) -> torch.Tensor:
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -506,16 +639,20 @@ class DeepSpeedEngine:
         return t.to(self.device, non_blocking=True)
 
     def _place_train_batch(self, batch):
-        """[train_batch, ...] leaves → [grad_acc, micro, ...] on the card."""
+        """This rank's [grad_acc · micro, ...] leaves → [grad_acc, micro,
+        ...] on the card."""
         ga, mb = int(self.gradient_accumulation_steps), int(
             self.micro_batch_size)
+        dp = self.dp_world_size
 
         def place(x):
             t = self._to_device(x)
             if t.shape[0] != ga * mb:
                 raise ValueError(
-                    f"batch dim {t.shape[0]} != train_batch_size "
-                    f"{ga * mb} (grad_acc {ga} × micro {mb} × dp 1)")
+                    f"batch dim {t.shape[0]} != this rank's rows {ga * mb}"
+                    f" (grad_acc {ga} × micro {mb}; train_batch_size "
+                    f"{ga * mb * dp} = that × dp {dp}, each data rank "
+                    "feeding its own rows)")
             return t.reshape((ga, mb) + tuple(t.shape[1:]))
 
         return _tree_map(place, batch)
@@ -576,6 +713,10 @@ class DeepSpeedEngine:
         with self._tel_span("train/shard_batch", cat="data",
                             prefetched=False):
             placed = self._place_train_batch(batch)
+        if self._pg_check_pending:
+            # first-step sweep, before any update mutates the state
+            self._pg_check_pending = False
+            self._run_pg_correctness(placed)
         if self.timers is not None:
             self.timers("train_batch_data").stop()
             self.timers("train_batch_step").start()
@@ -886,11 +1027,11 @@ class DeepSpeedEngine:
             batch = next(data_iter)
         micro = _tree_map(self._to_device, batch)
         with torch.no_grad():
-            params = precision.cast_to_compute(self.state.master_params,
-                                               self.compute_dtype)
-            return self.module.loss_fn(
+            params = self._zero.compute_tree(self._anchor)
+            loss = self.module.loss_fn(
                 params, micro, fold_in(self._data_rng, self.micro_steps),
                 train=False)
+            return col.pmean(loss, self.mesh, DATA_AXIS)
 
     # --- reference-style imperative facade -----------------------------
     def forward(self, batch):
@@ -982,7 +1123,8 @@ class DeepSpeedEngine:
 
     def _canonical_state(self):
         """(master, optimizer state) in the JAX engine's tree form: the
-        count and the moments re-nested onto the param tree."""
+        count and the moments re-nested onto the param tree (this rank's
+        pieces of each leaf)."""
         master = self.state.master_params
         opt = self.state.opt_state
         if not all(hasattr(opt, f) for f in ("count", "mu", "nu")):
@@ -993,6 +1135,18 @@ class DeepSpeedEngine:
         return master, type(opt)(count=opt.count,
                                  mu=_unflatten_like(master, opt.mu),
                                  nu=_unflatten_like(master, opt.nu))
+
+    def _checkpoint_state(self):
+        """``_canonical_state`` with each param-shaped leaf as this rank's
+        ``ShardPiece`` of it: what the checkpoint writes and loads into."""
+        master, opt = self._canonical_state()
+
+        def pieces(tree):
+            return _unflatten_like(
+                tree, self._zero.shard_pieces(tree_leaves(tree)))
+        return pieces(master), type(opt)(count=opt.count,
+                                         mu=pieces(opt.mu),
+                                         nu=pieces(opt.nu))
 
     def _adopt_loaded(self, master, opt_tree, scaler,
                       skipped_steps: int) -> None:
@@ -1009,6 +1163,7 @@ class DeepSpeedEngine:
             master_params=master, opt_state=opt_state, scaler=scaler,
             skipped_steps=torch.tensor(skipped_steps, dtype=torch.int32,
                                        device=self.device))
+        self._zero.set_sources(leaves)
 
     def data_iterator_state(self):
         """The training loader's position (JSON-able), or None without a

@@ -140,15 +140,22 @@ def seeded_generator(seed: Optional[int], device) -> torch.Generator:
     return gen
 
 
-def dropout(x, rate: float, seed: Optional[int]):
+def dropout(x, rate: float, seed: Optional[int], rows=None):
     """Inverted dropout with keep probability ``1 - rate``, its mask drawn
     from a ``torch.Generator`` built here from the host ``seed`` (so a
     block recomputed under ``torch.utils.checkpoint`` draws the same
-    mask)."""
+    mask).  ``rows = (offset, total)``: ``x`` holds rows ``offset …
+    offset + len(x)`` of a batch of ``total`` (a data-parallel rank's
+    share of the global micro-batch): the mask is drawn for all ``total``
+    rows and the rank keeps its own, so the masks do not depend on the
+    layout."""
     if rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=seeded_generator(seed, x.device),
+    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
+    keep = torch.rand(shape, generator=seeded_generator(seed, x.device),
                       device=x.device) < 1.0 - rate
+    if rows is not None:
+        keep = keep[rows[0]:rows[0] + x.shape[0]]
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

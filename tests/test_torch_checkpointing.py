@@ -16,9 +16,10 @@ On the port alone, the single-device cases of ``tests/test_checkpointing
 .py``: an exact round trip (bitwise continuation), the fp16 scaler, a
 module-only load, ``latest`` and client state, missing and partial tags,
 LAMB's moments, lr-schedule continuity and the size-preserving reshape.
-Its ZeRO-stage, dp-resize, pipeline and offload cases wait for ROADMAP.md
-queue 1 items 9, 10 and 12; a sharded (multi-process) manifest entry
-raises naming item 9.
+Its ZeRO-stage and dp-resize cases are in
+``tests/test_torch_zero_checkpoint.py``; its pipeline and offload cases
+wait for ROADMAP.md queue 1 items 10 and 12.  A sharded (multi-process)
+manifest entry loads, merged from its shard files.
 """
 import json
 import os
@@ -260,15 +261,27 @@ def test_prng_seed_words_round_trip():
 
 
 def test_sharded_manifest_entry_raises_naming_item_9(tmp_path):
-    """A leaf a multi-process JAX run wrote as per-process shards is not
-    readable on the one-process port: the load names queue 1 item 9."""
+    """A leaf a multi-process run wrote as per-process shards (queue 1
+    item 9, now ported) loads on one process, merged from the shard
+    files its index files list; with the index files gone the load
+    raises ``CheckpointCorruptError``."""
     ckpt.save_tree(str(tmp_path), {"w": torch.ones(4)})
     mpath = tmp_path / "manifest.json"
     m = json.loads(mpath.read_text())
     m["['w']"] = {"sharded": True, "leaf": 0, "dtype": "float32",
                   "store_dtype": "float32", "shape": [4]}
     mpath.write_text(json.dumps(m))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    for proc, (a, b) in enumerate(((0, 3), (3, 4))):
+        piece = np.arange(a, b, dtype=np.float32)
+        np.save(tmp_path / f"leaf_00000.proc{proc}_0.npy", piece)
+        (tmp_path / f"leaf_00000.proc{proc}.json").write_text(json.dumps(
+            [{"file": f"leaf_00000.proc{proc}_0.npy", "index": [[a, b]],
+              "crc32": ckpt._crc32_arr(piece), "nbytes": piece.nbytes}]))
+    got = ckpt.load_tree(str(tmp_path), {"w": torch.zeros(4)})["w"]
+    assert torch.equal(got, torch.arange(4, dtype=torch.float32))
+    for proc in (0, 1):
+        (tmp_path / f"leaf_00000.proc{proc}.json").unlink()
+    with pytest.raises(CheckpointCorruptError, match="shard index"):
         ckpt.load_tree(str(tmp_path), {"w": torch.zeros(4)})
 
 

@@ -79,6 +79,39 @@ def test_every_module_imports_with_jax_unimportable():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
+def test_parallel_modules_run_with_jax_unimportable():
+    """The data/tensor-parallel modules (``parallel/``, ``runtime/zero``)
+    import with jax made unimportable, and a one-rank gloo group trains a
+    ZeRO-3 step and saves and loads its checkpoint through them."""
+    code = ("import sys, os, tempfile\n"
+            "for m in ('jax', 'jaxlib', 'deepspeed_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from deepspeed_tpu_torch.parallel import (build_mesh, "
+            "collectives, distributed, mesh, topology, init_distributed)\n"
+            "from deepspeed_tpu_torch.runtime import zero\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.models.gpt2 import GPT2Config, "
+            "GPT2Model\n"
+            "d = tempfile.mkdtemp()\n"
+            "init_distributed(device='cpu', init_method='file://' + d + "
+            "'/store', rank=0, world_size=1)\n"
+            "cfg = {'train_micro_batch_size_per_gpu': 1, 'bf16': "
+            "{'enabled': True}, 'zero_optimization': {'stage': 3}, "
+            "'optimizer': {'type': 'Adam', 'params': {'lr': 1e-3}}}\n"
+            "eng, *_ = dst.initialize(model=GPT2Model(GPT2Config("
+            "vocab_size=64, n_positions=16, d_model=32, n_layer=2, "
+            "n_head=2)), config=cfg, device='cpu')\n"
+            "assert not eng.mesh.is_local and eng.zero_stage == 3\n"
+            "loss = eng.train_batch(torch.zeros(1, 9, dtype=torch.long))\n"
+            "eng.save_checkpoint(d, tag='t')\n"
+            "eng.load_checkpoint(d, tag='t')\n"
+            "print('ok', float(loss))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
 TINY = GPT2Config(vocab_size=64, n_positions=32, d_model=64, n_layer=1,
                   n_head=1)
 
@@ -178,36 +211,52 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,item", [
+    # item None: ported since (ZeRO 1-3), the config builds
     ({"zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
-     "item 9"),
+     None),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True},
       "bf16": {"enabled": True}}, "item 12"),
     ({"pipeline": {"stages": 2}}, "item 10"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}},
       "bf16": {"enabled": True}}, "item 11"),
-    # LAMB and PLD are ported; their unported arms (examples/
-    # bert_pretrain.py's ZeRO stage 1, the pipelined BERT) still raise
+    # LAMB and PLD are ported, examples/bert_pretrain.py's ZeRO stage 1
+    # too; the pipelined BERT still raises
     ({"optimizer": {"type": "Lamb", "params": {}},
       "zero_optimization": {"stage": 1}, "fp16": {"enabled": True}},
-     "item 9"),
+     None),
     ({"sparse_gradients": True}, "item 11"),
     ({"progressive_layer_drop": {"enabled": True},
       "pipeline": {"stages": 2}}, "item 10"),
-    # the telemetry plane is ported; with it on, the unported arms of
-    # ZeRO 3 and host offload still raise
+    # the telemetry plane and ZeRO 3 are ported; with it on, host offload
+    # still raises
     ({"telemetry": {"enabled": True}, "zero_optimization": {"stage": 3},
-      "bf16": {"enabled": True}}, "item 9"),
+      "bf16": {"enabled": True}}, None),
     ({"tensorboard": {"enabled": True}, "wall_clock_breakdown": True,
       "zero_optimization": {"stage": 2, "cpu_offload": True},
       "bf16": {"enabled": True}}, "item 12"),
-    # checkpointing is ported; a checkpoint of a ZeRO-partitioned state
-    # waits for item 9
+    # checkpointing of a ZeRO-partitioned state is ported (one process;
+    # async and SIGTERM saves across processes raise, tested on 2 ranks
+    # in tests/test_torch_zero.py)
     ({"checkpoint": {"async_save": True, "sigterm_save": True},
       "zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
-     "item 9"),
+     None),
 ], ids=["zero", "offload", "pipeline", "onebit", "lamb", "sparse_grads",
         "pld", "telemetry", "tensorboard", "checkpoint"])
-def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item):
+def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
+                                                               tmp_path):
+    if "telemetry" in extra:
+        extra = {**extra, "telemetry": {"enabled": True,
+                                        "output_path": str(tmp_path)}}
+    if item is None:
+        eng, *_ = deepspeed_tpu_torch.initialize(
+            model=GPT2Model(TINY), config={**TRAIN_BASE, **extra},
+            device="cpu")
+        stage = extra.get("zero_optimization", {}).get("stage", 0)
+        assert eng.zero_stage == stage
+        loss = eng.train_batch(torch.zeros(1, 5, dtype=torch.long))
+        assert torch.isfinite(loss)
+        eng.close()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
         deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                        config={**TRAIN_BASE, **extra},
@@ -215,7 +264,14 @@ def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item):
 
 
 def test_unported_training_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    from deepspeed_tpu_torch.parallel import build_mesh
+    from deepspeed_tpu_torch.runtime.resilience import CheckpointCorruptError
+    # a mesh is ported (item 9); its pipe and seq axes are items 10, 11
+    with pytest.raises(NotImplementedError, match="item 10"):
+        build_mesh(pp=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        build_mesh(sp=2)
+    with pytest.raises(TypeError, match="Mesh"):
         deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                        config=TRAIN_BASE, mesh=object(),
                                        device="cpu")
@@ -224,7 +280,8 @@ def test_unported_training_paths_raise(tmp_path):
     eng, *_ = deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                              config=TRAIN_BASE,
                                              device="cpu")
-    # a checkpoint a multi-process run wrote (a sharded leaf) raises
+    # a checkpoint a multi-process run wrote (a sharded leaf) loads from
+    # its shard files; with them missing it is corrupt
     eng.save_checkpoint(str(tmp_path), tag="t")
     plane = tmp_path / "t" / "optim"
     manifest = json.loads((plane / "manifest.json").read_text())
@@ -236,7 +293,7 @@ def test_unported_training_paths_raise(tmp_path):
     meta = json.loads((tmp_path / "t" / "meta.json").read_text())
     meta["manifest_digests"]["optim"] = hashlib.sha256(data).hexdigest()
     (tmp_path / "t" / "meta.json").write_text(json.dumps(meta))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(CheckpointCorruptError, match="shard index"):
         eng.load_checkpoint(str(tmp_path), tag="t")
     model = GPT2Model(GPT2Config(**{**TINY.__dict__, "attn_impl": "ring"}))
     with pytest.raises(NotImplementedError, match="item 11"):
