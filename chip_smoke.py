@@ -264,6 +264,31 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             processes, printed, never a failure: the answer is a fact of
             the machine).  The process group is destroyed and the env
             restored after.
+26. serve_mesh  (after train_zero) ``ServeEngine(mesh=...)`` on a real
+            NCCL process group of one rank (the env contract as
+            train_zero's): GPT-2 small bf16 on the slot cache, the paged
+            pool, the int8 weights and pool and speculation on both caches
+            (k 4, the 2-layer draft), 8 of serve's requests x 32 tokens
+            each, every
+            arm beside the same engine with no mesh: the streams equal
+            bit for bit, the decode ticks and every kernel's launches
+            equal, the mesh run's tokens/s printed beside;
+27. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
+            small bf16, 8 x 1024 tokens, accumulation 2, dropout 0.1,
+            remat block), ZeRO stage 2 with ``cpu_offload``, 1 + 5 steps
+            from a loader: (a) the pipelined upload with ``data_prefetch``
+            depth 2, (b) the same inline (``DS_PREFETCH=0``), (c) the
+            serial upload inline: (a), (b) and (c) bitwise equal; (d) the
+            delayed update, losses finite; (e) the plain stage-2 engine,
+            (a)'s losses within 2e-2 relative of its; the host Adam
+            native, its OpenMP threads and torch's printed; one
+            synchronizing call a step (the overflow flag, sync debug mode
+            'warn'); step ms, D2H and H2D GB/s, host Adam ms, the overlap
+            ratio, the device idle share of a profiled step and peak
+            device MiB against (e)'s; then GPT-2 XL (1.5B, 48 layers,
+            micro-batch 1 x 1024) with the host tier, 1 + 3 steps: the
+            host bytes of its fp32 master and moments, peak device MiB
+            and the same breakdown.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -273,6 +298,7 @@ Then one ``{"kernels": [...]}`` line and, last, the run's result line.
 Without a CUDA device, or without the package beside this file, it exits
 non-zero and prints no result.
 """
+import contextlib
 import gc
 import io
 import json
@@ -2716,6 +2742,503 @@ def phase_train_zero(dev):
     return total
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """The env contract of one rank (127.0.0.1, a free port) and a real
+    NCCL process group over it; the group destroyed and the env restored
+    after."""
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import init_distributed
+    saved = {k: os.environ.get(k) for k in ZERO_ENV}
+    os.environ.update({"MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(_free_port()), "RANK": "0",
+                       "WORLD_SIZE": "1", "LOCAL_RANK": "0"})
+    try:
+        init_distributed(device="cuda")
+        if dist.get_backend() != "nccl":
+            fail("the one-rank process group is not on NCCL")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+MESH_REQ, MESH_NEW = 8, 32
+
+
+def phase_serve_mesh(dev):
+    """Data/tensor-parallel serving through ``ServeEngine(mesh=...)`` on a
+    one-rank NCCL group, each arm against the engine with no mesh."""
+    import torch
+    from deepspeed_tpu_torch.inference import ServeEngine
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+    from deepspeed_tpu_torch.parallel import build_mesh
+
+    paged = {**SLOT_CFG, "page_len": PAGED_CFG["page_len"]}
+    arms = (("slot", SLOT_CFG, False),
+            ("paged", PAGED_CFG, False),
+            ("paged int8", {**paged, "quantization": QUANT}, False),
+            ("slot spec", {**SLOT_CFG, **SPEC}, True),
+            ("paged spec", {**paged, **SPEC}, True))
+    prompts = _load()[:MESH_REQ]
+    model = GPT2Model(GPT2_SMALL)
+    params = model.init(SEED, device=dev, dtype=torch.bfloat16)
+    total = {}
+    with _one_rank_group():
+        mesh = build_mesh()
+        for arm, cfg, draft in arms:
+            out = {}
+            for tag, m in (("none", None), ("mesh", mesh)):
+                eng = ServeEngine(model, {"serving": cfg}, params=params,
+                                  device=dev, mesh=m,
+                                  draft_params=(_draft_params(params)
+                                                if draft else None))
+                warm = eng.submit(list(range(16)), max_new_tokens=2)
+                eng.run_until_idle()
+                if warm.error is not None:
+                    fail(f"serve_mesh {arm} {tag}: warm-up {warm.error!r}")
+                t0_ticks = (eng.decode_ticks, eng.verify_ticks)
+                torch.cuda.synchronize()
+                _zero_counts()
+                t0 = time.perf_counter()
+                reqs = [eng.submit(p, max_new_tokens=MESH_NEW)
+                        for p in prompts]
+                eng.run_until_idle()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _counts()
+                ticks = (eng.decode_ticks - t0_ticks[0],
+                         eng.verify_ticks - t0_ticks[1])
+                eng.close()
+                for r in reqs:
+                    if r.error is not None or len(r.tokens) != MESH_NEW:
+                        fail(f"serve_mesh {arm} {tag} request {r.rid}: "
+                             f"{r.error!r} ({len(r.tokens)} tokens)")
+                out[tag] = ([list(r.tokens) for r in reqs], launches,
+                            ticks, sum(len(r.tokens) for r in reqs) / wall)
+            if out["mesh"][0] != out["none"][0]:
+                fail(f"serve_mesh {arm}: the mesh engine's streams differ "
+                     "from the engine's with no mesh")
+            if out["mesh"][1] != out["none"][1] \
+                    or out["mesh"][2] != out["none"][2]:
+                fail(f"serve_mesh {arm}: launches {out['mesh'][1]} over "
+                     f"ticks {out['mesh'][2]} differ from no mesh's "
+                     f"{out['none'][1]} over {out['none'][2]}")
+            used = {k: v for k, v in out["mesh"][1].items() if v}
+            print(f"[serve_mesh] {arm}: {MESH_REQ} requests x {MESH_NEW} "
+                  f"tokens on a one-rank NCCL mesh (dp 1, tp 1): streams "
+                  f"equal no mesh's bitwise; (decode, verify) ticks "
+                  f"{out['mesh'][2]}; launches {used} equal; "
+                  f"{out['mesh'][3]:.1f} tokens/s (no mesh "
+                  f"{out['none'][3]:.1f})")
+            for name, n in out["mesh"][1].items():
+                total[name] = total.get(name, 0) + n
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+OFFLOAD_STEPS, OFFLOAD_XL_STEPS = 5, 3
+#: the host tier against the plain stage-2 engine, GPT-2 small bf16: each
+#: loss, relative; and the fp32 master's distance from the plain engine's
+#: over the plain engine's own travel, ||host - plain|| / ||plain - init||
+#: (a host Adam that never ran gives 1), after the first update (the same
+#: gradient: only the two Adams' rounding differs) and after the window
+#: (where a compute copy rounded apart feeds back into the gradients).
+#: On an H100 the three read 5.5e-6, 9.3e-6 and 1.3e-2; updates that never
+#: reached the card gave 1.7e-3 and 0.84 after the window
+OFFLOAD_LOSS_RTOL = 1e-4
+OFFLOAD_FIRST_RTOL = 1e-4
+OFFLOAD_MASTER_RTOL = 5e-2
+
+
+def _offload_config(dtype_block, micro, ga, **zero):
+    conf = _train_config(dtype_block, micro, ga)
+    conf["zero_optimization"] = {"stage": 2, **zero}
+    return conf
+
+
+def _master_leaves(eng):
+    """The engine's fp32 master leaves copied to the host (the host
+    tier's live in host RAM: copying them makes no device call)."""
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    return [x.detach().to("cpu", copy=True)
+            for x in tree_leaves(eng.state.master_params)]
+
+
+def _master_dist(a, b, base) -> float:
+    """||a - b|| / ||b - base|| over lists of leaves, in fp64."""
+    def sq(x, y):
+        return sum(float(((u - v).double() ** 2).sum())
+                   for u, v in zip(x, y))
+    return (sq(a, b) / sq(b, base)) ** 0.5
+
+
+def _upload_mismatch(eng):
+    """The leaves whose compute copy on the card differs from the host
+    master rounded to the compute dtype by torch: after every applied
+    update the uploaded copy must equal it bitwise."""
+    import torch
+    return [i for i, (m, src) in enumerate(zip(eng._host_opt.master,
+                                               eng._zero.sources))
+            if not torch.equal(src.cpu(), m.to(src.dtype))]
+
+
+def _run_lines(cmd) -> list:
+    try:
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60).stdout.splitlines()
+    except OSError:
+        return []
+
+
+def _host_line() -> str:
+    """The host the tier runs on: usable cores, CPU (``lscpu``), total
+    RAM (``free -g`` and /proc/meminfo), and the card's link as
+    ``nvidia-smi -q`` reads it."""
+    cpu = "; ".join(
+        " ".join(ln.split()) for ln in _run_lines(["lscpu"])
+        if ln.split(":")[0].strip() in ("Architecture", "Vendor ID",
+                                        "Model name", "CPU(s)"))
+    mem = next((int(ln.split()[1]) * 1024 for ln in open("/proc/meminfo")
+                if ln.startswith("MemTotal")), 0)
+    free_total = next((ln.split()[1] for ln in _run_lines(["free", "-g"])
+                       if ln.startswith("Mem:")), "?")
+    smi_q = _run_lines(["nvidia-smi", "-q"])
+    at = next((i for i, ln in enumerate(smi_q)
+               if ln.strip() == "GPU Link Info"), None)
+    link = "not in nvidia-smi -q"
+    if at is not None:
+        depth = len(smi_q[at]) - len(smi_q[at].lstrip())
+        block = []
+        for ln in smi_q[at + 1:]:
+            if ln.strip() and len(ln) - len(ln.lstrip()) <= depth:
+                break
+            if ln.strip():
+                block.append(" ".join(ln.split()))
+        link = ", ".join(block)
+    return (f"nproc {len(os.sched_getaffinity(0))} (os.cpu_count "
+            f"{os.cpu_count()}); lscpu: {cpu or 'not read'}; RAM MemTotal "
+            f"{mem} B, free -g total {free_total} GiB; nvidia-smi -q GPU "
+            f"Link Info: {link}")
+
+
+def _offload_run(label, cfg, build, rows, steps, dev, profile=False,
+                 probe=None):
+    """One engine over a loader of ``rows``-row token batches: 1 warm
+    step, then ``steps`` counted ones under sync debug mode 'warn'.
+    ``probe(eng, k)`` runs after the build (k = -1) and after step k
+    (0 the warm one, ``steps`` the last, both outside the counted
+    window; between them only host reads, its time taken out of the
+    step's).  Returns losses, launches, step ms, peak MiB, synchronizing
+    calls, the last step's offload breakdown and (``profile``) the
+    device busy ms of one profiled step."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    T = cfg.n_positions
+    data = list(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (rows * (steps + 2), T + 1)))
+    eng = build(data)
+    if eng.device != dev:
+        fail(f"{label}: initialize() placed the engine on {eng.device}")
+    if probe is not None:
+        probe(eng, -1)
+    losses = [eng.train_batch()]
+    torch.cuda.synchronize()
+    if probe is not None:
+        probe(eng, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    probe_s = 0.0
+    t0 = time.perf_counter()
+
+    def run():
+        nonlocal probe_s
+        out = []
+        for k in range(1, steps + 1):
+            out.append(eng.train_batch())
+            if probe is not None and k < steps:
+                p0 = time.perf_counter()
+                probe(eng, k)
+                probe_s += time.perf_counter() - p0
+        return out
+
+    more, syncs = _sync_count(run)
+    losses += more
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - probe_s
+    out = {"losses": [float(x) for x in losses], "launches": _train_counts(),
+           "step_ms": wall / steps * 1e3, "syncs": syncs,
+           "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+           "skipped": eng.get_skipped_steps(),
+           "breakdown": dict(getattr(eng, "last_offload_breakdown", None)
+                             or {}),
+           "offload": getattr(eng, "_offload", False)}
+    if out["offload"]:
+        ho = eng._host_opt
+        out["native"] = ho.is_native
+        out["omp"] = (ho.opt.omp_threads, torch.get_num_threads())
+        out["host_bytes"] = ho.staged_bytes
+        out["adam_steps"] = ho.opt.step_count
+    if probe is not None:
+        probe(eng, steps)
+    if profile:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            eng.train_batch()
+            torch.cuda.synchronize()
+        out["busy_ms"] = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / 1e3
+    eng.close()
+    return out
+
+
+def _print_offload(tag, r, rows, T):
+    bd = r["breakdown"]
+    gbs = lambda b, t: b / t / 1e9 if t > 0 else float("nan")  # noqa: E731
+    line = (f"[{tag}] {r['step_ms']:.1f} ms per step = "
+            f"{rows * T / (r['step_ms'] / 1e3):.0f} tokens/s; peak device "
+            f"memory {r['peak_mib']:.1f} MiB; {r['syncs']} synchronizing "
+            f"calls in {len(r['losses']) - 1} steps")
+    if bd:
+        line += (f"; D2H {bd['d2h_bytes'] / 2**20:.1f} MiB in "
+                 f"{bd['d2h_s'] * 1e3:.2f} ms device = "
+                 f"{gbs(bd['d2h_bytes'], bd['d2h_s']):.2f} GB/s; H2D "
+                 f"{bd['h2d_bytes'] / 2**20:.1f} MiB in "
+                 f"{bd['h2d_s'] * 1e3:.2f} ms = "
+                 f"{gbs(bd['h2d_bytes'], bd['h2d_s']):.2f} GB/s; host Adam "
+                 f"{bd['cpu_adam_s'] * 1e3:.1f} ms; overlap ratio "
+                 f"{bd['overlap_ratio']:.3f}; exposed H2D tail "
+                 f"{bd['h2d_tail_s'] * 1e3:.2f} ms")
+    if "busy_ms" in r:
+        line += (f"; device busy {r['busy_ms']:.1f} ms of a profiled step "
+                 f"-> idle share {1 - r['busy_ms'] / r['step_ms']:.3f}")
+    print(line)
+    print(f"[{tag}] losses {' '.join(f'{x:.6f}' for x in r['losses'])}")
+
+
+def phase_train_offload(dev):
+    """ZeRO-Offload's host tier: GPT-2 small (the pipelined, inline,
+    serial and delayed arms against each other and against the plain
+    stage-2 engine: losses, the fp32 master, and the uploaded compute
+    copy against the host master), then GPT-2 XL."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2_XL,
+                                                 GPT2Model)
+
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    rows, T = TRAIN_MICRO * TRAIN_GA, cfg.n_positions
+    bf16 = {"bf16": {"enabled": True}}
+    L, A = cfg.n_layer, TRAIN_GA
+    want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+            "flash_bwd_dkv": L * A}
+    MAIN, DPU, PLAIN = ("pipelined, prefetch 2", "delayed update",
+                        "plain stage 2")
+    arms = (
+        (MAIN, {"cpu_offload": True}, "1"),
+        ("pipelined, inline", {"cpu_offload": True}, "0"),
+        ("serial, inline", {"cpu_offload": True,
+                            "offload_pipeline": False}, "0"),
+        (DPU, {"cpu_offload": True, "delayed_param_update": True}, "1"),
+        (PLAIN, {}, "1"))
+    # the fp32 master: the plain engine's at its start, after its first
+    # step and after the window; the main arm's after its first step and
+    # after the window; the delayed update's after its first applied
+    # update (its step 1)
+    snap_at = {PLAIN: (-1, 0, OFFLOAD_STEPS), MAIN: (0, OFFLOAD_STEPS),
+               DPU: (1,)}
+    snaps, uploads = {}, {}
+
+    def probe_for(label):
+        def probe(eng, k):
+            if k in snap_at.get(label, ()):
+                snaps[label, k] = _master_leaves(eng)
+            if k == OFFLOAD_STEPS and label != PLAIN:
+                uploads[label] = _upload_mismatch(eng)
+        return probe
+
+    runs, total = {}, {k: 0 for k in want}
+    problems = []
+    saved = os.environ.get("DS_PREFETCH")
+    try:
+        for label, zero, pf in arms:
+            os.environ["DS_PREFETCH"] = pf
+
+            def build(data, zero=zero):
+                conf = _offload_config(bf16, TRAIN_MICRO, TRAIN_GA, **zero)
+                conf["data_prefetch"] = {"depth": 2}
+                return deepspeed_tpu_torch.initialize(
+                    model=GPT2Model(cfg), seed=SEED, config=conf,
+                    training_data=data)[0]
+            r = runs[label] = _offload_run(
+                f"train_offload {label}", cfg, build, rows, OFFLOAD_STEPS,
+                dev, profile=label == MAIN, probe=probe_for(label))
+            if label != PLAIN:
+                for name, per_step in want.items():
+                    total[name] += r["launches"][name]
+                    if r["launches"][name] != per_step * OFFLOAD_STEPS:
+                        problems.append(
+                            f"{label}: {name} launched "
+                            f"{r['launches'][name]} times in "
+                            f"{OFFLOAD_STEPS} steps, expected {per_step} "
+                            "per step")
+                if not r["native"]:
+                    problems.append(f"{label}: the host Adam is not native "
+                                    "(no g++ build)")
+                if r["syncs"] != OFFLOAD_STEPS:
+                    problems.append(
+                        f"{label}: {r['syncs']} synchronizing calls in "
+                        f"{OFFLOAD_STEPS} steps, expected one a step (the "
+                        "overflow flag)")
+                if uploads[label]:
+                    problems.append(
+                        f"{label}: after the window the card's compute "
+                        f"copy of leaves {uploads[label][:8]} (of "
+                        f"{len(uploads[label])}) differs from the host "
+                        "master rounded to bf16")
+            if not all(np.isfinite(r["losses"])) or r["skipped"]:
+                problems.append(f"{label}: losses {r['losses']}, "
+                                f"{r['skipped']} skipped steps")
+            _print_offload(f"train_offload {label}", r, rows, T)
+    finally:
+        if saved is None:
+            os.environ.pop("DS_PREFETCH", None)
+        else:
+            os.environ["DS_PREFETCH"] = saved
+    print(f"[train_offload] host: {_host_line()}")
+    a = runs[MAIN]["losses"]
+    for other in ("pipelined, inline", "serial, inline"):
+        if runs[other]["losses"] != a:
+            problems.append(f"{other}'s losses {runs[other]['losses']} "
+                            f"differ from the prefetched pipelined run's {a}")
+    plain = runs[PLAIN]["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, plain))
+    if rel > OFFLOAD_LOSS_RTOL:
+        problems.append(f"offload losses {a} vs the plain stage-2 engine's "
+                        f"{plain}: relative {rel:.3g} > {OFFLOAD_LOSS_RTOL}")
+    init = snaps[PLAIN, -1]
+    d_first = _master_dist(snaps[MAIN, 0], snaps[PLAIN, 0], init)
+    if not d_first <= OFFLOAD_FIRST_RTOL:
+        problems.append(
+            f"the host master after the first step lies {d_first:.3g} of "
+            "the plain engine's first step from the plain engine's master "
+            f"(bar {OFFLOAD_FIRST_RTOL})")
+    d_main = _master_dist(snaps[MAIN, OFFLOAD_STEPS],
+                          snaps[PLAIN, OFFLOAD_STEPS], init)
+    if not d_main <= OFFLOAD_MASTER_RTOL:
+        problems.append(
+            f"the host master after {OFFLOAD_STEPS + 1} steps lies "
+            f"{d_main:.3g} of the plain engine's travel from the plain "
+            f"engine's master (bar {OFFLOAD_MASTER_RTOL})")
+    # the delayed update's step t runs weights with t - 1 updates on batch
+    # t, a pair the plain engine never evaluates: its exact counterparts
+    # are the first loss (the same weights, batch and dropout draw) and
+    # the master after its first applied update (the plain engine's
+    # after step 0: the same gradient, the same Adam step)
+    dpu = runs[DPU]["losses"]
+    rel_dpu = abs(dpu[0] - plain[0]) / abs(plain[0])
+    if rel_dpu > OFFLOAD_LOSS_RTOL:
+        problems.append(f"the delayed update's first loss {dpu[0]} vs the "
+                        f"plain engine's {plain[0]}: relative {rel_dpu:.3g}")
+    d_dpu = _master_dist(snaps[DPU, 1], snaps[PLAIN, 0], init)
+    if not d_dpu <= OFFLOAD_FIRST_RTOL:
+        problems.append(
+            f"the delayed update's master after its first applied update "
+            f"lies {d_dpu:.3g} of the plain engine's first step from the "
+            f"plain engine's master after it (bar {OFFLOAD_FIRST_RTOL})")
+    if runs[DPU]["adam_steps"] != OFFLOAD_STEPS:
+        problems.append(f"the delayed update applied "
+                        f"{runs[DPU]['adam_steps']} updates in "
+                        f"{OFFLOAD_STEPS + 1} steps, expected "
+                        f"{OFFLOAD_STEPS}")
+    del snaps
+    if problems:
+        fail("train_offload: " + "; ".join(problems))
+    r = runs[MAIN]
+    print(f"[train_offload] GPT-2 small bf16 ZeRO-2 cpu_offload: "
+          f"prefetched pipelined == inline pipelined == inline serial "
+          f"bitwise ({len(a)} steps); the plain stage-2 engine's losses "
+          f"within {rel:.3g} relative (bar {OFFLOAD_LOSS_RTOL}), its fp32 "
+          f"master within {d_first:.3g} of its travel after the first step "
+          f"(bar {OFFLOAD_FIRST_RTOL}) and {d_main:.3g} after the window "
+          f"(bar {OFFLOAD_MASTER_RTOL}); delayed update: first loss within "
+          f"{rel_dpu:.3g}, master after its first update within "
+          f"{d_dpu:.3g} of the plain engine's first step; every arm's "
+          f"compute copy on the card == the host master in bf16, bitwise; "
+          f"host Adam native, OpenMP threads {r['omp'][0]}, torch intra-op "
+          f"threads {r['omp'][1]}; host master and moments "
+          f"{r['host_bytes']} B; peak device MiB {r['peak_mib']:.1f} "
+          f"against the plain engine's {runs[PLAIN]['peak_mib']:.1f}")
+    print(f"[train_offload] launches per step: flash_fwd "
+          f"{want['flash_fwd']}, flash_bwd_dq {want['flash_bwd_dq']}, "
+          f"flash_bwd_dkv {want['flash_bwd_dkv']}")
+
+    xl = dataclasses.replace(GPT2_XL, remat="block")
+
+    def build_xl(data):
+        return deepspeed_tpu_torch.initialize(
+            model=GPT2Model(xl), seed=SEED, training_data=data,
+            config=_offload_config(bf16, 1, 1, cpu_offload=True))[0]
+    need = 12 * xl.num_params
+    mem = next(int(ln.split()[1]) * 1024 for ln in open("/proc/meminfo")
+               if ln.startswith("MemTotal"))
+    print(f"[train_offload] GPT-2 XL: {xl.num_params} parameters, host "
+          f"fp32 master + Adam moments need {need} B "
+          f"({need / 2**30:.1f} GiB) of the host's {mem} B "
+          f"({mem / 2**30:.1f} GiB)")
+    xl_snap = {}
+
+    def probe_xl(eng, k):
+        if k == -1:
+            xl_snap["init"] = _master_leaves(eng)
+        elif k == OFFLOAD_XL_STEPS:
+            now = eng._host_opt.master
+            xl_snap["still"] = [i for i, (x, y) in enumerate(
+                zip(xl_snap.pop("init"), now)) if torch.equal(x, y)]
+            xl_snap["uploads"] = _upload_mismatch(eng)
+    r = _offload_run("train_offload GPT-2 XL", xl, build_xl, 1,
+                     OFFLOAD_XL_STEPS, dev, probe=probe_xl)
+    Lx = xl.n_layer
+    for name, per_step in {"flash_fwd": 2 * Lx, "flash_bwd_dq": Lx,
+                           "flash_bwd_dkv": Lx}.items():
+        total[name] += r["launches"][name]
+        if r["launches"][name] != per_step * OFFLOAD_XL_STEPS:
+            fail(f"train_offload GPT-2 XL: {name} launched "
+                 f"{r['launches'][name]} times, expected {per_step} a step")
+    if not all(np.isfinite(r["losses"])) or r["skipped"] \
+            or r["syncs"] != OFFLOAD_XL_STEPS:
+        fail(f"train_offload GPT-2 XL: losses {r['losses']}, "
+             f"{r['skipped']} skipped, {r['syncs']} synchronizing calls")
+    if xl_snap["still"] or xl_snap["uploads"] \
+            or r["adam_steps"] != OFFLOAD_XL_STEPS + 1:
+        fail(f"train_offload GPT-2 XL: master leaves {xl_snap['still']} "
+             f"never moved, compute copies of leaves {xl_snap['uploads']} "
+             f"differ from the host master in bf16, {r['adam_steps']} "
+             f"updates in {OFFLOAD_XL_STEPS + 1} steps")
+    print(f"[train_offload] GPT-2 XL bf16 ZeRO-2 cpu_offload, micro-batch "
+          f"1 x {xl.n_positions}: host master and moments "
+          f"{r['host_bytes']} B; every master leaf moved, {r['adam_steps']} "
+          f"updates; the compute copy on the card == the host master in "
+          f"bf16, bitwise")
+    _print_offload("train_offload GPT-2 XL", r, 1, xl.n_positions)
+    return total
+
+
 def _dir_bytes(root: str) -> int:
     return sum(os.path.getsize(os.path.join(d, f))
                for d, _, files in os.walk(root) for f in files)
@@ -3925,6 +4448,8 @@ def main() -> None:
     by_phase["bert_train"] = timed(phase_bert_train, dev)
     timed(phase_bert_parity, dev)
     by_phase["train_zero"] = timed(phase_train_zero, dev)
+    by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
+    by_phase["train_offload"] = timed(phase_train_offload, dev)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

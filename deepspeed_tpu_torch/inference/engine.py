@@ -95,9 +95,26 @@ The engine runs on ``cuda:0`` unless the caller passes ``device``; with no
 CUDA device and no ``device`` it raises.  KV-page migration (the
 disaggregated fleet's ``detach_kv``, ``export_pages`` and
 ``adopt_request``) ships each page as the JAX engine's payload, byte for
-byte.  What this port does not cover yet (a mesh) raises
-``NotImplementedError`` naming its ROADMAP.md item — nothing is silently
-ignored.
+byte.
+
+Data/tensor-parallel serving (``mesh=``, a :class:`~..parallel.mesh.Mesh`
+of ``torch.distributed`` ranks; reference ``engine.py:150-268``): every
+rank holds its Megatron pieces of the params (qkv and fc split by column
+over heads, out and proj by row, ``wte`` by vocabulary where it divides;
+int8 scales follow their weights' column split), its heads of the
+caches, and — over ``data`` — a contiguous range of the slots and, paged,
+of the pool's pages (each range's first page its scratch page).  Every
+rank runs the same host scheduler (queue, slots, page tables, allocator,
+prefix cache, adapter pool), so its decisions are replicated; the page
+allocator hands a slot pages from its own rank's range only, and prefix
+sharing and copy-on-write stay within a range.  A model call runs each
+rank's slots through its heads (the attention kernels take heads as a
+dim), the row-parallel products all-reduced over ``model``; its logits
+are all-gathered over ``data`` so every rank selects (and samples, from
+the same generator) over all the slots, exactly as one device does.  A
+prefill runs on the data rank that owns the slot and its logits row is
+broadcast over ``data``.  Page payloads (KV migration, the KV tier) are
+gathered whole from the owner and are the single device's bytes.
 """
 from __future__ import annotations
 
@@ -116,16 +133,22 @@ from ..config.config import (DeepSpeedConfig, DeepSpeedServingConfig,
                              DeepSpeedTelemetryConfig)
 from ..config import constants as C
 from ..models.gpt2 import GPT2Config, GPT2Model, _decode_attn_impl
+from ..parallel import collectives as col
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, RankSharding
+from ..runtime.zero import sanitize_base_spec
 from ..runtime.engine_stages import wire_serve_stage_plane
 from ..runtime.stages import Channel, Stage
 from ..runtime.utils import fold_in, seeded_generator
 from ..telemetry.cli import _percentile
 from ..utils.logging import logger
 from .adapters import AdapterPool, AdapterRegistry, adapter_param_shapes
-from .kv_cache import (KVCacheSpec, PagedKVCacheSpec, init_cache,
+from .kv_cache import (KVCacheSpec, PagedKVCacheSpec, cache_shardings,
+                       paged_cache_shardings, validate_cache_mesh,
+                       validate_paged_cache_mesh, init_cache,
                        init_paged_cache)
 from .kv_tier import KVTier, KVTierCorruptError, disk_fsync_enabled
-from .quantize import param_nbytes, quantize_gpt2_params
+from .quantize import (param_nbytes, quantize_gpt2_params,
+                       quantized_partition_specs)
 from .scheduler import PagePool, PrefixCache, Request, SlotScheduler
 from .speculative import select_next_token, speculative_accept
 
@@ -150,12 +173,6 @@ class _ServeConfigView:
         self.stages = DeepSpeedStagesConfig(pd)
 
 
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet: ROADMAP.md "
-        f"queue 1, {item}")
-
-
 def _resolve_device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
@@ -176,6 +193,26 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
+def _place(tree, specs, mesh: Mesh):
+    """This rank's piece of every leaf: a spec's axis whose dim does not
+    divide falls back to replication, as in training."""
+    if isinstance(tree, dict):
+        return {k: _place(v, specs[k], mesh) for k, v in tree.items()}
+    spec = sanitize_base_spec(tuple(specs), tuple(tree.shape), mesh)
+    return RankSharding(mesh, spec).piece(tree)
+
+
+#: the LoRA pools' Megatron split (pool axes A [L, N, d_in, r], B [L, N,
+#: r, *out]): column-parallel targets split B's output features,
+#: row-parallel ones A's input features (reference ``engine.py:296-306``)
+_LORA_SPECS = {
+    "qkv_w": ((), (None, None, None, None, MODEL_AXIS)),
+    "out_w": ((None, None, MODEL_AXIS, None), ()),
+    "fc_w": ((), (None, None, None, MODEL_AXIS)),
+    "proj_w": ((None, None, MODEL_AXIS, None), ()),
+}
+
+
 class ServeEngine:
     """Continuous-batching decode over a GPT-2-family model.
 
@@ -190,11 +227,17 @@ class ServeEngine:
 
     def __init__(self, model, config=None, mesh=None, params=None,
                  seed: int = 0, device=None, draft_params=None):
-        if mesh is not None:
-            raise _unported("a mesh (data/tensor-parallel serving)",
-                            "item 9 (its serving half: data/tensor-"
-                            "parallel serving)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"mesh must be a deepspeed_tpu_torch.parallel.Mesh "
+                f"(parallel.build_mesh), got {type(mesh).__name__}")
         self.device = _resolve_device(device)
+        #: the serving mesh (None: one device) and this rank's place in it
+        self.mesh = mesh
+        self._mkw = {} if mesh is None else {"mesh": mesh}
+        self._dp = 1 if mesh is None else mesh.axis_size(DATA_AXIS)
+        self._tp = 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
+        self._dr = 0 if mesh is None else mesh.axis_index(DATA_AXIS)
         self.model = model
         cfg = _ServeConfigView(config)
         self.serving_config = cfg.serving
@@ -243,6 +286,13 @@ class ServeEngine:
             # one-shot post-load quantization: the engine keeps only the
             # int8 weights and their fp32 scale rows
             self.params = quantize_gpt2_params(self.params)
+        # the whole tree's bytes, as the JAX engine counts a sharded one
+        self.param_bytes = param_nbytes(self.params)
+        if mesh is not None:
+            pspecs = model.param_partition_specs(self.params)
+            if self.quant_weights:
+                pspecs = quantized_partition_specs(pspecs)
+            self.params = _place(self.params, pspecs, mesh)
         kv_dtype = self.params["wte"].dtype
         self.page_len = cfg.serving.page_len
         self.paged = self.page_len > 0
@@ -259,16 +309,35 @@ class ServeEngine:
         if self.paged:
             self.max_pages = -(-self.max_seq_len // self.page_len)
             # 0 = capacity-neutral: every slot can reach max_seq_len, plus
-            # the scratch page
-            pages = cfg.serving.pages or 1 + self.slots * self.max_pages
+            # the scratch page, rounded up to the data width so each data
+            # rank holds an equal range
+            pages = cfg.serving.pages
+            if pages == 0:
+                pages = 1 + self.slots * self.max_pages
+                pages += (-pages) % self._dp
             self.cache_spec = PagedKVCacheSpec(
                 layers=mcfg.n_layer, slots=self.slots, heads=mcfg.n_head,
                 pages=pages, page_len=self.page_len, head_dim=mcfg.d_head,
                 max_pages=self.max_pages,
                 dtype=torch.int8 if self.quant_kv else kv_dtype,
                 quant=self.quant_kv)
-            self.cache = init_paged_cache(self.cache_spec, self.device)
-            self.pool = PagePool(pages)
+            shardings = None
+            if mesh is not None:
+                validate_paged_cache_mesh(mesh, self.cache_spec)
+                if self.slots % self._dp:
+                    # each data rank serves a contiguous slot range from
+                    # its own page range: a remainder slot has no rank
+                    raise ValueError(
+                        f"serving.slots={self.slots} must be divisible by "
+                        f"the mesh's data axis ({self._dp}) on the paged "
+                        "layout: each data rank serves an equal range of "
+                        "slots from its own range of pages")
+                shardings = paged_cache_shardings(mesh, self.quant_kv)
+            self.cache = init_paged_cache(self.cache_spec, self.device,
+                                          shardings)
+            self.pool = PagePool(pages, parts=self._dp)
+            #: this data rank's page range starts here
+            self._p0 = self._dr * self.pool.part_pages
             self.prefix = (PrefixCache(self.page_len, self.pool)
                            if cfg.serving.prefix_cache else None)
             #: host-owned page tables, one row per slot; dead entries hold
@@ -281,17 +350,25 @@ class ServeEngine:
                 layers=mcfg.n_layer, slots=self.slots, heads=mcfg.n_head,
                 max_len=self.max_seq_len, head_dim=mcfg.d_head,
                 dtype=kv_dtype)
-            self.cache = init_cache(self.cache_spec, self.device)
+            shardings = None
+            if mesh is not None:
+                validate_cache_mesh(mesh, self.cache_spec)
+                shardings = cache_shardings(mesh)
+            self.cache = init_cache(self.cache_spec, self.device, shardings)
+        #: this data rank's slots: [_s0, _s0 + _sl)
+        self._sl = self.slots // self._dp
+        self._s0 = self._dr * self._sl
+        self._logits_dtype = kv_dtype
         self._build_lora_plane(cfg, mcfg, kv_dtype)
         if self.spec_k:
             self._build_spec_plane(cfg, mcfg, draft_params, seed)
 
         # -- memory planes: the device bytes the params and KV caches
-        # claim (reference engine.py:595-607)
-        self.param_bytes = param_nbytes(self.params)
+        # claim (reference engine.py:595-607), whole as the JAX engine
+        # counts them under a mesh
         self.kv_bytes = self.cache_spec.bytes
         if self.spec_k:
-            self.param_bytes += param_nbytes(self.draft_params)
+            self.param_bytes += self._draft_param_bytes
             self.kv_bytes += self.draft_cache_spec.bytes
 
         # -- fault plane: queue as a Channel, work under one Stage -------
@@ -315,6 +392,11 @@ class ServeEngine:
         kvt = cfg.serving.kv_tier
         if self.paged and self.prefix is not None \
                 and kvt[C.SERVING_KV_TIER_IDLE_PARK_TICKS] > 0:
+            disk_dir = kvt[C.SERVING_KV_TIER_DISK_DIR] or None
+            if disk_dir and mesh is not None and mesh.size > 1:
+                # every rank parks the same pages (the gathered payloads
+                # are equal): each writes its own copy of the files
+                disk_dir = os.path.join(disk_dir, f"rank{mesh.rank}")
             self.kv_tier = KVTier(
                 page_len=self.page_len, pool=self.pool,
                 prefix=self.prefix,
@@ -323,7 +405,7 @@ class ServeEngine:
                 idle_park_ticks=kvt[C.SERVING_KV_TIER_IDLE_PARK_TICKS],
                 host_budget_pages=kvt[
                     C.SERVING_KV_TIER_HOST_BUDGET_PAGES],
-                disk_dir=kvt[C.SERVING_KV_TIER_DISK_DIR] or None,
+                disk_dir=disk_dir,
                 fsync=disk_fsync_enabled(kvt[C.SERVING_KV_TIER_FSYNC]),
                 max_failures=cfg.stages.max_stage_failures)
         wire_serve_stage_plane(self)
@@ -380,15 +462,23 @@ class ServeEngine:
         self._lora_shapes = adapter_param_shapes(
             mcfg.n_layer, mcfg.d_model, self.lora_rank, self.lora_targets)
         self._lora_pools = {}
+        #: each factor's split (pool specs; the mesh's, else whole)
+        self._lora_shardings = {}
+        nbytes = torch.empty((), dtype=kv_dtype).element_size()
+        self.adapter_bytes = 0
         for t in self.lora_targets:
-            a_shape, b_shape = self._lora_shapes[t]
-            self._lora_pools[t] = tuple(
-                torch.zeros((shp[0], n_aslots + 1) + shp[1:],
-                            dtype=kv_dtype, device=self.device)
-                for shp in (a_shape, b_shape))
-        self.adapter_bytes = sum(a.numel() * a.element_size()
-                                 + b.numel() * b.element_size()
-                                 for a, b in self._lora_pools.values())
+            shards = tuple(RankSharding(self.mesh, spec)
+                           if self.mesh is not None else None
+                           for spec in _LORA_SPECS[t])
+            self._lora_shardings[t] = shards
+            pools = []
+            for shp, sh in zip(self._lora_shapes[t], shards):
+                full = (shp[0], n_aslots + 1) + tuple(shp[1:])
+                self.adapter_bytes += int(np.prod(full)) * nbytes
+                pools.append(torch.zeros(
+                    full if sh is None else sh.shard_shape(full),
+                    dtype=kv_dtype, device=self.device))
+            self._lora_pools[t] = tuple(pools)
         self.adapter_registry = AdapterRegistry(
             int(lcfg[C.SERVING_LORA_MAX_ADAPTERS]), self._lora_shapes)
         self.adapter_stage = Stage(
@@ -409,9 +499,14 @@ class ServeEngine:
         reference's ``astype``) and copied in place — synchronous, under
         the ``adapter_fetch`` stage's ``fetch`` point."""
         for t in self.lora_targets:
-            for pool, w in zip(self._lora_pools[t], weights[t]):
-                pool[:, slot].copy_(torch.from_numpy(
-                    np.ascontiguousarray(w, np.float32)).to(pool.dtype))
+            for pool, w, sh in zip(self._lora_pools[t], weights[t],
+                                   self._lora_shardings[t]):
+                w = torch.from_numpy(np.ascontiguousarray(w, np.float32))
+                if sh is not None:
+                    # the rank's piece: the pool spec without its slot dim
+                    w = RankSharding(sh.mesh, sh.spec[:1] + sh.spec[2:]
+                                     ).piece(w)
+                pool[:, slot].copy_(w.to(pool.dtype))
 
     def register_adapter(self, adapter_id: int, weights=None):
         """Register a tenant adapter (host-side).  ``weights=None``
@@ -434,10 +529,55 @@ class ServeEngine:
                 "lora_scale": self.lora_scale}
 
     def _adapter_slots(self) -> Optional[torch.Tensor]:
-        """This tick's per-slot adapter table on the device (lora only)."""
+        """This tick's per-slot adapter table on the device (lora only),
+        this rank's slots of it."""
         if not self.lora:
             return None
-        return torch.from_numpy(self._adapter_table).to(self.device)
+        return torch.from_numpy(self._rows(self._adapter_table)).to(
+            self.device)
+
+    # -- the serving mesh: which rank holds which slots and pages ---------
+    def _rows(self, t):
+        """This data rank's slots' rows of a per-slot array [S, ...] (all
+        of them without a data split)."""
+        return t if self._dp == 1 else t[self._s0:self._s0 + self._sl]
+
+    def _all_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """A model call's per-slot outputs [S/dp, ...] all-gathered over
+        ``data``: every rank then holds every slot's."""
+        return t if self.mesh is None else col.all_gather(t, self.mesh,
+                                                          DATA_AXIS)
+
+    def _owner(self, slot: int) -> int:
+        """The data rank that serves ``slot``."""
+        return slot // self._sl
+
+    def _from_owner(self, t: torch.Tensor, owner: int) -> torch.Tensor:
+        """Data rank ``owner``'s ``t`` on every rank (the others' ``t``
+        gives shape and dtype)."""
+        if self.mesh is None:
+            return t
+        return col.pbroadcast_from(t, self.mesh, DATA_AXIS, owner)
+
+    def _local_pages(self, pages):
+        """Page ids (a table, a row or a list) as this rank's pool
+        indices: its own range shifted to 0, anything else (dead entries)
+        its scratch page."""
+        a = np.asarray(pages)
+        if self._dp == 1:
+            return a
+        return np.where((a >= self._p0)
+                        & (a < self._p0 + self.pool.part_pages),
+                        a - self._p0, 0).astype(a.dtype)
+
+    def _table_dev(self) -> torch.Tensor:
+        """This rank's rows of the page tables, in its pool indices."""
+        return torch.from_numpy(np.ascontiguousarray(
+            self._local_pages(self._rows(self._table)))).to(self.device)
+
+    def _part(self, slot: int) -> int:
+        """The page range (data rank) a slot's pages come from."""
+        return self._owner(slot) if self.paged else 0
 
     # -- sampling: one generator per model call --------------------------
     def _next_seed(self) -> Optional[int]:
@@ -610,12 +750,24 @@ class ServeEngine:
         self.draft_params = _to_device(draft_params, self.device)
         if self.quant_weights:
             self.draft_params = quantize_gpt2_params(self.draft_params)
+        self._draft_param_bytes = param_nbytes(self.draft_params)
         self.draft_cache_spec = KVCacheSpec(
             layers=draft_cfg.n_layer, slots=self.slots,
             heads=draft_cfg.n_head, max_len=self.max_seq_len,
             head_dim=draft_cfg.d_head,
             dtype=self.draft_params["wte"].dtype)
-        self._draft_cache = init_cache(self.draft_cache_spec, self.device)
+        shardings = None
+        if self.mesh is not None:
+            validate_cache_mesh(self.mesh, self.draft_cache_spec)
+            shardings = cache_shardings(self.mesh)
+            pspecs = self.draft_model.param_partition_specs(
+                self.draft_params)
+            if self.quant_weights:
+                pspecs = quantized_partition_specs(pspecs)
+            self.draft_params = _place(self.draft_params, pspecs,
+                                       self.mesh)
+        self._draft_cache = init_cache(self.draft_cache_spec, self.device,
+                                       shardings)
 
     def _spec_ratio(self) -> float:
         """The live draft-acceptance ratio (reference ``engine.py:957``)."""
@@ -930,9 +1082,10 @@ class ServeEngine:
     def page_leaf_nbytes(self) -> List[int]:
         """Per-leaf byte lengths inside ONE exported page payload — the
         binary frame header's validation contract (both ends of a
-        migration run the same config, so these must agree)."""
+        migration run the same config, so these must agree).  A page's
+        payload holds every head, whatever the mesh."""
         return [self.cache[k][:, 0].numel() * self.cache[k].element_size()
-                for k in self._page_leaves()]
+                * self._tp for k in self._page_leaves()]
 
     def export_pages(self, req: Request) -> List[bytes]:
         """A finished ``detach_kv`` request's KV pages as raw bytes, one
@@ -992,7 +1145,7 @@ class ServeEngine:
                     "migration endpoints)")
         if not self.scheduler.has_free():
             return None
-        pages = self._alloc_pages(need)
+        pages = self._alloc_pages(need, self._part(self.scheduler.free[0]))
         if pages is None:
             return None
         aslot = 0
@@ -1057,16 +1210,26 @@ class ServeEngine:
     def _export_pages(self, pages: List[int]) -> List[bytes]:
         """Pool pages ``pages`` as one payload each: the page's leaf
         slices (``[:, pid]``) concatenated in ``_page_leaves`` order, one
-        gather and one device-to-host copy per leaf."""
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
-        # [L, n, ...] -> [n, L, ...]: page i's slice of a leaf is then one
-        # contiguous run of bytes, laid out as cache[k][:, pid]
-        leaves = [self.cache[k].index_select(1, idx).transpose(0, 1)
-                  .contiguous().view(torch.uint8).cpu().numpy()
-                  .reshape(len(pages), -1)
-                  for k in self._page_leaves()]
+        gather and one device-to-host copy per leaf.  Under a mesh each
+        page is gathered whole: its heads over ``model``, then its owner's
+        copy over ``data`` (every rank gets the same bytes)."""
+        n = len(pages)
+        idx = torch.from_numpy(self._local_pages(
+            np.asarray(pages, np.int64))).to(self.device)
+        leaves = []
+        for k in self._page_leaves():
+            # [L, n, ...] -> [n, L, ...]: page i's slice of a leaf is then
+            # one contiguous run of bytes, laid out as cache[k][:, pid]
+            x = self.cache[k].index_select(1, idx).transpose(0, 1)
+            x = x.contiguous().view(torch.uint8)
+            if self.mesh is not None:
+                x = col.all_gather(x, self.mesh, MODEL_AXIS, 2)
+                x = col.all_gather(x[None], self.mesh, DATA_AXIS)
+                owner = [self.pool.part_of(p) for p in pages]
+                x = x[owner, list(range(n))]
+            leaves.append(x.cpu().numpy().reshape(n, -1))
         return [b"".join(leaf[i].tobytes() for leaf in leaves)
-                for i in range(len(pages))]
+                for i in range(n)]
 
     def _import_pages(self, pages: List[int],
                       payloads: List[bytes]) -> None:
@@ -1075,28 +1238,49 @@ class ServeEngine:
         n = len(pages)
         raw = np.frombuffer(bytearray(b"".join(payloads)),
                             np.uint8).reshape(n, -1)
-        idx = torch.tensor(pages, dtype=torch.long, device=self.device)
+        # under a mesh a rank writes its heads of the pages it holds
+        mine = [i for i, p in enumerate(pages)
+                if self.pool.part_of(p) == self._dr]
+        if not mine:
+            return
+        idx = torch.from_numpy(self._local_pages(
+            np.asarray(pages, np.int64)[mine])).to(self.device)
         off = 0
         for k, nb in zip(self._page_leaves(), self.page_leaf_nbytes()):
             ref = self.cache[k]
+            shape = ((n, ref.shape[0], ref.shape[2] * self._tp)
+                     + tuple(ref.shape[3:]))
             part = torch.from_numpy(np.ascontiguousarray(
-                raw[:, off:off + nb])).to(self.device)
-            src = part.view(ref.dtype).view((n, ref.shape[0])
-                                            + tuple(ref.shape[2:]))
-            ref.index_copy_(1, idx, src.transpose(0, 1))
+                raw[mine, off:off + nb])).view(ref.dtype)
+            src = part.view((len(mine),) + shape[1:])
+            if self.mesh is not None:
+                src = RankSharding(self.mesh, (None, None, MODEL_AXIS)
+                                   ).piece(src)
+            ref.index_copy_(1, idx, src.to(self.device).transpose(0, 1))
             off += nb
 
     # -- admission (prefill) ----------------------------------------------
     def _prefill(self, tokens: torch.Tensor, length: int, slot: int) -> int:
         """Prefill one padded prompt into ``slot``: ALL ``prefill_len``
         rows are written (the padded tail is garbage the length masks
-        out), then the first token is read back."""
-        logits, ks, vs = self.model.prefill(self.params, tokens)
-        rows = tokens.shape[1]
-        self.cache["k"][:, slot, :, :rows] = ks[:, 0]
-        self.cache["v"][:, slot, :, :rows] = vs[:, 0]
+        out), then the first token is read back.  Under a mesh the slot's
+        data rank computes it and broadcasts the logits row."""
+        owner = self._owner(slot)
+        if owner == self._dr:
+            logits, ks, vs = self.model.prefill(self.params, tokens,
+                                                **self._mkw)
+            rows = tokens.shape[1]
+            self.cache["k"][:, slot - self._s0, :, :rows] = ks[:, 0]
+            self.cache["v"][:, slot - self._s0, :, :rows] = vs[:, 0]
+            row = logits[0, length - 1]
+        else:
+            row = self._empty_row()
         self.cache["lengths"][slot] = length
-        return int(self._select(logits[0, length - 1]))
+        return int(self._select(self._from_owner(row, owner)))
+
+    def _empty_row(self) -> torch.Tensor:
+        return torch.empty((self.model.config.vocab_size,),
+                           dtype=self._logits_dtype, device=self.device)
 
     def _scales(self) -> Dict[str, torch.Tensor]:
         """The int8 pool's scale sidecars as keyword arguments of the
@@ -1111,14 +1295,21 @@ class ServeEngine:
                        aslot: int = 0) -> int:
         """One delta-aware prefill (or chunk) into ``slot``'s pages, with
         the tenant's adapter in pool slot ``aslot`` (lora only), then the
-        next token after its last computed position."""
-        logits = self.model.prefill_paged(
-            self.params, torch.from_numpy(tokens).to(self.device), delta_len,
-            prefix_len, torch.from_numpy(row).to(self.device),
-            self.cache["k"], self.cache["v"], **self._scales(),
-            **self._lora_kw(aslot))[0]
+        next token after its last computed position (computed by the
+        slot's data rank under a mesh, its logits row broadcast)."""
+        owner = self._owner(slot)
+        if owner == self._dr:
+            logits = self.model.prefill_paged(
+                self.params, torch.from_numpy(tokens).to(self.device),
+                delta_len, prefix_len,
+                torch.from_numpy(self._local_pages(row)).to(self.device),
+                self.cache["k"], self.cache["v"], **self._scales(),
+                **self._lora_kw(aslot), **self._mkw)[0]
+            row = logits[0, delta_len - 1]
+        else:
+            row = self._empty_row()
         self.cache["lengths"][slot] = prefix_len + delta_len
-        return int(self._select(logits[0, delta_len - 1]))
+        return int(self._select(self._from_owner(row, owner)))
 
     def _admit_one(self, req: Request) -> bool:
         """Admit one request (prefill + slot assignment).  Returns False
@@ -1128,24 +1319,27 @@ class ServeEngine:
             return self._admit_one_paged(req)
         return self._admit_one_slot(req)
 
-    def _alloc_pages(self, n: int) -> Optional[List[int]]:
-        """``n`` fresh pages, evicting least-recently-hit prefix-cache
-        leaves under pressure; None when the pool is dry even after
-        eviction (reference ``engine.py:1278-1286``)."""
-        pages = self.pool.alloc(n)
+    def _alloc_pages(self, n: int, part: int = 0) -> Optional[List[int]]:
+        """``n`` fresh pages of range ``part``, evicting least-recently-hit
+        prefix-cache leaves under pressure; None when the range is dry
+        even after eviction (reference ``engine.py:1278-1286``)."""
+        pages = self.pool.alloc(n, part)
         if pages is None and self.prefix is not None:
-            if self.prefix.evict(n):
-                pages = self.pool.alloc(n)
+            if self.prefix.evict(n, part):
+                pages = self.pool.alloc(n, part)
         return pages
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate one page of every layer's K and V and,
         on the int8 pool, their scale sidecars (else the copy would
         dequantize with the wrong scales)."""
+        if self.pool.part_of(src) != self._dr:
+            return          # another data rank's pages
+        ls, ld = (int(p) for p in self._local_pages([src, dst]))
         with self._span("serve/page_cow", src=src, dst=dst):
             for key in ("k", "v", "k_scale", "v_scale"):
                 if key in self.cache:
-                    self.cache[key][:, dst] = self.cache[key][:, src]
+                    self.cache[key][:, ld] = self.cache[key][:, ls]
 
     def _draft_prefill(self, req: Request,
                        slot: Optional[int] = None) -> None:
@@ -1157,13 +1351,16 @@ class ServeEngine:
         tokens = np.zeros((1, self.prefill_len), np.int64)
         tokens[0, :len(req.prompt)] = req.prompt
         slot = self.scheduler.free[0] if slot is None else slot
+        dc = self._draft_cache
+        dc["lengths"][slot] = len(req.prompt)
+        if self._owner(slot) != self._dr:
+            return          # another data rank's slot
         with self._span("serve/draft_prefill", rid=req.rid):
             _, ks, vs = self.draft_model.prefill(
-                self.draft_params, torch.from_numpy(tokens).to(self.device))
-            dc = self._draft_cache
-            dc["k"][:, slot, :, :self.prefill_len] = ks[:, 0]
-            dc["v"][:, slot, :, :self.prefill_len] = vs[:, 0]
-            dc["lengths"][slot] = len(req.prompt)
+                self.draft_params, torch.from_numpy(tokens).to(self.device),
+                **self._mkw)
+            dc["k"][:, slot - self._s0, :, :self.prefill_len] = ks[:, 0]
+            dc["v"][:, slot - self._s0, :, :self.prefill_len] = vs[:, 0]
 
     def _admit_one_paged(self, req: Request) -> bool:
         """Reference ``_admit_one_paged`` (``engine.py:1329-1505``): match
@@ -1174,8 +1371,11 @@ class ServeEngine:
         request (False) with nothing held."""
         total_pages = -(-len(req.prompt) // self.page_len)
         # tenant namespace: tenant A's KV pages are never matched by
-        # tenant B (or the base model); "" is the no-lora digest chain
-        ns = self._namespace(req)
+        # tenant B (or the base model); "" is the no-lora digest chain.
+        # Under a data split, a slot's pages (shared ones too) come from
+        # its rank's range only
+        part = self._part(self.scheduler.free[0])
+        ns = self._namespace(req, part)
         if self.prefix is not None:
             shared_len, spages, cow = self.prefix.match(req.prompt, ns)
         else:
@@ -1191,9 +1391,10 @@ class ServeEngine:
             # records are not spent on a request that then parks; tier
             # failures fall back to the delta prefill below
             shared_len, tpages = self.kv_tier.resume(
-                req.prompt, ns, shared_len, self._alloc_pages)
+                req.prompt, ns, shared_len,
+                lambda n: self._alloc_pages(n, part))
         fresh = self._alloc_pages(total_pages - len(spages) - len(tpages)
-                                  + (1 if cow else 0))
+                                  + (1 if cow else 0), part)
         if fresh is None:
             if self.prefix is not None:
                 self.prefix.release(spages)
@@ -1290,10 +1491,11 @@ class ServeEngine:
         self._first_token(req, slot, first, now)
         return True
 
-    @staticmethod
-    def _namespace(req: Request) -> str:
-        """The prefix-cache namespace of ``req``'s tenant."""
-        return f"adapter:{req.adapter_id}" if req.adapter_id else ""
+    def _namespace(self, req: Request, part: int) -> str:
+        """The prefix-cache namespace of ``req``'s tenant on page range
+        ``part`` (one range: the tenant's alone)."""
+        ns = f"adapter:{req.adapter_id}" if req.adapter_id else ""
+        return ns if self._dp == 1 else f"{ns}|part:{part}"
 
     def _bind_adapter(self, req: Request, slot: int, aslot: int) -> None:
         if self.lora:
@@ -1448,7 +1650,8 @@ class ServeEngine:
         if self.prefix is not None:
             # the pages are fully written now: register them under the
             # namespace the admission matched with
-            self.prefix.insert(req.prompt, req.pages, self._namespace(req))
+            self.prefix.insert(req.prompt, req.pages,
+                               self._namespace(req, self._part(slot)))
         if self.spec_k:
             self._draft_prefill(req, slot=slot)
         req.last_t = now
@@ -1473,7 +1676,7 @@ class ServeEngine:
             extra = need - len(req.pages)
             if extra <= 0:
                 continue
-            pg = self._alloc_pages(extra)
+            pg = self._alloc_pages(extra, self._part(slot))
             if pg is None:
                 self._finish(slot, "kv_capacity")
                 del active_map[slot]
@@ -1504,21 +1707,24 @@ class ServeEngine:
             # steps through this tick's span (host appends only)
             for req in active_map.values():
                 self._flow("step", req, tick=self._ticks)
+            args = (self.params, self._rows(tokens), self.cache["k"],
+                    self.cache["v"])
             if self.paged:
-                out = self.model.decode_step_paged(
-                    self.params, tokens, self.cache["k"], self.cache["v"],
-                    torch.from_numpy(self._table).to(self.device),
-                    self.cache["lengths"], active, impl=self.decode_impl,
-                    **self._scales(), **self._lora_kw(self._adapter_slots()))
-                logits, new_len = out[0], out[-1]
+                logits = self.model.decode_step_paged(
+                    *args, self._table_dev(),
+                    self._rows(self.cache["lengths"]), self._rows(active),
+                    impl=self.decode_impl, **self._scales(),
+                    **self._lora_kw(self._adapter_slots()), **self._mkw)[0]
             else:
-                logits, _, _, new_len = self.model.decode_step(
-                    self.params, tokens, self.cache["k"], self.cache["v"],
-                    self.cache["lengths"], active, impl=self.decode_impl)
-            self.cache["lengths"] = new_len
+                logits = self.model.decode_step(
+                    *args, self._rows(self.cache["lengths"]),
+                    self._rows(active), impl=self.decode_impl,
+                    **self._mkw)[0]
+            self.cache["lengths"] = (self.cache["lengths"]
+                                     + active.to(torch.int32))
             self.decode_ticks += 1
             # the per-token latency point: the pull is the device sync
-            next_host = self._select(logits).cpu().numpy()
+            next_host = self._select(self._all_slots(logits)).cpu().numpy()
         now = time.perf_counter()
         produced = 0
         for slot, req in active_map.items():
@@ -1551,10 +1757,12 @@ class ServeEngine:
         tok = tokens
         T = self.temperature
         for i in range(self.spec_k + 1):
-            logits, _, _, dc["lengths"] = self.draft_model.decode_step(
-                self.draft_params, tok, dc["k"], dc["v"], dc["lengths"],
-                active, impl=self._draft_impl)
-            lg = logits.float()
+            logits = self.draft_model.decode_step(
+                self.draft_params, self._rows(tok), dc["k"], dc["v"],
+                self._rows(dc["lengths"]), self._rows(active),
+                impl=self._draft_impl, **self._mkw)[0]
+            dc["lengths"] = dc["lengths"] + active.to(torch.int32)
+            lg = self._all_slots(logits).float()
             if seed is None:
                 tok = select_next_token(lg)
             else:
@@ -1576,18 +1784,21 @@ class ServeEngine:
         each slot's W emitted-token candidates then its accepted count."""
         tokens_w = torch.cat([tokens[:, None].to(torch.int32),
                               proposals.to(torch.int32)], dim=1)
+        args = (self.params, self._rows(tokens_w), self.cache["k"],
+                self.cache["v"])
         if self.paged:
             logits = self.model.verify_step_paged(
-                self.params, tokens_w, self.cache["k"], self.cache["v"],
-                torch.from_numpy(self._table).to(self.device),
-                self.cache["lengths"], active, impl=self.decode_impl,
-                **self._scales(), **self._lora_kw(self._adapter_slots()))[0]
+                *args, self._table_dev(), self._rows(self.cache["lengths"]),
+                self._rows(active), impl=self.decode_impl,
+                **self._scales(), **self._lora_kw(self._adapter_slots()),
+                **self._mkw)[0]
         else:
-            logits, _, _ = self.model.verify_step(
-                self.params, tokens_w, self.cache["k"], self.cache["v"],
-                self.cache["lengths"], active, impl=self.decode_impl)
-        out_tok, accepted = speculative_accept(logits.float(), proposals,
-                                               qprobs, self.temperature, rng)
+            logits = self.model.verify_step(
+                *args, self._rows(self.cache["lengths"]),
+                self._rows(active), impl=self.decode_impl, **self._mkw)[0]
+        out_tok, accepted = speculative_accept(
+            self._all_slots(logits).float(), proposals, qprobs,
+            self.temperature, rng)
         adv = torch.where(active, accepted + 1, 0).to(torch.int32)
         self.cache["lengths"] = torch.clamp(
             self.cache["lengths"] + adv, max=self.max_seq_len)

@@ -1,7 +1,11 @@
 """Slot-based and page-pooled KV caches: the device state of serving.
 
-Port of ``deepspeed_tpu/inference/kv_cache.py``'s two layouts (the mesh
-shardings are not ported: the port serves on one device).
+Port of ``deepspeed_tpu/inference/kv_cache.py``: the two layouts and
+their placement over a serving mesh (``ServeEngine(mesh=...)``): slots,
+or pool pages, split over ``data`` and heads over ``model``, the scale
+sidecars as their pools, ``lengths`` whole on every rank.  A "sharding"
+here is a :class:`~..parallel.mesh.RankSharding`, the slice of each
+tensor a rank of the mesh holds on its own device.
 
 **Slot cache** — one fixed stride per slot:
 
@@ -29,9 +33,11 @@ eviction is host bookkeeping (page frees, masked stale rows).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, RankSharding
 
 
 def _itemsize(dtype: torch.dtype) -> int:
@@ -53,16 +59,67 @@ class KVCacheSpec:
                 * self.head_dim * _itemsize(self.dtype))
 
 
-def init_cache(spec: KVCacheSpec, device=None) -> Dict[str, torch.Tensor]:
-    """Fresh all-free cache on ``device``."""
+def _zeros(shape, dtype, device, sharding: Optional[RankSharding]):
+    """Zeros of this rank's slice of ``shape`` (the whole without a
+    sharding)."""
+    if sharding is not None:
+        shape = sharding.shard_shape(shape)
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def init_cache(spec: KVCacheSpec, device=None,
+               shardings: Optional[Dict[str, RankSharding]] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Fresh all-free cache on ``device``; with ``shardings``
+    (:func:`cache_shardings`) only this rank's slice of each leaf."""
+    sh = shardings or {}
     shape = (spec.layers, spec.slots, spec.heads, spec.max_len,
              spec.head_dim)
     return {
-        "k": torch.zeros(shape, dtype=spec.dtype, device=device),
-        "v": torch.zeros(shape, dtype=spec.dtype, device=device),
+        "k": _zeros(shape, spec.dtype, device, sh.get("k")),
+        "v": _zeros(shape, spec.dtype, device, sh.get("v")),
         "lengths": torch.zeros((spec.slots,), dtype=torch.int32,
                                device=device),
     }
+
+
+def cache_partition_specs() -> Dict[str, tuple]:
+    """Partition specs for the slot cache: slots on ``data``, heads on
+    ``model`` (matching the models' Megatron qkv column split)."""
+    kv = (None, DATA_AXIS, MODEL_AXIS, None, None)
+    return {"k": kv, "v": kv, "lengths": ()}
+
+
+def cache_shardings(mesh: Mesh) -> Dict[str, RankSharding]:
+    return {name: RankSharding(mesh, spec)
+            for name, spec in cache_partition_specs().items()}
+
+
+def _validate_tp_and_axes(mesh: Mesh, heads: int, what: str) -> None:
+    """The checks both cache layouts share: TP-divisible heads and a
+    strictly (data, model) mesh — fail at build time with the real
+    story, not as a shape error mid-serve."""
+    tp = mesh.shape.get(MODEL_AXIS, 1)
+    if heads % tp != 0:
+        raise ValueError(
+            f"model heads={heads} must be divisible by the mesh's "
+            f"model axis ({tp}) to TP-shard the {what}")
+    for axis in ("pipe", "seq"):
+        if mesh.shape.get(axis, 1) != 1:
+            raise ValueError(
+                f"the serving engine does not shard over the {axis!r} "
+                f"axis (mesh has {axis}={mesh.shape[axis]}); serve on a "
+                "(data, model) mesh")
+
+
+def validate_cache_mesh(mesh: Mesh, spec: KVCacheSpec) -> None:
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    if spec.slots % dp != 0:
+        raise ValueError(
+            f"serving.slots={spec.slots} must be divisible by the mesh's "
+            f"data axis ({dp}): slots are the replica-sharded batch "
+            "dimension of the decode program")
+    _validate_tp_and_axes(mesh, spec.heads, "KV cache")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,21 +157,67 @@ class PagedKVCacheSpec:
         return 2 * self.layers * self.heads * self.page_len * per_row
 
 
-def init_paged_cache(spec: PagedKVCacheSpec,
-                     device=None) -> Dict[str, torch.Tensor]:
+def init_paged_cache(spec: PagedKVCacheSpec, device=None,
+                     shardings: Optional[Dict[str, RankSharding]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """Fresh all-free paged pool on ``device`` (reference
-    ``kv_cache.py:169-186``).  An int8 pool gets all-zero scale sidecars:
-    a never-written row dequantizes to exact zeros."""
+    ``kv_cache.py:169-186``); with ``shardings``
+    (:func:`paged_cache_shardings`) only this rank's slice of each leaf.
+    An int8 pool gets all-zero scale sidecars: a never-written row
+    dequantizes to exact zeros."""
+    sh = shardings or {}
     shape = (spec.layers, spec.pages, spec.heads, spec.page_len,
              spec.head_dim)
     cache = {
-        "k": torch.zeros(shape, dtype=spec.dtype, device=device),
-        "v": torch.zeros(shape, dtype=spec.dtype, device=device),
+        "k": _zeros(shape, spec.dtype, device, sh.get("k")),
+        "v": _zeros(shape, spec.dtype, device, sh.get("v")),
         "lengths": torch.zeros((spec.slots,), dtype=torch.int32,
                                device=device),
     }
     if spec.quant:
         for key in ("k_scale", "v_scale"):
-            cache[key] = torch.zeros(shape[:-1], dtype=torch.float32,
-                                     device=device)
+            cache[key] = _zeros(shape[:-1], torch.float32, device,
+                                sh.get(key))
     return cache
+
+
+def paged_partition_specs(quant: bool = False) -> Dict[str, tuple]:
+    """Pool pages on ``data``, heads on ``model`` — the page pool is the
+    DP-sharded storage dimension the way slots were.  The quant scale
+    sidecars shard exactly like their pools (minus the row dim's trailing
+    head_dim)."""
+    kv = (None, DATA_AXIS, MODEL_AXIS, None, None)
+    specs = {"k": kv, "v": kv, "lengths": ()}
+    if quant:
+        sc = (None, DATA_AXIS, MODEL_AXIS, None)
+        specs["k_scale"] = sc
+        specs["v_scale"] = sc
+    return specs
+
+
+def paged_cache_shardings(mesh: Mesh, quant: bool = False
+                          ) -> Dict[str, RankSharding]:
+    return {name: RankSharding(mesh, spec)
+            for name, spec in paged_partition_specs(quant).items()}
+
+
+def validate_paged_cache_mesh(mesh: Mesh, spec: PagedKVCacheSpec) -> None:
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    if spec.pages % dp != 0:
+        raise ValueError(
+            f"serving.pages={spec.pages} must be divisible by the "
+            f"mesh's data axis ({dp}): the page pool is the DP-sharded "
+            "storage dimension of the decode program")
+    _validate_tp_and_axes(mesh, spec.heads, "KV page pool")
+
+
+def shard_cache(cache: Dict[str, torch.Tensor], mesh: Mesh,
+                shardings: Optional[Dict[str, RankSharding]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's slice of each leaf of a whole cache (either layout;
+    default shardings: the slot cache's).  The engine allocates its
+    slices directly (``init_cache``/``init_paged_cache`` with
+    ``shardings``); this places a cache built whole."""
+    if shardings is None:
+        shardings = cache_shardings(mesh)
+    return {name: shardings[name].piece(t) for name, t in cache.items()}

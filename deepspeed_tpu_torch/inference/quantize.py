@@ -18,9 +18,9 @@ folded into the int8 arms of the paged decode kernels.
 
 Both quantizers work in fp32 and round half to even (``torch.round``, as
 ``jnp.round``), so the port's int8 values equal the JAX package's on the
-same input.  The reference's ``quantized_partition_specs`` (the scales'
-tensor-parallel shardings) has no meaning without a mesh; it waits for
-ROADMAP.md queue 1 item 9.
+same input.  Under a serving mesh the whole tree is quantized first and
+then split (:func:`quantized_partition_specs`), so each scale is the
+absmax over its whole contraction axis.
 """
 from __future__ import annotations
 
@@ -86,6 +86,24 @@ def quantize_gpt2_params(params: Dict[str, Any]) -> Dict[str, Any]:
         blocks[name] = q
         blocks[name + SCALE_SUFFIX] = scale
     out = dict(params)
+    out["blocks"] = blocks
+    return out
+
+
+def quantized_partition_specs(pspecs: Dict[str, Any]) -> Dict[str, Any]:
+    """Partition specs matching :func:`quantize_gpt2_params` (specs are
+    tuples of axis names per dim): each scale inherits its weight's spec
+    with the contracted (now size-1) axis unsharded — the output-channel
+    shard stays aligned with the Megatron column split, so a TP shard
+    holds exactly the scales of the channels it computes."""
+    blocks = dict(pspecs["blocks"])
+    for name in QUANT_WEIGHT_KEYS:
+        axes = list(tuple(blocks[name]))
+        while len(axes) <= _CONTRACT_AXIS:
+            axes.append(None)
+        axes[_CONTRACT_AXIS] = None
+        blocks[name + SCALE_SUFFIX] = tuple(axes)
+    out = dict(pspecs)
     out["blocks"] = blocks
     return out
 

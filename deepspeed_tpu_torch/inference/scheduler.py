@@ -176,41 +176,61 @@ class PagePool:
     page tables reference it plus (optionally) a :class:`PrefixCache`
     entry, and returns to the free deque only when the last holder
     derefs.  O(1) alloc/free — the free list is a deque, the same
-    satellite as the slot scheduler's."""
+    satellite as the slot scheduler's.
 
-    def __init__(self, pages: int):
-        if pages < 2:
+    ``parts`` > 1 (a serving mesh's data axis): the pool is ``parts``
+    contiguous ranges of ``pages // parts`` pages, one per data rank, and
+    each range's first page is that rank's scratch page; ``alloc(n,
+    part)`` hands out pages of one range only, so a slot served on data
+    rank r finds all its pages on rank r.  One part is the single
+    device's allocator."""
+
+    def __init__(self, pages: int, parts: int = 1):
+        if pages % parts or pages // parts < 2:
             raise ValueError(
                 f"PagePool needs >= 2 pages (page {SCRATCH_PAGE} is the "
-                f"reserved scratch page), got {pages}")
+                f"reserved scratch page), got {pages}"
+                + (f" over {parts} parts" if parts > 1 else ""))
         self.pages = int(pages)
-        self.free: deque = deque(range(1, self.pages))
+        self.parts = int(parts)
+        self.part_pages = self.pages // self.parts
+        self.frees: List[deque] = [
+            deque(range(r * self.part_pages + 1,
+                        (r + 1) * self.part_pages))
+            for r in range(self.parts)]
         self.refs: Dict[int, int] = {}
+
+    def part_of(self, page: int) -> int:
+        return page // self.part_pages
 
     @property
     def free_count(self) -> int:
-        return len(self.free)
+        return sum(len(f) for f in self.frees)
+
+    def free_in(self, part: int = 0) -> int:
+        return len(self.frees[part])
 
     @property
     def used_count(self) -> int:
-        """Allocated pages (excludes the scratch page)."""
-        return self.pages - 1 - len(self.free)
+        """Allocated pages (excludes the scratch pages)."""
+        return self.pages - self.parts - self.free_count
 
-    def alloc(self, n: int) -> Optional[List[int]]:
-        """``n`` fresh pages with refcount 1 each, or None (and no
-        side effects) when the pool can't satisfy the request — the
-        caller's backpressure/eviction point."""
+    def alloc(self, n: int, part: int = 0) -> Optional[List[int]]:
+        """``n`` fresh pages of range ``part`` with refcount 1 each, or
+        None (and no side effects) when the range can't satisfy the
+        request — the caller's backpressure/eviction point."""
         if n < 0:
             raise ValueError(f"alloc({n})")
-        if n > len(self.free):
+        free = self.frees[part]
+        if n > len(free):
             return None
-        out = [self.free.popleft() for _ in range(n)]
+        out = [free.popleft() for _ in range(n)]
         for p in out:
             self.refs[p] = 1
         return out
 
     def ref(self, page: int) -> None:
-        if page == SCRATCH_PAGE:
+        if page % self.part_pages == SCRATCH_PAGE:
             raise ValueError("the scratch page is never refcounted")
         self.refs[page] += 1
 
@@ -223,7 +243,7 @@ class PagePool:
         n = self.refs[page] - 1
         if n == 0:
             del self.refs[page]
-            self.free.append(page)
+            self.frees[self.part_of(page)].append(page)
         else:
             self.refs[page] = n
 
@@ -403,12 +423,16 @@ class PrefixCache:
         return added
 
     # -- eviction (the allocator's pressure valve) -----------------------
-    def _evictable(self):
+    def _evictable(self, part: Optional[int] = None):
+        mine = (lambda page: part is None
+                or self.pool.part_of(page) == part)
         for parent, bucket in self.partials.items():
             for toks, pe in bucket.items():
-                yield pe.last_hit, ("partial", parent, toks)
+                if mine(pe.page):
+                    yield pe.last_hit, ("partial", parent, toks)
         for d, fe in self.full.items():
-            if fe.children == 0 and d not in self.partials:
+            if fe.children == 0 and d not in self.partials \
+                    and mine(fe.page):
                 yield fe.last_hit, ("full", d, None)
 
     def drop_leaf(self, kind: str, key: str,
@@ -433,18 +457,19 @@ class PrefixCache:
         self.pool.deref(fe.page)
         return fe.page
 
-    def evict(self, need_free: int) -> int:
-        """Drop least-recently-hit LEAF entries until the pool's free
-        count reaches ``need_free`` (or nothing evictable remains).
+    def evict(self, need_free: int, part: int = 0) -> int:
+        """Drop least-recently-hit LEAF entries of pool range ``part``
+        until its free count reaches ``need_free`` (or nothing evictable
+        remains).
         Dropping an entry derefs its page — the page is actually freed
         only if no live slot still reads it.  Returns entries evicted.
         Leaf-first keeps every cached chain reachable: an inner page is
         only evictable once nothing chains through it."""
         evicted = 0
-        while self.pool.free_count < need_free:
+        while self.pool.free_in(part) < need_free:
             # min(), not sorted(): this runs on the admission/append
             # hot path — O(E) per freed page, never a full resort
-            cand = min(self._evictable(), default=None)
+            cand = min(self._evictable(part), default=None)
             if cand is None:
                 break
             _, (kind, key, sub) = cand

@@ -10,16 +10,25 @@ additive key mask) or the dense arm.  The large products stay
 ``torch.matmul``, as the JAX package leaves them to XLA.  ZeRO 1–3 and
 data parallelism run BERT as any model (``runtime/zero.py``; the engine
 fetches the ``layers`` one at a time, and the masked-LM loss is
-normalized by the global micro-batch's label count).  BERT's
-tensor-parallel forward (the specs are ported) and the pipelined BERT
-(``models/bert_pipe.py``) are not ported yet (ROADMAP.md queue 1, items 9
-and 10).
+normalized by the global micro-batch's label count).  Megatron tensor
+parallelism follows the JAX specs (:meth:`BertModel.param_partition_specs`):
+under the engine's mesh ``attn_qkvw`` and ``inter_w`` are the rank's
+column pieces (its heads), ``attn_ow`` and ``output_w`` its row pieces
+(each product all-reduced over ``model`` before its bias),
+``word_embeddings`` and ``mlm_bias`` vocab-parallel where the vocabulary
+divides (a masked lookup plus all-reduce, and the MLM loss as a
+vocab-parallel cross-entropy; :meth:`BertModel.apply` gathers the logits
+over ``model``).  The pipelined BERT (``models/bert_pipe.py``) is not
+ported yet (ROADMAP.md queue 1, item 10).
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``); the
 embedding dropout and each layer derive their seeds with
 ``runtime.utils.fold_in`` as the JAX model folds its key, so
 ``remat="block"`` (``torch.utils.checkpoint`` of each layer) replays the
-same dropout.  Progressive layer drop draws each layer's keep decision on
+same dropout.  Under a mesh the hidden dropouts draw over the global
+micro-batch's rows and keep the rank's, and the attention dropout takes
+the global (batch, head) ids, so training does not depend on the layout.
+Progressive layer drop draws each layer's keep decision on
 the host from the layer's seed and skips a dropped layer in Python: it
 launches nothing and reads nothing back from the card.
 """
@@ -39,8 +48,9 @@ from ..ops.transformer.transformer import _layer_norm
 from ..parallel import collectives as col
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
 from ..runtime.module import TrainModule
-from ..runtime.utils import dropout, fold_in, host_uniform
+from ..runtime.utils import data_rows, dropout, fold_in, host_uniform
 from ..runtime.utils import params_from_numpy  # noqa: F401
+from .gpt2 import _vocab_parallel_nll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,7 +209,7 @@ class BertModel(TrainModule):
         host from the layer's seed; a dropped layer passes its input
         through and launches nothing.  Eval ignores it."""
         cfg = self.config
-        _refuse_tensor_parallel(getattr(params["layers"], "mesh", None))
+        mesh = getattr(params["layers"], "mesh", None)
         B, T = input_ids.shape
         if T > cfg.max_position_embeddings:
             raise ValueError(
@@ -210,12 +220,12 @@ class BertModel(TrainModule):
         input_ids = input_ids.long()
         tt = (token_type_ids.long() if token_type_ids is not None
               else torch.zeros_like(input_ids))
-        x = (params["word_embeddings"][input_ids]
+        x = (_embed_tokens(cfg, params["word_embeddings"], input_ids, mesh)
              + params["position_embeddings"][:T][None]
              + params["token_type_embeddings"][tt])
         x = _layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"])
         x = dropout(x, cfg.hidden_dropout_prob if train else 0.0,
-                    fold_in(rng, 997))
+                    fold_in(rng, 997), data_rows(mesh, B))
         # HF-style additive mask [B, 1, 1, T]
         add_mask = None
         if attention_mask is not None:
@@ -239,18 +249,20 @@ class BertModel(TrainModule):
                 # an engine's layer fetch runs inside: the recompute
                 # fetches (gathers) the layer again
                 x = checkpoint(self._layer_at, layer, i, x, add_mask, lrng,
-                               train, use_reentrant=False,
+                               train, mesh, use_reentrant=False,
                                preserve_rng_state=False)
             else:
-                x = self._layer_at(layer, i, x, add_mask, lrng, train)
+                x = self._layer_at(layer, i, x, add_mask, lrng, train, mesh)
         return x
 
-    def _layer_at(self, layer, i, x, add_mask, rng, train):
-        return self.layer(layer(i), x, add_mask, rng, train)
+    def _layer_at(self, layer, i, x, add_mask, rng, train, mesh=None):
+        kw = {} if mesh is None else {"mesh": mesh}
+        return self.layer(layer(i), x, add_mask, rng, train, **kw)
 
-    def apply(self, params, batch, rng: Optional[int] = None,
-              train: bool = True):
-        """→ (mlm_logits [B, T, V], nsp_logits [B, 2])."""
+    def _heads(self, params, batch, rng, train):
+        """(mlm_logits, nsp_logits, the vocab-parallel mesh or None): the
+        MLM logits are the rank's vocabulary slice under that mesh."""
+        mesh = getattr(params["layers"], "mesh", None)
         seq = self.encode(params, batch["input_ids"],
                           batch.get("token_type_ids"),
                           batch.get("attention_mask"), rng, train,
@@ -260,25 +272,44 @@ class BertModel(TrainModule):
             + params["mlm_transform_b"].to(dt)
         h = F.gelu(h, approximate="none")
         h = _layer_norm(h, params["mlm_ln_scale"], params["mlm_ln_bias"])
+        vm = _vocab_parallel(self.config, params, mesh)
+        if vm is not None:
+            h = col.copy_to_axis(h, vm, MODEL_AXIS)
         mlm_logits = h @ params["word_embeddings"].to(dt).T \
             + params["mlm_bias"].to(dt)
         pooled = torch.tanh(seq[:, 0] @ params["pooler_w"].to(dt)
                             + params["pooler_b"].to(dt))
         nsp_logits = pooled @ params["nsp_w"].to(dt) + params["nsp_b"].to(dt)
+        return mlm_logits, nsp_logits, vm
+
+    def apply(self, params, batch, rng: Optional[int] = None,
+              train: bool = True):
+        """→ (mlm_logits [B, T, V], nsp_logits [B, 2]); vocab-parallel
+        logits are all-gathered over ``model`` (not differentiable: the
+        loss takes the rank's slice)."""
+        mlm_logits, nsp_logits, vm = self._heads(params, batch, rng, train)
+        if vm is not None:
+            mlm_logits = col.all_gather(mlm_logits, vm, MODEL_AXIS,
+                                        mlm_logits.ndim - 1)
         return mlm_logits, nsp_logits
 
     def loss_fn(self, params, batch, rng: Optional[int],
                 train: bool = True) -> torch.Tensor:
         """Masked-LM NLL over the labelled positions plus the NSP NLL, in
         fp32."""
-        mlm_logits, nsp_logits = self.apply(params, batch, rng, train)
+        mlm_logits, nsp_logits, vm = self._heads(params, batch, rng, train)
         loss = torch.zeros((), dtype=torch.float32,
                            device=mlm_logits.device)
         labels = batch.get("masked_lm_labels")
         if labels is not None:
             labels = labels.long()
-            logp = torch.log_softmax(mlm_logits.float(), dim=-1)
-            nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+            if vm is not None:
+                nll = _vocab_parallel_nll(mlm_logits, labels.clamp_min(0),
+                                          vm)
+            else:
+                logp = torch.log_softmax(mlm_logits.float(), dim=-1)
+                nll = -torch.gather(logp, -1,
+                                    labels.clamp_min(0)[..., None])[..., 0]
             mask = (labels >= 0).float()
             count = mask.sum()
             mesh = getattr(params["layers"], "mesh", None)
@@ -297,9 +328,22 @@ class BertModel(TrainModule):
         return loss
 
 
-def _refuse_tensor_parallel(mesh) -> None:
-    if mesh is not None and mesh.axis_size(MODEL_AXIS) > 1:
-        raise NotImplementedError(
-            "BERT's tensor-parallel forward (tp > 1) is not ported to "
-            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 9 (its "
-            "serving half, with BERT's tensor parallelism)")
+def _vocab_parallel(cfg: BertConfig, params, mesh):
+    """``mesh`` when ``word_embeddings`` is this rank's vocab-parallel
+    piece (fewer rows than the vocabulary), else None."""
+    if mesh is None or \
+            params["word_embeddings"].shape[0] == cfg.vocab_size:
+        return None
+    return mesh
+
+
+def _embed_tokens(cfg: BertConfig, wte, ids, mesh):
+    """``wte[ids]``; on a vocab-parallel piece, the rank's rows looked up
+    (zeros for ids another rank holds) and all-reduced over ``model``."""
+    if _vocab_parallel(cfg, {"word_embeddings": wte}, mesh) is None:
+        return wte[ids]
+    n = wte.shape[0]
+    local = ids - mesh.axis_index(MODEL_AXIS) * n
+    mine = (local >= 0) & (local < n)
+    e = torch.where(mine[..., None], wte[local.clamp(0, n - 1)], 0.0)
+    return col.reduce_from_axis(e.to(wte.dtype), mesh, MODEL_AXIS)

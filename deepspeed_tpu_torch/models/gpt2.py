@@ -31,7 +31,11 @@ under the training engine's mesh the blocks run on the rank's pieces —
 (r+1)·H/tp``), ``out_w`` and ``proj_w`` row-parallel (all-reduce, then
 the replicated bias), ``wte`` vocab-parallel where ``V % tp == 0`` (a
 masked lookup plus all-reduce, and a vocab-parallel cross-entropy) and
-replicated where it does not divide (GPT-2's 50257).  Not ported yet
+replicated where it does not divide (GPT-2's 50257).  The serving
+functions take the same split under a serving mesh (``mesh=``, from
+``ServeEngine(mesh=...)``): each rank runs its H/tp heads through the
+attention kernels and the vocab-parallel logits are all-gathered over
+``model``, so every rank scores the whole vocabulary.  Not ported yet
 (ROADMAP.md queue 1): sequence-parallel attention and parameter
 streaming.
 
@@ -77,7 +81,8 @@ from ..runtime.module import TrainModule
 from ..runtime.utils import dropout as _dropout
 from ..parallel import collectives as col
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
-from ..runtime.utils import fold_in, params_from_numpy  # noqa: F401
+from ..runtime.utils import (data_rows, fold_in,  # noqa: F401
+                             params_from_numpy)
 from ..runtime.utils import seeded_generator as _generator
 
 _M32 = 0xFFFFFFFF
@@ -108,7 +113,7 @@ class GPT2Config:
             raise NotImplementedError(
                 "GPT2Config.stream_scan (per-layer parameter streaming) is "
                 "not ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, "
-                "item 12 (offload and input pipeline)")
+                "item 12 (its second half)")
         if self.remat not in (None, "block"):
             raise ValueError(f"remat={self.remat!r}: expected None or "
                              "'block'")
@@ -270,64 +275,37 @@ class GPT2Model(TrainModule):
         nll = -torch.gather(logp, -1, targets[..., None])
         return nll.mean()
 
-    def prefill(self, params, tokens):
+    # the serving protocol: each function also takes ``mesh`` (a serving
+    # mesh, the params then being the rank's Megatron pieces)
+    def prefill(self, params, tokens, **kw):
         """Inference forward that also returns every layer's K/V (the
         serving cache fill) — see ``gpt2_prefill``."""
-        return gpt2_prefill(self.config, params, tokens)
+        return gpt2_prefill(self.config, params, tokens, **kw)
 
-    def decode_step(self, params, tokens, k_cache, v_cache, lengths,
-                    active, impl: Optional[str] = None):
+    def decode_step(self, params, *args, **kw):
         """One masked decode tick over the slot KV cache — see
         ``gpt2_decode_step``."""
-        return gpt2_decode_step(self.config, params, tokens, k_cache,
-                                v_cache, lengths, active, impl=impl)
+        return gpt2_decode_step(self.config, params, *args, **kw)
 
-    def prefill_paged(self, params, tokens, delta_len, prefix_len,
-                      page_row, k_pool, v_pool, k_scale=None,
-                      v_scale=None, lora=None, adapter_slots=None,
-                      lora_scale: float = 1.0):
+    def prefill_paged(self, params, *args, **kw):
         """Delta-aware prefill into a paged KV pool — see
         ``gpt2_prefill_paged``."""
-        return gpt2_prefill_paged(self.config, params, tokens, delta_len,
-                                  prefix_len, page_row, k_pool, v_pool,
-                                  k_scale=k_scale, v_scale=v_scale,
-                                  lora=lora, adapter_slots=adapter_slots,
-                                  lora_scale=lora_scale)
+        return gpt2_prefill_paged(self.config, params, *args, **kw)
 
-    def decode_step_paged(self, params, tokens, k_pool, v_pool,
-                          page_table, lengths, active,
-                          impl: Optional[str] = None, k_scale=None,
-                          v_scale=None, lora=None, adapter_slots=None,
-                          lora_scale: float = 1.0):
+    def decode_step_paged(self, params, *args, **kw):
         """One masked decode tick over the paged KV pool — see
         ``gpt2_decode_step_paged``."""
-        return gpt2_decode_step_paged(self.config, params, tokens, k_pool,
-                                      v_pool, page_table, lengths, active,
-                                      impl=impl, k_scale=k_scale,
-                                      v_scale=v_scale, lora=lora,
-                                      adapter_slots=adapter_slots,
-                                      lora_scale=lora_scale)
+        return gpt2_decode_step_paged(self.config, params, *args, **kw)
 
-    def verify_step(self, params, tokens, k_cache, v_cache, lengths,
-                    active, impl: Optional[str] = None):
+    def verify_step(self, params, *args, **kw):
         """Score W speculative tokens per slot in one widened decode
         pass — see ``gpt2_verify_step``."""
-        return gpt2_verify_step(self.config, params, tokens, k_cache,
-                                v_cache, lengths, active, impl=impl)
+        return gpt2_verify_step(self.config, params, *args, **kw)
 
-    def verify_step_paged(self, params, tokens, k_pool, v_pool,
-                          page_table, lengths, active,
-                          impl: Optional[str] = None, k_scale=None,
-                          v_scale=None, lora=None, adapter_slots=None,
-                          lora_scale: float = 1.0):
+    def verify_step_paged(self, params, *args, **kw):
         """The paged twin of ``verify_step`` — see
         ``gpt2_verify_step_paged``."""
-        return gpt2_verify_step_paged(self.config, params, tokens, k_pool,
-                                      v_pool, page_table, lengths, active,
-                                      impl=impl, k_scale=k_scale,
-                                      v_scale=v_scale, lora=lora,
-                                      adapter_slots=adapter_slots,
-                                      lora_scale=lora_scale)
+        return gpt2_verify_step_paged(self.config, params, *args, **kw)
 
 
 def _layer_norm(x, scale, bias, eps: float = 1e-5):
@@ -337,14 +315,6 @@ def _layer_norm(x, scale, bias, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(dt)
-
-
-def data_rows(mesh, n: int):
-    """``(offset, total)`` of this rank's ``n`` rows in the global
-    micro-batch the dropouts draw over, None without a mesh."""
-    if mesh is None:
-        return None
-    return mesh.axis_index(DATA_AXIS) * n, mesh.axis_size(DATA_AXIS) * n
 
 
 def _vocab_parallel(cfg: GPT2Config, params, mesh):
@@ -406,7 +376,7 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
-def _lora_delta(x, bp, name: str):
+def _lora_delta(x, bp, name: str, mesh=None):
     """The heterogeneous batched LoRA delta (reference ``models/gpt2.py:
     368-385``): a bound block carries a ``<name>_lora`` entry of PER-ROW
     factors — each batch row's own tenant adapter (:func:`_lora_bind`) —
@@ -414,14 +384,19 @@ def _lora_delta(x, bp, name: str):
     ``x``'s dtype, then the scale rounded to that dtype.  The caller adds
     it AFTER the base product and bias, as the reference does.  A block
     without lora entries (training, serving with lora off) returns
-    None."""
+    None.  ``mesh`` (row-parallel targets under a serving mesh): ``x``
+    and A are the rank's pieces of the contraction, so ``x·A`` is
+    all-reduced over ``model`` before the product with B."""
     lo = bp.get(name + "_lora")
     if lo is None:
         return None
     a, b, out, scale = lo
     if a.dtype != x.dtype:
         a, b = a.to(x.dtype), b.to(x.dtype)
-    delta = torch.bmm(torch.bmm(x, a), b)           # [B, T, prod(out)]
+    xa = torch.bmm(x, a)
+    if mesh is not None:
+        xa = col.psum(xa, mesh, MODEL_AXIS)
+    delta = torch.bmm(xa, b)                        # [B, T, prod(out)]
     return delta.view(*x.shape[:2], *out) * _rounded(scale, x.dtype)
 
 
@@ -477,7 +452,7 @@ def gpt2_ffn(bp, h, mesh=None):
     if mesh is not None:
         z = col.reduce_from_axis(z, mesh, MODEL_AXIS)
     z = z + bp["proj_b"].to(h.dtype)
-    return _add_delta(z, _lora_delta(y, bp, "proj_w"))
+    return _add_delta(z, _lora_delta(y, bp, "proj_w", mesh))
 
 
 def gpt2_qkv_heads(cfg: GPT2Config, bp, x, mesh=None):
@@ -516,7 +491,7 @@ def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
     if mesh is not None:
         y = col.reduce_from_axis(y, mesh, MODEL_AXIS)
     y = y + bp["out_b"].to(x.dtype)
-    y = _add_delta(y, _lora_delta(attn, bp, "out_w"))
+    y = _add_delta(y, _lora_delta(attn, bp, "out_w", mesh))
     return x + _dropout(y, drop, rng, data_rows(mesh, B))
 
 
@@ -587,9 +562,14 @@ def _layer(blocks, i: int):
     return {name: a[i] for name, a in blocks.items()}
 
 
-def _embed(params, tokens, positions):
-    """Token plus position embeddings (any matching index shapes)."""
-    return params["wte"][tokens.long()] + params["wpe"][positions.long()]
+def _embed(cfg: GPT2Config, params, tokens, positions, mesh=None):
+    """Token plus position embeddings (any matching index shapes); a
+    vocab-parallel ``wte`` under a serving mesh is looked up as in
+    training."""
+    tokens = tokens.long()
+    e = (params["wte"][tokens] if mesh is None
+         else _embed_tokens(cfg, params["wte"], tokens, mesh))
+    return e + params["wpe"][positions.long()]
 
 
 def _logits(params, x, vocab_mesh=None):
@@ -602,18 +582,31 @@ def _logits(params, x, vocab_mesh=None):
     return x @ params["wte"].to(x.dtype).T
 
 
-def gpt2_block_prefill(cfg: GPT2Config, bp, x):
-    """One block at inference, also returning the per-head K/V."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)
+def _serve_logits(cfg: GPT2Config, params, x, mesh=None):
+    """The serving head: :func:`_logits`, and for a vocab-parallel
+    ``wte`` under a serving mesh the rank's vocabulary slices
+    all-gathered over ``model``, so every rank selects from the whole
+    vocabulary."""
+    vm = _vocab_parallel(cfg, params, mesh)
+    logits = _logits(params, x, vm)
+    if vm is None:
+        return logits
+    return col.all_gather(logits, mesh, MODEL_AXIS, logits.ndim - 1)
+
+
+def gpt2_block_prefill(cfg: GPT2Config, bp, x, mesh=None):
+    """One block at inference, also returning the per-head K/V (the
+    rank's heads under a serving mesh)."""
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)
     if cfg.attn_impl == "flash":
         attn = flash_attention(q, k, v, causal=True)
     elif cfg.attn_impl == "dense":
         attn = causal_attention(q, k, v)
     else:
         _decode_attn_impl(cfg)  # raises with the real story
-    x = gpt2_attn_project(bp, x, attn)
+    x = gpt2_attn_project(bp, x, attn, mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h), (k, v)
+    return x + gpt2_ffn(bp, h, mesh), (k, v)
 
 
 def _cache_write(cache, new, pos, active):
@@ -631,42 +624,47 @@ def _cache_write(cache, new, pos, active):
 
 
 def gpt2_block_decode(cfg: GPT2Config, bp, x, k_cache, v_cache,
-                      positions, att_len, active, impl: str):
+                      positions, att_len, active, impl: str, mesh=None):
     """One block for a single decode tick: x [S, 1, D]; writes the token's
     K/V at ``positions`` (masked by ``active``) then attends over
     ``att_len`` live keys per slot."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, 1, Dh]
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)          # [S, H, 1, Dh]
     _cache_write(k_cache, k[:, :, 0], positions, active)
     _cache_write(v_cache, v[:, :, 0], positions, active)
     attn = decode_attention(q[:, :, 0], k_cache, v_cache, att_len,
                             impl=impl)                  # [S, H, Dh]
-    x = gpt2_attn_project(bp, x, attn[:, :, None, :])
+    x = gpt2_attn_project(bp, x, attn[:, :, None, :], mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h)
+    return x + gpt2_ffn(bp, h, mesh)
 
 
 @torch.no_grad()
-def gpt2_prefill(cfg: GPT2Config, params, tokens):
+def gpt2_prefill(cfg: GPT2Config, params, tokens, mesh=None):
     """tokens [B, T] → (logits [B, T, V], k, v [L, B, H, T, Dh]).  Causal
     masking means positions beyond a prompt's live length only
-    contaminate their own rows — the cache masks them by length."""
+    contaminate their own rows — the cache masks them by length.  Under
+    a serving ``mesh`` the params are the rank's Megatron pieces and k, v
+    its H/tp heads."""
     B, T = tokens.shape
     if T > cfg.n_positions:
         raise ValueError(
             f"sequence length {T} exceeds n_positions={cfg.n_positions}")
-    tokens = tokens.long()
-    x = params["wte"][tokens] + params["wpe"][:T][None]
+    pos = torch.arange(T, device=tokens.device)[None]
+    x = _embed(cfg, params, tokens, pos, mesh)
     ks, vs = [], []
     for i in range(cfg.n_layer):
-        x, (k, v) = gpt2_block_prefill(cfg, _layer(params["blocks"], i), x)
+        x, (k, v) = gpt2_block_prefill(cfg, _layer(params["blocks"], i), x,
+                                       mesh)
         ks.append(k)
         vs.append(v)
-    return _logits(params, x), torch.stack(ks), torch.stack(vs)
+    return (_serve_logits(cfg, params, x, mesh), torch.stack(ks),
+            torch.stack(vs))
 
 
 @torch.no_grad()
 def gpt2_decode_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
-                     lengths, active, impl: Optional[str] = None):
+                     lengths, active, impl: Optional[str] = None,
+                     mesh=None):
     """One decode tick for every slot at once.
 
     tokens [S] — each slot's last emitted/prompt token; k_cache/v_cache
@@ -681,16 +679,15 @@ def gpt2_decode_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
     T = k_cache.shape[3]
     lengths = lengths.to(torch.int32)
     positions = lengths.clamp(0, min(T, cfg.n_positions) - 1)
-    tokens = tokens.long()
-    x = (params["wte"][tokens] + params["wpe"][positions.long()])[:, None]
+    x = _embed(cfg, params, tokens, positions, mesh)[:, None]
     # live keys this tick include the token being decoded; free slots
     # attend nothing (exact-zero attention rows)
     att_len = torch.where(active, lengths + 1, 0).to(torch.int32)
     for i in range(cfg.n_layer):
         x = gpt2_block_decode(cfg, _layer(params["blocks"], i), x,
                               k_cache[i], v_cache[i], positions, att_len,
-                              active, impl)
-    logits = _logits(params, x)[:, 0]
+                              active, impl, mesh)
+    logits = _serve_logits(cfg, params, x, mesh)[:, 0]
     return logits, k_cache, v_cache, lengths + active.to(torch.int32)
 
 
@@ -743,22 +740,23 @@ def _cache_write_rows(cache, new, positions, row_valid):
 
 
 def gpt2_block_verify(cfg: GPT2Config, bp, x, k_cache, v_cache, positions,
-                      row_valid, row_lens, impl: str):
+                      row_valid, row_lens, impl: str, mesh=None):
     """One block of the verify pass: x [S, W, D]; writes all W K/V rows
     (masked per row) then runs the multi-query decode attention."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, W, Dh]
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)          # [S, H, W, Dh]
     _cache_write_rows(k_cache, k, positions, row_valid)
     _cache_write_rows(v_cache, v, positions, row_valid)
     attn = decode_attention_multi(q, k_cache, v_cache, row_lens,
                                   impl=impl)            # [S, H, W, Dh]
-    x = gpt2_attn_project(bp, x, attn)
+    x = gpt2_attn_project(bp, x, attn, mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h)
+    return x + gpt2_ffn(bp, h, mesh)
 
 
 @torch.no_grad()
 def gpt2_verify_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
-                     lengths, active, impl: Optional[str] = None):
+                     lengths, active, impl: Optional[str] = None,
+                     mesh=None):
     """One speculative verify pass for every slot at once.
 
     tokens [S, W] — per slot its pending token then its k draft
@@ -773,12 +771,12 @@ def gpt2_verify_step(cfg: GPT2Config, params, tokens, k_cache, v_cache,
     S, W = tokens.shape
     cap = min(k_cache.shape[3], cfg.n_positions)
     positions, row_valid, row_lens = _verify_rows(lengths, active, W, cap)
-    x = _embed(params, tokens, positions)               # [S, W, D]
+    x = _embed(cfg, params, tokens, positions, mesh)    # [S, W, D]
     for i in range(cfg.n_layer):
         x = gpt2_block_verify(cfg, _layer(params["blocks"], i), x,
                               k_cache[i], v_cache[i], positions, row_valid,
-                              row_lens, impl)
-    return _logits(params, x), k_cache, v_cache
+                              row_lens, impl, mesh)
+    return _serve_logits(cfg, params, x, mesh), k_cache, v_cache
 
 
 # ---------------------------------------------------------------------------
@@ -850,23 +848,24 @@ def _route(page_table, positions, valid, page_len: int):
 
 def gpt2_block_decode_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
                             page_table, positions, att_len, active,
-                            impl: str, k_scale=None, v_scale=None):
+                            impl: str, k_scale=None, v_scale=None,
+                            mesh=None):
     """One block of a paged decode tick: x [S, 1, D]; writes the token's
     K/V at ``positions`` into the slot's page (masked by ``active``,
     masked slots routed to scratch) then attends over ``att_len`` live
     keys per slot through the page table.  With the int8 pool
     (``k_scale``/``v_scale`` [P, H, page_len]) the write quantizes each
     row and the attention runs the int8 kernel arm."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, 1, Dh]
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)          # [S, H, 1, Dh]
     page_ids, offs = _route(page_table, positions, active, k_pool.shape[2])
     _paged_write(k_pool, k_scale, k[:, :, 0], page_ids, offs, active)
     _paged_write(v_pool, v_scale, v[:, :, 0], page_ids, offs, active)
     attn = decode_attention_paged(q[:, :, 0], k_pool, v_pool, page_table,
                                   att_len, impl=impl, k_scale=k_scale,
                                   v_scale=v_scale)      # [S, H, Dh]
-    x = gpt2_attn_project(bp, x, attn[:, :, None, :])
+    x = gpt2_attn_project(bp, x, attn[:, :, None, :], mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h)
+    return x + gpt2_ffn(bp, h, mesh)
 
 
 @torch.no_grad()
@@ -874,7 +873,7 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
                            page_table, lengths, active,
                            impl: Optional[str] = None, k_scale=None,
                            v_scale=None, lora=None, adapter_slots=None,
-                           lora_scale: float = 1.0):
+                           lora_scale: float = 1.0, mesh=None):
     """One decode tick for every slot at once over the paged pool — the
     paged twin of :func:`gpt2_decode_step`.
 
@@ -898,7 +897,7 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     cap = page_table.shape[1] * page_len
     lengths = lengths.to(torch.int32)
     positions = lengths.clamp(0, min(cap, cfg.n_positions) - 1)
-    x = _embed(params, tokens, positions)[:, None]
+    x = _embed(cfg, params, tokens, positions, mesh)[:, None]
     att_len = torch.where(active, lengths + 1, 0).to(torch.int32)
     rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
@@ -906,8 +905,9 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
         x = gpt2_block_decode_paged(cfg, bp, x,
                                     k_pool[i], v_pool[i], page_table,
                                     positions, att_len, active, impl,
-                                    **_layer_scales(k_scale, v_scale, i))
-    logits = _logits(params, x)[:, 0]
+                                    **_layer_scales(k_scale, v_scale, i),
+                                    mesh=mesh)
+    logits = _serve_logits(cfg, params, x, mesh)[:, 0]
     new_lengths = lengths + active.to(torch.int32)
     if k_scale is not None:
         return logits, k_pool, v_pool, k_scale, v_scale, new_lengths
@@ -916,13 +916,14 @@ def gpt2_decode_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
 
 def gpt2_block_verify_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
                             page_table, positions, row_valid, row_lens,
-                            impl: str, k_scale=None, v_scale=None):
+                            impl: str, k_scale=None, v_scale=None,
+                            mesh=None):
     """One block of the paged verify pass: the W rows' page-routed writes
     in one scatter (masked rows to scratch; valid rows of a slot are W
     distinct positions of its own pages) then the paged multi-query
     attention — quantizing each row on write and running the int8 arm on
     the int8 pool."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [S, H, W, Dh]
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)          # [S, H, W, Dh]
     page_ids, offs = _route(page_table, positions, row_valid,
                             k_pool.shape[2])            # [S, W]
     _paged_write(k_pool, k_scale, k.transpose(1, 2), page_ids, offs,
@@ -932,9 +933,9 @@ def gpt2_block_verify_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
     attn = decode_attention_paged_multi(q, k_pool, v_pool, page_table,
                                         row_lens, impl=impl, k_scale=k_scale,
                                         v_scale=v_scale)
-    x = gpt2_attn_project(bp, x, attn)
+    x = gpt2_attn_project(bp, x, attn, mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h)
+    return x + gpt2_ffn(bp, h, mesh)
 
 
 @torch.no_grad()
@@ -942,7 +943,7 @@ def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
                            page_table, lengths, active,
                            impl: Optional[str] = None, k_scale=None,
                            v_scale=None, lora=None, adapter_slots=None,
-                           lora_scale: float = 1.0):
+                           lora_scale: float = 1.0, mesh=None):
     """The paged twin of :func:`gpt2_verify_step`: the engine must have
     allocated pages covering all W rows before the pass (and rolls back
     the ones the acceptance did not keep).  Returns (logits [S, W, V],
@@ -954,22 +955,24 @@ def gpt2_verify_step_paged(cfg: GPT2Config, params, tokens, k_pool, v_pool,
     S, W = tokens.shape
     cap = min(page_table.shape[1] * k_pool.shape[3], cfg.n_positions)
     positions, row_valid, row_lens = _verify_rows(lengths, active, W, cap)
-    x = _embed(params, tokens, positions)
+    x = _embed(cfg, params, tokens, positions, mesh)
     rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
         bp = _lora_bind(_layer(params["blocks"], i), rows, i, lora_scale)
         x = gpt2_block_verify_paged(cfg, bp, x,
                                     k_pool[i], v_pool[i], page_table,
                                     positions, row_valid, row_lens, impl,
-                                    **_layer_scales(k_scale, v_scale, i))
+                                    **_layer_scales(k_scale, v_scale, i),
+                                    mesh=mesh)
+    logits = _serve_logits(cfg, params, x, mesh)
     if k_scale is not None:
-        return _logits(params, x), k_pool, v_pool, k_scale, v_scale
-    return _logits(params, x), k_pool, v_pool
+        return logits, k_pool, v_pool, k_scale, v_scale
+    return logits, k_pool, v_pool
 
 
 def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
                              page_row, prefix_len: int, delta_len: int,
-                             k_scale=None, v_scale=None):
+                             k_scale=None, v_scale=None, mesh=None):
     """One block of the delta-aware paged prefill: the delta tokens' K/V
     (absolute positions ``prefix_len + i``, ``i < delta_len``) written
     into the slot's pages, then the attention.  Two arms, chosen on the
@@ -985,7 +988,7 @@ def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
     With the int8 pool the delta rows are quantized on write; the first
     arm still attends the exact fp K/V (only the stored rows are
     quantized), and the gather arm dequantizes the pool first."""
-    q, k, v = gpt2_qkv_heads(cfg, bp, x)                # [1, H, Tq, Dh]
+    q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)          # [1, H, Tq, Dh]
     page_len = k_pool.shape[2]
     pos = prefix_len + torch.arange(delta_len, device=x.device)
     page_ids = page_row.long()[pos // page_len]
@@ -1020,16 +1023,16 @@ def gpt2_block_prefill_paged(cfg: GPT2Config, bp, x, k_pool, v_pool,
         s = torch.where(ok[None], s, torch.finfo(torch.float32).min)
         probs = torch.softmax(s, dim=-1).to(q.dtype)
         attn = torch.einsum("hts,hsd->htd", probs, vg.to(q.dtype))[None]
-    x = gpt2_attn_project(bp, x, attn)
+    x = gpt2_attn_project(bp, x, attn, mesh=mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + gpt2_ffn(bp, h)
+    return x + gpt2_ffn(bp, h, mesh)
 
 
 @torch.no_grad()
 def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
                        prefix_len, page_row, k_pool, v_pool, k_scale=None,
                        v_scale=None, lora=None, adapter_slots=None,
-                       lora_scale: float = 1.0):
+                       lora_scale: float = 1.0, mesh=None):
     """Delta-aware prefill into the paged pool (full prefills, prefix-hit
     deltas and prefill chunks alike).
 
@@ -1061,14 +1064,16 @@ def gpt2_prefill_paged(cfg: GPT2Config, params, tokens, delta_len,
             f"{page_row.shape[0]}-page table")
     pos = (prefix_len + torch.arange(Tq, device=tokens.device)).clamp(
         0, cfg.n_positions - 1)
-    x = _embed(params, tokens, pos[None])
+    x = _embed(cfg, params, tokens, pos[None], mesh)
     rows = _lora_rows(lora, adapter_slots)
     for i in range(cfg.n_layer):
         bp = _lora_bind(_layer(params["blocks"], i), rows, i, lora_scale)
         x = gpt2_block_prefill_paged(cfg, bp, x,
                                      k_pool[i], v_pool[i], page_row,
                                      prefix_len, delta_len,
-                                     **_layer_scales(k_scale, v_scale, i))
+                                     **_layer_scales(k_scale, v_scale, i),
+                                     mesh=mesh)
+    logits = _serve_logits(cfg, params, x, mesh)
     if k_scale is not None:
-        return _logits(params, x), k_pool, v_pool, k_scale, v_scale
-    return _logits(params, x), k_pool, v_pool
+        return logits, k_pool, v_pool, k_scale, v_scale
+    return logits, k_pool, v_pool

@@ -51,7 +51,7 @@ def build_lut(layout: np.ndarray, use_native: Optional[bool] = None
         raise NotImplementedError(
             "build_lut(use_native=True) (the host C++ LUT pass shared with "
             "CPU-Adam) is not ported to deepspeed_tpu_torch yet: ROADMAP.md "
-            "queue 1, item 12 (offload and input pipeline)")
+            "queue 1, item 12 (its second half)")
     H, nb, _ = layout.shape
     width = max(int(layout.sum(-1).max()), 1)
     cols = np.zeros((H, nb, width), dtype=np.int32)

@@ -32,7 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ...runtime.utils import dropout, fold_in
+from ...parallel import collectives as col
+from ...parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ...runtime.utils import (data_rows, dropout, fold_in,
+                              seeded_generator)
 from ..kernels.flash_attention import flash_attention
 
 _M32 = 0xFFFFFFFF
@@ -88,6 +91,23 @@ def _layer_norm(x, scale, bias, eps: float = 1e-12):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def _head_dropout(probs, rate: float, seed, mesh, heads: int):
+    """:func:`dropout` of the rank's rows and heads of ``probs`` [B,
+    H/tp, Tq, Tk] under a mesh: the mask is drawn over the global rows
+    and all ``heads`` and the rank keeps its own, so it does not depend
+    on the layout."""
+    if rate <= 0.0:
+        return probs
+    B, H = probs.shape[:2]
+    r0, rows = data_rows(mesh, B)
+    keep = torch.rand((rows, heads) + tuple(probs.shape[2:]),
+                      generator=seeded_generator(seed, probs.device),
+                      device=probs.device) < 1.0 - rate
+    h0 = mesh.axis_index(MODEL_AXIS) * H
+    return torch.where(keep[r0:r0 + B, h0:h0 + H], probs / (1.0 - rate),
+                       0.0).to(probs.dtype)
 
 
 def _maybe_checkpoint(fn, on: bool):
@@ -186,12 +206,17 @@ class DeepSpeedTransformerLayer:
             return m[:, 0, 0, :].expand(B, T).float()
         return m[:, :, 0, :].expand(B, H, T).reshape(B * H, T).float()
 
-    def _attention(self, params, h, attention_mask, rng, train):
+    def _attention(self, params, h, attention_mask, rng, train, mesh=None):
+        """Self-attention; under ``mesh`` (Megatron tensor parallelism)
+        ``attn_qkvw`` is the rank's column piece (its heads), ``attn_ow``
+        its row piece, the partial output all-reduced over ``model``."""
         cfg = self.config
         B, T, D = h.shape
-        H = cfg.heads
-        Dh = D // H
+        Dh = D // cfg.heads
+        H = params["attn_qkvw"].shape[-1] // Dh         # the rank's heads
         rate = cfg.attn_dropout_ratio if train else 0.0
+        if mesh is not None:
+            h = col.copy_to_axis(h, mesh, MODEL_AXIS)
         qkv = (torch.einsum("btd,dke->btke", h, params["attn_qkvw"].to(h.dtype))
                + params["attn_qkvb"].to(h.dtype))
 
@@ -204,10 +229,15 @@ class DeepSpeedTransformerLayer:
             # attn_dropout_checkpoint holds by construction
             km = (None if attention_mask is None
                   else self._key_mask_rows(attention_mask, B, H, T))
+            # the hash takes the global (batch, head) ids of the rank's
+            # rows and heads
+            bh = (None if mesh is None else
+                  (mesh.axis_index(DATA_AXIS) * B * cfg.heads
+                   + mesh.axis_index(MODEL_AXIS) * H, H, cfg.heads))
             ctx = flash_attention(
                 q, k, v, causal=False, dropout_rate=rate,
                 dropout_seed=None if rng is None else rng & _M32,
-                key_mask=km)
+                key_mask=km, bh_affine=bh)
         else:
             def probs_ctx(q, k, v):
                 scores = torch.einsum("bhqd,bhkd->bhqk", q.float(),
@@ -217,34 +247,45 @@ class DeepSpeedTransformerLayer:
                     while mask.ndim < 4:
                         mask = mask[:, None]
                     scores = scores + mask
-                probs = dropout(torch.softmax(scores, dim=-1).to(q.dtype),
-                                rate, rng)
+                probs = torch.softmax(scores, dim=-1).to(q.dtype)
+                probs = (dropout(probs, rate, rng) if mesh is None else
+                         _head_dropout(probs, rate, rng, mesh, cfg.heads))
                 return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
             ctx = _maybe_checkpoint(probs_ctx, cfg.attn_dropout_checkpoint)(
                 q, k, v)
-        ctx = ctx.transpose(1, 2).reshape(B, T, D)
-        return ctx @ params["attn_ow"].to(h.dtype) \
-            + params["attn_ob"].to(h.dtype)
+        ctx = ctx.transpose(1, 2).reshape(B, T, H * Dh)
+        y = ctx @ params["attn_ow"].to(h.dtype)
+        if mesh is not None:
+            y = col.reduce_from_axis(y, mesh, MODEL_AXIS)
+        return y + params["attn_ob"].to(h.dtype)
 
-    def _ffn(self, params, h):
+    def _ffn(self, params, h, mesh=None):
+        """inter → gelu → output; under ``mesh`` ``inter_w`` is
+        column-parallel and ``output_w`` row-parallel (all-reduce over
+        ``model`` before the bias)."""
         def inner(h):
             x = h @ params["inter_w"].to(h.dtype) \
                 + params["inter_b"].to(h.dtype)
             return F.gelu(x, approximate="none")
 
+        if mesh is not None:
+            h = col.copy_to_axis(h, mesh, MODEL_AXIS)
         x = _maybe_checkpoint(inner, self.config.gelu_checkpoint)(h)
-        return x @ params["output_w"].to(h.dtype) \
-            + params["output_b"].to(h.dtype)
+        y = x @ params["output_w"].to(h.dtype)
+        if mesh is not None:
+            y = col.reduce_from_axis(y, mesh, MODEL_AXIS)
+        return y + params["output_b"].to(h.dtype)
 
     def __call__(self, params, hidden_states, attention_mask=None,
-                 rng: Optional[int] = None, train: bool = True):
+                 rng: Optional[int] = None, train: bool = True, mesh=None):
         cfg = self.config
         x = hidden_states
         drop = cfg.hidden_dropout_ratio if train else 0.0
         if rng is None:
             rng = max(cfg.seed, 0)
         r_attn, r1, r2 = fold_in(rng, 0), fold_in(rng, 1), fold_in(rng, 2)
+        rows = data_rows(mesh, x.shape[0])
 
         def ln1(t):
             return _layer_norm(t, params["attn_nw"], params["attn_nb"])
@@ -256,14 +297,15 @@ class DeepSpeedTransformerLayer:
         ln2 = _maybe_checkpoint(ln2, cfg.normalize_invertible)
         if cfg.pre_layer_norm:
             attn_out = self._attention(params, ln1(x), attention_mask,
-                                       r_attn, train)
-            x = x + dropout(attn_out, drop, r1)
-            ffn_out = self._ffn(params, ln2(x))
-            return x + dropout(ffn_out, drop, r2)
+                                       r_attn, train, mesh)
+            x = x + dropout(attn_out, drop, r1, rows)
+            ffn_out = self._ffn(params, ln2(x), mesh)
+            return x + dropout(ffn_out, drop, r2, rows)
         # post-LN (classic BERT)
-        attn_out = self._attention(params, x, attention_mask, r_attn, train)
-        x = ln1(x + dropout(attn_out, drop, r1))
-        ffn_out = self._ffn(params, x)
-        return ln2(x + dropout(ffn_out, drop, r2))
+        attn_out = self._attention(params, x, attention_mask, r_attn, train,
+                                   mesh)
+        x = ln1(x + dropout(attn_out, drop, r1, rows))
+        ffn_out = self._ffn(params, x, mesh)
+        return ln2(x + dropout(ffn_out, drop, r2, rows))
 
     forward = __call__

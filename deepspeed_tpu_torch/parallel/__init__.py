@@ -9,6 +9,7 @@ from .topology import (  # noqa: F401
 )
 from .mesh import (  # noqa: F401
     Mesh,
+    RankSharding,
     build_mesh,
     single_device_mesh,
     mesh_axis_size,

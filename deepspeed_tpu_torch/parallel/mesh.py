@@ -16,9 +16,12 @@ from this one only along that axis:
 ``pipe`` and ``seq`` must be 1 in this slice: the pipeline is ROADMAP.md
 queue 1 item 10, sequence parallelism item 11.  The JAX module's
 ``replicated`` and ``data_sharded`` (``NamedSharding`` factories) have no
-counterpart: placement in the port is explicit — the engine slices each
-rank's pieces itself (``runtime/zero.py``) and the batch contract gives
-each rank its own rows.
+counterpart: placement in the port is explicit — the training engine
+slices each rank's pieces itself (``runtime/zero.py``), the batch
+contract gives each rank its own rows, and :class:`RankSharding` (a spec
+over this mesh, the counterpart of a ``NamedSharding``) names the slice
+of a tensor a rank holds, as the serving engine places its parameters
+and caches.
 
 A mesh built with no process group (one process, nothing joined) is
 local: its axes are all 1 and the collectives over it compute the
@@ -26,7 +29,7 @@ one-rank result in place (``parallel/collectives.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch.distributed as dist
 
@@ -88,6 +91,37 @@ class Mesh:
     def __repr__(self):
         return (f"Mesh({self.shape}, rank={self.rank}"
                 f"{', local' if self.is_local else ''})")
+
+
+class RankSharding(NamedTuple):
+    """A tensor's placement over a :class:`Mesh`: ``spec`` names the mesh
+    axis each dim is split over (None, or a dim past its end: whole on
+    every rank), and this rank holds the slice :meth:`box` gives — the
+    counterpart of a ``jax.sharding.NamedSharding``."""
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+    def box(self, shape) -> Tuple[Tuple[int, int], ...]:
+        """This rank's ``[start, stop)`` per dim of a tensor of ``shape``."""
+        out = []
+        for d, n in enumerate(shape):
+            axis = self.spec[d] if d < len(self.spec) else None
+            k = 1 if axis is None else self.mesh.axis_size(axis)
+            if n % k:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"divide by the {axis} axis's {k}")
+            i = 0 if axis is None else self.mesh.axis_index(axis)
+            out.append((i * (n // k), (i + 1) * (n // k)))
+        return tuple(out)
+
+    def shard_shape(self, shape) -> Tuple[int, ...]:
+        return tuple(b - a for a, b in self.box(shape))
+
+    def piece(self, t):
+        """This rank's slice of the whole tensor ``t`` (an owned copy
+        unless it is all of ``t``)."""
+        p = t[tuple(slice(a, b) for a, b in self.box(t.shape))]
+        return p if p.numel() == t.numel() else p.clone()
 
 
 def build_mesh(pp: int = 1, dp: Optional[int] = None, tp: int = 1,

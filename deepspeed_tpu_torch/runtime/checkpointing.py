@@ -1058,10 +1058,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     cfg = _ckpt_config(engine)
     mesh = getattr(engine, "mesh", None)
     if async_write and mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "an async checkpoint save across processes is not ported to "
-            "deepspeed_tpu_torch yet: ROADMAP.md queue 1, item 9 (its "
-            "remaining half)")
+        log_dist("async checkpoint save is single-controller only; "
+                 "writing synchronously", ranks=[0])
+        async_write = False
     writer: Optional[AsyncCheckpointWriter] = getattr(
         engine, "_ckpt_writer", None)
     if not async_write and writer is not None and writer.in_flight():

@@ -40,17 +40,35 @@ and LAMB's trust ratios are the whole logical leaves' (a leaf's piece
 sums reduced over its groups, a replicated leaf counted once); the loss
 is the global mean, the same on every rank.  At one rank the same
 collectives run (a one-rank NCCL group on the card); an engine with no
-process group runs them as one-rank identities.  The
-``data_prefetch`` block (on by default) runs inline here: the batch is
-moved to the card inside ``train_batch``, a device tensor passes
-straight through.
+process group runs them as one-rank identities.  The ``data_prefetch``
+block (on by default; ``DS_PREFETCH=0`` turns it off) wraps the training
+loader in a :class:`~.prefetch.DevicePrefetcher`: a worker places each
+batch on the card on a side stream ahead of its step; a batch passed to
+``train_batch`` directly is placed inline.
+
+ZeRO-Offload's host tier (``zero_optimization.cpu_offload`` at stage 2;
+``offload_impl`` "auto" resolves to "host" off a TPU, so on the card and
+on the CPU; ``runtime/offload.py``): the fp32 master and the Adam moments
+live in host RAM, updated by the native CPU Adam; the device keeps the
+compute copy, which ``runtime/zero.py``'s ``_Fetch`` reads as any stage's
+source.  A step computes the grads, the overflow flag (its one read-back,
+as in the JAX engine), the norm and clipping on the card, then pulls the
+grads leaf by leaf on a side stream while the host Adam runs, and
+uploads each updated leaf while the Adam goes on (``offload_pipeline``,
+on by default) or after it.  ``delayed_param_update`` applies step t's
+update while step t+1's forward and backward run on step t's params.
+Checkpoints keep the JAX engine's canonical tree (``FusedAdamState``
+count, mu, nu), so they cross between offload and plain engines and the
+JAX package.
 
 Checkpoints (``save_checkpoint``/``load_checkpoint``,
 ``runtime/checkpointing.py``) are the JAX package's on-disk format: the
 ``checkpoint`` block's async saves run on a daemon writer that ``close()``
 drains, and ``checkpoint.sigterm_save`` installs the preemption hook, its
 save deferred to the step boundary when the signal lands inside
-``train_batch``.
+``train_batch``.  Across several processes both are single-controller
+only, as in the JAX engine: an async save writes synchronously with one
+log line, and the SIGTERM hook is not installed (one warning).
 
 The telemetry plane (docs/observability.md) is the JAX engine's:
 ``tensorboard`` scalars buffered to the ``steps_per_print`` sync, the
@@ -63,8 +81,7 @@ timers (which synchronize the card every step, as the reference's do).
 Every other config knob whose path is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item: the pipeline (item
 10); sequence, experts, 1-bit Adam and ``sparse_gradients`` (item 11);
-offload (item 12); and async or SIGTERM saves across several processes
-(item 9's remaining half).
+the XLA offload tier and the disk tier (item 12's second half).
 """
 from __future__ import annotations
 
@@ -90,6 +107,7 @@ from . import precision
 from .dataloader import DeepSpeedDataLoader, supports_iter_state
 from .engine_stages import (finish_close, pop_stage_errors, stage_degraded,
                             wire_stage_plane)
+from .prefetch import DevicePlacedBatch, DevicePrefetcher, place_on_device
 from .lr_schedules import get_lr_schedule
 from .resilience import AsyncCheckpointWriter
 from .utils import clip_by_global_norm, fold_in, tree_leaves
@@ -144,15 +162,34 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
     run yet (defaults never raise)."""
     zc = config.zero_config
     if zc.cpu_offload:
-        raise _unported("zero_optimization.cpu_offload",
-                        "item 12 (offload and input pipeline)")
+        # "auto" resolves to the host tier off a TPU (reference
+        # engine.py:283-287); the host tier's own refusals are the JAX
+        # engine's (engine.py:510-542)
+        if zc.offload_impl == "xla":
+            raise _unported("zero_optimization.offload_impl='xla' (the "
+                            "XLA offload tier)", "item 12 (its second "
+                            "half)")
+        if config.offload_config.tier == "disk":
+            raise _unported("offload.tier='disk' (the disk offload tier)",
+                            "item 12 (its second half)")
+        for knob, on in (("offload_grad_chunks > 1",
+                          zc.offload_grad_chunks > 1),
+                         ("param_streaming", zc.param_streaming),
+                         ("offload_split_update",
+                          zc.offload_split_update or os.environ.get(
+                              "DS_OFFLOAD_SPLIT_UPDATE") == "1")):
+            if on:
+                raise ValueError(
+                    f"{knob} is an xla-tier mode; offload_impl resolved "
+                    "to 'host' on this platform. Set offload_impl='xla' "
+                    "explicitly.")
+        if config.zero_optimization_stage >= 3:
+            raise ValueError(
+                "ZeRO-3 × cpu_offload requires offload_impl='xla' "
+                "(data-sharded compute params); the host tier places "
+                "replicated compute params and would silently lose "
+                "stage 3's memory savings.")
     check_mesh(mesh)
-    if mesh is not None and mesh.size > 1 and (
-            config.checkpoint_config.async_save
-            or config.checkpoint_config.sigterm_save):
-        raise _unported(
-            "checkpoint.async_save / sigterm_save across processes",
-            "item 9 (its remaining half)")
     if config.pipeline_config.stages != C.PIPELINE_STAGES_DEFAULT:
         raise _unported("pipeline.stages > 1", "item 10 (pipeline)")
     name = config.optimizer_name
@@ -268,7 +305,15 @@ class DeepSpeedEngine:
             pieces.append(p if p.numel() == x.numel() else p.clone())
         master = _unflatten_like(full, pieces)
         del full
-        rt.set_sources(pieces)
+        self._offload = bool(config.zero_config.cpu_offload)
+        if self._offload:
+            # the host tier takes the rank's pieces to host RAM; the
+            # device keeps only the compute copy
+            self._init_host_offload(config, pieces)
+            master = _unflatten_like(master, self._host_opt.master)
+            pieces = None
+        else:
+            rt.set_sources(pieces)
         # the one input of every parameter fetch that requires grad, so
         # the fetches' backward (the gradient reduction) runs
         self._anchor = torch.zeros((), device=self.device,
@@ -280,7 +325,8 @@ class DeepSpeedEngine:
             config.fp16, device=self.device)
         self.state = TrainState(
             master_params=master,
-            opt_state=self.optimizer.init(tree_leaves(master)),
+            opt_state=(self._offload_opt_state() if self._offload
+                       else self.optimizer.init(tree_leaves(master))),
             scaler=scaler,
             skipped_steps=torch.zeros((), dtype=torch.int32,
                                       device=self.device))
@@ -299,8 +345,23 @@ class DeepSpeedEngine:
         self.training_dataloader = (
             self.deepspeed_io(training_data, collate_fn=collate_fn)
             if training_data is not None else None)
+        # the input pipeline: _training_iter wraps its loader in a
+        # DevicePrefetcher (DS_PREFETCH=0: inline placement)
+        pfc = config.data_prefetch_config
+        self._prefetch_enabled = (bool(pfc.enabled) and
+                                  os.environ.get("DS_PREFETCH", "1") != "0")
+        self._prefetch_depth = int(pfc.depth)
+        self._train_prefetcher: Optional[DevicePrefetcher] = None
+        self._prefetch_prev_stats = None
+        #: every prefetcher this engine built or adopted (close drains)
+        self._prefetchers: list = []
+        self._prefetch_stream = (torch.cuda.Stream(self.device)
+                                 if self.device.type == "cuda" else None)
         self._tb_pending: list = []
         self._init_telemetry(config)
+        if self._offload and self.telemetry is not None:
+            from .offload import set_transfer_tracer
+            set_transfer_tracer(self.telemetry.tracer)
         # one fault plane (docs/stages.md): stage records + drain graph
         wire_stage_plane(self)
         self._init_checkpointing(config)
@@ -422,9 +483,15 @@ class DeepSpeedEngine:
         self._preemption_handler = None
         ckc = config.checkpoint_config
         if ckc.sigterm_save:
-            from .resilience import install_preemption_handler
-            self._preemption_handler = install_preemption_handler(
-                self, ckc.save_dir or None)
+            if self.mesh.size > 1:
+                logger.warning(
+                    "checkpoint.sigterm_save is single-controller only "
+                    "(a pod-wide preemption save needs coordinated "
+                    "barriers); NOT installing the SIGTERM hook")
+            else:
+                from .resilience import install_preemption_handler
+                self._preemption_handler = install_preemption_handler(
+                    self, ckc.save_dir or None)
 
     def _init_finalizer(self) -> None:
         """GC/exit finalizer: a dropped engine's in-flight save lands
@@ -621,6 +688,191 @@ class DeepSpeedEngine:
         return packed
 
     # ------------------------------------------------------------------
+    # ZeRO-Offload, the host tier (reference engine.py:1541-1612,
+    # 2236-2550): device grads -> host Adam -> device compute copy
+    # ------------------------------------------------------------------
+    def _init_host_offload(self, config, pieces) -> None:
+        """The host optimizer over this rank's master pieces (several
+        processes: each stages its own data shards), its first compute
+        copy uploaded as the forward's source, and the step's knobs."""
+        from .offload import HostOffloadOptimizer
+        op = dict(config.optimizer_params)
+        sched = self._lr_schedule
+        lr = ((lambda n: float(sched(torch.tensor(n, dtype=torch.int32))))
+              if sched is not None else float(op.get("lr", 1e-3)))
+        # a card's engine never takes the numpy Adam: a failed build raises
+        native = True if self.device.type == "cuda" else None
+        self._host_opt = HostOffloadOptimizer(
+            pieces, lr=lr, betas=tuple(op.get("betas", (0.9, 0.999))),
+            eps=op.get("eps", 1e-8),
+            weight_decay=op.get("weight_decay", 0.0),
+            adamw_mode=op.get("adam_w_mode", True),
+            bias_correction=op.get("bias_correction", True),
+            compute_dtype=self.compute_dtype, use_native=native,
+            device=self.device)
+        self._set_compute(self._host_opt.upload_all(
+            self._host_opt.compute_params()))
+        zc = config.zero_config
+        self._dpu = bool(zc.delayed_param_update)
+        self._dpu_pending = None
+        self._offload_pipeline = (bool(zc.offload_pipeline) and
+                                  os.environ.get("DS_OFFLOAD_PIPELINE",
+                                                 "1") != "0")
+        self.last_offload_breakdown = None
+        self._offload_interval_acc = {"h2d": 0.0, "hidden": 0.0,
+                                      "cpu_adam": 0.0, "steps": 0}
+
+    def _set_compute(self, leaves) -> None:
+        """The uploaded compute copy (this rank's pieces) as the
+        forward's source: all-gathered over ``data`` where the stage
+        shards the master."""
+        with torch.no_grad():
+            self._zero.set_sources(leaves)
+
+    def _offload_opt_state(self):
+        """The host optimizer's state as a ``FusedAdamState`` (live views
+        of its moments)."""
+        from ..ops.adam import FusedAdamState
+        st = self._host_opt.state_tree()
+        return FusedAdamState(count=torch.tensor(st["step"],
+                                                 dtype=torch.int32),
+                              mu=st["mu"], nu=st["nu"])
+
+    def _train_step_offload(self, batch) -> torch.Tensor:
+        """One host-offload step on a placed batch (reference
+        ``_train_batch_offload``): grads, overflow flag, norm and
+        clipping on the card; the flag read back (the step's one sync);
+        the host update now, or deferred one step (DPU)."""
+        st = self.state
+        scaler = st.scaler
+        step_rng = fold_in(self._rng, self.global_steps)
+        grads, scaled_losses = self._scaled_grads(batch, scaler, step_rng)
+        with torch.no_grad():
+            finite = self._all_finite(grads)
+            grad_norm = self._global_norm(grads)
+            if self.gradient_clipping > 0:
+                grads, _ = clip_by_global_norm(grads, self.gradient_clipping,
+                                               norm=grad_norm)
+            mean_loss = col.pmean(
+                torch.stack(scaled_losses).mean() / scaler.loss_scale,
+                self.mesh, DATA_AXIS)
+        if self._dpu:
+            # step t-1's host Adam runs while this step's device work
+            # drains; the weights lag one step, the loss scale does not
+            self._dpu_flush()
+            if bool(finite):
+                with self._tel_span("offload/d2h_grads", cat="offload"):
+                    self._dpu_pending = self._host_opt.pull(grads)
+        elif bool(finite):
+            self._apply_host_update(grads)
+        with torch.no_grad():
+            new_skipped = st.skipped_steps + (~finite).to(torch.int32)
+            count = torch.full((), self._host_opt.opt.step_count,
+                               dtype=torch.int32, device=self.device)
+            packed = torch.stack([
+                mean_loss.float(), grad_norm.float(),
+                scaler.loss_scale.float(), (~finite).float(),
+                self._lr_at(count).reshape(())])
+            new_scaler = precision.update_scale(scaler, finite,
+                                                self.loss_scale_config)
+        self.state = TrainState(master_params=st.master_params,
+                                opt_state=self._offload_opt_state(),
+                                scaler=new_scaler,
+                                skipped_steps=new_skipped)
+        return packed
+
+    def _apply_host_update(self, grads) -> None:
+        """The host Adam over ``grads`` and the compute copy's upload:
+        streamed leaf by leaf under the Adam (``offload_pipeline``, unless
+        the ``offload_h2d`` stage degraded) or after it (serial)."""
+        if self._offload_pipeline \
+                and not stage_degraded(self, "offload_h2d"):
+            return self._apply_host_update_pipelined(grads)
+        t0 = time.perf_counter()
+        with self._tel_span("offload/host_adam", cat="offload"):
+            lowp = self._host_opt.step(grads)
+        t1 = time.perf_counter()
+        with self._tel_span("offload/h2d_params", cat="offload"):
+            self._set_compute(self._host_opt.upload_all(lowp))
+        self._record_offload_overlap(
+            [], t0, t1, time.perf_counter(),
+            h2d_bytes=sum(x.numel() * x.element_size() for x in lowp
+                          if x is not None))
+
+    def _apply_host_update_pipelined(self, grads) -> None:
+        """While the host Adam updates leaf i, leaf i+1's grad copy is in
+        flight and leaf i-1's compute copy is uploading; the compute
+        params are swapped only after every upload landed — a failure
+        poisons the optimizer and keeps the old ones."""
+        from .offload import StreamingUploader
+        up = self._active_uploader = StreamingUploader(
+            self._host_opt.upload, stage=self._stage_records["offload_h2d"])
+        t0 = time.perf_counter()
+        try:
+            try:
+                with self._tel_span("offload/host_adam", cat="offload",
+                                    pipelined=True):
+                    self._host_opt.step(grads, on_leaf=up.submit)
+            except BaseException:
+                up.abort()
+                raise
+            t1 = time.perf_counter()
+            try:
+                with self._tel_span("offload/h2d_tail", cat="offload"):
+                    results, timings = up.finish()
+            except BaseException as e:
+                self._host_opt.poison(e)
+                raise
+        finally:
+            self._active_uploader = None
+        self._set_compute([results[i]
+                           for i in range(len(self._host_opt.master))])
+        self._record_offload_overlap(timings, t0, t1, time.perf_counter())
+
+    def _record_offload_overlap(self, timings, adam_start, adam_end, end,
+                                h2d_bytes=None):
+        """The step's offload breakdown from host stamps (how much of the
+        H2D time hid under the Adam window): ``last_offload_breakdown``,
+        the ``offload_overlap_ratio`` gauge and the interval scalars.
+        The serial path passes no timings (its upload is all tail) and
+        the bytes it uploaded."""
+        h2d = sum(t1 - t0 for _, t0, t1, _ in timings)
+        hidden = sum(max(0.0, min(t1, adam_end) - max(t0, adam_start))
+                     for _, t0, t1, _ in timings)
+        ratio = (hidden / h2d) if h2d > 0 else 0.0
+        self.last_offload_breakdown = {
+            "pipelined": bool(timings) or self._offload_pipeline,
+            "d2h_s": float(self._host_opt.last_d2h_seconds),
+            "d2h_bytes": int(self._host_opt.last_d2h_bytes),
+            "cpu_adam_s": adam_end - adam_start,
+            "h2d_s": h2d if timings else end - adam_end,
+            "h2d_bytes": int(sum(b for *_, b in timings)
+                             if h2d_bytes is None else h2d_bytes),
+            "h2d_hidden_s": hidden,
+            "h2d_tail_s": end - adam_end,
+            "overlap_ratio": ratio,
+        }
+        acc = self._offload_interval_acc
+        acc["h2d"] += self.last_offload_breakdown["h2d_s"]
+        acc["hidden"] += hidden
+        acc["cpu_adam"] += self.last_offload_breakdown["cpu_adam_s"]
+        acc["steps"] += 1
+        if self.telemetry is not None:
+            self.telemetry.registry.gauge(
+                "offload_overlap_ratio",
+                "fraction of offload H2D param-upload time hidden under "
+                "the host Adam (streaming pipeline; serial path = 0)",
+            ).set(ratio)
+
+    def _dpu_flush(self) -> None:
+        """Apply a pending delayed update (a save, an eval and a load
+        must see the fully-applied master)."""
+        pending = getattr(self, "_dpu_pending", None)
+        if pending is not None:
+            self._dpu_pending = None
+            self._apply_host_update(pending)
+
+    # ------------------------------------------------------------------
     # batches
     # ------------------------------------------------------------------
     def deepspeed_io(self, dataset, batch_size=None, collate_fn=None):
@@ -658,12 +910,67 @@ class DeepSpeedEngine:
         return _tree_map(place, batch)
 
     def _training_iter(self):
-        """Persistent iterator over the training dataloader."""
+        """Persistent iterator over the training dataloader, wrapped in a
+        :class:`DevicePrefetcher` when ``data_prefetch`` is on."""
         if self.training_dataloader is None:
             return None
         if self._train_data_iter is None:
-            self._train_data_iter = iter(self.training_dataloader)
+            loader = self.training_dataloader
+            if self._prefetch_enabled:
+                # the loader object: the prefetcher keeps its state_dict
+                # for sample-exact resume
+                it = self.prefetch(loader)
+                self._bind_train_prefetcher(it)
+            else:
+                it = iter(loader)
+            self._train_data_iter = it
         return self._train_data_iter
+
+    def _bind_train_prefetcher(self, pf: DevicePrefetcher) -> None:
+        """Make ``pf`` the training prefetcher whose stats feed the
+        telemetry sync (close() drains every one)."""
+        if pf not in self._prefetchers:
+            self._prefetchers.append(pf)
+        self._train_prefetcher = pf
+        self._prefetch_prev_stats = None
+
+    def prefetch(self, data_iter, depth: Optional[int] = None,
+                 for_eval: bool = False) -> DevicePrefetcher:
+        """Wrap ``data_iter`` in a :class:`DevicePrefetcher` placing each
+        batch as ``train_batch`` (or, ``for_eval``, ``eval_batch``) would:
+        a worker copies it to the card on a side stream ahead of its
+        step.  The worker holds the engine weakly."""
+        eng_ref = weakref.ref(self)
+
+        def place(batch, _eval=for_eval):
+            eng = eng_ref()
+            if eng is None:
+                raise RuntimeError(
+                    "engine was dropped; prefetcher is orphaned")
+            tree, ev = place_on_device(batch, eng.device,
+                                       eng._prefetch_stream)
+            if not _eval:
+                tree = eng._place_train_batch(tree)
+            return DevicePlacedBatch(tree, kind="eval" if _eval
+                                     else "train", event=ev)
+
+        def span(name, cat="runtime", **args):
+            eng = eng_ref()
+            if eng is None:
+                return contextlib.nullcontext()
+            return eng._tel_span(name, cat=cat, **args)
+
+        pf = DevicePrefetcher(
+            data_iter, place_fn=place,
+            depth=depth if depth is not None else self._prefetch_depth,
+            span_fn=span, name="eval" if for_eval else "train",
+            stage=self._stage_records["prefetch"],
+            tracer=(self.telemetry.tracer
+                    if self.telemetry is not None else None))
+        self._prefetchers[:] = [p for p in self._prefetchers
+                                if not p.closed]
+        self._prefetchers.append(pf)
+        return pf
 
     # ------------------------------------------------------------------
     # public training API
@@ -699,6 +1006,11 @@ class DeepSpeedEngine:
             it = data_iter or self._training_iter()
             if it is None:
                 raise ValueError("train_batch needs a batch or a data_iter")
+            if isinstance(it, DevicePrefetcher) \
+                    and self._train_prefetcher is not it:
+                # adopt a caller-built prefetcher: its stats feed the
+                # telemetry sync and close() shuts its worker down
+                self._bind_train_prefetcher(it)
             batch = next(it)
         t0 = time.time()
         if self.progressive_layer_drop is not None:
@@ -710,9 +1022,22 @@ class DeepSpeedEngine:
         # a dispatch span measures enqueue latency, and the periodic
         # on_sync emits the synced ground truth — no read of the card is
         # added per step
+        pre = isinstance(batch, DevicePlacedBatch)
+        if pre and batch.kind != "train":
+            raise ValueError(
+                f"train_batch received a {batch.kind!r}-placed batch (flat "
+                "micro-batch layout); it needs the train placement — "
+                "build the prefetcher with engine.prefetch(it) (not "
+                "for_eval=True)")
         with self._tel_span("train/shard_batch", cat="data",
-                            prefetched=False):
-            placed = self._place_train_batch(batch)
+                            prefetched=pre):
+            if pre:
+                if batch.ctx is not None and self.telemetry is not None:
+                    self.telemetry.tracer.flow_end(
+                        "data/batch", batch.ctx, cat="data")
+                placed = batch.ready()
+            else:
+                placed = self._place_train_batch(batch)
         if self._pg_check_pending:
             # first-step sweep, before any update mutates the state
             self._pg_check_pending = False
@@ -724,7 +1049,8 @@ class DeepSpeedEngine:
         # record_step / on_sync / the report line for the same batch
         with self._tel_span("train/dispatch", cat="train",
                             step=self.global_steps + 1):
-            packed = self._train_step(placed)
+            packed = (self._train_step_offload(placed) if self._offload
+                      else self._train_step(placed))
             self._last_packed = packed
             self._last_metrics = None
         if self.timers is not None:
@@ -870,6 +1196,38 @@ class DeepSpeedEngine:
                     scalars["ckpt_async_overlap_s"] = (
                         ca["overlap_s"] / max(ca.get("writes", 0), 1))
                 ca.update(save_s=0.0, overlap_s=0.0, saves=0, writes=0)
+        acc = getattr(self, "_offload_interval_acc", None)
+        if acc is not None and acc["steps"]:
+            # the pipeline's headline number over the whole interval
+            scalars["offload_overlap_ratio"] = (
+                acc["hidden"] / acc["h2d"] if acc["h2d"] > 0 else 0.0)
+            scalars["offload_h2d_s"] = acc["h2d"] / acc["steps"]
+            scalars["offload_cpu_adam_s"] = acc["cpu_adam"] / acc["steps"]
+            acc.update(h2d=0.0, hidden=0.0, cpu_adam=0.0, steps=0)
+        pf = self._train_prefetcher
+        if pf is not None:
+            # interval deltas of the prefetcher's cumulative stats: the
+            # hit ratio and the mean blocked wait per consumed batch
+            st = pf.stats()
+            prev = self._prefetch_prev_stats or {
+                "hits": 0, "misses": 0, "wait_s": 0.0}
+            self._prefetch_prev_stats = st
+            n = (st["hits"] - prev["hits"]) + (st["misses"]
+                                               - prev["misses"])
+            if n > 0:
+                hit_ratio = (st["hits"] - prev["hits"]) / n
+                scalars["prefetch_hit_ratio"] = hit_ratio
+                scalars["prefetch_wait_s"] = (
+                    (st["wait_s"] - prev["wait_s"]) / n)
+                self.telemetry.registry.gauge(
+                    "data_prefetch_hit_ratio",
+                    "fraction of consumed batches already device-"
+                    "resident when requested (async input pipeline)",
+                ).set(hit_ratio)
+            self.telemetry.registry.gauge(
+                "data_prefetch_queue_depth",
+                "batches staged ahead in the input-prefetch queue",
+            ).set(pf.qsize())
         if self._straggler_monitor is not None \
                 and self._heartbeat is not None:
             # fleet health from the shared heartbeat dir: flag hosts
@@ -1025,7 +1383,18 @@ class DeepSpeedEngine:
                     "fall back to the training iterator (that would consume "
                     "and advance the training data stream)")
             batch = next(data_iter)
-        micro = _tree_map(self._to_device, batch)
+        if isinstance(batch, DevicePlacedBatch):
+            if batch.kind != "eval":
+                raise ValueError(
+                    f"eval_batch received a {batch.kind!r}-placed batch "
+                    "(the train accumulation layout); it needs the flat "
+                    "eval placement — build the prefetcher with "
+                    "engine.prefetch(it, for_eval=True)")
+            micro = batch.ready()
+        else:
+            micro = _tree_map(self._to_device, batch)
+        if self._offload:
+            self._dpu_flush()
         with torch.no_grad():
             params = self._zero.compute_tree(self._anchor)
             loss = self.module.loss_fn(
@@ -1082,6 +1451,8 @@ class DeepSpeedEngine:
         host and hands serialization to the daemon writer — the step loop
         pays only that copy; ``None`` takes the ``checkpoint.async_save``
         config, and a degraded writer saves synchronously."""
+        if self._offload:
+            self._dpu_flush()
         if async_write is None:
             async_write = bool(self.config.checkpoint_config.async_save)
         if async_write:
@@ -1124,8 +1495,18 @@ class DeepSpeedEngine:
     def _canonical_state(self):
         """(master, optimizer state) in the JAX engine's tree form: the
         count and the moments re-nested onto the param tree (this rank's
-        pieces of each leaf)."""
+        pieces of each leaf).  The host tier's is the same
+        ``FusedAdamState`` (its count an int64, as the JAX host tier
+        writes it), read through ``state_tree()``, which refuses while
+        the optimizer is poisoned."""
         master = self.state.master_params
+        if self._offload:
+            from ..ops.adam import FusedAdamState
+            st = self._host_opt.state_tree()
+            return master, FusedAdamState(
+                count=np.asarray(st["step"], np.int64),
+                mu=_unflatten_like(master, st["mu"]),
+                nu=_unflatten_like(master, st["nu"]))
         opt = self.state.opt_state
         if not all(hasattr(opt, f) for f in ("count", "mu", "nu")):
             raise NotImplementedError(
@@ -1151,8 +1532,28 @@ class DeepSpeedEngine:
     def _adopt_loaded(self, master, opt_tree, scaler,
                       skipped_steps: int) -> None:
         """Install loaded trees: ``opt_tree`` None (a module-only load)
-        starts the optimizer afresh on the loaded master."""
+        starts the optimizer afresh on the loaded master.  The host tier
+        copies them into its host buffers and uploads a fresh compute
+        copy; a pending delayed update is dropped (the load supersedes
+        it)."""
         leaves = tree_leaves(master)
+        if self._offload:
+            self._dpu_pending = None
+            ho = self._host_opt
+            if opt_tree is None:
+                ho.load_state_tree(leaves, 0)
+            else:
+                ho.load_state_tree(leaves, int(np.asarray(opt_tree.count)),
+                                   tree_leaves(opt_tree.mu),
+                                   tree_leaves(opt_tree.nu))
+            self._set_compute(ho.upload_all(ho.compute_params()))
+            self.state = TrainState(
+                master_params=self.state.master_params,
+                opt_state=self._offload_opt_state(), scaler=scaler,
+                skipped_steps=torch.tensor(skipped_steps,
+                                           dtype=torch.int32,
+                                           device=self.device))
+            return
         if opt_tree is None:
             opt_state = self.optimizer.init(leaves)
         else:
@@ -1167,9 +1568,18 @@ class DeepSpeedEngine:
 
     def data_iterator_state(self):
         """The training loader's position (JSON-able), or None without a
-        checkpointable loader — the checkpoint's data plane."""
+        checkpointable loader — the checkpoint's data plane.  Batches a
+        prefetcher staged but the engine did not consume count as not
+        drawn."""
+        pf = self._train_prefetcher
+        if pf is not None and not pf.closed:
+            try:
+                return pf.state_dict()
+            except TypeError:
+                return None
         for cand in (self._train_data_iter, self.training_dataloader):
-            if cand is not None and supports_iter_state(cand):
+            if cand is not None and supports_iter_state(cand) \
+                    and not isinstance(cand, DevicePrefetcher):
                 try:
                     return cand.state_dict()
                 except TypeError:
@@ -1190,6 +1600,11 @@ class DeepSpeedEngine:
                 "with load_state_dict()")
             return False
         loader.load_state_dict(state)
+        if self._train_prefetcher is not None:
+            # its queued batches predate the restored position
+            self._train_prefetcher.close()
+        self._train_prefetcher = None
+        self._prefetch_prev_stats = None
         self._train_data_iter = None
         return True
 

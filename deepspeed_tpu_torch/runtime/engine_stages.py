@@ -7,16 +7,16 @@ per-subsystem :class:`~.stages.Stage` records, the telemetry counter hook,
 the degradation dump, and THE documented drain order with its close/drain
 entries.
 
-THE training drain order (rationale in docs/stages.md): an in-flight
-checkpoint save is not droppable, so its stage drains (and surfaces
-failures) before telemetry flushes last, still seeing every stage's final
-spans and counters —
+THE training drain order (rationale in docs/stages.md): producers of
+droppable work stop first (prefetched batches; a streamed upload that
+never outlives its step call), an in-flight checkpoint save is not
+droppable, so its stage drains (and surfaces failures) before telemetry
+flushes last, still seeing every stage's final spans and counters —
 
-    ckpt writer -> telemetry flush
+    prefetch -> offload uploads -> ckpt writer -> telemetry flush
 
-The JAX engine's graph opens with the prefetch, offload-upload and disk
-write-back entries; they come with ROADMAP.md queue 1 item 12 (the port
-runs its ``data_prefetch`` inline, and has no offload yet).
+(the JAX engine's, minus its disk write-back entry: the disk tier is
+ROADMAP.md queue 1 item 12's second half).
 
 The serving engine has its own graph with the same discipline
 (``wire_serve_stage_plane``) —
@@ -31,6 +31,8 @@ from .stages import Stage, StageGraph
 
 #: (stage name, inline/serial fallback named in the degradation warning)
 ENGINE_STAGES = (
+    ("prefetch", "inline iteration"),
+    ("offload_h2d", "the serial offload update"),
     ("ckpt_writer", "synchronous saves"),
 )
 
@@ -75,8 +77,15 @@ def wire_stage_plane(engine) -> None:
     #: can pop several stages' failures and ``last_stage_error`` only
     #: carries the newest
     engine.stage_errors = []
+    engine._active_uploader = None
 
     graph = StageGraph()
+    graph.register("prefetch",
+                   close=lambda: close_prefetch_stage(engine),
+                   drain=lambda: None)  # queued batches are droppable
+    graph.register("offload_uploads",
+                   close=lambda: close_upload_stage(engine),
+                   drain=lambda: None)  # never outlives its step call
     graph.register("ckpt_writer",
                    close=lambda: close_ckpt_stage(engine),
                    drain=lambda: drain_ckpt_stage(engine))
@@ -136,6 +145,23 @@ def finish_close(engine) -> None:
 # ---------------------------------------------------------------------------
 # the training graph's entries, in THE drain order
 # ---------------------------------------------------------------------------
+def close_prefetch_stage(engine) -> None:
+    """Release the input pipeline: every prefetcher the engine built or
+    adopted and the batches it staged ahead (idempotent)."""
+    for pf in getattr(engine, "_prefetchers", []):
+        pf.close()
+
+
+def close_upload_stage(engine) -> None:
+    """Abort a mid-flight streamed upload (a close landing inside a step
+    from another thread): queued uploads drop, the old compute params
+    stay the consistent truth, an in-flight failure surfaces through the
+    stage record."""
+    up = getattr(engine, "_active_uploader", None)
+    if up is not None:
+        up.abort()
+
+
 def drain_ckpt_stage(engine) -> None:
     """Wait out an in-flight async save WITHOUT stopping the writer
     (sync-save ordering); its failure, if any, surfaces exactly like the

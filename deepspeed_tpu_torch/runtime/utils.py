@@ -140,6 +140,15 @@ def seeded_generator(seed: Optional[int], device) -> torch.Generator:
     return gen
 
 
+def data_rows(mesh, n: int):
+    """``(offset, total)`` of a data rank's ``n`` rows in the global
+    micro-batch the dropouts draw over, None without a mesh."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import DATA_AXIS
+    return mesh.axis_index(DATA_AXIS) * n, mesh.axis_size(DATA_AXIS) * n
+
+
 def dropout(x, rate: float, seed: Optional[int], rows=None):
     """Inverted dropout with keep probability ``1 - rate``, its mask drawn
     from a ``torch.Generator`` built here from the host ``seed`` (so a

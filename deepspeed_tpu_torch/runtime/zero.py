@@ -21,6 +21,11 @@ or None, per dim) and runs the collectives itself
             one data rank, so its gather is a broadcast from that owner
             and its gradient a reduce onto it.
 
+With ZeRO-Offload's host tier (``runtime/offload.py``) the master and
+moments live in host RAM and the sources are the uploaded compute copy
+(all-gathered over ``data`` where the master is sharded), the forward's
+one place for a layer's bytes to come from as at any stage.
+
 A leaf whose dims do not divide stays replicated (no padding), and a
 tensor-parallel dim that does not divide falls back to replication, as in
 the JAX plan.  Every collective runs at every stage and every group size

@@ -112,6 +112,51 @@ def test_parallel_modules_run_with_jax_unimportable():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
+def test_serve_mesh_offload_and_prefetch_run_with_jax_unimportable():
+    """The modules this slice adds (``runtime/offload.py``,
+    ``runtime/prefetch.py``, ``ops/cpu_adam.py``, ``ops/op_builder.py``)
+    and the serving mesh run with jax made unimportable: a one-rank gloo
+    group serves on a mesh, and the host offload tier trains from a
+    prefetched loader."""
+    code = ("import sys, tempfile\n"
+            "for m in ('jax', 'jaxlib', 'deepspeed_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import numpy as np, torch\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.inference import ServeEngine\n"
+            "from deepspeed_tpu_torch.models.gpt2 import GPT2Config, "
+            "GPT2Model\n"
+            "from deepspeed_tpu_torch.parallel import build_mesh, "
+            "init_distributed\n"
+            "from deepspeed_tpu_torch.runtime import offload, prefetch\n"
+            "from deepspeed_tpu_torch.ops import cpu_adam, op_builder\n"
+            "d = tempfile.mkdtemp()\n"
+            "init_distributed(device='cpu', init_method='file://' + d + "
+            "'/store', rank=0, world_size=1)\n"
+            "m = GPT2Model(GPT2Config(vocab_size=64, n_positions=32, "
+            "d_model=32, n_layer=1, n_head=2))\n"
+            "eng = ServeEngine(m, {'serving': {'slots': 2, 'max_seq_len': "
+            "16, 'prefill_len': 8, 'page_len': 4}}, mesh=build_mesh(), "
+            "device='cpu')\n"
+            "r = eng.submit([1, 2, 3], max_new_tokens=3)\n"
+            "eng.run_until_idle(); eng.close()\n"
+            "assert len(r.tokens) == 3\n"
+            "data = [np.arange(9) % 64 for _ in range(8)]\n"
+            "cfg = {'train_micro_batch_size_per_gpu': 2, 'bf16': "
+            "{'enabled': True}, 'zero_optimization': {'stage': 2, "
+            "'cpu_offload': True}, 'optimizer': {'type': 'Adam', "
+            "'params': {'lr': 1e-3}}}\n"
+            "tr, *_ = dst.initialize(model=m, config=cfg, device='cpu', "
+            "training_data=data)\n"
+            "loss = tr.train_batch()\n"
+            "assert tr._offload and tr._train_prefetcher is not None\n"
+            "tr.close()\n"
+            "print('ok', float(loss))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
 TINY = GPT2Config(vocab_size=64, n_positions=32, d_model=64, n_layer=1,
                   n_head=1)
 
@@ -130,10 +175,10 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 @pytest.mark.parametrize("extra,item", [
     # paged KV, KV tiering, speculation, sampling, quantized serving, LoRA,
-    # telemetry and KV-page migration are ported: each config builds, and
-    # with every one of them the serving knob still unported, a mesh
-    # (data/tensor-parallel serving), raises naming its item.  The ids
-    # name the block each case rides on.
+    # telemetry, KV-page migration and a serving mesh (item 9) are ported:
+    # each config builds alone and on a one-rank local mesh, and a mesh
+    # that is not a ``parallel.Mesh`` is refused typed.  The ids name the
+    # block each case rides on.
     ({"serving": {"page_len": 8, "kv_tier": {"idle_park_ticks": 3},
                   "temperature": 0.7}}, "item 9"),
     ({"serving": {"speculate_k": 2, "temperature": 0.7}}, "item 9"),
@@ -156,7 +201,12 @@ def test_unported_knob_raises_naming_its_roadmap_item(extra, item, tmp_path):
         with pytest.raises(ValueError, match="pages"):
             eng.adopt_request([1], 1, 4, None, [])
     eng.close()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md.*{item}"):
+    from deepspeed_tpu_torch.parallel import single_device_mesh
+    eng = ServeEngine(GPT2Model(TINY), extra, mesh=single_device_mesh(),
+                      device="cpu")
+    assert eng.mesh is not None and item == "item 9"
+    eng.close()
+    with pytest.raises(TypeError, match="Mesh"):
         ServeEngine(GPT2Model(TINY), extra, mesh=object(), device="cpu")
     if "telemetry" in extra:
         assert (tmp_path / "events.jsonl").is_file()
@@ -166,8 +216,8 @@ def test_unported_paged_only_knobs_and_mesh_raise():
     """kv_tier and lora need page_len > 0 to parse at all; on the paged
     engine (chunked prefill, the KV tier and LoRA ported) a tenant's
     request serves, a ``detach_kv`` request keeps its pages for
-    ``export_pages`` until ``release_detached``, and a mesh raises naming
-    item 9 before anything else."""
+    ``export_pages`` until ``release_detached``, and a mesh that is not a
+    ``parallel.Mesh`` is refused before anything else."""
     eng = ServeEngine(GPT2Model(TINY), {"serving": {
         "page_len": 8, "prefill_chunk_len": 4, "lora": {"rank": 4},
         "kv_tier": {"idle_park_ticks": 3}}}, device="cpu")
@@ -187,7 +237,7 @@ def test_unported_paged_only_knobs_and_mesh_raise():
     assert det.pages is None
     assert all(eng.pool.refs.get(p, 0) == refs[p] - 1 for p in held)
     eng.close()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="Mesh"):
         ServeEngine(GPT2Model(TINY), {}, mesh=object(), device="cpu")
 
 
@@ -214,8 +264,9 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
     # item None: ported since (ZeRO 1-3), the config builds
     ({"zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
      None),
+    # the host offload tier is ported (item 12's first half)
     ({"zero_optimization": {"stage": 2, "cpu_offload": True},
-      "bf16": {"enabled": True}}, "item 12"),
+      "bf16": {"enabled": True}}, None),
     ({"pipeline": {"stages": 2}}, "item 10"),
     ({"optimizer": {"type": "OneBitAdam", "params": {}},
       "bf16": {"enabled": True}}, "item 11"),
@@ -227,21 +278,25 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"sparse_gradients": True}, "item 11"),
     ({"progressive_layer_drop": {"enabled": True},
       "pipeline": {"stages": 2}}, "item 10"),
-    # the telemetry plane and ZeRO 3 are ported; with it on, host offload
-    # still raises
+    # the telemetry plane and ZeRO 3 are ported; with it on, the XLA
+    # offload tier still raises (item 12's second half)
     ({"telemetry": {"enabled": True}, "zero_optimization": {"stage": 3},
       "bf16": {"enabled": True}}, None),
     ({"tensorboard": {"enabled": True}, "wall_clock_breakdown": True,
-      "zero_optimization": {"stage": 2, "cpu_offload": True},
+      "zero_optimization": {"stage": 2, "cpu_offload": True,
+                            "offload_impl": "xla"},
       "bf16": {"enabled": True}}, "item 12"),
-    # checkpointing of a ZeRO-partitioned state is ported (one process;
-    # async and SIGTERM saves across processes raise, tested on 2 ranks
-    # in tests/test_torch_zero.py)
+    # checkpointing of a ZeRO-partitioned state is ported (across
+    # processes async and SIGTERM saves are single-controller, as in the
+    # JAX engine: tested on 2 ranks in tests/test_torch_zero.py)
     ({"checkpoint": {"async_save": True, "sigterm_save": True},
       "zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
      None),
+    ({"zero_optimization": {"stage": 2, "cpu_offload": True},
+      "offload": {"tier": "disk", "disk_dir": "/nonexistent/ds_disk"},
+      "bf16": {"enabled": True}}, "item 12"),
 ], ids=["zero", "offload", "pipeline", "onebit", "lamb", "sparse_grads",
-        "pld", "telemetry", "tensorboard", "checkpoint"])
+        "pld", "telemetry", "tensorboard", "checkpoint", "disk_tier"])
 def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
                                                                tmp_path):
     if "telemetry" in extra:
