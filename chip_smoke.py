@@ -280,7 +280,10 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             depth 2, (b) the same inline (``DS_PREFETCH=0``), (c) the
             serial upload inline: (a), (b) and (c) bitwise equal; (d) the
             delayed update, losses finite; (e) the plain stage-2 engine,
-            (a)'s losses within 2e-2 relative of its; the host Adam
+            (a)'s losses within 1e-4 relative of its, (a)'s fp32 master
+            within 1e-4 of (e)'s travel after the first step and 5e-2
+            after the window, (d)'s first loss within 1e-4 and its master
+            after its first applied update within 1e-4; the host Adam
             native, its OpenMP threads and torch's printed; one
             synchronizing call a step (the overflow flag, sync debug mode
             'warn'); step ms, D2H and H2D GB/s, host Adam ms, the overlap
@@ -289,6 +292,32 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             micro-batch 1 x 1024) with the host tier, 1 + 3 steps: the
             host bytes of its fp32 master and moments, peak device MiB
             and the same breakdown.
+28. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
+            27's model and batches, fsync on, the state under a temporary
+            directory on the local disk: the pipelined read-ahead and
+            write-back (prefetch 2), 1 + 5 steps: losses, the fp32 master
+            and the compute copy on the card bitwise 27's (a); the serial
+            loop, 1 + 2 steps, bitwise the pipelined loop's losses and
+            master at its step 2; the Adam
+            native, the resident state window within the io_depth
+            budget; the filesystem and its free bytes, the read and
+            write GB/s, the overlap ratio and the step ms printed.
+29. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
+            pinned host pieces updated on the card) on the same model and
+            batches, 1 + 5 steps each: (f) the fused update, its losses
+            within 1e-4 relative of 27's plain engine and its master after
+            step 0 within 1e-4 of the plain engine's travel; (g) gradient
+            chunks 2 and (h) the split update, each bitwise (f); (i) the
+            delayed update, finite, its first loss bitwise (f)'s; (j)
+            ZeRO-3 in a one-rank NCCL group, bitwise (f); the step ms, the
+            H2D and D2H GB/s of the update, the idle share of a profiled
+            step and peak device MiB against 27's (a); then GPT-2 XL
+            (micro-batch 1 x 1024) on the tier with ``param_streaming``,
+            ``stream_scan`` and the split update, 1 + 3 steps: the pinned
+            host bytes, peak device MiB against 27's XL host tier, the
+            step ms and the layer fetches' GB/s, and the compute copy on
+            the card == bf16 of the pinned master on every leaf that does
+            not stream.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -2981,7 +3010,12 @@ def _offload_run(label, cfg, build, rows, steps, dev, profile=False,
            "breakdown": dict(getattr(eng, "last_offload_breakdown", None)
                              or {}),
            "offload": getattr(eng, "_offload", False)}
-    if out["offload"]:
+    if getattr(eng, "_offload_xla", False):
+        out["xla"] = eng._xla.transfer_stats() or {}
+        st = eng._zero.streamer
+        out["host_bytes"] = eng._xla.nbytes + (st.nbytes if st else 0)
+        out["adam_steps"] = int(eng._xla.count)
+    elif out["offload"]:
         ho = eng._host_opt
         out["native"] = ho.is_native
         out["omp"] = (ho.opt.omp_threads, torch.get_num_threads())
@@ -3062,7 +3096,7 @@ def phase_train_offload(dev):
     # update (its step 1)
     snap_at = {PLAIN: (-1, 0, OFFLOAD_STEPS), MAIN: (0, OFFLOAD_STEPS),
                DPU: (1,)}
-    snaps, uploads = {}, {}
+    snaps, uploads, ref = {}, {}, {}
 
     def probe_for(label):
         def probe(eng, k):
@@ -3070,6 +3104,9 @@ def phase_train_offload(dev):
                 snaps[label, k] = _master_leaves(eng)
             if k == OFFLOAD_STEPS and label != PLAIN:
                 uploads[label] = _upload_mismatch(eng)
+            if k == OFFLOAD_STEPS and label == MAIN:
+                ref["compute"] = [s.detach().cpu()
+                                  for s in eng._zero.sources]
         return probe
 
     runs, total = {}, {k: 0 for k in want}
@@ -3166,6 +3203,11 @@ def phase_train_offload(dev):
                         f"{runs[DPU]['adam_steps']} updates in "
                         f"{OFFLOAD_STEPS + 1} steps, expected "
                         f"{OFFLOAD_STEPS}")
+    # what the disk and XLA tiers' phases hold themselves against
+    ref.update(losses=a, master=snaps[MAIN, OFFLOAD_STEPS],
+               plain_losses=plain, plain_init=init,
+               plain_first=snaps[PLAIN, 0],
+               peak_mib=runs[MAIN]["peak_mib"])
     del snaps
     if problems:
         fail("train_offload: " + "; ".join(problems))
@@ -3236,6 +3278,373 @@ def phase_train_offload(dev):
           f"updates; the compute copy on the card == the host master in "
           f"bf16, bitwise")
     _print_offload("train_offload GPT-2 XL", r, 1, xl.n_positions)
+    ref["xl_peak_mib"] = r["peak_mib"]
+    return total, ref
+
+
+DISK_IO_DEPTH = 2
+#: the serial loop's counted steps: it is held to the pipelined run's
+#: state after this many (the disk's write rate dominates both loops)
+DISK_SERIAL_STEPS = 2
+
+
+def _disk_budget(ho) -> int:
+    """The disk tier's analytic window: (2 io_depth + 3) leaf states
+    (read-ahead queue, the leaf being read, the one in update, the
+    write-back queue, the one being written)."""
+    biggest = max((3 if prom else 1) * int(np.prod(shape, dtype=np.int64))
+                  * 4 for shape, _, prom in ho._meta)
+    return (2 * ho.io_depth + 3) * biggest
+
+
+def phase_train_offload_disk(dev, ref):
+    """The disk tier on train_offload's model and batches: the pipelined
+    and serial loops bitwise each other and the host tier's arm (a)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    rows, T = TRAIN_MICRO * TRAIN_GA, cfg.n_positions
+    L, A = cfg.n_layer, TRAIN_GA
+    want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+            "flash_bwd_dkv": L * A}
+    bf16 = {"bf16": {"enabled": True}}
+    root = tempfile.mkdtemp(prefix="ds_disk_tier_")
+    keys = ("DS_PREFETCH", "DS_DISK_FSYNC", "DS_DISK_OFFLOAD_PIPELINE")
+    saved = {k: os.environ.get(k) for k in keys}
+    runs, finals, total, problems = {}, {}, {k: 0 for k in want}, []
+    try:
+        df = _run_lines(["df", "-B1", "-T", root])
+        os.environ.update({"DS_PREFETCH": "1", "DS_DISK_FSYNC": "1"})
+        for label, pipe, steps in (("pipelined", "1", OFFLOAD_STEPS),
+                                   ("serial", "0", DISK_SERIAL_STEPS)):
+            os.environ["DS_DISK_OFFLOAD_PIPELINE"] = pipe
+            state_dir = os.path.join(root, label)
+
+            def build(data, state_dir=state_dir):
+                conf = _offload_config(bf16, TRAIN_MICRO, TRAIN_GA,
+                                       cpu_offload=True)
+                conf["data_prefetch"] = {"depth": 2}
+                conf["offload"] = {"tier": "disk", "disk_dir": state_dir,
+                                   "io_depth": DISK_IO_DEPTH, "fsync": True}
+                return deepspeed_tpu_torch.initialize(
+                    model=GPT2Model(cfg), seed=SEED, config=conf,
+                    training_data=data)[0]
+
+            def probe(eng, k, label=label, steps=steps):
+                if k == DISK_SERIAL_STEPS and label == "pipelined":
+                    finals["at_serial_end"] = [v.materialize()
+                                               for v in eng._host_opt.master]
+                if k == steps:
+                    ho = eng._host_opt
+                    finals[label] = {
+                        "master": [v.materialize() for v in ho.master],
+                        "compute": [x.detach().cpu()
+                                    for x in eng._zero.sources],
+                        "peak": ho.peak_resident_bytes,
+                        "budget": _disk_budget(ho),
+                        "total": ho.total_state_bytes,
+                        "fsync": ho._store.fsync,
+                        "kind": type(ho).__name__}
+            r = runs[label] = _offload_run(
+                f"train_offload_disk {label}", cfg, build, rows, steps, dev,
+                probe=probe)
+            f = finals[label]
+            for name, per_step in want.items():
+                total[name] += r["launches"][name]
+                if r["launches"][name] != per_step * steps:
+                    problems.append(f"{label}: {name} launched "
+                                    f"{r['launches'][name]} times")
+            if f["kind"] != "DiskOffloadOptimizer" or not f["fsync"]:
+                problems.append(f"{label}: tier {f['kind']}, fsync "
+                                f"{f['fsync']}")
+            if not r["native"]:
+                problems.append(f"{label}: the host Adam is not native")
+            if not f["peak"] or f["peak"] > f["budget"]:
+                problems.append(
+                    f"{label}: resident state peaked at {f['peak']} B, the "
+                    f"io_depth {DISK_IO_DEPTH} window is {f['budget']} B")
+            if bool(r["breakdown"].get("disk_serial")) != (pipe == "0"):
+                problems.append(f"{label}: disk_serial "
+                                f"{r['breakdown'].get('disk_serial')}")
+            if r["losses"] != ref["losses"][:steps + 1]:
+                problems.append(f"{label}: losses {r['losses']} differ "
+                                f"from the host tier's {ref['losses']}")
+            if label == "pipelined":
+                bad_m = [i for i, (x, y) in enumerate(zip(f["master"],
+                                                          ref["master"]))
+                         if not torch.equal(x, y)]
+                bad_c = [i for i, (x, y) in enumerate(zip(f["compute"],
+                                                          ref["compute"]))
+                         if not torch.equal(x, y)]
+            else:
+                bad_m = [i for i, (x, y) in enumerate(zip(
+                    f["master"], finals.pop("at_serial_end")))
+                    if not torch.equal(x, y)]
+                bad_c = []
+            if bad_m or bad_c:
+                problems.append(
+                    f"{label}: master leaves {bad_m[:8]} and compute "
+                    f"copies {bad_c[:8]} differ from the host tier's (the "
+                    "pipelined run's, for the serial loop)")
+            _print_offload(f"train_offload_disk {label}", r, rows, T)
+            bd = r["breakdown"]
+            gbs = lambda b, t: b / t / 1e9 if t > 0 else float("nan")  # noqa
+            print(f"[train_offload_disk {label}] disk read "
+                  f"{bd['disk_bytes_read']} B in {bd['disk_read_s']:.3f} s "
+                  f"of read calls = {gbs(bd['disk_bytes_read'], bd['disk_read_s']):.2f} "
+                  f"GB/s; write {bd['disk_bytes_written']} B in "
+                  f"{bd['disk_write_s']:.3f} s = "
+                  f"{gbs(bd['disk_bytes_written'], bd['disk_write_s']):.2f} "
+                  f"GB/s (fsync on); overlap ratio "
+                  f"{bd['disk_overlap_ratio']:.3f}; state on disk "
+                  f"{f['total']} B, resident window peak {f['peak']} B of "
+                  f"the {f['budget']} B budget")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[train_offload_disk] filesystem (df -B1 -T): "
+          f"{' | '.join(' '.join(ln.split()) for ln in df)}")
+    del finals
+    if problems:
+        fail("train_offload_disk: " + "; ".join(problems))
+    print(f"[train_offload_disk] GPT-2 small bf16 ZeRO-2 disk tier (fsync "
+          f"on, io_depth {DISK_IO_DEPTH}): the pipelined loop == the host "
+          f"tier's arm (a) bitwise over 1 + {OFFLOAD_STEPS} steps (losses, "
+          f"fp32 master, compute copy on the card), the serial loop == the "
+          f"pipelined one over 1 + {DISK_SERIAL_STEPS} (losses, fp32 "
+          f"master); the Adam native; the resident window within its "
+          f"budget")
+    return total
+
+
+def _xla_master(eng):
+    """The XLA tier's fp32 master leaves in the master's placement, on
+    the host (tree_leaves order)."""
+    return eng._xla_canonical()[0]
+
+
+def phase_train_offload_xla(dev, ref):
+    """The XLA tier (pinned host pieces, the update on the card): the
+    fused, chunked, split, delayed and ZeRO-3 arms on train_offload's
+    model and batches, then GPT-2 XL with parameter streaming."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2_XL,
+                                                 GPT2Model)
+    from deepspeed_tpu_torch.runtime.offload_xla import unpack_leaf
+
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    rows, T = TRAIN_MICRO * TRAIN_GA, cfg.n_positions
+    L, A = cfg.n_layer, TRAIN_GA
+    want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+            "flash_bwd_dkv": L * A}
+    bf16 = {"bf16": {"enabled": True}}
+    xla = {"cpu_offload": True, "offload_impl": "xla"}
+    FUSED, CHUNKS, SPLIT, DPU, Z3 = ("fused", "grad chunks 2",
+                                     "split update", "delayed update",
+                                     "ZeRO-3, one-rank NCCL group")
+    arms = ((FUSED, {}, 1), (CHUNKS, {"offload_grad_chunks": 2}, 2),
+            (SPLIT, {"offload_split_update": True}, 1),
+            (DPU, {"delayed_param_update": True}, 1), (Z3, {"stage": 3}, 1))
+    runs, finals, total, problems = {}, {}, {k: 0 for k in want}, []
+    saved = os.environ.get("DS_PREFETCH")
+    os.environ["DS_PREFETCH"] = "1"
+    try:
+        for label, extra, mult in arms:
+            zero = {**xla, **{k: v for k, v in extra.items()
+                              if k != "stage"}}
+
+            def build(data, zero=zero, stage=extra.get("stage", 2)):
+                conf = _offload_config(bf16, TRAIN_MICRO, TRAIN_GA, **zero)
+                conf["zero_optimization"]["stage"] = stage
+                conf["data_prefetch"] = {"depth": 2}
+                eng = deepspeed_tpu_torch.initialize(
+                    model=GPT2Model(cfg), seed=SEED, config=conf,
+                    training_data=data)[0]
+                eng._xla_timing = True
+                return eng
+
+            def probe(eng, k, label=label):
+                if k == 0 and label == FUSED:
+                    finals["first"] = _xla_master(eng)
+                if k == OFFLOAD_STEPS:
+                    m = _xla_master(eng)
+                    c = [x.detach().cpu() for x in eng._zero.sources]
+                    finals[label] = {
+                        "master": m, "compute": c,
+                        "upload": [i for i, (x, y) in enumerate(zip(m, c))
+                                   if not torch.equal(x.to(y.dtype), y)],
+                        "stage": eng.zero_stage, "mesh": eng.mesh.size}
+
+            def go(label=label, build=build, probe=probe):
+                return _offload_run(f"train_offload_xla {label}", cfg,
+                                    build, rows, OFFLOAD_STEPS, dev,
+                                    profile=label == FUSED, probe=probe)
+            if label == Z3:
+                with _one_rank_group():
+                    r = runs[label] = go()
+            else:
+                r = runs[label] = go()
+            f = finals[label]
+            for name, per_step in want.items():
+                total[name] += r["launches"][name]
+                # each group runs the forward and its recompute whole; its
+                # backward skips the attention input gradients no kept
+                # leaf needs, so dQ and dK/dV run once to ``mult`` times
+                lo = (mult if name == "flash_fwd" else 1) * per_step
+                n = r["launches"][name]
+                if not lo * OFFLOAD_STEPS <= n <= (mult * per_step
+                                                   * OFFLOAD_STEPS):
+                    problems.append(
+                        f"{label}: {name} launched {n} times in "
+                        f"{OFFLOAD_STEPS} steps, expected {lo} to "
+                        f"{mult * per_step} per step")
+            if not all(np.isfinite(r["losses"])) or r["skipped"]:
+                problems.append(f"{label}: losses {r['losses']}, "
+                                f"{r['skipped']} skipped")
+            if f["upload"]:
+                problems.append(f"{label}: compute copies of leaves "
+                                f"{f['upload'][:8]} differ from the pinned "
+                                "master in bf16")
+            want_steps = OFFLOAD_STEPS if label == DPU else OFFLOAD_STEPS + 1
+            if r["adam_steps"] != want_steps:
+                problems.append(f"{label}: {r['adam_steps']} updates "
+                                f"applied, expected {want_steps}")
+            if label == Z3 and (f["stage"] != 3 or f["mesh"] != 1):
+                problems.append(f"{label}: stage {f['stage']} on a mesh of "
+                                f"{f['mesh']}")
+            _print_offload(f"train_offload_xla {label}", r, rows, T)
+            x = r["xla"]
+            gbs = lambda b, t: b / t / 1e9 if t > 0 else float("nan")  # noqa
+            if x:
+                print(f"[train_offload_xla {label}] the update's H2D "
+                      f"{x['h2d_bytes']} B over {x['h2d_s'] * 1e3:.2f} ms "
+                      f"of its stream = {gbs(x['h2d_bytes'], x['h2d_s']):.2f}"
+                      f" GB/s; its D2H {x['d2h_bytes']} B within the whole "
+                      f"update's {x['window_s'] * 1e3:.2f} ms = "
+                      f"{gbs(x['d2h_bytes'], x['window_s']):.2f} GB/s; "
+                      f"pinned host bytes {r['host_bytes']}; {r['syncs']} "
+                      f"synchronizing calls in {OFFLOAD_STEPS} steps")
+    finally:
+        if saved is None:
+            os.environ.pop("DS_PREFETCH", None)
+        else:
+            os.environ["DS_PREFETCH"] = saved
+    fused = runs[FUSED]["losses"]
+    plain = ref["plain_losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(fused, plain))
+    if rel > OFFLOAD_LOSS_RTOL:
+        problems.append(f"fused losses {fused} vs the plain stage-2 "
+                        f"engine's {plain}: relative {rel:.3g} > "
+                        f"{OFFLOAD_LOSS_RTOL}")
+    d_first = _master_dist(finals["first"], ref["plain_first"],
+                           ref["plain_init"])
+    if not d_first <= OFFLOAD_FIRST_RTOL:
+        problems.append(f"the pinned master after the first step lies "
+                        f"{d_first:.3g} of the plain engine's first step "
+                        f"from its master (bar {OFFLOAD_FIRST_RTOL})")
+    for label in (CHUNKS, SPLIT, Z3):
+        same = (runs[label]["losses"] == fused and all(
+            torch.equal(x, y) for k in ("master", "compute")
+            for x, y in zip(finals[label][k], finals[FUSED][k])))
+        if not same:
+            problems.append(f"{label}: losses {runs[label]['losses']} or "
+                            f"its master/compute copy differ from the fused "
+                            f"arm's {fused}")
+    if runs[DPU]["losses"][0] != fused[0]:
+        problems.append(f"the delayed update's first loss "
+                        f"{runs[DPU]['losses'][0]} != the fused arm's "
+                        f"{fused[0]}")
+    del finals
+    if problems:
+        fail("train_offload_xla: " + "; ".join(problems))
+    print(f"[train_offload_xla] GPT-2 small bf16 ZeRO-2 XLA tier: losses "
+          f"within {rel:.3g} relative of the plain stage-2 engine (bar "
+          f"{OFFLOAD_LOSS_RTOL}), the fp32 master after the first step "
+          f"within {d_first:.3g} of its travel (bar {OFFLOAD_FIRST_RTOL}); "
+          f"grad chunks 2, the split update and ZeRO-3 (one-rank NCCL "
+          f"group) bitwise the fused arm (losses, master, compute copy); "
+          f"the delayed update's first loss bitwise; every arm's compute "
+          f"copy on the card == the pinned master in bf16; peak device MiB "
+          f"{runs[FUSED]['peak_mib']:.1f} against the host tier's "
+          f"{ref['peak_mib']:.1f}")
+
+    xl = dataclasses.replace(GPT2_XL, remat="block", stream_scan=True)
+    xl_fetch = {}
+
+    def build_xl(data):
+        eng = deepspeed_tpu_torch.initialize(
+            model=GPT2Model(xl), seed=SEED, training_data=data,
+            config=_offload_config(bf16, 1, 1, **xla, param_streaming=True,
+                                   offload_split_update=True))[0]
+        eng._xla_timing = True
+        return eng
+
+    def probe_xl(eng, k):
+        st = eng._zero.streamer
+        if k == 0:
+            st.fetch_timing = []
+        elif k == OFFLOAD_XL_STEPS:
+            xl_fetch.update(st.fetch_stats() or {})
+            xl_fetch["streamed"] = len(st.leaves)
+            xp = eng._xla
+            xp.sync()
+            bad = []
+            for i, m in enumerate(xp.master):
+                if i in st.leaves:
+                    continue
+                want_c = unpack_leaf(m[None], eng._flat_layout[i])
+                src = eng._zero.sources[i].cpu()
+                if not torch.equal(src, want_c.to(src.dtype)):
+                    bad.append(i)
+            xl_fetch["bad"] = bad
+    r = _offload_run("train_offload_xla GPT-2 XL streaming", xl, build_xl,
+                     1, OFFLOAD_XL_STEPS, dev, probe=probe_xl)
+    Lx = xl.n_layer
+    for name, per_step in {"flash_fwd": 2 * Lx, "flash_bwd_dq": Lx,
+                           "flash_bwd_dkv": Lx}.items():
+        total[name] += r["launches"][name]
+        if r["launches"][name] != per_step * OFFLOAD_XL_STEPS:
+            fail(f"train_offload_xla GPT-2 XL: {name} launched "
+                 f"{r['launches'][name]} times, expected {per_step} a step")
+    if not all(np.isfinite(r["losses"])) or r["skipped"] \
+            or r["adam_steps"] != OFFLOAD_XL_STEPS + 1 or xl_fetch["bad"]:
+        fail(f"train_offload_xla GPT-2 XL: losses {r['losses']}, "
+             f"{r['skipped']} skipped, {r['adam_steps']} updates, compute "
+             f"copies of leaves {xl_fetch['bad']} differ from bf16 of the "
+             f"pinned master")
+    _print_offload("train_offload_xla GPT-2 XL streaming", r, 1,
+                   xl.n_positions)
+    x = r["xla"]
+    if x:
+        print(f"[train_offload_xla GPT-2 XL streaming] the update's H2D "
+              f"{x['h2d_bytes']} B over {x['h2d_s'] * 1e3:.2f} ms of its "
+              f"stream; its D2H {x['d2h_bytes']} B within the whole "
+              f"update's {x['window_s'] * 1e3:.2f} ms")
+    fb, fs = xl_fetch.get("bytes", 0), xl_fetch.get("seconds", 0.0)
+    print(f"[train_offload_xla] GPT-2 XL bf16 XLA tier, param_streaming "
+          f"({xl_fetch['streamed']} stacked leaves in pinned host memory), "
+          f"split update, micro-batch 1 x {xl.n_positions}: pinned host "
+          f"bytes {r['host_bytes']}; peak device MiB {r['peak_mib']:.1f} "
+          f"against this run's XL host tier {ref['xl_peak_mib']:.1f}; "
+          f"{r['step_ms']:.1f} ms per step; layer fetches "
+          f"{fb} B in {fs * 1e3:.1f} ms of copies over "
+          f"{OFFLOAD_XL_STEPS} steps = "
+          f"{fb / fs / 1e9 if fs > 0 else float('nan'):.2f} GB/s; every "
+          f"non-streamed leaf's compute copy on the card == bf16 of the "
+          f"pinned master")
     return total
 
 
@@ -4449,7 +4858,11 @@ def main() -> None:
     timed(phase_bert_parity, dev)
     by_phase["train_zero"] = timed(phase_train_zero, dev)
     by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
-    by_phase["train_offload"] = timed(phase_train_offload, dev)
+    by_phase["train_offload"], offload_ref = timed(phase_train_offload, dev)
+    by_phase["train_offload_disk"] = timed(phase_train_offload_disk, dev,
+                                           offload_ref)
+    by_phase["train_offload_xla"] = timed(phase_train_offload_xla, dev,
+                                          offload_ref)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

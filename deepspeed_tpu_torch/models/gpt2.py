@@ -94,8 +94,13 @@ class GPT2Config:
 
     ``scan_layers`` changes nothing here: eager PyTorch runs the layers as
     a Python loop either way (the JAX flag chose between ``lax.scan`` and
-    an unrolled trace).  ``stream_scan=True`` (one layer's parameters
-    fetched per tick) is not ported and raises."""
+    an unrolled trace).  ``stream_scan=True`` (with ``scan_layers``)
+    declares the stacked block leaves streamable
+    (:meth:`GPT2Model.streaming_param_spec`): under the XLA offload
+    tier's ``param_streaming`` their compute copies stay in pinned host
+    memory and each block fetches its layer inside the checkpointed
+    function (``runtime/offload_xla.py``), as every block already fetches
+    its layer from the engine."""
     vocab_size: int = 50257
     n_positions: int = 1024
     d_model: int = 768
@@ -109,11 +114,6 @@ class GPT2Config:
     stream_scan: bool = False
 
     def __post_init__(self):
-        if self.stream_scan:
-            raise NotImplementedError(
-                "GPT2Config.stream_scan (per-layer parameter streaming) is "
-                "not ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, "
-                "item 12 (its second half)")
         if self.remat not in (None, "block"):
             raise ValueError(f"remat={self.remat!r}: expected None or "
                              "'block'")
@@ -174,6 +174,15 @@ class GPT2Model(TrainModule):
                 "proj_b": (),
             },
         }
+
+    def streaming_param_spec(self, params):
+        """The stacked block leaves stream (one layer per block);
+        embeddings and the final LN stay on the device.  None unless the
+        scan form with its per-layer fetch (``stream_scan``) is on."""
+        if not (self.config.scan_layers and self.config.stream_scan):
+            return None
+        return {k: ({n: True for n in v} if k == "blocks" else False)
+                for k, v in params.items()}
 
     def init(self, seed: int, device=None,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:

@@ -104,11 +104,17 @@ def load_cpu_ops() -> ctypes.CDLL:
     i64, f32 = ctypes.c_int64, ctypes.c_float
     fp = ctypes.POINTER(ctypes.c_float)
     u16p = ctypes.POINTER(ctypes.c_uint16)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
     try:
         lib.ds_cpu_adam_step.argtypes = [
             i64, fp, fp, fp, fp, f32, f32, f32, f32, f32,
             ctypes.c_int, ctypes.c_int, i64, u16p, ctypes.c_int]
         lib.ds_cpu_adam_step.restype = None
+        lib.ds_lut_width.argtypes = [i64, i64, i32p]
+        lib.ds_lut_width.restype = i64
+        lib.ds_build_lut.argtypes = [i64, i64, i32p, i64, i32p, u8p]
+        lib.ds_build_lut.restype = None
         lib.ds_cpu_ops_version.restype = ctypes.c_int
         # OpenMP's own (a dependency of the library): the thread cap
         lib.omp_set_num_threads.argtypes = [ctypes.c_int]
@@ -118,3 +124,9 @@ def load_cpu_ops() -> ctypes.CDLL:
             f"native library {path.name} is incomplete: {e}") from None
     _lib = lib
     return lib
+
+
+def cpu_ops_loaded() -> Optional[ctypes.CDLL]:
+    """The already-loaded library, or None: never triggers a build (for
+    callers whose native path is optional, such as the sparse LUT)."""
+    return _lib

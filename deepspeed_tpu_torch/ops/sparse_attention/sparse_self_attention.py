@@ -43,15 +43,28 @@ def build_lut(layout: np.ndarray, use_native: Optional[bool] = None
     """Layout [H, nb, nb] → (cols [H, nb, width] int32, valid [H, nb,
     width] bool): each query block row's active key blocks, padded with 0,
     and the flags of the real entries; ``width`` is the largest active
-    count.  The JAX package's numpy arm.  ``use_native=True`` (the host
-    C++ pass in ``csrc/sparse_lut.cpp``, whose loader is shared with
-    CPU-Adam) is not ported and raises; ``None`` and ``False`` build with
-    numpy."""
-    if use_native:
-        raise NotImplementedError(
-            "build_lut(use_native=True) (the host C++ LUT pass shared with "
-            "CPU-Adam) is not ported to deepspeed_tpu_torch yet: ROADMAP.md "
-            "queue 1, item 12 (its second half)")
+    count.  The native arm is the host C++ pass in
+    ``csrc/sparse_lut.cpp`` (built by ``ops/op_builder.py``, the library
+    CPU-Adam loads): ``use_native=True`` builds it or raises
+    ``OpBuilderError``; ``None`` uses it only when something already
+    loaded it (sparse attention alone never pays a g++ compile);
+    ``False`` builds with numpy.  Both arms give the same tables."""
+    if use_native or use_native is None:
+        import ctypes
+        from ..op_builder import cpu_ops_loaded, load_cpu_ops
+        lib = load_cpu_ops() if use_native else cpu_ops_loaded()
+        if lib is not None:
+            H, nb, _ = layout.shape
+            lay = np.ascontiguousarray(layout, dtype=np.int32)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            width = int(lib.ds_lut_width(H, nb, lay.ctypes.data_as(i32p)))
+            cols = np.zeros((H, nb, width), dtype=np.int32)
+            valid = np.zeros((H, nb, width), dtype=np.uint8)
+            lib.ds_build_lut(H, nb, lay.ctypes.data_as(i32p), width,
+                             cols.ctypes.data_as(i32p),
+                             valid.ctypes.data_as(
+                                 ctypes.POINTER(ctypes.c_uint8)))
+            return cols, valid.astype(bool)
     H, nb, _ = layout.shape
     width = max(int(layout.sum(-1).max()), 1)
     cols = np.zeros((H, nb, width), dtype=np.int32)

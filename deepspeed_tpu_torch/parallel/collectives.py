@@ -20,16 +20,25 @@ Each function returns a new tensor and leaves its input as it was.  On a
 local mesh (no process group) an axis has one rank and each collective
 computes that one-rank result; on a joined mesh every call runs its
 collective, whatever the group's size.  A failed collective raises.
+``calls`` counts each function's calls in this process (a layout's
+tests show with it that a path runs no collective).
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.distributed as dist
 
 from .mesh import Mesh
 
+#: calls per collective in this process (``reduce`` counts psum, pmean
+#: and pmax)
+calls: collections.Counter = collections.Counter()
+
 
 def _reduce(x, mesh: Mesh, axis: str, op):
+    calls["reduce"] += 1
     out = x.clone()
     g = mesh.group(axis)
     if g is not None:
@@ -52,6 +61,7 @@ def pmax(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
                dim: int = 0) -> torch.Tensor:
     """The axis's pieces concatenated along ``dim``, in axis order."""
+    calls["all_gather"] += 1
     g = mesh.group(axis)
     x0 = x.movedim(dim, 0).contiguous()
     if g is None:
@@ -66,6 +76,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
 def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
                    dim: int = 0) -> torch.Tensor:
     """Sum over the axis; each rank keeps its own 1/n of ``dim``."""
+    calls["reduce_scatter"] += 1
     g = mesh.group(axis)
     x0 = x.movedim(dim, 0).contiguous()
     if g is None:
@@ -84,6 +95,7 @@ def pbroadcast_from(x: torch.Tensor, mesh: Mesh, axis: str,
                     root: int = 0) -> torch.Tensor:
     """Axis index ``root``'s ``x`` on every rank of the axis (the others'
     ``x`` gives only shape and dtype)."""
+    calls["pbroadcast_from"] += 1
     out = x.clone()
     g = mesh.group(axis)
     if g is not None:
@@ -95,6 +107,7 @@ def reduce_to(x: torch.Tensor, mesh: Mesh, axis: str,
               root: int = 0) -> torch.Tensor:
     """The axis's sum on axis index ``root``; other ranks get a tensor
     whose values are unspecified."""
+    calls["reduce_to"] += 1
     out = x.clone()
     g = mesh.group(axis)
     if g is not None:

@@ -226,7 +226,10 @@ def _c_order(arr: np.ndarray) -> np.ndarray:
 def _to_storage(leaf) -> Tuple[np.ndarray, str]:
     """Return (storable host array, logical dtype name).  A tensor is read
     back with ``.detach().cpu()``; bf16/fp8 leaves are stored as their
-    unsigned bit patterns, as the JAX package stores them."""
+    unsigned bit patterns, as the JAX package stores them.  A lazy leaf
+    (the disk tier's views) is read here, one leaf at a time."""
+    if hasattr(leaf, "materialize"):
+        leaf = leaf.materialize()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         logical = _TORCH_BITS.get(t.dtype)
@@ -1236,7 +1239,7 @@ def _load_into_engine(engine, ckpt_dir: str, load_optimizer_states: bool,
             "iterator starts FRESH — the resumed run will replay or "
             "skip data relative to the interrupted one (model/optimizer "
             "state restore exactly)", ckpt_dir)
-    tmpl_master, tmpl_opt = engine._checkpoint_state()
+    tmpl_master, tmpl_opt = engine._checkpoint_state(templates=True)
     rng_seed = data_seed = None
     if use_optim:
         check_digest("optim")

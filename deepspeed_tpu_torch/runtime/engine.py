@@ -46,20 +46,27 @@ loader in a :class:`~.prefetch.DevicePrefetcher`: a worker places each
 batch on the card on a side stream ahead of its step; a batch passed to
 ``train_batch`` directly is placed inline.
 
-ZeRO-Offload's host tier (``zero_optimization.cpu_offload`` at stage 2;
-``offload_impl`` "auto" resolves to "host" off a TPU, so on the card and
-on the CPU; ``runtime/offload.py``): the fp32 master and the Adam moments
-live in host RAM, updated by the native CPU Adam; the device keeps the
-compute copy, which ``runtime/zero.py``'s ``_Fetch`` reads as any stage's
-source.  A step computes the grads, the overflow flag (its one read-back,
-as in the JAX engine), the norm and clipping on the card, then pulls the
-grads leaf by leaf on a side stream while the host Adam runs, and
-uploads each updated leaf while the Adam goes on (``offload_pipeline``,
-on by default) or after it.  ``delayed_param_update`` applies step t's
-update while step t+1's forward and backward run on step t's params.
-Checkpoints keep the JAX engine's canonical tree (``FusedAdamState``
-count, mu, nu), so they cross between offload and plain engines and the
-JAX package.
+ZeRO-Offload (``zero_optimization.cpu_offload``, stages 2–3) has three
+tiers.  The host tier (``offload_impl`` "host", or "auto", which
+resolves to "host" off a TPU; ``runtime/offload.py``): the fp32 master
+and the Adam moments live in host RAM, updated by the native CPU Adam;
+the device keeps the compute copy, which ``runtime/zero.py``'s ``_Fetch``
+reads as any stage's source.  A step computes the grads, the overflow
+flag (its one read-back, as in the JAX engine), the norm and clipping on
+the card, then pulls the grads leaf by leaf on a side stream while the
+host Adam runs, and uploads each updated leaf while the Adam goes on
+(``offload_pipeline``, on by default) or after it.
+``delayed_param_update`` applies step t's update while step t+1's
+forward and backward run on step t's params.  The disk tier
+(``offload.tier: "disk"``, one process; ``runtime/disk_offload.py``)
+keeps the master and moments in per-leaf CRC'd files behind the same
+Adam.  The XLA tier (an explicit ``offload_impl: "xla"``;
+``runtime/offload_xla.py``) keeps each rank's rows of them in pinned
+host pieces and updates them on the card through a device ring, with
+``offload_grad_chunks``, ``offload_split_update``, the delayed update,
+ZeRO-3 and ``param_streaming``.  Checkpoints keep the JAX engine's
+canonical tree (``FusedAdamState`` count, mu, nu), so they cross between
+the tiers, plain engines and the JAX package.
 
 Checkpoints (``save_checkpoint``/``load_checkpoint``,
 ``runtime/checkpointing.py``) are the JAX package's on-disk format: the
@@ -80,8 +87,7 @@ trace under ``profiler.output_path``) and the ``wall_clock_breakdown``
 timers (which synchronize the card every step, as the reference's do).
 Every other config knob whose path is not ported raises
 ``NotImplementedError`` naming its ROADMAP.md item: the pipeline (item
-10); sequence, experts, 1-bit Adam and ``sparse_gradients`` (item 11);
-the XLA offload tier and the disk tier (item 12's second half).
+10); sequence, experts, 1-bit Adam and ``sparse_gradients`` (item 11).
 """
 from __future__ import annotations
 
@@ -105,6 +111,7 @@ from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, build_mesh,
 from ..utils.logging import log_dist, logger
 from . import precision
 from .dataloader import DeepSpeedDataLoader, supports_iter_state
+from .offload_xla import HostGrad, XlaOffloadTier
 from .engine_stages import (finish_close, pop_stage_errors, stage_degraded,
                             wire_stage_plane)
 from .prefetch import DevicePlacedBatch, DevicePrefetcher, place_on_device
@@ -161,17 +168,10 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
     """Raise on every config knob whose training path this port does not
     run yet (defaults never raise)."""
     zc = config.zero_config
-    if zc.cpu_offload:
+    if zc.cpu_offload and zc.offload_impl != "xla":
         # "auto" resolves to the host tier off a TPU (reference
         # engine.py:283-287); the host tier's own refusals are the JAX
         # engine's (engine.py:510-542)
-        if zc.offload_impl == "xla":
-            raise _unported("zero_optimization.offload_impl='xla' (the "
-                            "XLA offload tier)", "item 12 (its second "
-                            "half)")
-        if config.offload_config.tier == "disk":
-            raise _unported("offload.tier='disk' (the disk offload tier)",
-                            "item 12 (its second half)")
         for knob, on in (("offload_grad_chunks > 1",
                           zc.offload_grad_chunks > 1),
                          ("param_streaming", zc.param_streaming),
@@ -240,7 +240,7 @@ def _master_leaf(x, device) -> torch.Tensor:
     return t.to(device, dtype, copy=True)
 
 
-class DeepSpeedEngine:
+class DeepSpeedEngine(XlaOffloadTier):
     def __init__(self,
                  model,
                  config,
@@ -306,9 +306,27 @@ class DeepSpeedEngine:
         master = _unflatten_like(full, pieces)
         del full
         self._offload = bool(config.zero_config.cpu_offload)
-        if self._offload:
-            # the host tier takes the rank's pieces to host RAM; the
-            # device keeps only the compute copy
+        if (os.environ.get("DS_OFFLOAD_SPLIT_UPDATE") == "1"
+                and not self._offload):
+            # the knob is process-wide: an engine without offload built
+            # beside the experiment's has nothing to split
+            logger.warning(
+                "DS_OFFLOAD_SPLIT_UPDATE=1 ignored: this engine has no "
+                "zero_optimization.cpu_offload, so there is no offload "
+                "update to split")
+        self._offload_xla = (self._offload and
+                             config.zero_config.offload_impl == "xla")
+        self._offload_disk = (self._offload and not self._offload_xla and
+                              config.offload_config.tier == "disk")
+        self._fatal_state_error = None
+        if self._offload_xla:
+            # the XLA tier takes the rank's rows to pinned host pieces
+            self._init_xla_offload(config, pieces)
+            master, xla_opt = self._xla_state()
+            pieces = None
+        elif self._offload:
+            # the host and disk tiers take the rank's pieces to host RAM
+            # or disk; the device keeps only the compute copy
             self._init_host_offload(config, pieces)
             master = _unflatten_like(master, self._host_opt.master)
             pieces = None
@@ -325,7 +343,8 @@ class DeepSpeedEngine:
             config.fp16, device=self.device)
         self.state = TrainState(
             master_params=master,
-            opt_state=(self._offload_opt_state() if self._offload
+            opt_state=(xla_opt if self._offload_xla
+                       else self._offload_opt_state() if self._offload
                        else self.optimizer.init(tree_leaves(master))),
             scaler=scaler,
             skipped_steps=torch.zeros((), dtype=torch.int32,
@@ -364,6 +383,11 @@ class DeepSpeedEngine:
             set_transfer_tracer(self.telemetry.tracer)
         # one fault plane (docs/stages.md): stage records + drain graph
         wire_stage_plane(self)
+        if self._offload_disk:
+            # the wired disk stage records (budgets that persist across
+            # steps, telemetry counters, flight-recorder dumps)
+            self._host_opt.bind_stages(self._stage_records["disk_read"],
+                                       self._stage_records["disk_write"])
         self._init_checkpointing(config)
         self._init_finalizer()
         # the trace window (torch.profiler) and the per-phase timers;
@@ -549,17 +573,20 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
-    def _scaled_grads(self, batch, scaler, step_rng, sharded=None):
+    def _scaled_grads(self, batch, scaler, step_rng, sharded=None,
+                      keep=None):
         """Sum fp32 grads of the scaled micro-batch losses over the
         micro-steps and the data ranks (``runtime/zero.py``; ``sharded``
         overrides the stage's gradient placement — False is the plain
         all-reduce the partitioning check compares with) and unscale by
         ``loss_scale * grad_acc * dp``.  Returns (grads in tree_leaves
-        order, in the master's placement; scaled losses)."""
+        order, in the master's placement; scaled losses).  ``keep``: the
+        leaves whose grads are computed (the others None); a streamed
+        leaf's grad is its host stack with the unscale attached."""
         rt = self._zero
         ga = int(self.gradient_accumulation_steps)
         rt.start_grads(self.zero_stage >= 2 if sharded is None
-                       else sharded)
+                       else sharded, keep=keep)
         scaled_losses = []
         for i in range(ga):
             mb = _tree_map(lambda x: x[i], batch)
@@ -575,7 +602,14 @@ class DeepSpeedEngine:
             scaled_losses.append(scaled.detach())
         grads = rt.finish_grads()
         inv = (1.0 / (scaler.loss_scale * (ga * self.dp_world_size))).float()
-        return [g * inv for g in grads], scaled_losses
+        out = []
+        for g in grads:
+            if isinstance(g, HostGrad):
+                g.inv = inv
+            elif g is not None:
+                g = g * inv
+            out.append(g)
+        return out, scaled_losses
 
     def _global_norm(self, grads) -> torch.Tensor:
         """The L2 norm of the logical gradient tree (every rank gets it)."""
@@ -610,6 +644,10 @@ class DeepSpeedEngine:
                                         rtol=rtol, atol=atol)
 
     def _run_pg_correctness(self, placed, rtol=2e-5, atol=2e-5):
+        if self._zero.streamer is not None:
+            raise NotImplementedError(
+                "the partitioning check compares gradients on the device; "
+                "param_streaming keeps the streamed leaves' in host stacks")
         scaler = self.state.scaler
         rng = fold_in(self._rng, self.global_steps)
         g_plan, _ = self._scaled_grads(placed, scaler, rng)
@@ -693,8 +731,9 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _init_host_offload(self, config, pieces) -> None:
         """The host optimizer over this rank's master pieces (several
-        processes: each stages its own data shards), its first compute
-        copy uploaded as the forward's source, and the step's knobs."""
+        processes: each stages its own data shards) — or the disk tier's,
+        single-controller — its first compute copy uploaded as the
+        forward's source, and the step's knobs."""
         from .offload import HostOffloadOptimizer
         op = dict(config.optimizer_params)
         sched = self._lr_schedule
@@ -702,14 +741,28 @@ class DeepSpeedEngine:
               if sched is not None else float(op.get("lr", 1e-3)))
         # a card's engine never takes the numpy Adam: a failed build raises
         native = True if self.device.type == "cuda" else None
-        self._host_opt = HostOffloadOptimizer(
-            pieces, lr=lr, betas=tuple(op.get("betas", (0.9, 0.999))),
-            eps=op.get("eps", 1e-8),
-            weight_decay=op.get("weight_decay", 0.0),
-            adamw_mode=op.get("adam_w_mode", True),
-            bias_correction=op.get("bias_correction", True),
-            compute_dtype=self.compute_dtype, use_native=native,
-            device=self.device)
+        kw = dict(lr=lr, betas=tuple(op.get("betas", (0.9, 0.999))),
+                  eps=op.get("eps", 1e-8),
+                  weight_decay=op.get("weight_decay", 0.0),
+                  adamw_mode=op.get("adam_w_mode", True),
+                  bias_correction=op.get("bias_correction", True),
+                  compute_dtype=self.compute_dtype, use_native=native,
+                  device=self.device)
+        if self._offload_disk:
+            if self.mesh.size > 1:
+                raise ValueError(
+                    "offload.tier='disk' is single-controller: the disk "
+                    "tier streams per-leaf state files owned by ONE "
+                    "process (multi-host disk sharding is a future "
+                    "extension); use tier='host' under multi-process "
+                    "runs")
+            from .disk_offload import DiskOffloadOptimizer
+            oc = config.offload_config
+            self._host_opt = DiskOffloadOptimizer(
+                pieces, disk_dir=oc.disk_dir, io_depth=oc.io_depth,
+                fsync=oc.fsync, **kw)
+        else:
+            self._host_opt = HostOffloadOptimizer(pieces, **kw)
         self._set_compute(self._host_opt.upload_all(
             self._host_opt.compute_params()))
         zc = config.zero_config
@@ -863,6 +916,33 @@ class DeepSpeedEngine:
                 "fraction of offload H2D param-upload time hidden under "
                 "the host Adam (streaming pipeline; serial path = 0)",
             ).set(ratio)
+        disk = getattr(self._host_opt, "last_disk_breakdown", None)
+        if disk is not None:
+            # the disk tier: its state I/O folded into the breakdown and
+            # the interval scalars (the summarize "disk tier" row)
+            self.last_offload_breakdown.update(disk)
+            dacc = self._disk_interval_acc = getattr(
+                self, "_disk_interval_acc", None) or {
+                    "read": 0.0, "write": 0.0, "hidden": 0.0, "steps": 0}
+            dacc["read"] += disk["disk_read_s"]
+            dacc["write"] += disk["disk_write_s"]
+            dacc["hidden"] += disk["disk_hidden_s"]
+            dacc["steps"] += 1
+            if self.telemetry is not None:
+                reg = self.telemetry.registry
+                reg.gauge(
+                    "offload_disk_overlap_ratio",
+                    "fraction of disk-tier state I/O time hidden under the "
+                    "host Adam (pipelined read-ahead/write-back; serial "
+                    "= 0)").set(disk["disk_overlap_ratio"])
+                reg.counter(
+                    "disk_bytes_read_total",
+                    "optimizer/master state bytes read from the disk "
+                    "tier").inc(disk["disk_bytes_read"])
+                reg.counter(
+                    "disk_bytes_written_total",
+                    "optimizer/master state bytes written to the disk "
+                    "tier").inc(disk["disk_bytes_written"])
 
     def _dpu_flush(self) -> None:
         """Apply a pending delayed update (a save, an eval and a load
@@ -1049,7 +1129,8 @@ class DeepSpeedEngine:
         # record_step / on_sync / the report line for the same batch
         with self._tel_span("train/dispatch", cat="train",
                             step=self.global_steps + 1):
-            packed = (self._train_step_offload(placed) if self._offload
+            packed = (self._train_step_xla(placed) if self._offload_xla
+                      else self._train_step_offload(placed) if self._offload
                       else self._train_step(placed))
             self._last_packed = packed
             self._last_metrics = None
@@ -1204,6 +1285,14 @@ class DeepSpeedEngine:
             scalars["offload_h2d_s"] = acc["h2d"] / acc["steps"]
             scalars["offload_cpu_adam_s"] = acc["cpu_adam"] / acc["steps"]
             acc.update(h2d=0.0, hidden=0.0, cpu_adam=0.0, steps=0)
+        dacc = getattr(self, "_disk_interval_acc", None)
+        if dacc is not None and dacc["steps"]:
+            io_s = dacc["read"] + dacc["write"]
+            scalars["offload_disk_overlap_ratio"] = (
+                dacc["hidden"] / io_s if io_s > 0 else 0.0)
+            scalars["disk_read_s"] = dacc["read"] / dacc["steps"]
+            scalars["disk_write_s"] = dacc["write"] / dacc["steps"]
+            dacc.update(read=0.0, write=0.0, hidden=0.0, steps=0)
         pf = self._train_prefetcher
         if pf is not None:
             # interval deltas of the prefetcher's cumulative stats: the
@@ -1393,7 +1482,10 @@ class DeepSpeedEngine:
             micro = batch.ready()
         else:
             micro = _tree_map(self._to_device, batch)
-        if self._offload:
+        if self._offload_xla:
+            self._xla_check_poison()
+            self._xla_dpu_flush()
+        elif self._offload:
             self._dpu_flush()
         with torch.no_grad():
             params = self._zero.compute_tree(self._anchor)
@@ -1451,13 +1543,26 @@ class DeepSpeedEngine:
         host and hands serialization to the daemon writer — the step loop
         pays only that copy; ``None`` takes the ``checkpoint.async_save``
         config, and a degraded writer saves synchronously."""
-        if self._offload:
+        if self._fatal_state_error is not None:
+            raise RuntimeError(self._fatal_state_error)
+        if self._offload_xla:
+            self._xla_dpu_flush()
+        elif self._offload:
             self._dpu_flush()
         if async_write is None:
             async_write = bool(self.config.checkpoint_config.async_save)
         if async_write:
             # a degraded writer saves synchronously (docs/stages.md)
             async_write = not stage_degraded(self, "ckpt_writer")
+        if async_write and self._offload_disk:
+            # the async snapshot would copy every plane to host RAM —
+            # the bytes the disk tier keeps on disk; the sync save
+            # streams them leaf by leaf from the files
+            logger.warning(
+                "offload.tier='disk': async checkpoint save downgraded "
+                "to synchronous (the async snapshot would materialize "
+                "the full disk-resident master+moments in host RAM)")
+            async_write = False
         from .checkpointing import save_checkpoint
         t0 = time.perf_counter()
         with self._tel_span("checkpoint/save", cat="checkpoint",
@@ -1486,23 +1591,39 @@ class DeepSpeedEngine:
         ``load_dir`` holds no ``latest``."""
         from .checkpointing import load_checkpoint
         with self._tel_span("checkpoint/load", cat="checkpoint"):
-            return load_checkpoint(
+            out = load_checkpoint(
                 self, load_dir, tag=tag,
                 load_optimizer_states=load_optimizer_states,
                 load_lr_scheduler_states=load_lr_scheduler_states,
                 load_module_only=load_module_only)
+        if self._offload_xla and out[0] is not None:
+            # the delayed update's seeds continue from the dispatches
+            # (global_steps), not the applied count, which skips exclude
+            self._xla_dpu_dispatch = self.global_steps
+        return out
 
-    def _canonical_state(self):
+    def _canonical_state(self, templates: bool = False):
         """(master, optimizer state) in the JAX engine's tree form: the
         count and the moments re-nested onto the param tree (this rank's
-        pieces of each leaf).  The host tier's is the same
+        pieces of each leaf).  The host and disk tiers' is the same
         ``FusedAdamState`` (its count an int64, as the JAX host tier
         writes it), read through ``state_tree()``, which refuses while
-        the optimizer is poisoned."""
+        the optimizer is poisoned; ``templates`` (a load's shapes only)
+        reads the engine's views instead, so a poisoned tier can load."""
+        if self._offload_xla:
+            from ..ops.adam import FusedAdamState
+            m, mu, nu, count = self._xla_canonical()
+            tmpl = self._zero.template
+            return (_unflatten_like(tmpl, m),
+                    FusedAdamState(count=count,
+                                   mu=_unflatten_like(tmpl, mu),
+                                   nu=_unflatten_like(tmpl, nu)))
         master = self.state.master_params
         if self._offload:
             from ..ops.adam import FusedAdamState
-            st = self._host_opt.state_tree()
+            opt = self.state.opt_state
+            st = ({"step": int(opt.count), "mu": opt.mu, "nu": opt.nu}
+                  if templates else self._host_opt.state_tree())
             return master, FusedAdamState(
                 count=np.asarray(st["step"], np.int64),
                 mu=_unflatten_like(master, st["mu"]),
@@ -1517,10 +1638,10 @@ class DeepSpeedEngine:
                                  mu=_unflatten_like(master, opt.mu),
                                  nu=_unflatten_like(master, opt.nu))
 
-    def _checkpoint_state(self):
+    def _checkpoint_state(self, templates: bool = False):
         """``_canonical_state`` with each param-shaped leaf as this rank's
         ``ShardPiece`` of it: what the checkpoint writes and loads into."""
-        master, opt = self._canonical_state()
+        master, opt = self._canonical_state(templates)
 
         def pieces(tree):
             return _unflatten_like(
@@ -1537,6 +1658,22 @@ class DeepSpeedEngine:
         copy; a pending delayed update is dropped (the load supersedes
         it)."""
         leaves = tree_leaves(master)
+        if self._offload_xla:
+            self.state = TrainState(
+                master_params=self.state.master_params,
+                opt_state=self.state.opt_state, scaler=scaler,
+                skipped_steps=torch.tensor(skipped_steps, dtype=torch.int32,
+                                           device=self.device))
+            if opt_tree is None:
+                self._xla_adopt(leaves, None, None, 0)
+            else:
+                self._xla_adopt(leaves, tree_leaves(opt_tree.mu),
+                                tree_leaves(opt_tree.nu),
+                                int(np.asarray(opt_tree.count.cpu()
+                                               if isinstance(opt_tree.count,
+                                                             torch.Tensor)
+                                               else opt_tree.count)))
+            return
         if self._offload:
             self._dpu_pending = None
             ho = self._host_opt

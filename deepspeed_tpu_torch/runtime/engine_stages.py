@@ -13,10 +13,12 @@ never outlives its step call), an in-flight checkpoint save is not
 droppable, so its stage drains (and surfaces failures) before telemetry
 flushes last, still seeing every stage's final spans and counters —
 
-    prefetch -> offload uploads -> ckpt writer -> telemetry flush
+    prefetch -> offload uploads -> disk write-back -> ckpt writer
+             -> telemetry flush
 
-(the JAX engine's, minus its disk write-back entry: the disk tier is
-ROADMAP.md queue 1 item 12's second half).
+(the JAX engine's; the disk tier's read-ahead and write-back workers
+never outlive their step call, so its entry aborts a step in flight and
+is a no-op between steps).
 
 The serving engine has its own graph with the same discipline
 (``wire_serve_stage_plane``) —
@@ -33,6 +35,8 @@ from .stages import Stage, StageGraph
 ENGINE_STAGES = (
     ("prefetch", "inline iteration"),
     ("offload_h2d", "the serial offload update"),
+    ("disk_read", "the serial read-update-write loop"),
+    ("disk_write", "the serial read-update-write loop"),
     ("ckpt_writer", "synchronous saves"),
 )
 
@@ -86,6 +90,9 @@ def wire_stage_plane(engine) -> None:
     graph.register("offload_uploads",
                    close=lambda: close_upload_stage(engine),
                    drain=lambda: None)  # never outlives its step call
+    graph.register("disk_writeback",
+                   close=lambda: close_disk_stage(engine),
+                   drain=lambda: None)  # joined inside its step call
     graph.register("ckpt_writer",
                    close=lambda: close_ckpt_stage(engine),
                    drain=lambda: drain_ckpt_stage(engine))
@@ -160,6 +167,16 @@ def close_upload_stage(engine) -> None:
     up = getattr(engine, "_active_uploader", None)
     if up is not None:
         up.abort()
+
+
+def close_disk_stage(engine) -> None:
+    """Abort a mid-flight disk-tier read-ahead/write-back pipeline (a
+    close landing inside a step from another thread): the channels
+    close, the step raises and poisons, and a checkpoint restore
+    rewrites every leaf.  Between steps a no-op."""
+    opt = getattr(engine, "_host_opt", None)
+    if opt is not None and hasattr(opt, "abort_inflight"):
+        opt.abort_inflight()
 
 
 def drain_ckpt_stage(engine) -> None:

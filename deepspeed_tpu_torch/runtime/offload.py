@@ -1,6 +1,7 @@
 """ZeRO-Offload's host tier — the port of ``deepspeed_tpu/runtime/offload.py``
-(its host half; the XLA tier and the disk tier are ROADMAP.md queue 1,
-item 12's second half).
+(its host half; the disk tier below it is ``runtime/disk_offload.py``,
+which keeps this tier's transfer buffers and streams, and the XLA tier
+``runtime/offload_xla.py``).
 
 The device runs forward, backward, unscale, the overflow check and
 clipping; the fp32 master and both Adam moments live in host RAM (the

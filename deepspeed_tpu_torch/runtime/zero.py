@@ -21,10 +21,16 @@ or None, per dim) and runs the collectives itself
             one data rank, so its gather is a broadcast from that owner
             and its gradient a reduce onto it.
 
-With ZeRO-Offload's host tier (``runtime/offload.py``) the master and
-moments live in host RAM and the sources are the uploaded compute copy
-(all-gathered over ``data`` where the master is sharded), the forward's
-one place for a layer's bytes to come from as at any stage.
+With ZeRO-Offload (``runtime/offload.py``, ``runtime/offload_xla.py``)
+the master and moments live in host RAM and the sources are the uploaded
+compute copy (all-gathered over ``data`` where the stage gathers it), the
+forward's one place for a layer's bytes to come from as at any stage.
+Two hooks serve the pinned-piece tier: ``start_grads(keep=...)`` keeps
+one group of leaves' gradients (the others are fetched without autograd,
+so their weight gradients are never computed), and a ``streamer``
+(``offload_xla.StreamedLeaves``) holds the compute copies of the
+streamed leaves in pinned host memory, fetches one layer of them per
+block and takes their gradients to a pinned host stack.
 
 A leaf whose dims do not divide stays replicated (no padding), and a
 tensor-parallel dim that does not divide falls back to replication, as in
@@ -265,7 +271,7 @@ class LayerStack:
         self.mesh = runtime.mesh
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        return {name: _Fetch.apply(self._anchor, self._rt, idx, i)
+        return {name: self._rt.fetch(self._anchor, idx, i)
                 for name, idx in self._names.items()}
 
 
@@ -313,6 +319,10 @@ class ZeroRuntime:
         self.sources: List[torch.Tensor] = []
         self._acc: Optional[List[torch.Tensor]] = None
         self._acc_sharded: List[bool] = []
+        #: the leaves whose gradients this pass keeps (None: every leaf)
+        self._keep: Optional[frozenset] = None
+        #: the host-streamed leaves' fetcher and gradient sink, or None
+        self.streamer = None
         dev = tree_leaves(params)[0].device if self.placements else None
         # leaves split over ``data`` / ``model`` in the master's placement
         # (the grads' and the update's too, once reduced): the norms sum
@@ -377,6 +387,13 @@ class ZeroRuntime:
         else:
             self.sources = list(master)
 
+    def fetch(self, anchor, idx: int, layer: Optional[int]):
+        """Leaf ``idx`` (or one layer of it) for the forward: through
+        :class:`_Fetch` when its gradient is kept, else without autograd."""
+        if self._keep is not None and idx not in self._keep:
+            return self.materialize(idx, layer)
+        return _Fetch.apply(anchor, self, idx, layer)
+
     def compute_tree(self, anchor):
         """The params tree the model's ``loss_fn`` takes: whole leaves
         fetched now, the stacked subtree as a :class:`LayerStack`."""
@@ -388,11 +405,14 @@ class ZeroRuntime:
                 elif isinstance(v, dict):
                     out[k] = go(v, False)
                 else:
-                    out[k] = _Fetch.apply(anchor, self, v, None)
+                    out[k] = self.fetch(anchor, v, None)
             return out
         if not isinstance(self.template, dict):
-            return _Fetch.apply(anchor, self, self.template, None)
+            return self.fetch(anchor, self.template, None)
         return go(self.template, True)
+
+    def streamed(self, i: int) -> bool:
+        return self.streamer is not None and i in self.streamer.leaves
 
     def _owner(self, layer: int, i: int) -> Tuple[int, int]:
         per = self.placements[i].shape[0] // self.dp
@@ -402,61 +422,92 @@ class ZeroRuntime:
         pl = self.placements[i]
         src = self.sources[i]
         cdt = self.compute_dtype if src.is_floating_point() else src.dtype
+        if self.streamed(i):
+            # a layer of a pinned host stack: fetched on the side stream
+            get = self.streamer.getter(i)
+        else:
+            def get(idx):
+                return src if idx is None else src[idx]
         if self.stage >= 3 and pl.zero_dim is not None:
             if layer is not None and pl.zero_dim == 0:
                 owner, local = self._owner(layer, i)
-                x = (src[local].to(cdt) if owner == self.dp_rank else
+                x = (get(local).to(cdt) if owner == self.dp_rank else
                      torch.empty(src.shape[1:], dtype=cdt,
-                                 device=src.device))
+                                 device=self._data_mask.device))
                 return col.pbroadcast_from(x, self.mesh, DATA_AXIS, owner)
-            x = src if layer is None else src[layer]
+            x = get(layer)
             return col.all_gather(x.to(cdt), self.mesh, DATA_AXIS,
                                   pl.zero_dim - (layer is not None))
+        if self.streamed(i):
+            return get(layer).to(cdt)
         x = src if layer is None else src[layer]
         # a view, never ``src`` itself: autograd would make the Function's
         # output (and so the master) require grad
         return x.to(cdt).view_as(x)
 
     # -- gradients --------------------------------------------------------
-    def start_grads(self, sharded: bool) -> None:
+    def start_grads(self, sharded: bool,
+                    keep: Optional[frozenset] = None) -> None:
         """Zeroed fp32 accumulators for one step: a rank's data shard
         where ``sharded`` (stages 2–3) and the leaf divides, else the
-        whole tensor-parallel piece."""
+        whole tensor-parallel piece; only the ``keep`` leaves' when
+        given.  A streamed leaf's accumulator is the streamer's host
+        stack."""
+        self._keep = keep
         self._acc_sharded = [sharded and p.zero_dim is not None
                              for p in self.placements]
         dev = self._data_mask.device
+        if self.streamer is not None:
+            self.streamer.start_grads(keep)
         self._acc = [
+            None if (keep is not None and i not in keep)
+            or self.streamed(i) else
             torch.zeros([b - a for a, b in self.box(i, s)],
                         dtype=torch.float32, device=dev)
             for i, s in enumerate(self._acc_sharded)]
 
     def accumulate(self, i: int, layer: Optional[int], g: torch.Tensor):
-        acc = self._acc[i]
         g32 = g.float()
         pl = self.placements[i]
+        idx = layer
         if self._acc_sharded[i]:
             if layer is not None and pl.zero_dim == 0:
-                owner, local = self._owner(layer, i)
-                r = col.reduce_to(g32, self.mesh, DATA_AXIS, owner)
-                if owner == self.dp_rank:
-                    acc[local].add_(r)
-                return
-            g32 = col.reduce_scatter(g32, self.mesh, DATA_AXIS,
-                                     pl.zero_dim - (layer is not None))
-        (acc if layer is None else acc[layer]).add_(g32)
+                owner, idx = self._owner(layer, i)
+                g32 = col.reduce_to(g32, self.mesh, DATA_AXIS, owner)
+                if owner != self.dp_rank:
+                    return
+            else:
+                g32 = col.reduce_scatter(g32, self.mesh, DATA_AXIS,
+                                         pl.zero_dim - (layer is not None))
+        if self.streamed(i):
+            if not self._acc_sharded[i] and self.dp > 1:
+                # no boundary all-reduce reaches a host stack: reduce
+                # each layer's contribution now
+                g32 = col.psum(g32, self.mesh, DATA_AXIS)
+            self.streamer.accumulate(i, idx, g32)
+            return
+        acc = self._acc[i]
+        (acc if idx is None else acc[idx]).add_(g32)
 
     def finish_grads(self) -> List[torch.Tensor]:
         """The step's summed grads in the master's placement: the
         accumulators not yet reduced are all-reduced over ``data`` (and
-        cut to the rank's shard where the master is sharded)."""
+        cut to the rank's shard where the master is sharded).  A leaf
+        whose gradient was not kept is None; a streamed leaf's is its
+        host stack (``offload_xla.HostGrad``)."""
         out = []
+        host = (self.streamer.finish_grads() if self.streamer is not None
+                else {})
         for i, a in enumerate(self._acc):
-            if not self._acc_sharded[i]:
+            if i in host:
+                a = host[i]
+            elif a is not None and not self._acc_sharded[i]:
                 a = col.psum(a, self.mesh, DATA_AXIS)
                 if self.master_split(i):
                     a = self.data_shard(a, i)
             out.append(a)
         self._acc = None
+        self._keep = None
         return out
 
     # -- norms over the logical tree ---------------------------------------

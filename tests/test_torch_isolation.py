@@ -157,6 +157,51 @@ def test_serve_mesh_offload_and_prefetch_run_with_jax_unimportable():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
+def test_disk_xla_streaming_and_lut_run_with_jax_unimportable():
+    """The modules item 12's second half adds (``runtime/disk_offload.py``,
+    ``runtime/offload_xla.py``) and the native LUT run with jax made
+    unimportable: the disk tier and the XLA tier with parameter streaming
+    and grad chunks each train a step, and ``build_lut(use_native=True)``
+    equals the numpy arm."""
+    code = ("import sys, tempfile\n"
+            "for m in ('jax', 'jaxlib', 'deepspeed_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import numpy as np, torch\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.models.gpt2 import GPT2Config, "
+            "GPT2Model\n"
+            "from deepspeed_tpu_torch.runtime import disk_offload, "
+            "offload_xla\n"
+            "from deepspeed_tpu_torch.ops.sparse_attention import "
+            "sparse_self_attention as ssa\n"
+            "m = GPT2Model(GPT2Config(vocab_size=64, n_positions=16, "
+            "d_model=32, n_layer=2, n_head=2, stream_scan=True))\n"
+            "base = {'train_micro_batch_size_per_gpu': 1, 'bf16': "
+            "{'enabled': True}, 'optimizer': {'type': 'Adam', 'params': "
+            "{'lr': 1e-3}}}\n"
+            "d = tempfile.mkdtemp()\n"
+            "for extra in ({'zero_optimization': {'stage': 2, "
+            "'cpu_offload': True}, 'offload': {'tier': 'disk', "
+            "'disk_dir': d}}, {'zero_optimization': {'stage': 2, "
+            "'cpu_offload': True, 'offload_impl': 'xla', "
+            "'param_streaming': True, 'offload_grad_chunks': 2}}):\n"
+            "    eng, *_ = dst.initialize(model=m, config={**base, "
+            "**extra}, device='cpu')\n"
+            "    loss = eng.train_batch(torch.zeros(1, 9, dtype=torch.long))"
+            "\n"
+            "    assert torch.isfinite(loss)\n"
+            "    eng.close()\n"
+            "lay = (np.random.default_rng(0).random((2, 8, 8)) < .3)"
+            ".astype(np.int32)\n"
+            "a, b = ssa.build_lut(lay, use_native=True), "
+            "ssa.build_lut(lay, use_native=False)\n"
+            "assert all(np.array_equal(x, y) for x, y in zip(a, b))\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
 TINY = GPT2Config(vocab_size=64, n_positions=32, d_model=64, n_layer=1,
                   n_head=1)
 
@@ -278,14 +323,14 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
     ({"sparse_gradients": True}, "item 11"),
     ({"progressive_layer_drop": {"enabled": True},
       "pipeline": {"stages": 2}}, "item 10"),
-    # the telemetry plane and ZeRO 3 are ported; with it on, the XLA
-    # offload tier still raises (item 12's second half)
+    # the telemetry plane and ZeRO 3 are ported, and item 12's XLA
+    # offload tier (with TensorBoard and the timers on) and disk tier
     ({"telemetry": {"enabled": True}, "zero_optimization": {"stage": 3},
       "bf16": {"enabled": True}}, None),
     ({"tensorboard": {"enabled": True}, "wall_clock_breakdown": True,
       "zero_optimization": {"stage": 2, "cpu_offload": True,
                             "offload_impl": "xla"},
-      "bf16": {"enabled": True}}, "item 12"),
+      "bf16": {"enabled": True}}, None),
     # checkpointing of a ZeRO-partitioned state is ported (across
     # processes async and SIGTERM saves are single-controller, as in the
     # JAX engine: tested on 2 ranks in tests/test_torch_zero.py)
@@ -293,8 +338,8 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
       "zero_optimization": {"stage": 2}, "bf16": {"enabled": True}},
      None),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True},
-      "offload": {"tier": "disk", "disk_dir": "/nonexistent/ds_disk"},
-      "bf16": {"enabled": True}}, "item 12"),
+      "offload": {"tier": "disk", "disk_dir": "ds_disk"},
+      "bf16": {"enabled": True}}, None),
 ], ids=["zero", "offload", "pipeline", "onebit", "lamb", "sparse_grads",
         "pld", "telemetry", "tensorboard", "checkpoint", "disk_tier"])
 def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
@@ -302,6 +347,12 @@ def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
     if "telemetry" in extra:
         extra = {**extra, "telemetry": {"enabled": True,
                                         "output_path": str(tmp_path)}}
+    if "tensorboard" in extra:
+        extra = {**extra, "tensorboard": {"enabled": True,
+                                          "output_path": str(tmp_path)}}
+    if "offload" in extra:
+        extra = {**extra, "offload": {**extra["offload"],
+                                      "disk_dir": str(tmp_path / "disk")}}
     if item is None:
         eng, *_ = deepspeed_tpu_torch.initialize(
             model=GPT2Model(TINY), config={**TRAIN_BASE, **extra},
@@ -330,8 +381,12 @@ def test_unported_training_paths_raise(tmp_path):
         deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                        config=TRAIN_BASE, mesh=object(),
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        GPT2Config(stream_scan=True)
+    # item 12's stream_scan is ported: it marks the stacked leaves
+    spec = GPT2Model(GPT2Config(stream_scan=True)).streaming_param_spec(
+        {"wte": 0, "blocks": {"qkv_w": 0}})
+    assert spec == {"wte": False, "blocks": {"qkv_w": True}}
+    assert GPT2Model(GPT2Config(stream_scan=True, scan_layers=False)
+                     ).streaming_param_spec({"blocks": {}}) is None
     eng, *_ = deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
                                              config=TRAIN_BASE,
                                              device="cpu")

@@ -431,8 +431,10 @@ def test_async_and_sigterm_saves_across_processes(tmp_path):
 
 
 @pytest.mark.parametrize("zero,exc,match", [
-    ({"offload_impl": "xla"}, NotImplementedError,
-     r"item 12 \(its second half\)"),
+    # the XLA tier is ported; it refuses streaming a model that marks
+    # no streamable leaves
+    ({"offload_impl": "xla", "param_streaming": True}, ValueError,
+     "streaming_param_spec"),
     ({"stage": 3}, ValueError, "ZeRO-3"),
     ({"param_streaming": True}, ValueError, "xla-tier"),
     ({"offload_grad_chunks": 2}, ValueError, "xla-tier"),
@@ -446,10 +448,18 @@ def test_offload_refusals(zero, exc, match):
 
 
 def test_disk_tier_refused_naming_item_12(tmp_path):
+    """Item 12's disk tier is ported (``tests/test_torch_disk_offload.py``):
+    it trains, one state file per leaf, and refuses the XLA tier's
+    explicit ``offload_impl`` (a host-impl structure)."""
+    from deepspeed_tpu_torch.config import DeepSpeedConfigError
     cfg = _cfg("bf16")
-    cfg["offload"] = {"tier": "disk", "disk_dir": str(tmp_path)}
-    with pytest.raises(NotImplementedError,
-                       match=r"item 12 \(its second half\)"):
+    cfg["offload"] = {"tier": "disk", "disk_dir": str(tmp_path / "d")}
+    eng, *_ = dst.initialize(model=SimpleModel(), config=cfg, device="cpu")
+    _run(eng, _batches("simple", int(eng.train_batch_size), steps=1))
+    assert len(os.listdir(tmp_path / "d")) == len(eng._host_opt._meta)
+    eng.close()
+    cfg["zero_optimization"]["offload_impl"] = "xla"
+    with pytest.raises(DeepSpeedConfigError, match="host-impl"):
         dst.initialize(model=SimpleModel(), config=cfg, device="cpu")
 
 

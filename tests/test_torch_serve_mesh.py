@@ -292,12 +292,16 @@ def test_paged_cache_mesh_validation_and_shard_shapes():
 
 
 def _uneven_paged_job(rank, world, trees):
+    import torch.distributed as dist
     from deepspeed_tpu_torch.parallel import build_mesh
+    mesh = build_mesh()
+    # no rank tears its groups down while another still builds them
+    dist.barrier()
     try:
         ServeEngine(GPT2Model(GPT2Config(**SMALL)), {"serving": {
             "slots": 3, "max_seq_len": 32, "prefill_len": 16,
             "page_len": 4}}, params=params_from_numpy(trees[0]),
-            mesh=build_mesh(), seed=0, device="cpu")
+            mesh=mesh, seed=0, device="cpu")
     except ValueError as e:
         return str(e)
     return None
