@@ -264,7 +264,28 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             processes, printed, never a failure: the answer is a fact of
             the machine).  The process group is destroyed and the env
             restored after.
-26. serve_mesh  (after train_zero) ``ServeEngine(mesh=...)`` on a real
+26. train_pipe  (after train_zero) pipeline parallelism through
+            ``initialize(model=PipelineModule)``: GPT-2 small at full
+            width and depth, 8 micro-batches of 1 x 1024 tokens, dropout
+            0.1, Adam, clipping 1.0, every arm from one weight tree (the
+            pp-1 module's init at the seed).  (a) pp 1 on a one-rank NCCL
+            group: 1 + 4 bf16 steps under 1F1B and under GPipe, losses
+            equal (whether bitwise printed); fp32, 1 + 2 steps; fp32 at
+            dropout 0 with the kernels against the dense attention,
+            within 1e-4; flash launches 2·L·M, L·M and L·M a step (the
+            stage body recomputed in the backward).  (c) BERT-large bf16
+            through ``build_bert_pipe`` with LAMB, 4 micro-batches of 2 x
+            512, 1 + 1 steps: finite, launches 2·24·4, 24·4, 24·4.  (b)
+            pp 2: two processes on cuda:0 over a gloo group (NCCL takes
+            no two ranks on one card), each one stage, building the same
+            tree (its digest checked): 1 + 2 fp32 and bf16 1F1B steps,
+            the fp32 losses within 1e-5 relative of (a)'s, the first bf16
+            loss within 1e-2 of (a)'s, each rank's launches half of (a)'s;
+            each rank's step ms, peak MiB, point-to-point calls, bytes,
+            wait and staging ms per step (boundary tensors staged through
+            pinned host buffers) and the boundary inputs it held, beside
+            the card's name and power limit.
+27. serve_mesh  (after train_pipe) ``ServeEngine(mesh=...)`` on a real
             NCCL process group of one rank (the env contract as
             train_zero's): GPT-2 small bf16 on the slot cache, the paged
             pool, the int8 weights and pool and speculation on both caches
@@ -273,7 +294,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             arm beside the same engine with no mesh: the streams equal
             bit for bit, the decode ticks and every kernel's launches
             equal, the mesh run's tokens/s printed beside;
-27. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
+28. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
             small bf16, 8 x 1024 tokens, accumulation 2, dropout 0.1,
             remat block), ZeRO stage 2 with ``cpu_offload``, 1 + 5 steps
             from a loader: (a) the pipelined upload with ``data_prefetch``
@@ -292,29 +313,29 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             micro-batch 1 x 1024) with the host tier, 1 + 3 steps: the
             host bytes of its fp32 master and moments, peak device MiB
             and the same breakdown.
-28. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
-            27's model and batches, fsync on, the state under a temporary
+29. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
+            28's model and batches, fsync on, the state under a temporary
             directory on the local disk: the pipelined read-ahead and
             write-back (prefetch 2), 1 + 5 steps: losses, the fp32 master
-            and the compute copy on the card bitwise 27's (a); the serial
+            and the compute copy on the card bitwise 28's (a); the serial
             loop, 1 + 2 steps, bitwise the pipelined loop's losses and
             master at its step 2; the Adam
             native, the resident state window within the io_depth
             budget; the filesystem and its free bytes, the read and
             write GB/s, the overlap ratio and the step ms printed.
-29. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
+30. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
             pinned host pieces updated on the card) on the same model and
             batches, 1 + 5 steps each: (f) the fused update, its losses
-            within 1e-4 relative of 27's plain engine and its master after
+            within 1e-4 relative of 28's plain engine and its master after
             step 0 within 1e-4 of the plain engine's travel; (g) gradient
             chunks 2 and (h) the split update, each bitwise (f); (i) the
             delayed update, finite, its first loss bitwise (f)'s; (j)
             ZeRO-3 in a one-rank NCCL group, bitwise (f); the step ms, the
             H2D and D2H GB/s of the update, the idle share of a profiled
-            step and peak device MiB against 27's (a); then GPT-2 XL
+            step and peak device MiB against 28's (a); then GPT-2 XL
             (micro-batch 1 x 1024) on the tier with ``param_streaming``,
             ``stream_scan`` and the split update, 1 + 3 steps: the pinned
-            host bytes, peak device MiB against 27's XL host tier, the
+            host bytes, peak device MiB against 28's XL host tier, the
             step ms and the layer fetches' GB/s, and the compute copy on
             the card == bf16 of the pinned master on every leaf that does
             not stream.
@@ -2797,6 +2818,307 @@ def _one_rank_group():
                 os.environ[k] = v
 
 
+#: train_pipe: GPT-2 small in 8 micro-batches of 1 x 1024 tokens
+PIPE_MICRO, PIPE_GA, PIPE_STEPS, PIPE_PP2_STEPS = 1, 8, 5, 3
+PIPE_FP32_STEPS, PIPE_PARITY_STEPS = 3, 2
+#: BERT-large through build_bert_pipe: 4 micro-batches of 2 x 512 tokens
+PIPE_BERT_MICRO, PIPE_BERT_GA, PIPE_BERT_STEPS = 2, 4, 2
+PIPE_RANK_TIMEOUT_S = 300
+PIPE_FP32_RTOL, PIPE_BF16_RTOL = 1e-5, 1e-2
+
+_PIPE_RANK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.pipe_rank(int(sys.argv[2]), sys.argv[3], float(sys.argv[4]),
+                     int(sys.argv[5]), sys.argv[6])
+"""
+
+
+def _pipe_cfg(dtype_block: dict, schedule: str = "1f1b") -> dict:
+    conf = _train_config(dtype_block, PIPE_MICRO, PIPE_GA)
+    conf["pipeline"] = {"schedule": schedule}
+    return conf
+
+
+def _pipe_model_cfg(dropout: float, impl: str = "flash"):
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    return dataclasses.replace(GPT2_SMALL, dropout=dropout,
+                               embd_dropout=dropout, attn_impl=impl)
+
+
+def _pipe_tokens():
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    return np.random.default_rng(SEED + 5).integers(
+        0, GPT2_SMALL.vocab_size,
+        (PIPE_MICRO * PIPE_GA, GPT2_SMALL.n_positions + 1))
+
+
+def _pipe_tree():
+    """The one weight tree every train_pipe arm starts from: the pp-1
+    module's init at SEED (numpy arrays), and its digest."""
+    from deepspeed_tpu_torch.models.gpt2_pipe import build_gpt2_pipe
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    tree = build_gpt2_pipe(_pipe_model_cfg(0.0), 1).init(SEED)
+    digest = float(sum(np.abs(x.numpy()).astype(np.float64).sum()
+                       for x in tree_leaves(tree)))
+    return tree, digest
+
+
+def _pipe_steps(eng, batch, steps, dev):
+    """``steps`` steps: losses, launches, step ms (the steps after the
+    first), peak MiB and the point-to-point counters of those steps."""
+    import torch
+    losses = [float(eng.train_batch(batch))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng.channel.stats.reset()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        losses.append(float(eng.train_batch(batch)))
+    torch.cuda.synchronize()
+    n = max(steps - 1, 1)
+    return {"losses": losses, "launches": _train_counts(),
+            "step_ms": (time.perf_counter() - t0) / n * 1e3,
+            "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            "p2p": {k: v / n for k, v in eng.channel.stats.as_dict().items()},
+            "max_live": eng.max_live_boundaries}
+
+
+def pipe_rank(rank: int, init: str, digest: float, world: int = 2,
+              backend: str = "gloo") -> None:
+    """One stage of GPT-2 small at pp ``world``, from the same weight tree
+    as train_pipe's leg (a): over gloo every process on cuda:0 (train_pipe's
+    leg (b)), over NCCL one card a process (``profile_pipe_torch.py``).
+    Prints one ``PIPE_RANK`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2_pipe import (build_gpt2_pipe,
+                                                      split_gpt2_batch)
+    from deepspeed_tpu_torch.parallel import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {"rank": rank}
+    try:
+        tree, mine = _pipe_tree()
+        if mine != digest:
+            raise AssertionError(f"rank {rank}: weight tree digest {mine} "
+                                 f"!= leg (a)'s {digest}")
+        mesh = build_mesh(pp=world)
+        batch = split_gpt2_batch(torch.from_numpy(_pipe_tokens()).to(dev))
+        for label, block in (("fp32", {}),
+                             ("bf16", {"bf16": {"enabled": True}})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = deepspeed_tpu_torch.initialize(
+                model=build_gpt2_pipe(_pipe_model_cfg(0.1), world),
+                mesh=mesh, params=tree, seed=SEED, config=_pipe_cfg(block),
+                device=dev)[0]
+            if eng.channel.staged != (backend == "gloo"):
+                raise AssertionError(
+                    "a gloo pipe group stages CUDA tensors through pinned "
+                    "host buffers, an NCCL group sends them as they are")
+            out[label] = _pipe_steps(eng, batch, PIPE_PP2_STEPS, dev)
+            out[label]["stage"] = eng.stage_id
+            eng.close()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("PIPE_RANK " + json.dumps(out), flush=True)
+
+
+def _pipe_ranks(digest: float, world: int = 2,
+                backend: str = "gloo") -> list:
+    """``world`` processes, each one stage (:func:`pipe_rank`); their
+    results."""
+    init = f"tcp://127.0.0.1:{_free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _PIPE_RANK, HERE, str(r), init, repr(digest),
+         str(world), backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=PIPE_RANK_TIMEOUT_S)
+            outs.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (rc, out) in enumerate(outs):
+        lines = [ln for ln in out.splitlines() if ln.startswith("PIPE_RANK ")]
+        if rc != 0 or not lines:
+            fail(f"pipeline rank {r} of {world} ({backend}) exited "
+                 f"{rc}:\n{out[-3000:]}")
+        res.append(json.loads(lines[-1][len("PIPE_RANK "):]))
+    return res
+
+
+def phase_train_pipe(dev, card: str):
+    """Pipeline parallelism through ``initialize(model=PipelineModule)``:
+    GPT-2 small at full width and depth, bf16, 8 micro-batches of 1 x 1024
+    tokens, dropout 0.1, Adam, clipping 1.0.  (a) pp 1 on a one-rank
+    NCCL group, 1F1B against GPipe and the fp32 kernels against the dense
+    attention; (b) pp 2, two processes on cuda:0 over a gloo pipe group,
+    against (a); (c) BERT-large through ``build_bert_pipe`` with LAMB."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.bert import BERT_LARGE
+    from deepspeed_tpu_torch.models.bert_pipe import build_bert_pipe
+    from deepspeed_tpu_torch.models.gpt2_pipe import (build_gpt2_pipe,
+                                                      split_gpt2_batch)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree, digest = _pipe_tree()
+    batch = split_gpt2_batch(torch.from_numpy(_pipe_tokens()).to(dev))
+    L, M = 12, PIPE_GA
+    want = {"flash_fwd": 2 * L * M, "flash_bwd_dq": L * M,
+            "flash_bwd_dkv": L * M}
+    total = dict.fromkeys(want, 0)
+
+    def check(label, r, per_step, steps):
+        for name, n in per_step.items():
+            got = r["launches"][name]
+            total[name] += got
+            if got != n * steps:
+                fail(f"train_pipe {label}: {name} launched {got} times in "
+                     f"{steps} steps, expected {n} per step")
+        if not all(np.isfinite(r["losses"])):
+            fail(f"train_pipe {label}: losses {r['losses']}")
+
+    def engine(model_cfg, block, schedule="1f1b", stages=1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = deepspeed_tpu_torch.initialize(
+            model=build_gpt2_pipe(model_cfg, stages), params=tree, seed=SEED,
+            config=_pipe_cfg(block, schedule))[0]
+        if eng.device != dev:
+            fail(f"train_pipe: initialize() placed the engine on "
+                 f"{eng.device}")
+        return eng
+
+    runs = {}
+    with _one_rank_group():
+        bf16 = {"bf16": {"enabled": True}}
+        for sched in ("1f1b", "gpipe"):
+            eng = engine(_pipe_model_cfg(0.1), bf16, sched)
+            runs[sched] = r = _pipe_steps(eng, batch, PIPE_STEPS, dev)
+            eng.close()
+            check(f"(a) bf16 {sched}", r, want, PIPE_STEPS - 1)
+            print(f"[train_pipe] (a) GPT-2 small bf16 pp 1 {sched} on NCCL "
+                  f"(world 1), {M} micro-batches of {PIPE_MICRO} x 1024 "
+                  f"tokens, dropout 0.1: {r['step_ms']:.1f} ms per step, "
+                  f"peak {r['peak_mib']:.1f} MiB, boundary inputs held "
+                  f"{r['max_live']}; losses "
+                  f"{' '.join(f'{x:.6f}' for x in r['losses'])} [{card}]")
+        a, g = runs["1f1b"]["losses"], runs["gpipe"]["losses"]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(a, g))
+        if not worst <= PIPE_FP32_RTOL:
+            fail(f"train_pipe (a): 1F1B losses {a} differ from GPipe's {g}")
+        print(f"[train_pipe] (a) 1F1B vs GPipe at one stage: "
+              f"{'bitwise equal' if a == g else f'max rel diff {worst:.3g}'}"
+              f" over {PIPE_STEPS} steps [{card}]")
+        eng = engine(_pipe_model_cfg(0.1), {})
+        runs["fp32"] = r = _pipe_steps(eng, batch, PIPE_FP32_STEPS, dev)
+        eng.close()
+        check("(a) fp32", r, want, PIPE_FP32_STEPS - 1)
+        print(f"[train_pipe] (a) fp32 pp 1 1F1B, dropout 0.1: "
+              f"{r['step_ms']:.1f} ms per step, peak {r['peak_mib']:.1f} "
+              f"MiB; losses {' '.join(f'{x:.6f}' for x in r['losses'])} "
+              f"[{card}]")
+        parity = {}
+        for impl in ("flash", "dense"):
+            eng = engine(_pipe_model_cfg(0.0, impl), {})
+            parity[impl] = _pipe_steps(eng, batch, PIPE_PARITY_STEPS, dev)
+            eng.close()
+            check(f"(a) fp32 {impl}", parity[impl],
+                  want if impl == "flash" else dict.fromkeys(want, 0),
+                  PIPE_PARITY_STEPS - 1)
+        kf, kd = parity["flash"]["losses"], parity["dense"]["losses"]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(kf, kd))
+        print(f"[train_pipe] (a) fp32 kernels vs dense attention, dropout "
+              f"0, {PIPE_PARITY_STEPS} steps: {kf} vs {kd}; max rel diff "
+              f"{worst:.3g} (bar 1e-4) [{card}]")
+        if not worst <= 1e-4:
+            fail(f"train_pipe (a): fp32 kernel losses {kf} differ from the "
+                 f"dense path's {kd} by {worst}")
+
+        # (c) BERT-large through build_bert_pipe, LAMB, bf16
+        bcfg = dataclasses.replace(BERT_LARGE)
+        mb = mlm_batch(PIPE_BERT_MICRO * PIPE_BERT_GA, BERT_SEQ,
+                       bcfg.vocab_size, SEED)
+        bbatch = (torch.from_numpy(mb["input_ids"]).to(dev),
+                  torch.from_numpy(mb["masked_lm_labels"]).to(dev))
+        gc.collect()
+        torch.cuda.empty_cache()
+        conf = lamb_config(bf16, PIPE_BERT_MICRO)
+        conf["gradient_accumulation_steps"] = PIPE_BERT_GA
+        eng = deepspeed_tpu_torch.initialize(
+            model=build_bert_pipe(bcfg, 1), seed=SEED, config=conf)[0]
+        runs["bert"] = r = _pipe_steps(eng, bbatch, PIPE_BERT_STEPS, dev)
+        eng.close()
+        BL = bcfg.num_hidden_layers
+        check("(c) BERT-large LAMB", r,
+              {"flash_fwd": 2 * BL * PIPE_BERT_GA,
+               "flash_bwd_dq": BL * PIPE_BERT_GA,
+               "flash_bwd_dkv": BL * PIPE_BERT_GA}, PIPE_BERT_STEPS - 1)
+        print(f"[train_pipe] (c) BERT-large bf16 LAMB through "
+              f"build_bert_pipe (pp 1), {PIPE_BERT_GA} micro-batches of "
+              f"{PIPE_BERT_MICRO} x {BERT_SEQ}: {r['step_ms']:.1f} ms per "
+              f"step, peak {r['peak_mib']:.1f} MiB; losses "
+              f"{' '.join(f'{x:.6f}' for x in r['losses'])} [{card}]")
+
+    # (b) pp 2: two processes on cuda:0 over a gloo pipe group
+    ranks = _pipe_ranks(digest)
+    half = {k: v // 2 for k, v in want.items()}
+    for res in ranks:
+        s = res["fp32"]["stage"]
+        for label in ("fp32", "bf16"):
+            r = res[label]
+            check(f"(b) {label} stage {s}", r, half, PIPE_PP2_STEPS - 1)
+            p = r["p2p"]
+            calls = p["sends"] + p["recvs"]
+            nbytes = p["send_bytes"] + p["recv_bytes"]
+            print(f"[train_pipe] (b) {label} pp 2 stage {s} (gloo, cuda:0): "
+                  f"{r['step_ms']:.1f} ms per step, peak "
+                  f"{r['peak_mib']:.1f} MiB; point-to-point {calls:.0f} "
+                  f"calls, {nbytes:.0f} B, {p['seconds'] * 1e3:.1f} ms and "
+                  f"{p['staged']:.0f} pinned stagings per step "
+                  f"({nbytes / max(p['seconds'], 1e-9) / 1e9:.3f} GB/s over "
+                  f"the wait and staging time); boundary inputs held "
+                  f"{r['max_live']}; losses "
+                  f"{' '.join(f'{x:.6f}' for x in r['losses'])} [{card}]")
+        if res["fp32"]["losses"] != ranks[0]["fp32"]["losses"]:
+            fail("train_pipe (b): the two stages return different losses")
+    f2, f1 = ranks[0]["fp32"]["losses"], runs["fp32"]["losses"]
+    worst = max(abs(x - y) / abs(y) for x, y in zip(f2, f1))
+    print(f"[train_pipe] (b) pp 2 vs pp 1 at fp32, dropout 0.1: {f2} vs "
+          f"{f1}; max rel diff {worst:.3g} (bar {PIPE_FP32_RTOL}) [{card}]")
+    if not worst <= PIPE_FP32_RTOL:
+        fail(f"train_pipe (b): pp 2 fp32 losses {f2} differ from pp 1's {f1}")
+    b2, b1 = ranks[0]["bf16"]["losses"][0], runs["1f1b"]["losses"][0]
+    rel = abs(b2 - b1) / abs(b1)
+    print(f"[train_pipe] (b) pp 2 vs pp 1 first bf16 loss: {b2:.6f} vs "
+          f"{b1:.6f}, rel diff {rel:.3g} (bar {PIPE_BF16_RTOL}) [{card}]")
+    if not rel <= PIPE_BF16_RTOL:
+        fail(f"train_pipe (b): first bf16 loss {b2} vs pp 1's {b1}")
+    return total
+
+
 MESH_REQ, MESH_NEW = 8, 32
 
 
@@ -4857,6 +5179,7 @@ def main() -> None:
     by_phase["bert_train"] = timed(phase_bert_train, dev)
     timed(phase_bert_parity, dev)
     by_phase["train_zero"] = timed(phase_train_zero, dev)
+    by_phase["train_pipe"] = timed(phase_train_pipe, dev, card)
     by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
     by_phase["train_offload"], offload_ref = timed(phase_train_offload, dev)
     by_phase["train_offload_disk"] = timed(phase_train_offload_disk, dev,

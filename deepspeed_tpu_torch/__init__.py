@@ -18,7 +18,10 @@ JAX package's on-disk format (``runtime.checkpointing``: async and
 SIGTERM saves, CRC-verified loads with a fallback chain); KV tiering of
 idle serving sessions (``inference.kv_tier``); and block-sparse attention
 (``ops.sparse_attention``: ``SparseSelfAttention``,
-``BertSparseSelfAttention``).  Kernels: flash attention forward and
+``BertSparseSelfAttention``); and pipeline parallelism (``pipe``:
+``PipelineModule`` of ``LayerSpec``s, the 1F1B and GPipe schedules over
+``torch.distributed`` point-to-point, GPT-2 and BERT as pipeline modules
+in ``models.gpt2_pipe`` and ``models.bert_pipe``).  Kernels: flash attention forward and
 backward, the four decode-attention kernels and the block-sparse forward,
 dQ and dK/dV.  ROADMAP.md lists what comes next.
 
@@ -62,7 +65,12 @@ def initialize(args=None,
     data axis, or one local rank when no group was joined).  The config's
     ``world_size`` is the mesh's data axis, so ``train_batch_size`` is
     ``micro × grad_acc × dp`` and each rank feeds its own
-    ``micro × grad_acc`` rows."""
+    ``micro × grad_acc`` rows.
+
+    A ``pipe.PipelineModule`` dispatches to ``pipe.PipelineEngine``
+    (``pipeline.schedule`` picks its schedule): by default the mesh is
+    ``build_mesh(pp=model.num_stages)``, each pipe rank runs its stage,
+    and every rank is given the whole ``(inputs, labels)`` batch."""
     from .config import DeepSpeedConfig
     from .config.config import DeepSpeedConfigError
     from .parallel.distributed import init_distributed, is_initialized
@@ -75,14 +83,25 @@ def initialize(args=None,
         cfg_src = getattr(args, "deepspeed_config", None)
     if cfg_src is None:
         raise DeepSpeedConfigError("No DeepSpeed config provided")
+    from .pipe.module import PipelineModule
     check_mesh(mesh)
     init_distributed(device=device)
+    pipelined = isinstance(model, PipelineModule)
     if mesh is None and is_initialized():
-        mesh = build_mesh()
+        mesh = build_mesh(pp=model.num_stages if pipelined else 1)
     dp = mesh_axis_size(mesh, DATA_AXIS) if mesh is not None else 1
     cfg = (cfg_src if isinstance(cfg_src, DeepSpeedConfig)
            else DeepSpeedConfig(cfg_src, world_size=dp))
     refuse_unported(cfg, optimizer, mesh)
+    if pipelined:
+        from .pipe.engine import PipelineEngine
+        engine = PipelineEngine(
+            model=model, config=cfg, mesh=mesh, optimizer=optimizer,
+            lr_schedule=lr_scheduler, params=params,
+            training_data=training_data, collate_fn=collate_fn, seed=seed,
+            device=device)
+        return (engine, engine.optimizer, engine.training_dataloader,
+                engine.lr_scheduler)
     engine = DeepSpeedEngine(model=model, config=cfg, optimizer=optimizer,
                              lr_schedule=lr_scheduler, params=params,
                              training_data=training_data,

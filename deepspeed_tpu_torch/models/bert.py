@@ -18,8 +18,7 @@ column pieces (its heads), ``attn_ow`` and ``output_w`` its row pieces
 ``word_embeddings`` and ``mlm_bias`` vocab-parallel where the vocabulary
 divides (a masked lookup plus all-reduce, and the MLM loss as a
 vocab-parallel cross-entropy; :meth:`BertModel.apply` gathers the logits
-over ``model``).  The pipelined BERT (``models/bert_pipe.py``) is not
-ported yet (ROADMAP.md queue 1, item 10).
+over ``model``).  The pipelined BERT is ``models/bert_pipe.py``.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``); the
 embedding dropout and each layer derive their seeds with

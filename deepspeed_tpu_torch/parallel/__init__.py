@@ -1,6 +1,6 @@
-"""Data and tensor parallelism on ``torch.distributed`` — the counterpart
-of ``deepspeed_tpu/parallel/`` (its ``partition.py`` and ``sequence.py``
-are ROADMAP.md queue 1 items 10 and 11)."""
+"""Data, tensor and pipeline parallelism on ``torch.distributed`` — the
+counterpart of ``deepspeed_tpu/parallel/`` (``partition.py`` is a copy of
+the JAX module; ``sequence.py`` is ROADMAP.md queue 1 item 11)."""
 from .topology import (  # noqa: F401
     ProcessTopology,
     PipeDataParallelTopology,

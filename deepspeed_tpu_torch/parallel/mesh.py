@@ -11,12 +11,15 @@ from this one only along that axis:
               reduce-scatter and parameter gathers);
   - ``model`` the Megatron tensor-parallel group (the all-reduces of the
               row-parallel products and of the vocab-parallel embedding
-              and loss).
+              and loss);
+  - ``pipe``  the pipeline's stages (the point-to-point boundary tensors,
+              ``pipe/p2p.py``, and the sums of the pipe-replicated
+              gradients, norms and loss).
 
-``pipe`` and ``seq`` must be 1 in this slice: the pipeline is ROADMAP.md
-queue 1 item 10, sequence parallelism item 11.  The JAX module's
-``replicated`` and ``data_sharded`` (``NamedSharding`` factories) have no
-counterpart: placement in the port is explicit — the training engine
+``seq`` must be 1: sequence parallelism is ROADMAP.md queue 1 item 11.
+The JAX module's ``replicated`` and ``data_sharded`` (``NamedSharding``
+factories) have no counterpart: placement in the port is explicit — the
+training engine
 slices each rank's pieces itself (``runtime/zero.py``), the batch
 contract gives each rank its own rows, and :class:`RankSharding` (a spec
 over this mesh, the counterpart of a ``NamedSharding``) names the slice
@@ -41,8 +44,8 @@ SEQ_AXIS = "seq"
 MODEL_AXIS = "model"
 DEFAULT_AXES: Tuple[str, str, str, str] = (
     PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
-#: the axes this slice builds process groups for
-GROUP_AXES = (DATA_AXIS, MODEL_AXIS)
+#: the axes the port builds process groups for
+GROUP_AXES = (PIPE_AXIS, DATA_AXIS, MODEL_AXIS)
 
 
 class Mesh:
@@ -132,10 +135,6 @@ def build_mesh(pp: int = 1, dp: Optional[int] = None, tp: int = 1,
     must call it (each new process group is created collectively), in
     the same order.  With no process group joined the mesh is local and
     its axes must all be 1."""
-    if pp != 1:
-        raise NotImplementedError(
-            "a pipe axis (pp > 1) is not ported to deepspeed_tpu_torch "
-            "yet: ROADMAP.md queue 1, item 10 (pipeline)")
     if sp != 1:
         raise NotImplementedError(
             "a seq axis (sp > 1) is not ported to deepspeed_tpu_torch yet: "

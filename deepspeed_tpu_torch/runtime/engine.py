@@ -85,9 +85,13 @@ and straggler monitor, the opt-in anomaly trigger, the flight recorder,
 the ``profiler`` window (a ``torch.profiler`` capture exported as a Chrome
 trace under ``profiler.output_path``) and the ``wall_clock_breakdown``
 timers (which synchronize the card every step, as the reference's do).
+Pipeline parallelism is this engine's subclass, ``pipe/engine.py``'s
+``PipelineEngine``, which ``initialize`` returns for a
+``PipelineModule``: it replaces the batch placement and the gradient
+pass (``_scaled_grads``) with its stage's schedule and keeps the update.
 Every other config knob whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: the pipeline (item
-10); sequence, experts, 1-bit Adam and ``sparse_gradients`` (item 11).
+``NotImplementedError`` naming its ROADMAP.md item: sequence, experts,
+1-bit Adam and ``sparse_gradients`` (item 11).
 """
 from __future__ import annotations
 
@@ -190,8 +194,6 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
                 "replicated compute params and would silently lose "
                 "stage 3's memory savings.")
     check_mesh(mesh)
-    if config.pipeline_config.stages != C.PIPELINE_STAGES_DEFAULT:
-        raise _unported("pipeline.stages > 1", "item 10 (pipeline)")
     name = config.optimizer_name
     if optimizer is None and name not in (None, C.ADAM_OPTIMIZER,
                                           C.LAMB_OPTIMIZER):
@@ -295,7 +297,9 @@ class DeepSpeedEngine(XlaOffloadTier):
         self.zero_stage = self.zero_plan.stage
         self._zero = ZeroRuntime(self.zero_plan, full, self.compute_dtype,
                                  stacked=getattr(model, "stacked_layers",
-                                                 None))
+                                                 None),
+                                 pipelined=getattr(model, "pipelined",
+                                                   False))
         # each rank keeps its pieces: the tensor-parallel piece, and from
         # stage 1 its data shard of it
         rt = self._zero

@@ -32,6 +32,14 @@ so their weight gradients are never computed), and a ``streamer``
 streamed leaves in pinned host memory, fetches one layer of them per
 block and takes their gradients to a pinned host stack.
 
+Under a pipeline (``pipe/engine.py``) the tree is a pipe rank's: the
+stacked top-level keys (the ``stack_<n>`` subtrees) hold this
+stage's rows of ``[S, k, ...]`` leaves, every other leaf is replicated
+over ``pipe``.  The replicated leaves' gradients are summed over the pipe
+group (a stage that never reads one adds zeros), a stacked leaf's norm
+sums its pieces over ``pipe`` too, and a checkpoint piece of a stacked
+leaf is its ``[s:s+1]`` row of the whole ``[S, k, ...]`` leaf.
+
 A leaf whose dims do not divide stays replicated (no padding), and a
 tensor-parallel dim that does not divide falls back to replication, as in
 the JAX plan.  Every collective runs at every stage and every group size
@@ -45,7 +53,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..parallel import collectives as col
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh, mesh_axis_size
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh,
+                             mesh_axis_size)
 from .utils import tree_leaves
 
 Spec = Tuple[Any, ...]
@@ -300,10 +309,12 @@ class ZeroRuntime:
     shard (stage 3, gathered per fetch).  ``stacked`` names the top-level
     key of the model's layer-stacked subtree (``model.stacked_layers``),
     fetched one layer at a time; every other leaf is fetched whole once
-    per micro-step."""
+    per micro-step (several keys: each one's layers).  ``pipelined``
+    (a pipeline's rank tree): the ``stacked`` keys hold this pipe rank's
+    stage rows, every other leaf is replicated over ``pipe``."""
 
     def __init__(self, plan: ZeroShardingPlan, params, compute_dtype,
-                 stacked: Optional[str] = None):
+                 stacked=None, pipelined: bool = False):
         self.plan = plan
         self.mesh = plan.mesh
         self.stage = plan.stage
@@ -313,9 +324,20 @@ class ZeroRuntime:
         self.tp = mesh_axis_size(self.mesh, MODEL_AXIS)
         self.dp_rank = self.mesh.axis_index(DATA_AXIS)
         self.tp_rank = self.mesh.axis_index(MODEL_AXIS)
-        self.stacked = stacked if isinstance(params, dict) and \
-            isinstance(params.get(stacked), dict) else None
+        names = (stacked,) if isinstance(stacked, str) else (stacked or ())
+        self.stacked = frozenset(
+            n for n in names if isinstance(params, dict)
+            and isinstance(params.get(n), dict))
         self.template = _rebuild(params, range(len(self.placements)))
+        #: a pipeline's rank tree: the leaves of its stacked keys
+        self.pipelined = pipelined
+        self.pp = mesh_axis_size(self.mesh, PIPE_AXIS)
+        self.pp_rank = self.mesh.axis_index(PIPE_AXIS)
+        local = set()
+        if pipelined:
+            for k in self.stacked:
+                local.update(_leaves(self.template[k], lambda x: False))
+        self.pipe_local = frozenset(local)
         self.sources: List[torch.Tensor] = []
         self._acc: Optional[List[torch.Tensor]] = None
         self._acc_sharded: List[bool] = []
@@ -332,6 +354,9 @@ class ZeroRuntime:
             dtype=torch.bool, device=dev)[:, None]
         self._model_mask = torch.tensor(
             [p.tp_dim is not None for p in self.placements],
+            dtype=torch.bool, device=dev)[:, None]
+        self._pipe_mask = torch.tensor(
+            [i in self.pipe_local for i in range(len(self.placements))],
             dtype=torch.bool, device=dev)[:, None]
 
     # -- placement -------------------------------------------------------
@@ -362,16 +387,29 @@ class ZeroRuntime:
         return t.narrow(d, self.dp_rank * n, n)
 
     def shard_pieces(self, leaves) -> List[ShardPiece]:
-        """The master-placed ``leaves`` as checkpoint pieces."""
+        """The master-placed ``leaves`` as checkpoint pieces (a stacked
+        leaf of a pipeline: this stage's row of the ``[S, k, ...]``
+        leaf)."""
         out = []
         for i, t in enumerate(leaves):
             pl = self.placements[i]
+            box = self.box(i, self.master_split(i))
+            shape = pl.shape
+            mine = i in self.pipe_local
             write = ((self.master_split(i) or self.dp_rank == 0)
-                     and (pl.tp_dim is not None or self.tp_rank == 0))
-            out.append(ShardPiece(t, pl.shape, self.box(i,
-                                                        self.master_split(i)),
-                                  write))
+                     and (pl.tp_dim is not None or self.tp_rank == 0)
+                     and (mine or self.pp_rank == 0))
+            if mine:
+                t = t.unsqueeze(0)
+                shape = (self.pp,) + tuple(shape)
+                box = ((self.pp_rank, self.pp_rank + 1),) + box
+            out.append(ShardPiece(t, shape, box, write))
         return out
+
+    def unpiece(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """A loaded piece of leaf ``i`` → the rank's tensor (a stacked
+        leaf's stage row without its stage dim)."""
+        return t.squeeze(0) if i in self.pipe_local else t
 
     # -- the forward's parameters -----------------------------------------
     def set_sources(self, master: List[torch.Tensor]) -> None:
@@ -400,7 +438,7 @@ class ZeroRuntime:
         def go(t, top):
             out = {}
             for k, v in t.items():
-                if top and k == self.stacked:
+                if top and k in self.stacked:
                     out[k] = LayerStack(self, v, anchor)
                 elif isinstance(v, dict):
                     out[k] = go(v, False)
@@ -505,6 +543,10 @@ class ZeroRuntime:
                 a = col.psum(a, self.mesh, DATA_AXIS)
                 if self.master_split(i):
                     a = self.data_shard(a, i)
+            if a is not None and self.pipelined \
+                    and i not in self.pipe_local:
+                # a pipe-replicated leaf: every stage's contribution
+                a = col.psum(a, self.mesh, PIPE_AXIS)
             out.append(a)
         self._acc = None
         self._keep = None
@@ -516,9 +558,15 @@ class ZeroRuntime:
         its master-placed piece → the sums over the whole leaf, on every
         rank: summed over ``data`` for leaves split there, then over
         ``model`` for tensor-parallel leaves; a replicated leaf counts
-        once."""
+        once.  Under a pipeline a stacked leaf's sums are summed over
+        ``pipe`` last (a pipe-replicated leaf counts once)."""
         dm, mm = self._data_mask, self._model_mask
         v = torch.where(dm, col.psum(torch.where(dm, v, 0.0), self.mesh,
                                      DATA_AXIS), v)
-        return torch.where(mm, col.psum(torch.where(mm, v, 0.0), self.mesh,
-                                        MODEL_AXIS), v)
+        v = torch.where(mm, col.psum(torch.where(mm, v, 0.0), self.mesh,
+                                     MODEL_AXIS), v)
+        if not self.pipelined:
+            return v
+        pm = self._pipe_mask
+        return torch.where(pm, col.psum(torch.where(pm, v, 0.0), self.mesh,
+                                        PIPE_AXIS), v)

@@ -312,17 +312,20 @@ def test_initialize_without_device_raises_when_cuda_is_absent(monkeypatch):
     # the host offload tier is ported (item 12's first half)
     ({"zero_optimization": {"stage": 2, "cpu_offload": True},
       "bf16": {"enabled": True}}, None),
-    ({"pipeline": {"stages": 2}}, "item 10"),
+    # the pipeline is ported (item 10): as in the JAX package, a plain
+    # model's engine reads no pipeline.stages (a PipelineModule is the
+    # pipeline), so the config builds and trains
+    ({"pipeline": {"stages": 2}}, None),
     ({"optimizer": {"type": "OneBitAdam", "params": {}},
       "bf16": {"enabled": True}}, "item 11"),
     # LAMB and PLD are ported, examples/bert_pretrain.py's ZeRO stage 1
-    # too; the pipelined BERT still raises
+    # too, and the pipeline beside PLD
     ({"optimizer": {"type": "Lamb", "params": {}},
       "zero_optimization": {"stage": 1}, "fp16": {"enabled": True}},
      None),
     ({"sparse_gradients": True}, "item 11"),
     ({"progressive_layer_drop": {"enabled": True},
-      "pipeline": {"stages": 2}}, "item 10"),
+      "pipeline": {"stages": 2}}, None),
     # the telemetry plane and ZeRO 3 are ported, and item 12's XLA
     # offload tier (with TensorBoard and the timers on) and disk tier
     ({"telemetry": {"enabled": True}, "zero_optimization": {"stage": 3},
@@ -372,9 +375,20 @@ def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
 def test_unported_training_paths_raise(tmp_path):
     from deepspeed_tpu_torch.parallel import build_mesh
     from deepspeed_tpu_torch.runtime.resilience import CheckpointCorruptError
-    # a mesh is ported (item 9); its pipe and seq axes are items 10, 11
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a mesh is ported (item 9) and its pipe axis (item 10): two stages
+    # need two processes, and one process trains a one-stage pipeline;
+    # the seq axis is item 11
+    from deepspeed_tpu_torch.models.gpt2_pipe import (build_gpt2_pipe,
+                                                      split_gpt2_batch)
+    from deepspeed_tpu_torch.pipe.engine import PipelineEngine
+    with pytest.raises(ValueError, match=r"not divisible by pp\*sp\*tp=2"):
         build_mesh(pp=2)
+    peng, *_ = deepspeed_tpu_torch.initialize(
+        model=build_gpt2_pipe(TINY, 1), config=TRAIN_BASE, device="cpu")
+    assert isinstance(peng, PipelineEngine) and peng.mesh.shape["pipe"] == 1
+    assert torch.isfinite(peng.train_batch(split_gpt2_batch(
+        torch.zeros(1, 5, dtype=torch.long))))
+    peng.close()
     with pytest.raises(NotImplementedError, match="item 11"):
         build_mesh(sp=2)
     with pytest.raises(TypeError, match="Mesh"):

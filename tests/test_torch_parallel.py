@@ -127,7 +127,10 @@ def test_local_mesh_and_refusals():
     assert m.is_local and m.shape == {"pipe": 1, "data": 1, "seq": 1,
                                       "model": 1}
     assert single_device_mesh().group("data") is None
-    with pytest.raises(NotImplementedError, match="item 10"):
+    assert m.group("pipe") is None and m.axis_ranks("pipe") == [0]
+    # the pipe axis is ported (item 10): like any axis it must fit the
+    # world, and a local mesh holds one rank
+    with pytest.raises(ValueError, match=r"not divisible by pp\*sp\*tp=2"):
         build_mesh(pp=2)
     with pytest.raises(NotImplementedError, match="item 11"):
         build_mesh(sp=2)

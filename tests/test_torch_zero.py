@@ -36,15 +36,22 @@ RTOL = 1e-5
 # ---------------------------------------------------------------------------
 # rank launcher (shared with the other multi-rank test files)
 # ---------------------------------------------------------------------------
-def _rank_entry(fn, rank, world, init, out, args):
+def _rank_entry(fn, rank, world, init, out, args, env):
+    # the environment of the caller, not of the fork server
+    os.environ.clear()
+    os.environ.update(env)
     torch.set_num_threads(1)
     try:
         from deepspeed_tpu_torch.parallel import init_distributed
+        # a peer started late under load joins well inside the timeout
         init_distributed(device="cpu", init_method=init, rank=rank,
-                         world_size=world, timeout_s=60)
+                         world_size=world, timeout_s=300)
         res = fn(rank, world, *args)
         torch.save(res, os.path.join(out, f"rank{rank}.pt"))
         import torch.distributed as dist
+        # no rank tears the groups (and the file store under them) down
+        # while a peer still uses them
+        dist.barrier()
         dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
@@ -52,16 +59,36 @@ def _rank_entry(fn, rank, world, init, out, args):
         os._exit(1)
 
 
-def spawn_ranks(fn, world, tmp_path, *args, timeout=240.0):
+#: imported once by the fork server that every rank process is forked
+#: from, so a rank starts with them imported (``torch._dynamo``, and
+#: sympy under it, is what a first meta-tensor op imports: the pipeline
+#: engine's boundary check)
+PRELOAD = ["torch", "torch._dynamo", "numpy", "pytest",
+           "deepspeed_tpu_torch", "deepspeed_tpu_torch.pipe.engine",
+           "deepspeed_tpu_torch.models.bert_pipe",
+           "deepspeed_tpu_torch.models.gpt2_pipe"]
+
+
+def _context():
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(PRELOAD)
+    return ctx
+
+
+def spawn_ranks(fn, world, tmp_path, *args, timeout=600.0):
     """Run ``fn(rank, world, *args)`` on ``world`` gloo ranks; returns
     each rank's result.  The first rank to fail (or the time limit)
-    kills the rest and fails the caller with the rank's traceback."""
+    kills the rest and fails the caller with the rank's traceback.  The
+    limit only catches a hung job: under ``pytest -n 6`` the rank
+    processes of six files share the cores, and a job that takes 55 s
+    alone has run past 240 s."""
     out = tmp_path / f"ranks_{fn.__name__}_{world}_{time.monotonic_ns()}"
     out.mkdir()
     init = "file://" + str(out / "store")
-    ctx = mp.get_context("spawn")
+    ctx = _context()
+    env = dict(os.environ)
     procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(fn, r, world, init, str(out), args))
+                         args=(fn, r, world, init, str(out), args, env))
              for r in range(world)]
     for p in procs:
         p.start()
