@@ -30,7 +30,10 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             ([8, 16, 512, 64], non-causal, dropout 0.1, the padded batch's
             [B, T] key mask; the forward also within one bf16 ulp + 1e-4
             elementwise; padded keys' dK/dV exact zeros; the backward
-            kernels' device time there), the paged, multi-query and paged
+            kernels' device time there), dQ and dK/dV also at Ulysses'
+            local shape in train_seq ([1, 6, 1024, 64], seq rank 1's
+            ``bh_affine`` (6, 6, 12), dropout 0.1), the paged,
+            multi-query and paged
             multi-query decode kernels at [8, 12, 1024, 64] with page_len
             16 over a 513-page pool (permuted table, garbage in every page
             no live row lands in) and W = 5 verify rows (the split count
@@ -285,7 +288,26 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             wait and staging ms per step (boundary tensors staged through
             pinned host buffers) and the boundary inputs it held, beside
             the card's name and power limit.
-27. serve_mesh  (after train_pipe) ``ServeEngine(mesh=...)`` on a real
+27. train_seq  (after train_pipe) sequence parallelism through
+            ``initialize()`` on a mesh with a seq axis of 2: GPT-2 small
+            at full width and depth on train_pipe's batch (8 micro-batches
+            of 1 x 1024 tokens), dropout 0.1, Adam, clipping 1.0, no
+            remat, 1 + 3 steps, every arm from one weight tree (the
+            model's init at the seed on the CPU).  Two processes on
+            cuda:0 over a gloo group (NCCL takes no two ranks on one
+            card), each holding 512 tokens of every row, build the same
+            tree (its digest checked) and train Ulysses (the flash
+            kernels over 6 of the 12 heads of the whole sequence) at
+            fp32 and bf16 and ring attention at fp32: the two ranks'
+            losses equal; the fp32 losses within 1e-5 relative of sp 1's
+            with the same ``attn_impl`` (the dense attention with the
+            same hashed mask) and Ulysses' first bf16 loss within 1e-2;
+            Ulysses' flash launches L·M, L·M and L·M a step on each
+            rank, ring's none; each rank's
+            step ms, peak MiB and the seq collectives' calls, bytes,
+            host stagings and ms per step printed beside the sp-1
+            flash engine's losses and the card's name and power limit.
+28. serve_mesh  (after train_seq) ``ServeEngine(mesh=...)`` on a real
             NCCL process group of one rank (the env contract as
             train_zero's): GPT-2 small bf16 on the slot cache, the paged
             pool, the int8 weights and pool and speculation on both caches
@@ -294,7 +316,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             arm beside the same engine with no mesh: the streams equal
             bit for bit, the decode ticks and every kernel's launches
             equal, the mesh run's tokens/s printed beside;
-28. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
+29. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
             small bf16, 8 x 1024 tokens, accumulation 2, dropout 0.1,
             remat block), ZeRO stage 2 with ``cpu_offload``, 1 + 5 steps
             from a loader: (a) the pipelined upload with ``data_prefetch``
@@ -313,29 +335,29 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             micro-batch 1 x 1024) with the host tier, 1 + 3 steps: the
             host bytes of its fp32 master and moments, peak device MiB
             and the same breakdown.
-29. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
-            28's model and batches, fsync on, the state under a temporary
+30. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
+            29's model and batches, fsync on, the state under a temporary
             directory on the local disk: the pipelined read-ahead and
             write-back (prefetch 2), 1 + 5 steps: losses, the fp32 master
-            and the compute copy on the card bitwise 28's (a); the serial
+            and the compute copy on the card bitwise 29's (a); the serial
             loop, 1 + 2 steps, bitwise the pipelined loop's losses and
             master at its step 2; the Adam
             native, the resident state window within the io_depth
             budget; the filesystem and its free bytes, the read and
             write GB/s, the overlap ratio and the step ms printed.
-30. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
+31. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
             pinned host pieces updated on the card) on the same model and
             batches, 1 + 5 steps each: (f) the fused update, its losses
-            within 1e-4 relative of 28's plain engine and its master after
+            within 1e-4 relative of 29's plain engine and its master after
             step 0 within 1e-4 of the plain engine's travel; (g) gradient
             chunks 2 and (h) the split update, each bitwise (f); (i) the
             delayed update, finite, its first loss bitwise (f)'s; (j)
             ZeRO-3 in a one-rank NCCL group, bitwise (f); the step ms, the
             H2D and D2H GB/s of the update, the idle share of a profiled
-            step and peak device MiB against 28's (a); then GPT-2 XL
+            step and peak device MiB against 29's (a); then GPT-2 XL
             (micro-batch 1 x 1024) on the tier with ``param_streaming``,
             ``stream_scan`` and the split update, 1 + 3 steps: the pinned
-            host bytes, peak device MiB against 28's XL host tier, the
+            host bytes, peak device MiB against 29's XL host tier, the
             step ms and the layer fetches' GB/s, and the compute copy on
             the card == bf16 of the pinned master on every leaf that does
             not stream.
@@ -1265,6 +1287,7 @@ def phase_train_kernels(dev, results):
                 errs["dq"], errs["dkv"] = e_dq, e_dkv
             del dq, dk, dv, rdq, rdk, rdv
 
+    _ulysses_bwd_case(dev, q32, k32, v32, do32, scale)
     bert = _bert_flash_case(dev)
 
     # timings at the train phase's call: bf16, causal, dropout 0.1
@@ -1362,6 +1385,41 @@ def phase_train_kernels(dev, results):
           f", flash_bwd_dq {dq['device_ms']:.4f} / "
           f"{dq['device_ms_dropout0']:.4f}, flash_bwd_dkv "
           f"{dkv['device_ms']:.4f} / {dkv['device_ms_dropout0']:.4f}")
+
+
+def _ulysses_bwd_case(dev, q32, k32, v32, do32, scale):
+    """dQ and dK/dV at Ulysses' local call in train_seq: one row, 6 of
+    GPT-2 small's 12 heads over the whole 1024 tokens, seq rank 1's
+    ``bh_affine`` (base 6, period 6, stride 12), causal, dropout 0.1,
+    against the plain versions, fp32 and bf16."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention_plain, flash_bwd_dkv_cuda, flash_bwd_dkv_plain,
+        flash_bwd_dq_cuda, flash_bwd_dq_plain)
+    H = TRAIN_SHAPE[1]
+    hn = H // SEQ_SP
+    aff = (hn, hn, H)
+    args = (True, scale, None, None, 0.1, 0x2545F491, aff)
+    for dtype in ("float32", "bfloat16"):
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (t[:1, :hn].contiguous().to(tdt)
+                       for t in (q32, k32, v32, do32))
+        f32 = (q.float(), k.float(), v.float())
+        ref, lse = flash_attention_plain(*f32, *args)
+        delta = (do.float() * ref).sum(-1)
+        dq = flash_bwd_dq_cuda(q, k, v, do, lse, delta, *args)
+        dk, dv = flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *args)
+        torch.cuda.synchronize()
+        plain = (*f32, do.float(), lse, delta)
+        e_dq = _rel_err(dq, flash_bwd_dq_plain(*plain, *args))
+        rdk, rdv = flash_bwd_dkv_plain(*plain, *args)
+        e_dkv = max(_rel_err(dk, rdk), _rel_err(dv, rdv))
+        print(f"[kernels] flash_bwd {dtype} Ulysses' local call "
+              f"{list(q.shape)} bh_affine {aff} dropout 0.1: dq err "
+              f"{e_dq:.3g}, dk/dv err {e_dkv:.3g}")
+        if not (e_dq <= TOL[dtype] and e_dkv <= TOL[dtype]):
+            fail(f"flash_bwd {dtype} at Ulysses' local call: dq {e_dq} "
+                 f"dk/dv {e_dkv} above {TOL[dtype]}")
 
 
 def _load():
@@ -2936,13 +2994,14 @@ def pipe_rank(rank: int, init: str, digest: float, world: int = 2,
     print("PIPE_RANK " + json.dumps(out), flush=True)
 
 
-def _pipe_ranks(digest: float, world: int = 2,
-                backend: str = "gloo") -> list:
-    """``world`` processes, each one stage (:func:`pipe_rank`); their
+def _pipe_ranks(digest: float, world: int = 2, backend: str = "gloo",
+                script: str = _PIPE_RANK, tag: str = "PIPE_RANK") -> list:
+    """``world`` processes, each one stage (:func:`pipe_rank`; with
+    ``_SEQ_RANK``/``"SEQ_RANK"`` one seq rank, :func:`seq_rank`); their
     results."""
     init = f"tcp://127.0.0.1:{_free_port()}"
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _PIPE_RANK, HERE, str(r), init, repr(digest),
+        [sys.executable, "-c", script, HERE, str(r), init, repr(digest),
          str(world), backend],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]
@@ -2958,11 +3017,11 @@ def _pipe_ranks(digest: float, world: int = 2,
                 p.communicate()
     res = []
     for r, (rc, out) in enumerate(outs):
-        lines = [ln for ln in out.splitlines() if ln.startswith("PIPE_RANK ")]
+        lines = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
         if rc != 0 or not lines:
-            fail(f"pipeline rank {r} of {world} ({backend}) exited "
+            fail(f"{tag} {r} of {world} ({backend}) exited "
                  f"{rc}:\n{out[-3000:]}")
-        res.append(json.loads(lines[-1][len("PIPE_RANK "):]))
+        res.append(json.loads(lines[-1][len(tag) + 1:]))
     return res
 
 
@@ -3116,6 +3175,203 @@ def phase_train_pipe(dev, card: str):
           f"{b1:.6f}, rel diff {rel:.3g} (bar {PIPE_BF16_RTOL}) [{card}]")
     if not rel <= PIPE_BF16_RTOL:
         fail(f"train_pipe (b): first bf16 loss {b2} vs pp 1's {b1}")
+    return total
+
+
+#: train_seq: GPT-2 small over a seq axis of 2, on train_pipe's batch
+SEQ_SP, SEQ_STEPS = 2, 4
+#: the arms every seq rank trains, in order: (label, attn_impl, dtype)
+SEQ_ARMS = (("ulysses fp32", "ulysses", {}),
+            ("ulysses bf16", "ulysses", {"bf16": {"enabled": True}}),
+            ("ring fp32", "ring", {}))
+
+_SEQ_RANK = _PIPE_RANK.replace("pipe_rank", "seq_rank")
+
+
+def _seq_model_cfg(impl: str):
+    """GPT-2 small with dropout 0.1 and no remat: a recomputed block
+    would repeat its seq collectives, which over gloo cost more than the
+    activations a 512-token shard keeps."""
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    return dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                               attn_impl=impl, remat=None)
+
+
+def _seq_tree():
+    """The one weight tree every train_seq arm starts from: GPT-2
+    small's init at SEED on the CPU, and its digest."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    tree = GPT2Model(_seq_model_cfg("ring")).init(SEED)
+    digest = float(sum(np.abs(x.numpy()).astype(np.float64).sum()
+                       for x in tree_leaves(tree)))
+    return tree, digest
+
+
+def _seq_steps(eng, tokens, steps, dev):
+    """``steps`` steps: losses, then over the steps after the first the
+    launches, step ms, peak MiB and the seq collectives' counters per
+    step."""
+    import torch
+    from deepspeed_tpu_torch.parallel import collectives as col
+    losses = [float(eng.train_batch(tokens))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    col.seq_stats.clear()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        losses.append(float(eng.train_batch(tokens)))
+    torch.cuda.synchronize()
+    n = max(steps - 1, 1)
+    return {"losses": losses, "launches": _train_counts(),
+            "step_ms": (time.perf_counter() - t0) / n * 1e3,
+            "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
+            "seq": {k: v / n for k, v in col.seq_stats.items()}}
+
+
+def _seq_engine(impl, block, dev, mesh=None, params=None):
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return deepspeed_tpu_torch.initialize(
+        model=GPT2Model(_seq_model_cfg(impl)), mesh=mesh, params=params,
+        seed=SEED, config=_train_config(block, PIPE_MICRO, PIPE_GA),
+        device=dev)[0]
+
+
+def seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
+             backend: str = "gloo") -> None:
+    """One seq rank of GPT-2 small at sp ``world`` (train_seq's
+    processes: over gloo every one on cuda:0), every arm of
+    ``SEQ_ARMS`` from :func:`_seq_tree`.  Prints one ``SEQ_RANK`` JSON
+    line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {"rank": rank}
+    try:
+        tree, mine = _seq_tree()
+        if mine != digest:
+            raise AssertionError(f"rank {rank}: weight tree digest {mine} "
+                                 f"!= the sp-1 engines' {digest}")
+        mesh = build_mesh(sp=world)
+        out["seq_index"] = mesh.axis_index("seq")
+        tokens = torch.from_numpy(_pipe_tokens()).to(dev)
+        for label, impl, block in SEQ_ARMS:
+            eng = _seq_engine(impl, block, dev, mesh, tree)
+            out[label] = _seq_steps(eng, tokens, SEQ_STEPS, dev)
+            eng.close()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("SEQ_RANK " + json.dumps(out), flush=True)
+
+
+def phase_train_seq(dev, card: str):
+    """Sequence parallelism through ``initialize()`` on a seq axis of 2:
+    GPT-2 small at full width and depth, train_pipe's batch, dropout 0.1,
+    Adam, clipping 1.0 — Ulysses and ring attention as two processes on
+    cuda:0 over gloo, each against the one-process sp-1 engine with the
+    same ``attn_impl`` (the dense attention with the same hashed mask).
+    Returns the flash launches of the seq ranks' timed steps."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree, digest = _seq_tree()
+    tokens = torch.from_numpy(_pipe_tokens()).to(dev)
+    L, M = 12, PIPE_GA
+    flash = {"flash_fwd": L * M, "flash_bwd_dq": L * M,
+             "flash_bwd_dkv": L * M}
+    timed_steps = SEQ_STEPS - 1
+    sp1 = {}
+    for label, impl, block in (("ring fp32", "ring", {}),) + SEQ_ARMS[:2] \
+            + (("flash fp32", "flash", {}),):
+        eng = _seq_engine(impl, block, dev, params=tree)
+        if eng.device != dev:
+            fail(f"train_seq: initialize() placed the engine on "
+                 f"{eng.device}")
+        steps = SEQ_STEPS if label.endswith("fp32") else 1
+        sp1[label] = r = _seq_steps(eng, tokens, steps, dev)
+        eng.close()
+        want = flash if impl == "flash" else dict.fromkeys(flash, 0)
+        for name, n in want.items():
+            if r["launches"][name] != n * (steps - 1):
+                fail(f"train_seq sp 1 {label}: {name} launched "
+                     f"{r['launches'][name]} times in {steps - 1} steps, "
+                     f"expected {n} per step")
+        if not all(np.isfinite(r["losses"])):
+            fail(f"train_seq sp 1 {label}: losses {r['losses']}")
+        timing = (f"{r['step_ms']:.1f} ms per step, peak "
+                  f"{r['peak_mib']:.1f} MiB; " if steps > 1 else "")
+        print(f"[train_seq] sp 1 {label} (one process, local mesh): "
+              f"{timing}losses {' '.join(f'{x:.6f}' for x in r['losses'])}"
+              f" [{card}]")
+
+    ranks = _pipe_ranks(digest, SEQ_SP, script=_SEQ_RANK, tag="SEQ_RANK")
+    total = dict.fromkeys(flash, 0)
+    for res in ranks:
+        s = res["seq_index"]
+        for label, impl, _ in SEQ_ARMS:
+            r = res[label]
+            want = flash if impl == "ulysses" else dict.fromkeys(flash, 0)
+            for name, n in want.items():
+                got = r["launches"][name]
+                if impl == "ulysses":
+                    total[name] += got
+                if got != n * timed_steps:
+                    fail(f"train_seq sp {SEQ_SP} {label} seq rank {s}: "
+                         f"{name} launched {got} times in {timed_steps} "
+                         f"steps, expected {n} per step")
+            if not all(np.isfinite(r["losses"])):
+                fail(f"train_seq {label} seq rank {s}: losses "
+                     f"{r['losses']}")
+            if r["losses"] != ranks[0][label]["losses"]:
+                fail(f"train_seq {label}: the seq ranks return different "
+                     f"losses")
+            q = r["seq"]
+            secs = q.get("seconds", 0.0)
+            per = "/".join(str(r["launches"][n] // timed_steps)
+                           for n in flash)
+            print(f"[train_seq] sp {SEQ_SP} {label} seq rank {s} (gloo, "
+                  f"cuda:0): {r['step_ms']:.1f} ms per step, peak "
+                  f"{r['peak_mib']:.1f} MiB; seq collectives "
+                  f"{q.get('calls', 0):.0f} calls, {q.get('bytes', 0):.0f} "
+                  f"B sent, {q.get('staged', 0):.0f} host stagings, "
+                  f"{secs * 1e3:.1f} ms per step "
+                  f"({secs * 1e3 / r['step_ms'] * 100:.1f} % of the step); "
+                  f"flash launches per step {per}; losses "
+                  f"{' '.join(f'{x:.6f}' for x in r['losses'])} [{card}]")
+    for impl in ("ulysses", "ring"):
+        f2 = ranks[0][f"{impl} fp32"]["losses"]
+        f1 = sp1[f"{impl} fp32"]["losses"]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(f2, f1))
+        print(f"[train_seq] {impl} sp {SEQ_SP} vs sp 1 at fp32, dropout "
+              f"0.1: {f2} vs {f1}; max rel diff {worst:.3g} (bar "
+              f"{PIPE_FP32_RTOL}); the sp-1 flash engine: "
+              f"{sp1['flash fp32']['losses']} [{card}]")
+        if not worst <= PIPE_FP32_RTOL:
+            fail(f"train_seq: {impl} sp {SEQ_SP} fp32 losses {f2} differ "
+                 f"from sp 1's {f1}")
+    b2 = ranks[0]["ulysses bf16"]["losses"][0]
+    b1 = sp1["ulysses bf16"]["losses"][0]
+    rel = abs(b2 - b1) / abs(b1)
+    print(f"[train_seq] ulysses sp {SEQ_SP} vs sp 1 first bf16 loss: "
+          f"{b2:.6f} vs {b1:.6f}, rel diff {rel:.3g} (bar "
+          f"{PIPE_BF16_RTOL}) [{card}]")
+    if not rel <= PIPE_BF16_RTOL:
+        fail(f"train_seq: Ulysses' first bf16 loss {b2} vs sp 1's {b1}")
     return total
 
 
@@ -5180,6 +5436,7 @@ def main() -> None:
     timed(phase_bert_parity, dev)
     by_phase["train_zero"] = timed(phase_train_zero, dev)
     by_phase["train_pipe"] = timed(phase_train_pipe, dev, card)
+    by_phase["train_seq"] = timed(phase_train_seq, dev, card)
     by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
     by_phase["train_offload"], offload_ref = timed(phase_train_offload, dev)
     by_phase["train_offload_disk"] = timed(phase_train_offload_disk, dev,

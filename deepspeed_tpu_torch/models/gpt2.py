@@ -35,9 +35,15 @@ replicated where it does not divide (GPT-2's 50257).  The serving
 functions take the same split under a serving mesh (``mesh=``, from
 ``ServeEngine(mesh=...)``): each rank runs its H/tp heads through the
 attention kernels and the vocab-parallel logits are all-gathered over
-``model``, so every rank scores the whole vocabulary.  Not ported yet
-(ROADMAP.md queue 1): sequence-parallel attention and parameter
-streaming.
+``model``, so every rank scores the whole vocabulary.  Sequence
+parallelism is ported: ``attn_impl="ring"`` and ``"ulysses"`` run
+``parallel/sequence.py`` over the mesh's ``seq`` axis.  Under a seq axis
+of sp > 1 each rank holds its token shard ``[B, T/sp]`` from the
+embedding (positions offset by the shard) to the loss — LayerNorm, the
+products and the logits are per token, only the attention crosses ranks
+— and :meth:`GPT2Model.loss_fn` sums the NLL over ``seq`` before it
+divides by the global token count.  At sp 1 both fall back to the dense
+attention with the same hashed dropout mask.
 
 Randomness: ``rng`` is a host integer (``runtime/module.py``).  Each
 block and dropout site derives its own seed with ``runtime.utils.fold_in``
@@ -48,7 +54,9 @@ when it recomputes a block.  The attention dropout is the flash kernel's
 position hash, seeded by the same kind of integer.  Under a mesh the
 hidden dropouts draw their mask over the global micro-batch's rows and
 keep the rank's, and the flash hash takes the global (batch, head) ids
-(``bh_affine``), so training does not depend on the layout.
+(``bh_affine``), so training does not depend on the layout; over ``seq``
+the hidden dropouts draw over the whole sequence and keep the rank's
+tokens, and the attention's hash takes global positions.
 
 Unlike the JAX functions, the serving steps (:func:`gpt2_decode_step`,
 :func:`gpt2_verify_step`, their paged twins and :func:`gpt2_prefill_paged`)
@@ -76,13 +84,16 @@ from ..ops.kernels.decode_attention import (_default_scale,
                                             decode_attention_paged,
                                             decode_attention_paged_multi,
                                             dequantize_paged, paged_gather)
-from ..ops.kernels.flash_attention import flash_attention, mha
+from ..ops.kernels.flash_attention import (dense_keep_mask,
+                                           flash_attention, grid_bh_ids,
+                                           mha)
 from ..runtime.module import TrainModule
 from ..runtime.utils import dropout as _dropout
 from ..parallel import collectives as col
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from ..parallel.sequence import ring_attention, ulysses_attention
 from ..runtime.utils import (data_rows, fold_in,  # noqa: F401
-                             params_from_numpy)
+                             params_from_numpy, seq_tokens)
 from ..runtime.utils import seeded_generator as _generator
 
 _M32 = 0xFFFFFFFF
@@ -109,7 +120,8 @@ class GPT2Config:
     dropout: float = 0.0
     embd_dropout: float = 0.0
     remat: Optional[str] = "block"   # None | 'block'
-    attn_impl: str = "flash"         # 'flash' (the CUDA kernels) | 'dense'
+    # 'flash' (the CUDA kernels) | 'dense' | 'ring' | 'ulysses' (seq axis)
+    attn_impl: str = "flash"
     scan_layers: bool = True
     stream_scan: bool = False
 
@@ -151,6 +163,14 @@ class GPT2Model(TrainModule):
 
     def __init__(self, config: GPT2Config):
         self.config = config
+
+    @property
+    def seq_parallel(self) -> bool:
+        """Trains on a ``seq`` axis (ring or Ulysses attention): its
+        batch leaves are next-token rows ``[B, T+1]``, of which the engine
+        gives a seq rank the window of its shard's inputs and their
+        shifted targets (``runtime.engine.seq_window``)."""
+        return self.config.attn_impl in ("ring", "ulysses")
 
     def param_partition_specs(self, params) -> Dict[str, Any]:
         """Megatron column/row-parallel placement on the ``model`` axis
@@ -234,18 +254,20 @@ class GPT2Model(TrainModule):
         ``train`` is False or every rate is 0)."""
         cfg = self.config
         B, T = tokens.shape
-        if T > cfg.n_positions:
-            raise ValueError(
-                f"sequence length {T} exceeds n_positions={cfg.n_positions}")
-        tokens = tokens.long()
         blocks = params["blocks"]
-        # the training engine's mesh (tensor parallelism, the data rows),
-        # None outside it
+        # the training engine's mesh (tensor parallelism, the data rows,
+        # the seq shard), None outside it
         mesh = getattr(blocks, "mesh", None)
+        seq = seq_tokens(mesh, T)
+        off, total = seq if seq is not None else (0, T)
+        if total > cfg.n_positions:
+            raise ValueError(f"sequence length {total} exceeds "
+                             f"n_positions={cfg.n_positions}")
+        tokens = tokens.long()
         x = _embed_tokens(cfg, params["wte"], tokens, mesh) \
-            + params["wpe"][:T][None]
+            + params["wpe"][off:off + T][None]
         x = _dropout(x, cfg.embd_dropout if train else 0.0,
-                     fold_in(rng, 997), data_rows(mesh, B))
+                     fold_in(rng, 997), data_rows(mesh, B), seq)
         layer = getattr(blocks, "layer", None)
         if layer is None:
             # one unbind per leaf: its backward stacks the layer grads
@@ -272,17 +294,19 @@ class GPT2Model(TrainModule):
                 train: bool = True) -> torch.Tensor:
         """Mean next-token NLL: logits to fp32, ``log_softmax``, the
         targets' log-probabilities.  ``batch``: tokens [B, T+1] (or a dict
-        with ``input_ids``)."""
+        with ``input_ids``) — under a seq axis the rank's window of them
+        (:func:`token_mean`)."""
         tokens = batch["input_ids"] if isinstance(batch, dict) else batch
         logits = self.apply(params, tokens[:, :-1], rng, train)
         targets = tokens[:, 1:].long()
-        mesh = _vocab_parallel(self.config, params,
-                               getattr(params["blocks"], "mesh", None))
-        if mesh is not None:
-            return _vocab_parallel_nll(logits, targets, mesh).mean()
+        mesh = getattr(params["blocks"], "mesh", None)
+        vmesh = _vocab_parallel(self.config, params, mesh)
+        if vmesh is not None:
+            return token_mean(_vocab_parallel_nll(logits, targets, vmesh),
+                              mesh)
         logp = torch.log_softmax(logits.float(), dim=-1)
         nll = -torch.gather(logp, -1, targets[..., None])
-        return nll.mean()
+        return token_mean(nll, mesh)
 
     # the serving protocol: each function also takes ``mesh`` (a serving
     # mesh, the params then being the rank's Megatron pieces)
@@ -362,6 +386,33 @@ def _vocab_parallel_nll(logits, targets, mesh):
     t = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
     t = col.reduce_from_axis(torch.where(mine, t, 0.0), mesh, MODEL_AXIS)
     return sumexp.log() + m - t
+
+
+def token_mean(nll, mesh=None):
+    """The mean of the per-token ``nll`` over every token of the global
+    sequence.  On a seq axis of sp > 1 each rank holds ``nll.numel()``
+    of them: their sum is all-reduced over ``seq`` (its gradient passed
+    through, so each rank back-propagates its own tokens' share) and
+    divided by the global count — not a mean of the ranks' means.  No
+    target is masked and every shard holds the same number of tokens, so
+    the count is ``sp · nll.numel()`` on every rank without a
+    collective."""
+    sp = 1 if mesh is None else mesh.axis_size(SEQ_AXIS)
+    if sp == 1:
+        return nll.mean()
+    total = col.reduce_from_axis(nll.sum(), mesh, SEQ_AXIS)
+    return total / float(sp * nll.numel())
+
+
+def _bh_affine(mesh, B: int, H: int, Hl: int):
+    """The flash hash's (base, period, stride) of a rank's ``[B·Hl]``
+    grid under ``mesh``: local row ``b·Hl + j`` is the global
+    ``(d·B + b)·H + m·Hl + j`` of data index d and model index m; None
+    without a mesh (the grid is the whole batch)."""
+    if mesh is None:
+        return None
+    return (mesh.axis_index(DATA_AXIS) * B * H
+            + mesh.axis_index(MODEL_AXIS) * Hl, Hl, H)
 
 
 def _wscale(y, bp, name: str):
@@ -501,7 +552,8 @@ def gpt2_attn_project(bp, x, attn, drop: float = 0.0,
         y = col.reduce_from_axis(y, mesh, MODEL_AXIS)
     y = y + bp["out_b"].to(x.dtype)
     y = _add_delta(y, _lora_delta(attn, bp, "out_w", mesh))
-    return x + _dropout(y, drop, rng, data_rows(mesh, B))
+    return x + _dropout(y, drop, rng, data_rows(mesh, B),
+                        seq_tokens(mesh, T))
 
 
 def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
@@ -511,15 +563,18 @@ def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
     r1, r2 = fold_in(rng, 0), fold_in(rng, 1)
     drop = cfg.dropout if train else 0.0
     q, k, v = gpt2_qkv_heads(cfg, bp, x, mesh)
+    H, Hl = cfg.n_head, q.shape[1]
+    # under a mesh the hash takes the global (batch, head) ids of the
+    # rank's rows and heads
+    bh = _bh_affine(mesh, B, H, Hl)
+    sp = 1 if mesh is None else mesh.axis_size(SEQ_AXIS)
+    if sp > 1 and cfg.attn_impl not in ("ring", "ulysses"):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} on a mesh with a seq axis of {sp}: "
+            "a rank holds only its token shard, and only 'ring' and "
+            "'ulysses' attend across the shards")
     if cfg.attn_impl == "flash":
-        # the flash kernels, probability dropout hashed in-kernel; under
-        # a mesh over the global (batch, head) ids of the rank's rows and
-        # heads
-        bh = None
-        if mesh is not None:
-            H, Hl = cfg.n_head, q.shape[1]
-            bh = (mesh.axis_index(DATA_AXIS) * B * H
-                  + mesh.axis_index(MODEL_AXIS) * Hl, Hl, H)
+        # the flash kernels, probability dropout hashed in-kernel
         attn = mha(q, k, v, dropout_rate=drop, causal=True,
                    dropout_seed=None if r1 is None else r1 & _M32,
                    bh_affine=bh)
@@ -527,10 +582,31 @@ def gpt2_attn_sublayer(cfg: GPT2Config, bp, x, rng: Optional[int],
         gen = _generator(r1, x.device) if drop > 0.0 else None
         attn = causal_attention(q, k, v, dropout_rate=drop, dropout_rng=gen)
     elif cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} (sequence-parallel attention) is "
-            "not ported to deepspeed_tpu_torch yet: ROADMAP.md queue 1, "
-            "item 11 (sequence, expert and compressed parallelism)")
+        # sequence-parallel attention over the mesh's seq axis: the mask
+        # is hashed from global positions and ids, so the seed is the
+        # same integer on every rank and the realization the same for
+        # any seq-shard count, the sp 1 fallback included
+        seed = 0 if r1 is None else r1 & _M32
+        if sp > 1:
+            if cfg.attn_impl == "ulysses" and Hl % sp:
+                raise ValueError(
+                    f"attn_impl='ulysses' needs each rank's heads to divide "
+                    f"by the seq axis: the model's {H} heads over tp·sp = "
+                    f"{H // Hl}·{sp} = {H // Hl * sp} ranks (the JAX package "
+                    f"needs only {H} % {sp} == 0)")
+            impl = (ring_attention if cfg.attn_impl == "ring"
+                    else ulysses_attention)
+            attn = impl(q, k, v, mesh, causal=True, dropout_rate=drop,
+                        dropout_seed=seed, bh_affine=bh)
+        else:  # no seq shards: dense attention, the same hash mask
+            keep = None
+            if drop > 0.0:
+                keep = dense_keep_mask(
+                    B, Hl, T, T, seed, drop,
+                    bh_ids=grid_bh_ids(B * Hl, bh, x.device),
+                    device=x.device)
+            attn = causal_attention(q, k, v, dropout_rate=drop,
+                                    dropout_keep=keep)
     else:
         raise ValueError(
             f"attn_impl={cfg.attn_impl!r}: expected 'flash', 'dense', "
@@ -548,7 +624,8 @@ def gpt2_block_forward(cfg: GPT2Config, bp, x, rng: Optional[int],
     x = gpt2_attn_sublayer(cfg, bp, x, r_attn, train, mesh)
     h = _layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
     h = gpt2_ffn(bp, h, mesh)
-    return x + _dropout(h, drop, r3, data_rows(mesh, x.shape[0]))
+    return x + _dropout(h, drop, r3, data_rows(mesh, x.shape[0]),
+                        seq_tokens(mesh, x.shape[1]))
 
 
 def _block_at(cfg: GPT2Config, layer, i: int, x, rng, train: bool, mesh):

@@ -18,6 +18,10 @@ compute the same functions as ``wte[tokens]`` and a gathered
 masked lookup plus all-reduce, and the vocab-parallel cross-entropy), as
 in :class:`~.gpt2.GPT2Model`.  The blocks carry no remat of their own:
 the pipeline engine checkpoints each stage as a whole (``stage_remat``).
+With ``attn_impl="ring"`` or ``"ulysses"`` the module trains on a ``seq``
+axis (``seq_parallel``): each rank's layers take its token shard, the
+embedding offsets its positions by the shard and the loss head takes the
+mean over the whole sequence (``gpt2.token_mean``).
 """
 from __future__ import annotations
 
@@ -29,9 +33,9 @@ import torch
 from ..parallel import collectives as col
 from ..parallel.mesh import MODEL_AXIS
 from ..pipe.module import LayerSpec, PipelineModule, TiedLayerSpec
-from ..runtime.utils import data_rows, dropout, seeded_generator
+from ..runtime.utils import data_rows, dropout, seeded_generator, seq_tokens
 from .gpt2 import (GPT2Config, _embed_tokens, _layer_norm,
-                   _vocab_parallel_nll, gpt2_block_forward)
+                   _vocab_parallel_nll, gpt2_block_forward, token_mean)
 
 F32 = torch.float32
 
@@ -61,13 +65,15 @@ class GPT2EmbeddingPipe:
     def apply(self, params, tokens, rng, train: bool = True, mesh=None):
         cfg = self.cfg
         B, T = tokens.shape
-        if T > cfg.n_positions:
-            raise ValueError(
-                f"sequence length {T} exceeds n_positions={cfg.n_positions}")
+        seq = seq_tokens(mesh, T)
+        off, total = seq if seq is not None else (0, T)
+        if total > cfg.n_positions:
+            raise ValueError(f"sequence length {total} exceeds "
+                             f"n_positions={cfg.n_positions}")
         x = (_embed_tokens(cfg, params["wte"], tokens.long(), mesh)
-             + params["wpe"][:T][None])
+             + params["wpe"][off:off + T][None])
         return dropout(x, cfg.embd_dropout if train else 0.0, rng,
-                       data_rows(mesh, B))
+                       data_rows(mesh, B), seq)
 
 
 class GPT2BlockPipe:
@@ -145,7 +151,8 @@ def gpt2_loss_head(params, hidden, labels, vocab_size=None):
     (labels are the raw token ids of the positions after ``hidden``'s).
     Under the engine's mesh (``params.mesh``) a ``wte`` piece with fewer
     rows than ``vocab_size`` is vocab-parallel: vocab-parallel logits and
-    their cross-entropy (:func:`build_gpt2_pipe` binds ``vocab_size``)."""
+    their cross-entropy (:func:`build_gpt2_pipe` binds ``vocab_size``);
+    on a seq axis the mean is over the whole sequence."""
     wte = params["tied"]["embed"]["wte"]
     mesh = getattr(params, "mesh", None)
     labels = labels.long()
@@ -153,10 +160,10 @@ def gpt2_loss_head(params, hidden, labels, vocab_size=None):
             and wte.shape[0] != vocab_size:
         hidden = col.copy_to_axis(hidden, mesh, MODEL_AXIS)
         logits = hidden @ wte.to(hidden.dtype).T
-        return _vocab_parallel_nll(logits, labels, mesh).mean()
+        return token_mean(_vocab_parallel_nll(logits, labels, mesh), mesh)
     logits = (hidden @ wte.to(hidden.dtype).T).float()
     logp = torch.log_softmax(logits, dim=-1)
-    return -torch.gather(logp, -1, labels[..., None]).mean()
+    return token_mean(-torch.gather(logp, -1, labels[..., None]), mesh)
 
 
 def build_gpt2_pipe(cfg: GPT2Config, num_stages: int,
@@ -166,11 +173,13 @@ def build_gpt2_pipe(cfg: GPT2Config, num_stages: int,
     layers = [TiedLayerSpec("embed", GPT2EmbeddingPipe, cfg)]
     layers += [LayerSpec(GPT2BlockPipe, cfg, i) for i in range(cfg.n_layer)]
     layers += [LayerSpec(GPT2FinalNormPipe, cfg)]
-    return PipelineModule(
+    pm = PipelineModule(
         layers, num_stages=num_stages,
         loss_fn=functools.partial(gpt2_loss_head, vocab_size=cfg.vocab_size),
         partition_method=partition_method,
         activation_checkpoint_interval=activation_checkpoint_interval)
+    pm.seq_parallel = cfg.attn_impl in ("ring", "ulysses")
+    return pm
 
 
 def split_gpt2_batch(tokens):

@@ -1,6 +1,7 @@
-"""Data, tensor and pipeline parallelism on ``torch.distributed`` — the
-counterpart of ``deepspeed_tpu/parallel/`` (``partition.py`` is a copy of
-the JAX module; ``sequence.py`` is ROADMAP.md queue 1 item 11)."""
+"""Data, tensor, pipeline and sequence parallelism on
+``torch.distributed`` — the counterpart of ``deepspeed_tpu/parallel/``
+(``partition.py`` is a copy of the JAX module; ``sequence.py`` holds ring
+and Ulysses attention over the ``seq`` axis)."""
 from .topology import (  # noqa: F401
     ProcessTopology,
     PipeDataParallelTopology,
@@ -21,3 +22,4 @@ from .mesh import (  # noqa: F401
 )
 from .distributed import init_distributed, is_initialized  # noqa: F401
 from . import collectives  # noqa: F401
+from .sequence import ring_attention, ulysses_attention  # noqa: F401

@@ -14,7 +14,15 @@ card, gloo on the CPU):
 plus the autograd pairs that Megatron tensor parallelism and ZeRO-3 need:
 :func:`copy_to_axis` (identity forward, all-reduce backward),
 :func:`reduce_from_axis` (all-reduce forward, identity backward) and
-:func:`gather_from_axis` (all-gather forward, reduce-scatter backward).
+:func:`gather_from_axis` (all-gather forward, reduce-scatter backward);
+and the two that sequence parallelism needs on the ``seq`` axis, each
+with the transpose JAX's AD takes as its backward:
+:func:`seq_all_to_all` (``lax.all_to_all(..., tiled=True)``: backward is
+the all-to-all with the dims swapped) and :func:`seq_ring_shift`
+(``ppermute`` to the next rank: backward shifts to the previous one, its
+send and receive posted together).  Gloo moves no CUDA tensor in an
+all-to-all or a point-to-point call, so on a gloo group these two stage a
+CUDA tensor through host memory, each staging counted in ``seq_stats``.
 
 Each function returns a new tensor and leaves its input as it was.  On a
 local mesh (no process group) an axis has one rank and each collective
@@ -26,15 +34,23 @@ tests show with it that a path runs no collective).
 from __future__ import annotations
 
 import collections
+import time
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh
+from .mesh import SEQ_AXIS, Mesh
 
 #: calls per collective in this process (``reduce`` counts psum, pmean
 #: and pmax)
 calls: collections.Counter = collections.Counter()
+#: the seq pairs' traffic in this process, forward and backward: ``calls``,
+#: ``bytes`` (of the send buffers, the rank's own chunk included),
+#: ``staged`` (tensors copied through host memory for gloo) and
+#: ``seconds`` (host wall time of the exchange: on a staged call the
+#: copies and the gloo call, the card synchronized first so no queued
+#: kernel is counted; on NCCL the enqueue only)
+seq_stats: collections.Counter = collections.Counter()
 
 
 def _reduce(x, mesh: Mesh, axis: str, op):
@@ -167,3 +183,110 @@ def gather_from_axis(x: torch.Tensor, mesh: Mesh, axis: str,
     """ZeRO-3's gather: the pieces all-gathered along ``dim`` forward, the
     gradient reduce-scattered back to the pieces backward."""
     return _GatherFromAxis.apply(x, mesh, axis, dim)
+
+
+# ---------------------------------------------------------------------------
+# the seq axis: Ulysses' all-to-all and ring attention's rotation
+# ---------------------------------------------------------------------------
+def _host_staged(g, x: torch.Tensor) -> bool:
+    staged = x.is_cuda and dist.get_backend(g) == "gloo"
+    if staged:
+        # the device-to-host copy would wait for the queued kernels
+        # anyway: wait here, so ``seconds`` times the exchange alone
+        torch.cuda.current_stream(x.device).synchronize()
+    return staged
+
+
+def _all_to_all(x, mesh: Mesh, split_dim: int, concat_dim: int):
+    g = mesh.group(SEQ_AXIS)
+    if g is None:
+        return x.clone()
+    n = mesh.axis_size(SEQ_AXIS)
+    if x.shape[split_dim] % n:
+        raise ValueError(
+            f"seq_all_to_all: dim {split_dim} of {tuple(x.shape)} does not "
+            f"divide by the seq axis's {n}")
+    send = torch.stack(x.chunk(n, split_dim)).contiguous()
+    staged = _host_staged(g, send)
+    t0 = time.perf_counter()
+    if staged:
+        send = send.cpu()
+        seq_stats["staged"] += 1
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=g)
+    if staged:
+        recv = recv.to(x.device)
+        seq_stats["staged"] += 1
+    seq_stats["seconds"] += time.perf_counter() - t0
+    seq_stats["calls"] += 1
+    seq_stats["bytes"] += send.numel() * send.element_size()
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+def _ring_shift(x, mesh: Mesh, step: int):
+    """Send ``x`` to seq index ``i + step`` and receive from ``i - step``
+    (mod n), the send and the receive posted together."""
+    g = mesh.group(SEQ_AXIS)
+    if g is None:
+        return x.clone()
+    n = mesh.axis_size(SEQ_AXIS)
+    i = mesh.axis_index(SEQ_AXIS)
+    ranks = mesh.axis_ranks(SEQ_AXIS)
+    send = x.detach().contiguous()
+    staged = _host_staged(g, send)
+    t0 = time.perf_counter()
+    if staged:
+        send = send.cpu()
+        seq_stats["staged"] += 1
+    recv = torch.empty_like(send)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, send, ranks[(i + step) % n], group=g),
+        dist.P2POp(dist.irecv, recv, ranks[(i - step) % n], group=g)])
+    for w in works:
+        w.wait()
+    if staged:
+        recv = recv.to(x.device)
+        seq_stats["staged"] += 1
+    seq_stats["calls"] += 1
+    seq_stats["bytes"] += send.numel() * send.element_size()
+    seq_stats["seconds"] += time.perf_counter() - t0
+    return recv
+
+
+class _SeqAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, split_dim, concat_dim):
+        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
+        return _all_to_all(x, mesh, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (_all_to_all(g, ctx.mesh, concat_dim, split_dim), None, None,
+                None)
+
+
+class _SeqRingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _ring_shift(x, mesh, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ring_shift(g, ctx.mesh, -1), None
+
+
+def seq_all_to_all(x: torch.Tensor, mesh: Mesh, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``seq`` (``lax.all_to_all(x, "seq",
+    split_dim, concat_dim, tiled=True)``): ``x`` splits into n chunks
+    along ``split_dim``, chunk j goes to seq index j, and the chunks
+    received concatenate along ``concat_dim`` in seq order."""
+    return _SeqAllToAll.apply(x, mesh, split_dim, concat_dim)
+
+
+def seq_ring_shift(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` of seq index ``i - 1`` on seq index ``i`` (mod n) — the
+    ``ppermute`` that rotates ring attention's K/V shards forward."""
+    return _SeqRingShift.apply(x, mesh)

@@ -14,9 +14,12 @@ from this one only along that axis:
               and loss);
   - ``pipe``  the pipeline's stages (the point-to-point boundary tensors,
               ``pipe/p2p.py``, and the sums of the pipe-replicated
-              gradients, norms and loss).
+              gradients, norms and loss);
+  - ``seq``   the sequence-parallel group (ring attention's K/V
+              rotations and Ulysses' all-to-alls, ``parallel/
+              sequence.py``, the loss's token sums and the gradient sums
+              of the seq-replicated parameters).
 
-``seq`` must be 1: sequence parallelism is ROADMAP.md queue 1 item 11.
 The JAX module's ``replicated`` and ``data_sharded`` (``NamedSharding``
 factories) have no counterpart: placement in the port is explicit — the
 training engine
@@ -45,7 +48,7 @@ MODEL_AXIS = "model"
 DEFAULT_AXES: Tuple[str, str, str, str] = (
     PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
 #: the axes the port builds process groups for
-GROUP_AXES = (PIPE_AXIS, DATA_AXIS, MODEL_AXIS)
+GROUP_AXES = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
 
 
 class Mesh:
@@ -129,17 +132,14 @@ class RankSharding(NamedTuple):
 
 def build_mesh(pp: int = 1, dp: Optional[int] = None, tp: int = 1,
                sp: int = 1) -> Mesh:
-    """Lay the joined job's ranks out over (pipe, data, seq, model).
+    """Lay the joined job's ranks out over (pipe, data, seq, model),
+    row-major — the JAX mesh's ``reshape(pp, dp, sp, tp)`` of its
+    devices, so the ``seq`` neighbours of a rank sit ``tp`` ranks apart.
 
     ``dp=None`` absorbs what the world leaves after pp·sp·tp.  Every rank
     must call it (each new process group is created collectively), in
     the same order.  With no process group joined the mesh is local and
     its axes must all be 1."""
-    if sp != 1:
-        raise NotImplementedError(
-            "a seq axis (sp > 1) is not ported to deepspeed_tpu_torch yet: "
-            "ROADMAP.md queue 1, item 11 (sequence, expert and compressed "
-            "parallelism)")
     joined = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if joined else 1
     rank = dist.get_rank() if joined else 0

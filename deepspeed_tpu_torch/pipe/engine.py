@@ -32,6 +32,16 @@ divergence (a seq-axis collective inside a ``lax.cond`` branch) that made
 the JAX engine need a uniform-tick schedule.  ``eval_batch`` interprets
 ``InferenceSchedule``.
 
+Sequence parallelism runs inside a stage: on a mesh with a ``seq`` axis
+of sp > 1 every rank of a stage's seq group runs the same instruction
+stream, and stage s's seq index j sends its token shard to stage s+1's
+seq index j (the pipe group joins ranks that differ only in ``pipe``).
+``_split`` gives each rank its shard ``[j·T/sp, (j+1)·T/sp)`` of the
+inputs' and the labels' token dim (the pair is shifted already,
+``split_gpt2_batch``).  The JAX engine's rules hold: ``"1f1b"`` becomes
+``"1f1b_uniform"`` (logged), and a partition whose stages do not run the
+same stacked rows raises at the first step.
+
 Placement is the JAX engine's, so trees and checkpoints match: a pipe
 rank holds its stage's rows of each ``stack_<n>`` leaf and every other
 leaf (``layer_<i>``, ``tied``) whole; ZeRO shards over ``data`` on a
@@ -60,7 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..parallel import collectives as col
 from ..parallel.distributed import is_initialized
-from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, build_mesh,
+from ..parallel.mesh import (DATA_AXIS, PIPE_AXIS, SEQ_AXIS, build_mesh,
                              mesh_axis_size, single_device_mesh)
 from ..runtime import precision
 from ..runtime.dataloader import DeepSpeedDataLoader
@@ -121,6 +131,7 @@ class _StageModule:
         #: they hold this pipe rank's stage rows
         self.stacked_layers = tuple(pm.stack_plan())
         self.pipelined = True
+        self.seq_parallel = pm.seq_parallel
 
     def init(self, seed: int, device=None):
         return self.pm.init(seed, device=device, stage=self.stage)
@@ -183,6 +194,15 @@ class PipelineEngine(DeepSpeedEngine):
             mesh = (build_mesh(pp=model.num_stages) if is_initialized()
                     else single_device_mesh())
         check_mesh(mesh)
+        if schedule == "1f1b" and mesh_axis_size(mesh, SEQ_AXIS) > 1:
+            # the JAX engine's rule: its cond-based 1F1B would run the
+            # seq collectives on only some pipe ranks (this interpreter
+            # would not, but the port keeps the JAX engine's schedules)
+            log_dist(
+                "pipeline: seq axis > 1 — using the uniform-tick 1F1B "
+                "schedule (F+B units run masked every tick, so the seq "
+                "collectives are schedule-invariant)", ranks=[0])
+            schedule = "1f1b_uniform"
         pp = mesh_axis_size(mesh, PIPE_AXIS)
         if pp != model.num_stages:
             raise ValueError(
@@ -250,10 +270,12 @@ class PipelineEngine(DeepSpeedEngine):
 
     def _split(self, tree, n: int, need: bool, what: str):
         """``[n, ...]`` leaves → this data rank's ``[M, n/(M·dp), ...]``
-        rows on the device; where this stage does not read them, meta
-        tensors of that shape (the boundary check's input signature)."""
+        rows on the device (under a seq axis, of dim 1 only the rank's
+        token shard); where this stage does not read them, meta tensors
+        of that shape (the boundary check's input signature)."""
         M, dp = self.micro_batches, self.dp_world_size
         d = self.mesh.axis_index(DATA_AXIS)
+        sp, j = self.sp_world_size, self.mesh.axis_index(SEQ_AXIS)
 
         def place(x):
             t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
@@ -265,6 +287,13 @@ class PipelineEngine(DeepSpeedEngine):
                     f"micro-batch rows {n // M} do not divide over the "
                     f"data axis ({dp})")
             mb = n // M // dp
+            if sp > 1:
+                if t.ndim < 2 or t.shape[1] % sp:
+                    raise ValueError(
+                        f"{what} leaf {tuple(t.shape)}: its token dim 1 "
+                        f"does not divide by the seq axis ({sp})")
+                per = t.shape[1] // sp
+                t = t.narrow(1, j * per, per)
             if not need:
                 return torch.empty((M, mb) + tuple(t.shape[1:]),
                                    dtype=t.dtype, device="meta")
@@ -356,11 +385,40 @@ class PipelineEngine(DeepSpeedEngine):
                 loss, scaler)
         return body
 
+    def _stages_uniform(self) -> bool:
+        """The JAX engine's uniform-stage test (its
+        ``_uniform_stack_info`` is not None): every stage runs the same
+        count of rows of one stack, and the only other layers sit at the
+        edges (a stage-0 prefix, a last-stage suffix)."""
+        pm, S = self.pipeline_module, self.num_stages
+        plan = pm.stack_plan()
+        if S < 2 or len(plan) != 1:
+            return False
+        (stages,) = plan.values()
+        k = len(stages[0])
+        if k == 0 or any(len(r) != k for r in stages):
+            return False
+        parts = [pm.stage_layer_range(s) for s in range(S)]
+        stacked = {i for r in stages for i in r}
+        prefix = [i for i in range(*parts[0]) if i not in stacked]
+        suffix = [i for i in range(*parts[S - 1]) if i not in stacked]
+        return (all(i < min(stages[0]) for i in prefix)
+                and all(i > max(stages[S - 1]) for i in suffix)
+                and all(i in stacked for s in range(1, S - 1)
+                        for i in range(*parts[s])))
+
     def _run(self, sched, inputs, labels, rng, train: bool, scaler=None):
         """Interpret ``sched`` for this stage; returns the sum of its
         micro-batch losses (scaled when ``scaler``; 0 off the last
         stage), a device scalar.  Parameter grads land in the ZeRO
         runtime's accumulators."""
+        if self.sp_world_size > 1 and not self._stages_uniform():
+            raise NotImplementedError(
+                "sequence parallelism × pipeline needs a uniformly "
+                "stacked PipelineModule (equal stacked rows per stage, "
+                "non-stacked layers only as a stage-0 prefix / last-stage "
+                "suffix) so the per-tick seq collectives are identical on "
+                "every pipe rank; this module's partition is not uniform")
         pm, s, S = self.pipeline_module, self.stage_id, self.num_stages
         remat = pm.stage_remat and train
         shape, dtype = self._boundary(self._micro(inputs, 0))

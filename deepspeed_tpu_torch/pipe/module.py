@@ -174,7 +174,14 @@ class PipelineModule:
       - 'uniform'          — equal layer counts
       - 'parameters'       — balance by parameter count
       - 'type:<regex>'     — balance count of layers whose class name matches
+
+    ``seq_parallel``: its layers take a seq rank's token shard (set by a
+    builder whose blocks attend across the shards, such as
+    ``models.gpt2_pipe.build_gpt2_pipe`` with ring or Ulysses attention);
+    the engine refuses a seq axis otherwise.
     """
+
+    seq_parallel = False
 
     def __init__(self,
                  layers: Sequence[LayerSpec],
@@ -212,13 +219,15 @@ class PipelineModule:
 
     def with_stages(self, num_stages: int) -> "PipelineModule":
         """The same declaration partitioned over ``num_stages``."""
-        return PipelineModule(
+        out = PipelineModule(
             self.specs, num_stages, loss_fn=self.loss_fn,
             partition_method=self.partition_method,
             activation_checkpoint_interval=(
                 self.activation_checkpoint_interval),
             seed_layers=self.seed_layers, base_seed=self.base_seed,
             stage_remat=self.stage_remat)
+        out.seq_parallel = self.seq_parallel
+        return out
 
     # ----- partitioning (pure math, testable without devices) -----
     def _layer_struct(self, i: int):

@@ -89,9 +89,15 @@ Pipeline parallelism is this engine's subclass, ``pipe/engine.py``'s
 ``PipelineEngine``, which ``initialize`` returns for a
 ``PipelineModule``: it replaces the batch placement and the gradient
 pass (``_scaled_grads``) with its stage's schedule and keeps the update.
+Sequence parallelism: on a mesh with a ``seq`` axis of sp > 1 the model
+must declare ``seq_parallel`` (its batch leaves are next-token rows
+``[B, T+1]``); ``train_batch`` and ``eval_batch`` give seq rank s the
+window of each row that holds its shard's inputs ``[s·T/sp,
+(s+1)·T/sp)`` and their shifted targets (:func:`seq_window`), and the
+ZeRO runtime sums the seq-replicated parameters' gradients over ``seq``.
 Every other config knob whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: sequence, experts,
-1-bit Adam and ``sparse_gradients`` (item 11).
+``NotImplementedError`` naming its ROADMAP.md item: experts, 1-bit Adam
+and ``sparse_gradients`` (item 11).
 """
 from __future__ import annotations
 
@@ -110,8 +116,8 @@ import torch
 from ..config import constants as C
 from ..parallel import collectives as col
 from ..parallel.distributed import is_initialized, local_rank
-from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh, build_mesh,
-                             mesh_axis_size, single_device_mesh)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh,
+                             build_mesh, mesh_axis_size, single_device_mesh)
 from ..utils.logging import log_dist, logger
 from . import precision
 from .dataloader import DeepSpeedDataLoader, supports_iter_state
@@ -205,6 +211,23 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
         raise _unported("sparse_gradients", "item 11 (runtime/csr_tensor)")
 
 
+def seq_window(x, index: int, size: int):
+    """Seq rank ``index``'s window of a next-token leaf whose last dim
+    holds T+1 tokens: ``[index·T/size, (index+1)·T/size + 1)``, the
+    shard's inputs and, one further, their targets — the shift is taken
+    before the split, so no target crosses a shard.  A numpy leaf becomes
+    a tensor; a tensor's window is a view."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    n = t.shape[-1] - 1
+    if n % size:
+        raise ValueError(
+            f"sequence length {n} (a leaf of {tuple(t.shape)} holding T+1 "
+            f"tokens in its last dim) does not divide by the seq axis's "
+            f"{size}")
+    per = n // size
+    return t.narrow(-1, index * per, per + 1)
+
+
 def resolve_device(device) -> torch.device:
     """``cuda:LOCAL_RANK`` by default; raises without CUDA unless the
     caller names a device."""
@@ -262,6 +285,14 @@ class DeepSpeedEngine(XlaOffloadTier):
         self.config = config
         self.mesh = mesh
         self.dp_world_size = mesh_axis_size(mesh, DATA_AXIS)
+        self.sp_world_size = mesh_axis_size(mesh, SEQ_AXIS)
+        if self.sp_world_size > 1 and not getattr(model, "seq_parallel",
+                                                  False):
+            raise ValueError(
+                f"{type(model).__name__} does not train on a seq axis "
+                f"(the mesh has seq={self.sp_world_size}): sequence "
+                "parallelism needs a model that declares seq_parallel "
+                "(GPT-2 with attn_impl='ring' or 'ulysses')")
         if config.world_size != self.dp_world_size:
             raise ValueError(
                 f"DeepSpeedConfig was built for world_size="
@@ -408,7 +439,7 @@ class DeepSpeedEngine(XlaOffloadTier):
         log_dist(
             f"DeepSpeedEngine: device={self.device} "
             f"zero_stage={self.zero_stage} dp={self.dp_world_size} "
-            f"tp={mesh_axis_size(mesh, MODEL_AXIS)} "
+            f"sp={self.sp_world_size} tp={mesh_axis_size(mesh, MODEL_AXIS)} "
             f"dtype={self.compute_dtype} "
             f"micro_bs={self.micro_batch_size} "
             f"grad_acc={self.gradient_accumulation_steps}", ranks=[0])
@@ -974,12 +1005,23 @@ class DeepSpeedEngine(XlaOffloadTier):
             np.asarray(x))
         return t.to(self.device, non_blocking=True)
 
+    def _seq_shard(self, batch):
+        """Under a seq axis, this seq rank's window of every next-token
+        leaf (:func:`seq_window`); the batch itself otherwise."""
+        sp = self.sp_world_size
+        if sp == 1:
+            return batch
+        s = self.mesh.axis_index(SEQ_AXIS)
+        return _tree_map(lambda x: seq_window(x, s, sp), batch)
+
     def _place_train_batch(self, batch):
         """This rank's [grad_acc · micro, ...] leaves → [grad_acc, micro,
-        ...] on the card."""
+        ...] on the card (under a seq axis, the rank's token window of
+        each row)."""
         ga, mb = int(self.gradient_accumulation_steps), int(
             self.micro_batch_size)
         dp = self.dp_world_size
+        batch = self._seq_shard(batch)
 
         def place(x):
             t = self._to_device(x)
@@ -1486,6 +1528,7 @@ class DeepSpeedEngine(XlaOffloadTier):
             micro = batch.ready()
         else:
             micro = _tree_map(self._to_device, batch)
+        micro = self._seq_shard(micro)
         if self._offload_xla:
             self._xla_check_poison()
             self._xla_dpu_flush()

@@ -149,22 +149,39 @@ def data_rows(mesh, n: int):
     return mesh.axis_index(DATA_AXIS) * n, mesh.axis_size(DATA_AXIS) * n
 
 
-def dropout(x, rate: float, seed: Optional[int], rows=None):
+def seq_tokens(mesh, n: int):
+    """``(offset, total)`` of a seq rank's ``n`` tokens in the global
+    sequence (the rank's shard ``[s·n, (s+1)·n)``), None without a
+    mesh."""
+    if mesh is None:
+        return None
+    from ..parallel.mesh import SEQ_AXIS
+    return mesh.axis_index(SEQ_AXIS) * n, mesh.axis_size(SEQ_AXIS) * n
+
+
+def dropout(x, rate: float, seed: Optional[int], rows=None, tokens=None):
     """Inverted dropout with keep probability ``1 - rate``, its mask drawn
     from a ``torch.Generator`` built here from the host ``seed`` (so a
     block recomputed under ``torch.utils.checkpoint`` draws the same
     mask).  ``rows = (offset, total)``: ``x`` holds rows ``offset …
     offset + len(x)`` of a batch of ``total`` (a data-parallel rank's
-    share of the global micro-batch): the mask is drawn for all ``total``
-    rows and the rank keeps its own, so the masks do not depend on the
-    layout."""
+    share of the global micro-batch); ``tokens = (offset, total)`` the
+    same for dim 1 (a seq rank's shard of the sequence).  The mask is
+    drawn for all ``total`` rows and tokens and the rank keeps its own,
+    so the masks do not depend on the layout."""
     if rate <= 0.0:
         return x
-    shape = x.shape if rows is None else (rows[1],) + tuple(x.shape[1:])
+    shape = list(x.shape)
+    if rows is not None:
+        shape[0] = rows[1]
+    if tokens is not None:
+        shape[1] = tokens[1]
     keep = torch.rand(shape, generator=seeded_generator(seed, x.device),
                       device=x.device) < 1.0 - rate
     if rows is not None:
         keep = keep[rows[0]:rows[0] + x.shape[0]]
+    if tokens is not None:
+        keep = keep[:, tokens[0]:tokens[0] + x.shape[1]]
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 

@@ -40,6 +40,14 @@ group (a stage that never reads one adds zeros), a stacked leaf's norm
 sums its pieces over ``pipe`` too, and a checkpoint piece of a stacked
 leaf is its ``[s:s+1]`` row of the whole ``[S, k, ...]`` leaf.
 
+Under sequence parallelism (a ``seq`` axis of sp > 1) every parameter is
+replicated over ``seq`` and each seq rank's gradient covers its own
+tokens: the accumulated gradients are summed over the seq group once a
+step, after the data reduction (a streamed leaf's per layer, as it
+reaches its host stack), so every stage's update, norm and overflow flag
+see the logical gradient once.  The stage-3 gathers stay over ``data``,
+and a checkpoint piece is written by seq index 0 only.
+
 A leaf whose dims do not divide stays replicated (no padding), and a
 tensor-parallel dim that does not divide falls back to replication, as in
 the JAX plan.  Every collective runs at every stage and every group size
@@ -53,8 +61,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from ..parallel import collectives as col
-from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, Mesh,
-                             mesh_axis_size)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+                             Mesh, mesh_axis_size)
 from .utils import tree_leaves
 
 Spec = Tuple[Any, ...]
@@ -324,6 +332,8 @@ class ZeroRuntime:
         self.tp = mesh_axis_size(self.mesh, MODEL_AXIS)
         self.dp_rank = self.mesh.axis_index(DATA_AXIS)
         self.tp_rank = self.mesh.axis_index(MODEL_AXIS)
+        self.sp = mesh_axis_size(self.mesh, SEQ_AXIS)
+        self.sp_rank = self.mesh.axis_index(SEQ_AXIS)
         names = (stacked,) if isinstance(stacked, str) else (stacked or ())
         self.stacked = frozenset(
             n for n in names if isinstance(params, dict)
@@ -398,7 +408,7 @@ class ZeroRuntime:
             mine = i in self.pipe_local
             write = ((self.master_split(i) or self.dp_rank == 0)
                      and (pl.tp_dim is not None or self.tp_rank == 0)
-                     and (mine or self.pp_rank == 0))
+                     and (mine or self.pp_rank == 0) and self.sp_rank == 0)
             if mine:
                 t = t.unsqueeze(0)
                 shape = (self.pp,) + tuple(shape)
@@ -518,10 +528,12 @@ class ZeroRuntime:
                 g32 = col.reduce_scatter(g32, self.mesh, DATA_AXIS,
                                          pl.zero_dim - (layer is not None))
         if self.streamed(i):
+            # no boundary all-reduce reaches a host stack: reduce each
+            # layer's contribution now
             if not self._acc_sharded[i] and self.dp > 1:
-                # no boundary all-reduce reaches a host stack: reduce
-                # each layer's contribution now
                 g32 = col.psum(g32, self.mesh, DATA_AXIS)
+            if self.sp > 1:
+                g32 = col.psum(g32, self.mesh, SEQ_AXIS)
             self.streamer.accumulate(i, idx, g32)
             return
         acc = self._acc[i]
@@ -530,7 +542,8 @@ class ZeroRuntime:
     def finish_grads(self) -> List[torch.Tensor]:
         """The step's summed grads in the master's placement: the
         accumulators not yet reduced are all-reduced over ``data`` (and
-        cut to the rank's shard where the master is sharded).  A leaf
+        cut to the rank's shard where the master is sharded), then over
+        ``seq`` under sequence parallelism.  A leaf
         whose gradient was not kept is None; a streamed leaf's is its
         host stack (``offload_xla.HostGrad``)."""
         out = []
@@ -543,6 +556,9 @@ class ZeroRuntime:
                 a = col.psum(a, self.mesh, DATA_AXIS)
                 if self.master_split(i):
                     a = self.data_shard(a, i)
+            if a is not None and i not in host and self.sp > 1:
+                # each seq rank's gradient covers its own tokens
+                a = col.psum(a, self.mesh, SEQ_AXIS)
             if a is not None and self.pipelined \
                     and i not in self.pipe_local:
                 # a pipe-replicated leaf: every stage's contribution

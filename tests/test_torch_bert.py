@@ -36,6 +36,8 @@ from deepspeed_tpu_torch.runtime.progressive_layer_drop import (
     ProgressiveLayerDrop)
 from deepspeed_tpu_torch.runtime.utils import tree_leaves
 
+from test_torch_zero import one_thread  # noqa: F401
+
 B, T, D, HEADS = 2, 32, 64, 2
 SMALL = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,
              num_attention_heads=2, intermediate_size=128,

@@ -18,7 +18,8 @@ import pytest
 
 from test_torch_zero import (BERT, GA, MICRO, assemble, bert_batch,
                              built_config, close, config, jax_leaves,
-                             leaf_names, spawn_ranks)
+                             leaf_names, one_thread,  # noqa: F401
+                             spawn_ranks)
 
 STEPS = 3
 

@@ -23,6 +23,8 @@ from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import (
     build_lut)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 B, H, T, D = 2, 4, 256, 64
 
 #: every config, with per-head and random layouts: (name, kwargs)

@@ -22,6 +22,8 @@ from deepspeed_tpu.ops.pallas import block_sparse_attention as jbs
 from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as sc
 
+from test_torch_zero import one_thread  # noqa: F401
+
 H, T = 4, 1024
 BLOCKS = (16, 32, 64, 128)
 

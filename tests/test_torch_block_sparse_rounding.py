@@ -32,6 +32,8 @@ from deepspeed_tpu.ops.pallas import block_sparse_attention as jbs
 from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
 from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
+from test_torch_zero import one_thread  # noqa: F401
+
 B, H, T, D = 2, 2, 256, 64
 BLOCK = 16
 SCALE = D ** -0.5

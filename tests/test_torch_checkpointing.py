@@ -48,6 +48,8 @@ from deepspeed_tpu_torch.runtime.resilience import (CheckpointCorruptError,
 
 from simple_model import base_config, random_batches
 
+from test_torch_zero import one_thread  # noqa: F401
+
 GPT2_SMALL = dict(vocab_size=256, n_positions=64, d_model=128, n_layer=2,
                   n_head=2)
 BERT_SMALL = dict(vocab_size=96, hidden_size=64, num_hidden_layers=2,

@@ -16,6 +16,8 @@ from deepspeed_tpu.ops.pallas.decode_attention import (
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     decode_attention)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 S, H, T, D = 5, 3, 72, 64
 LENGTHS = np.asarray([0, 1, T, 17, 40], np.int32)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}

@@ -17,6 +17,8 @@ from deepspeed_tpu.ops.pallas.flash_attention import (
 from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     DEAD_LSE, dense_keep_mask, flash_attention, flash_attention_plain)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 B, H, D = 2, 3, 64
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 

@@ -28,6 +28,8 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import (
     flash_bwd_dkv, flash_bwd_dkv_plain, flash_bwd_dq, flash_bwd_dq_plain,
     keep_threshold)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 B, H, D = 2, 3, 64
 KEY_MASK = np.ones((B, 32), bool)
 KEY_MASK[1] = False          # every key of batch row 1 dropped: dead rows

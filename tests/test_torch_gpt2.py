@@ -18,6 +18,8 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2Model,
                                              gpt2_decode_step, gpt2_prefill,
                                              params_from_numpy)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 SMALL = dict(vocab_size=256, n_positions=64, d_model=64, n_layer=3,
              n_head=4)
 ATOL = 1e-4

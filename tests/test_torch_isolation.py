@@ -18,6 +18,8 @@ import deepspeed_tpu_torch
 from deepspeed_tpu_torch.inference import ServeEngine
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 
+from test_torch_zero import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "deepspeed_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
@@ -34,7 +36,9 @@ def _port_files():
     return [os.path.join(REPO, "chip_smoke.py"),
             os.path.join(REPO, "profile_serve_torch.py"),
             os.path.join(REPO, "profile_train_torch.py"),
-            os.path.join(REPO, "profile_decode_torch.py")] + _package_files()
+            os.path.join(REPO, "profile_decode_torch.py"),
+            os.path.join(REPO, "profile_pipe_torch.py"),
+            os.path.join(REPO, "profile_seq_torch.py")] + _package_files()
 
 
 def _module_names():
@@ -375,9 +379,10 @@ def test_unported_training_knob_raises_naming_its_roadmap_item(extra, item,
 def test_unported_training_paths_raise(tmp_path):
     from deepspeed_tpu_torch.parallel import build_mesh
     from deepspeed_tpu_torch.runtime.resilience import CheckpointCorruptError
-    # a mesh is ported (item 9) and its pipe axis (item 10): two stages
-    # need two processes, and one process trains a one-stage pipeline;
-    # the seq axis is item 11
+    # a mesh is ported (item 9), its pipe axis (item 10) and its seq axis
+    # (item 11): two stages or two seq shards need two processes, one
+    # process trains a one-stage pipeline, and ring attention at sp 1 is
+    # the dense fallback
     from deepspeed_tpu_torch.models.gpt2_pipe import (build_gpt2_pipe,
                                                       split_gpt2_batch)
     from deepspeed_tpu_torch.pipe.engine import PipelineEngine
@@ -389,7 +394,7 @@ def test_unported_training_paths_raise(tmp_path):
     assert torch.isfinite(peng.train_batch(split_gpt2_batch(
         torch.zeros(1, 5, dtype=torch.long))))
     peng.close()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match=r"not divisible by pp\*sp\*tp=2"):
         build_mesh(sp=2)
     with pytest.raises(TypeError, match="Mesh"):
         deepspeed_tpu_torch.initialize(model=GPT2Model(TINY),
@@ -419,10 +424,11 @@ def test_unported_training_paths_raise(tmp_path):
     (tmp_path / "t" / "meta.json").write_text(json.dumps(meta))
     with pytest.raises(CheckpointCorruptError, match="shard index"):
         eng.load_checkpoint(str(tmp_path), tag="t")
-    model = GPT2Model(GPT2Config(**{**TINY.__dict__, "attn_impl": "ring"}))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.loss_fn(model.init(0), torch.zeros(1, 5, dtype=torch.long),
-                      None, train=False)
+    for impl in ("ring", "ulysses"):
+        model = GPT2Model(GPT2Config(**{**TINY.__dict__, "attn_impl": impl}))
+        assert torch.isfinite(model.loss_fn(
+            model.init(0), torch.zeros(1, 5, dtype=torch.long), None,
+            train=False))
 
 
 def test_replica_without_device_raises_when_cuda_is_absent(tmp_path,

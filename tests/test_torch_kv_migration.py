@@ -21,6 +21,8 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2Model,
                                              gpt2_prefill,
                                              params_from_numpy)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 TINY = dict(vocab_size=128, n_positions=64, d_model=32, n_layer=2,
             n_head=4, remat=None, attn_impl="dense")
 NEAR_TIE = 1e-3

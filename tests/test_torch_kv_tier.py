@@ -48,6 +48,8 @@ from deepspeed_tpu_torch.runtime.resilience import CheckpointCorruptError
 from deepspeed_tpu_torch.runtime.stages import reset_fault_injection
 from deepspeed_tpu_torch.utils.logging import logger as port_logger
 
+from test_torch_zero import one_thread  # noqa: F401
+
 TINY = dict(vocab_size=128, n_positions=64, d_model=32, n_layer=2,
             n_head=4)
 DRAFT_BLOCK = {"d_model": 32, "n_layer": 2, "n_head": 4}

@@ -25,7 +25,7 @@ from deepspeed_tpu_torch.runtime import offload as offload_mod
 
 from simple_model import base_config, random_batches
 from test_torch_checkpointing import HIDDEN, SimpleModel
-from test_torch_zero import close, spawn_ranks
+from test_torch_zero import close, spawn_ranks, one_thread  # noqa: F401
 
 STEPS = 4
 GPT2 = dict(vocab_size=128, n_positions=16, d_model=32, n_layer=2,

@@ -25,6 +25,8 @@ from deepspeed_tpu_torch.runtime.zero import (ZeroRuntime, ZeroShardingPlan,
                                               sanitize_base_spec,
                                               shard_spec_for_leaf)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 
 def shape_mesh(dp, tp):
     """A (1, dp, 1, tp) mesh with no process groups: its shape is all the
@@ -128,11 +130,11 @@ def test_local_mesh_and_refusals():
                                       "model": 1}
     assert single_device_mesh().group("data") is None
     assert m.group("pipe") is None and m.axis_ranks("pipe") == [0]
-    # the pipe axis is ported (item 10): like any axis it must fit the
-    # world, and a local mesh holds one rank
+    # the pipe and seq axes are ported (items 10 and 11): like any axis
+    # they must fit the world, and a local mesh holds one rank
     with pytest.raises(ValueError, match=r"not divisible by pp\*sp\*tp=2"):
         build_mesh(pp=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match=r"not divisible by pp\*sp\*tp=2"):
         build_mesh(sp=2)
     with pytest.raises(ValueError):
         build_mesh(dp=2)

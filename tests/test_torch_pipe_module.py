@@ -14,6 +14,8 @@ import torch
 from deepspeed_tpu_torch.pipe import LayerSpec, PipelineModule, TiedLayerSpec
 from deepspeed_tpu_torch.pipe.module import carry_params, stack_stages
 
+from test_torch_zero import one_thread  # noqa: F401
+
 RTOL = 1e-5
 GPT = dict(vocab_size=128, n_positions=16, d_model=32, n_layer=4, n_head=4)
 BERT = dict(vocab_size=96, hidden_size=32, num_hidden_layers=4,

@@ -38,6 +38,8 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config,
 from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_paged, decode_attention_paged_multi)
 
+from test_torch_zero import one_thread  # noqa: F401
+
 TINY = dict(vocab_size=128, n_positions=64, d_model=32, n_layer=2,
             n_head=4)
 ATTN_TOL = 1e-5

@@ -57,6 +57,8 @@ from deepspeed_tpu_torch.ops.kernels.decode_attention import (
     decode_attention_reference, dequantize_paged)
 from deepspeed_tpu_torch.runtime.stages import reset_fault_injection
 
+from test_torch_zero import one_thread  # noqa: F401
+
 TINY = dict(vocab_size=128, n_positions=64, d_model=32, n_layer=2,
             n_head=4)
 DRAFT = {"d_model": 32, "n_layer": 2, "n_head": 4}

@@ -45,6 +45,8 @@ from deepspeed_tpu_torch.utils.logging import logger as port_logger
 from simple_model import random_batches
 from test_torch_checkpointing import HIDDEN, _engine, _state_equal, _train
 
+from test_torch_zero import one_thread  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _clean_faults(monkeypatch):

@@ -21,6 +21,8 @@ from deepspeed_tpu_torch.models.gpt2 import (GPT2Config, GPT2Model,
                                              params_from_numpy)
 from deepspeed_tpu_torch.runtime.stages import reset_fault_injection
 
+from test_torch_zero import one_thread  # noqa: F401
+
 SMALL = dict(vocab_size=256, n_positions=64, d_model=64, n_layer=2,
              n_head=4)
 GAP = 1e-3

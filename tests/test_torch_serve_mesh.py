@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_zero import spawn_ranks
+from test_torch_zero import spawn_ranks, one_thread  # noqa: F401
 
 from deepspeed_tpu_torch.inference import ServeEngine
 from deepspeed_tpu_torch.inference.kv_cache import (

@@ -19,6 +19,8 @@ from deepspeed_tpu_torch.ops import sparse_attention as sa
 from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
 from deepspeed_tpu_torch.runtime.utils import params_from_numpy
 
+from test_torch_zero import one_thread  # noqa: F401
+
 BLOCK = 16
 
 

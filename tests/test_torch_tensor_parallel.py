@@ -14,7 +14,8 @@ import numpy as np
 
 from test_torch_zero import (GA, MICRO, TINY, assemble, batches, close,
                              config, gathered_pieces, jax_leaves, jax_run,
-                             jax_tree, port_engine, spawn_ranks)
+                             jax_tree, one_thread, port_engine,  # noqa: F401
+                             spawn_ranks)
 from deepspeed_tpu_torch.runtime.dataloader import rank_rows
 
 ODD = dict(TINY, vocab_size=127)   # V % tp != 0: wte stays replicated

@@ -31,6 +31,8 @@ from deepspeed_tpu_torch.ops.kernels.flash_attention import (
 from deepspeed_tpu_torch.runtime import lr_schedules, precision
 from deepspeed_tpu_torch.runtime.utils import tree_leaves
 
+from test_torch_zero import one_thread  # noqa: F401
+
 SMALL = dict(vocab_size=256, n_positions=64, d_model=128, n_layer=2,
              n_head=2)
 T = 32

@@ -37,6 +37,8 @@ import deepspeed_tpu_torch as dst
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.telemetry.cli import summarize
 
+from test_torch_zero import one_thread  # noqa: F401
+
 TINY = dict(vocab_size=128, n_positions=32, d_model=64, n_layer=2,
             n_head=4)
 T = 16

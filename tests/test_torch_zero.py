@@ -33,6 +33,19 @@ STEPS = 3
 RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for a module's tests (other port test files
+    take it with ``from test_torch_zero import one_thread``): their tiny
+    models run as fast on one, and under ``pytest -n 6`` every worker's
+    default of a thread per core oversubscribes the cores many times
+    over, the gloo ranks' and the JAX references' included."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ---------------------------------------------------------------------------
 # rank launcher (shared with the other multi-rank test files)
 # ---------------------------------------------------------------------------

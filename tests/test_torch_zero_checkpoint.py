@@ -16,7 +16,8 @@ import numpy as np
 
 from test_torch_zero import (GA, MICRO, assemble, batches, built_config,
                              close, config, gathered_pieces, jax_leaves,
-                             jax_tree, port_engine, spawn_ranks)
+                             jax_tree, one_thread, port_engine,  # noqa: F401
+                             spawn_ranks)
 from deepspeed_tpu_torch.runtime.dataloader import rank_rows
 from deepspeed_tpu_torch.runtime.utils import tree_leaves
 
