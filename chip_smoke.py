@@ -307,7 +307,29 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             step ms, peak MiB and the seq collectives' calls, bytes,
             host stagings and ms per step printed beside the sp-1
             flash engine's losses and the card's name and power limit.
-28. serve_mesh  (after train_seq) ``ServeEngine(mesh=...)`` on a real
+28. train_moe  (after train_seq) expert parallelism through
+            ``initialize()``: GPT-2 small at full width and depth with 8
+            experts on every second block (6 MoE layers, top-2, capacity
+            factor 1.25, aux 1e-2, z-loss 1e-3, ~323 M parameters),
+            train_pipe's batch, dropout 0.1, Adam, clipping 1.0, the
+            flash kernels: (a) bf16, ZeRO 2, remat block, ep 1 in a
+            one-rank NCCL group, 3 steps: losses finite and falling,
+            flash launches 2·L·M, L·M and L·M a step and the expert
+            exchange's calls and bytes a step equal to the ones worked
+            out from ``[E, rows, C, d]``; (b) fp32, the einsum and the
+            scatter dispatch: one layer at full width on the same inputs,
+            y and every gradient within 1e-5 normwise, then the two
+            engines on one weight tree (micro-batches of 2 rows, Adam eps
+            1e-3), losses within 1e-3 relative (fp32 rounding flips
+            routing near-ties over 8192 tokens); (c) ep 2 as two
+            processes on cuda:0 over gloo (``moe_rank``), fp32, 4 experts
+            each: the weight digest checked, one layer on the rank's
+            experts and row against the whole layer within 1e-5
+            normwise, the engines' losses within 1e-3 of (b)'s einsum
+            engine, the exchange's calls, bytes and host stagings a step
+            equal to the shapes'; step ms, peak MiB and the card's name
+            and power limit printed.
+29. serve_mesh  (after train_moe) ``ServeEngine(mesh=...)`` on a real
             NCCL process group of one rank (the env contract as
             train_zero's): GPT-2 small bf16 on the slot cache, the paged
             pool, the int8 weights and pool and speculation on both caches
@@ -316,7 +338,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             arm beside the same engine with no mesh: the streams equal
             bit for bit, the decode ticks and every kernel's launches
             equal, the mesh run's tokens/s printed beside;
-29. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
+30. train_offload  ZeRO-Offload's host tier on phase 10's model (GPT-2
             small bf16, 8 x 1024 tokens, accumulation 2, dropout 0.1,
             remat block), ZeRO stage 2 with ``cpu_offload``, 1 + 5 steps
             from a loader: (a) the pipelined upload with ``data_prefetch``
@@ -335,29 +357,29 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             micro-batch 1 x 1024) with the host tier, 1 + 3 steps: the
             host bytes of its fp32 master and moments, peak device MiB
             and the same breakdown.
-30. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
-            29's model and batches, fsync on, the state under a temporary
+31. train_offload_disk  the disk tier (``offload.tier: "disk"``) on
+            30's model and batches, fsync on, the state under a temporary
             directory on the local disk: the pipelined read-ahead and
             write-back (prefetch 2), 1 + 5 steps: losses, the fp32 master
-            and the compute copy on the card bitwise 29's (a); the serial
+            and the compute copy on the card bitwise 30's (a); the serial
             loop, 1 + 2 steps, bitwise the pipelined loop's losses and
             master at its step 2; the Adam
             native, the resident state window within the io_depth
             budget; the filesystem and its free bytes, the read and
             write GB/s, the overlap ratio and the step ms printed.
-31. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
+32. train_offload_xla  the XLA tier (``offload_impl: "xla"``, the
             pinned host pieces updated on the card) on the same model and
             batches, 1 + 5 steps each: (f) the fused update, its losses
-            within 1e-4 relative of 29's plain engine and its master after
+            within 1e-4 relative of 30's plain engine and its master after
             step 0 within 1e-4 of the plain engine's travel; (g) gradient
             chunks 2 and (h) the split update, each bitwise (f); (i) the
             delayed update, finite, its first loss bitwise (f)'s; (j)
             ZeRO-3 in a one-rank NCCL group, bitwise (f); the step ms, the
             H2D and D2H GB/s of the update, the idle share of a profiled
-            step and peak device MiB against 29's (a); then GPT-2 XL
+            step and peak device MiB against 30's (a); then GPT-2 XL
             (micro-batch 1 x 1024) on the tier with ``param_streaming``,
             ``stream_scan`` and the split update, 1 + 3 steps: the pinned
-            host bytes, peak device MiB against 29's XL host tier, the
+            host bytes, peak device MiB against 30's XL host tier, the
             step ms and the layer fetches' GB/s, and the compute copy on
             the card == bf16 of the pinned master on every leaf that does
             not stream.
@@ -3209,16 +3231,17 @@ def _seq_tree():
     return tree, digest
 
 
-def _seq_steps(eng, tokens, steps, dev):
+def _seq_steps(eng, tokens, steps, dev, key: str = "seq"):
     """``steps`` steps: losses, then over the steps after the first the
-    launches, step ms, peak MiB and the seq collectives' counters per
-    step."""
+    launches, step ms, peak MiB and the ``<key>_stats`` collectives'
+    counters per step (``"seq"``, or ``"ep"``: the expert exchange)."""
     import torch
     from deepspeed_tpu_torch.parallel import collectives as col
+    stats = getattr(col, key + "_stats")
     losses = [float(eng.train_batch(tokens))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    col.seq_stats.clear()
+    stats.clear()
     _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps - 1):
@@ -3228,7 +3251,7 @@ def _seq_steps(eng, tokens, steps, dev):
     return {"losses": losses, "launches": _train_counts(),
             "step_ms": (time.perf_counter() - t0) / n * 1e3,
             "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
-            "seq": {k: v / n for k, v in col.seq_stats.items()}}
+            key: {k: v / n for k, v in stats.items()}}
 
 
 def _seq_engine(impl, block, dev, mesh=None, params=None):
@@ -3373,6 +3396,372 @@ def phase_train_seq(dev, card: str):
     if not rel <= PIPE_BF16_RTOL:
         fail(f"train_seq: Ulysses' first bf16 loss {b2} vs sp 1's {b1}")
     return total
+
+
+#: train_moe: GPT-2 small at full width and depth with 8 experts on every
+#: second block (6 MoE layers), top-2, capacity factor 1.25, aux 1e-2,
+#: z-loss 1e-3, dropout 0.1, train_pipe's batch of 8 x 1024 tokens
+MOE_EXPERTS, MOE_FREQ, MOE_TOP_K, MOE_CF = 8, 2, 2, 1.25
+MOE_STEPS, MOE_EP = 3, 2
+#: one MoE layer, two ways on the same inputs: every output and gradient
+#: within this much of the other's largest magnitude (fp32)
+MOE_LAYER_RTOL = 1e-5
+#: whole fp32 engines over 8192 tokens, 3 steps: a routing near-tie that
+#: fp32 rounding flips moves the loss by ~6e-6 relative, and the steps
+#: after it further — the einsum and the scatter engine, both right,
+#: parted by 6.2e-6, 3.1e-5 and 9.1e-5 on the card — so the engines'
+#: losses are held to ten times that; the layer checks hold 1e-5
+MOE_LOSS_RTOL = 1e-3
+#: Adam's eps for the fp32 engines: damps the sign flips of near-zero
+#: gradients that summation order decides (tests/test_torch_zero.py)
+MOE_FP32_EPS = 1e-3
+
+_MOE_RANK = _PIPE_RANK.replace("pipe_rank", "moe_rank")
+
+
+def _moe_model_cfg(remat=None, impl: str = "einsum"):
+    import dataclasses
+    from deepspeed_tpu_torch.models import GPT2MoEConfig
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    base = dict(dataclasses.asdict(GPT2_SMALL), scan_layers=False,
+                dropout=0.1, embd_dropout=0.1, remat=remat,
+                attn_impl="flash")
+    return GPT2MoEConfig(**base, n_experts=MOE_EXPERTS,
+                         moe_top_k=MOE_TOP_K, moe_layer_freq=MOE_FREQ,
+                         capacity_factor=MOE_CF, aux_loss_weight=1e-2,
+                         router_z_loss_weight=1e-3, moe_dispatch_impl=impl)
+
+
+def _moe_tree():
+    """The one weight tree train_moe's fp32 arms start from: the MoE
+    model's init at SEED on the CPU, and its digest."""
+    from deepspeed_tpu_torch.models import GPT2MoEModel
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    tree = GPT2MoEModel(_moe_model_cfg()).init(SEED)
+    digest = float(sum(np.abs(x.numpy()).astype(np.float64).sum()
+                       for x in tree_leaves(tree)))
+    return tree, digest
+
+
+def _moe_engine(dev, block, micro, ga, remat=None, impl="einsum", mesh=None,
+                params=None, stage=0):
+    """GPT-2 small MoE through ``initialize()``; an fp32 engine takes
+    ``MOE_FP32_EPS``."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import GPT2MoEModel
+    gc.collect()
+    torch.cuda.empty_cache()
+    conf = dict(_train_config(block, micro, ga),
+                zero_optimization={"stage": stage})
+    if not block:
+        conf["optimizer"] = {"type": "Adam",
+                             "params": {"lr": 1e-4, "eps": MOE_FP32_EPS}}
+    return deepspeed_tpu_torch.initialize(
+        model=GPT2MoEModel(_moe_model_cfg(remat, impl)), mesh=mesh,
+        params=params, seed=SEED, config=conf, device=dev)[0]
+
+
+def moe_exchange(rows: int, micro_steps: int, remat: bool,
+                 elt: int) -> dict:
+    """The expert exchange a step a rank, worked out from the shapes: each
+    MoE layer sends its dispatched tokens ``[E, rows, C, d]`` twice
+    forward and twice backward a micro-step (three times each way with
+    its block recomputed)."""
+    cfg = _moe_model_cfg()
+    C = cfg.moe_cfg().capacity(cfg.n_positions, True)
+    calls = len(cfg.moe_layers) * micro_steps * (6 if remat else 4)
+    return {"calls": calls,
+            "bytes": calls * MOE_EXPERTS * rows * C * cfg.d_model * elt}
+
+
+def _normwise(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _moe_layer_run(cfg, mp0, x0, mesh=None, rows=None, weight=1.0):
+    """``moe_ffn`` forward and backward of ``sum(y²) + weight · aux`` on
+    fp32 copies of ``mp0`` and ``x0`` (with ``mesh``: the rank's experts
+    and its ``rows`` of ``x0``); returns (y, aux, param grads, x grad)."""
+    from deepspeed_tpu_torch.moe import moe_ffn
+    from deepspeed_tpu_torch.moe.layer import _expert_parallel
+    ep = _expert_parallel(mesh, cfg.n_experts)
+    n = cfg.n_experts // (mesh.axis_size("data") if ep else 1)
+    e0 = mesh.axis_index("data") * n if ep else 0
+    mp = {k: (v[e0:e0 + n] if k != "wg" else v).clone().requires_grad_()
+          for k, v in mp0.items()}
+    x = (x0 if rows is None else x0[rows]).clone().requires_grad_()
+    y, aux = moe_ffn(cfg, mp, x, SEED, train=True, mesh=mesh)
+    (y.square().sum() + weight * aux).backward()
+    return (y.detach(), aux.detach(), {k: v.grad for k, v in mp.items()},
+            x.grad)
+
+
+def _moe_layer_inputs(dev, rows: int):
+    """One MoE layer's init at SEED and ``rows`` x 1024 tokens of unit
+    normals at the model's width, on ``dev``."""
+    import torch
+    from deepspeed_tpu_torch.moe import init_moe_params
+    mcfg = _moe_model_cfg().moe_cfg()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    mp0 = init_moe_params(gen, mcfg)
+    x0 = torch.randn((rows, 1024, mcfg.d_model), generator=gen, device=dev)
+    return mcfg, mp0, x0
+
+
+def _moe_layer_case(dev, card: str) -> None:
+    """One MoE layer at train_moe's width on the card, fp32: the einsum
+    and the scatter dispatch on the same inputs (8 rows), y and the
+    gradients of ``sum(y²) + aux`` on every parameter and on ``x`` within
+    ``MOE_LAYER_RTOL`` normwise, the aux within 1e-6; each form's forward
+    + backward ms printed."""
+    import dataclasses
+    mcfg, mp0, x0 = _moe_layer_inputs(dev, PIPE_GA)
+    out = {impl: _moe_layer_run(dataclasses.replace(
+        mcfg, dispatch_impl=impl), mp0, x0) for impl in ("einsum",
+                                                        "scatter")}
+    ms = {impl: time_ms(lambda impl=impl: _moe_layer_run(
+        dataclasses.replace(mcfg, dispatch_impl=impl), mp0, x0), iters=5)
+        for impl in out}
+    (ye, ae, ge, gxe), (ys, as_, gs, gxs) = out["einsum"], out["scatter"]
+    worst_y = _normwise(ys, ye)
+    worst_g = max([_normwise(gs[k], ge[k]) for k in ge]
+                  + [_normwise(gxs, gxe)])
+    aux_rel = abs(float(as_) - float(ae)) / abs(float(ae))
+    print(f"[train_moe] (b) one MoE layer, fp32, [{PIPE_GA}, 1024, "
+          f"{mcfg.d_model}], E {mcfg.n_experts}, top-2, C "
+          f"{mcfg.capacity(1024, True)}: scatter vs einsum, normwise: y "
+          f"{worst_y:.3g}, grads {worst_g:.3g} (bar {MOE_LAYER_RTOL}), aux "
+          f"{aux_rel:.3g} (bar 1e-6); forward + backward einsum "
+          f"{ms['einsum']:.2f} ms, scatter {ms['scatter']:.2f} ms [{card}]")
+    if not (worst_y <= MOE_LAYER_RTOL and worst_g <= MOE_LAYER_RTOL
+            and aux_rel <= 1e-6):
+        fail("train_moe (b): the scatter dispatch's layer differs from the "
+             "einsum's")
+
+
+def _moe_layer_ep(mesh, dev) -> dict:
+    """One MoE layer on the data ranks of ``mesh`` (each rank its experts
+    and its row of the inputs, the tokens exchanged over ``data``)
+    against the whole layer on every row in this process: normwise
+    errors of y, the aux, the expert pieces' and the row's gradients and
+    the router's (summed over ``data``).  Each rank's loss takes the aux
+    whole, so the reference weighs it by the rank count."""
+    import torch.distributed as dist
+    dp = mesh.axis_size("data")
+    d = mesh.axis_index("data")
+    mcfg, mp0, x0 = _moe_layer_inputs(dev, dp)
+    y, aux, g, gx = _moe_layer_run(mcfg, mp0, x0, mesh, slice(d, d + 1))
+    dist.all_reduce(g["wg"], group=mesh.group("data"))
+    yr, auxr, gr, gxr = _moe_layer_run(mcfg, mp0, x0, weight=float(dp))
+    n = mcfg.n_experts // dp
+    err = {"y": _normwise(y, yr[d:d + 1]), "x": _normwise(gx, gxr[d:d + 1]),
+           "aux": abs(float(aux) - float(auxr)) / abs(float(auxr))}
+    for k in g:
+        err[k] = _normwise(g[k], gr[k] if k == "wg"
+                           else gr[k][d * n:(d + 1) * n])
+    return err
+
+
+def moe_rank(rank: int, init: str, digest: float, world: int = MOE_EP,
+             backend: str = "gloo", arms: str = "fp32", after=None) -> None:
+    """One data rank of GPT-2 small MoE at ep ``world`` (its
+    ``MOE_EXPERTS / world`` experts), from :func:`_moe_tree`: over gloo
+    every process on cuda:0 (train_moe's arm (c)), over NCCL one card a
+    process (``profile_moe_torch.py``).  First one MoE layer against the
+    whole layer (:func:`_moe_layer_ep`), then the engines: micro-batches
+    of one row, ga ``8 / world``, the ``arms`` (comma-separated "fp32",
+    "bf16") in turn, each arm's result passed to ``after(eng, tokens,
+    result)`` when given.  Prints one ``MOE_RANK`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import build_mesh
+    from deepspeed_tpu_torch.parallel import collectives as col
+    from deepspeed_tpu_torch.runtime.dataloader import rank_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {"rank": rank}
+    try:
+        tree, mine = _moe_tree()
+        if mine != digest:
+            raise AssertionError(f"rank {rank}: weight tree digest {mine} "
+                                 f"!= the ep-1 engines' {digest}")
+        mesh = build_mesh(dp=world)
+        d = out["data_index"] = mesh.axis_index("data")
+        out["layer"] = _moe_layer_ep(mesh, dev)
+        col.ep_stats.clear()
+        ga = PIPE_GA // world
+        tokens = torch.from_numpy(rank_rows(_pipe_tokens(), ga, world,
+                                            d)).to(dev)
+        for label in arms.split(","):
+            block = {"bf16": {"enabled": True}} if label == "bf16" else {}
+            eng = _moe_engine(dev, block, 1, ga, mesh=mesh, params=tree)
+            wi = eng.state.master_params["moe"]["wi"]
+            out[label] = r = _seq_steps(eng, tokens, MOE_STEPS, dev, "ep")
+            r["wi_piece"] = list(wi.shape)
+            if after is not None:
+                after(eng, tokens, r)
+            eng.close()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("MOE_RANK " + json.dumps(out), flush=True)
+
+
+def _moe_check_flash(label, launches, L, micro_steps, remat, timed):
+    want = {"flash_fwd": (2 if remat else 1) * L * micro_steps,
+            "flash_bwd_dq": L * micro_steps,
+            "flash_bwd_dkv": L * micro_steps}
+    for name, n in want.items():
+        if launches[name] != n * timed:
+            fail(f"train_moe {label}: {name} launched {launches[name]} "
+                 f"times in {timed} steps, expected {n} per step")
+    return "/".join(str(n) for n in want.values())
+
+
+def _moe_check_exchange(label, got, want, staged):
+    for k in ("calls", "bytes"):
+        if got.get(k, 0) != want[k]:
+            fail(f"train_moe {label}: the expert exchange's {k} a step "
+                 f"{got.get(k, 0)}, {want[k]} from the shapes")
+    if got.get("staged", 0) != (2 * want["calls"] if staged else 0):
+        fail(f"train_moe {label}: {got.get('staged', 0)} host stagings a "
+             f"step")
+
+
+def _moe_check_layer_ep(label, err) -> str:
+    worst = max(v for k, v in err.items() if k != "aux")
+    if not (worst <= MOE_LAYER_RTOL and err["aux"] <= 1e-6):
+        fail(f"train_moe {label}: the exchanged layer differs from the "
+             f"whole one: {err}")
+    grads = max(v for k, v in err.items() if k not in ("y", "aux"))
+    return (f"one layer against the whole layer, normwise: y "
+            f"{err['y']:.3g}, grads {grads:.3g} (bar {MOE_LAYER_RTOL}), "
+            f"aux {err['aux']:.3g} (bar 1e-6)")
+
+
+def phase_train_moe(dev, card: str):
+    """Expert parallelism through ``initialize()``: GPT-2 small with 8
+    experts on every second block at full width and depth, train_pipe's
+    batch, dropout 0.1, Adam, clipping 1.0, the flash kernels.  (a) bf16,
+    ZeRO 2, remat per block, ep 1 in a one-rank NCCL group, 3 steps: the
+    losses finite and falling, the flash launches and the exchange's
+    counters a step equal to the ones worked out; (b) fp32, the einsum
+    and the scatter dispatch: one layer at the model's width within
+    ``MOE_LAYER_RTOL``, and the two engines on one weight tree
+    (micro-batches of 2 rows) within ``MOE_LOSS_RTOL``; (c) ep 2 as two
+    processes on cuda:0 over gloo, fp32, each with 4 experts: one layer
+    against the whole layer within ``MOE_LAYER_RTOL``, the engines'
+    losses within ``MOE_LOSS_RTOL`` of (b)'s einsum engine, the counters
+    equal to the shapes'.  Returns arm (a)'s flash launches."""
+    a = _moe_arm_a(dev, card)
+    ref, digest = _moe_arm_b(dev, card)
+    _moe_arm_c(ref, digest, card)
+    return a
+
+
+def _moe_arm_a(dev, card: str):
+    import torch
+    L, M = 12, PIPE_GA
+    tokens = torch.from_numpy(_pipe_tokens()).to(dev)
+    with _one_rank_group():
+        eng = _moe_engine(dev, {"bf16": {"enabled": True}}, PIPE_MICRO, M,
+                          remat="block", stage=2)
+        if eng.device != dev:
+            fail(f"train_moe: initialize() placed the engine on "
+                 f"{eng.device}")
+        rt = eng._zero
+        pl = rt.placements[rt.template["moe"]["wi"]]
+        if pl.ep_dim != 1 or pl.zero_dim is not None:
+            fail(f"train_moe: moe/wi placed as {pl}, not over data on E")
+        a = _seq_steps(eng, tokens, MOE_STEPS, dev, "ep")
+        eng.close()
+    if not all(np.isfinite(a["losses"])) or not a["losses"][-1] < \
+            a["losses"][0]:
+        fail(f"train_moe (a): losses not finite and falling: {a['losses']}")
+    per = _moe_check_flash("(a)", a["launches"], L, M, True, MOE_STEPS - 1)
+    want = moe_exchange(PIPE_MICRO, M, True, 2)
+    _moe_check_exchange("(a)", a["ep"], want, staged=False)
+    print(f"[train_moe] (a) bf16 ZeRO 2, remat block, ep 1 (one-rank NCCL "
+          f"group): {a['step_ms']:.1f} ms per step, peak "
+          f"{a['peak_mib']:.1f} MiB; losses "
+          f"{' '.join(f'{x:.6f}' for x in a['losses'])}; flash launches "
+          f"per step {per} (fwd = 2 x {L} x {M}, dQ = dK/dV = {L} x {M}); "
+          f"exchange {a['ep']['calls']:.0f} calls, {a['ep']['bytes']:.0f} "
+          f"B per step ({want['calls']} and {want['bytes']} from "
+          f"[E, rows, C, d]) [{card}]")
+    return a["launches"]
+
+
+def _moe_arm_b(dev, card: str):
+    import torch
+    L, M = 12, PIPE_GA
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _moe_layer_case(dev, card)
+    tokens = torch.from_numpy(_pipe_tokens()).to(dev)
+    tree, digest = _moe_tree()
+    b = {}
+    for impl in ("einsum", "scatter"):
+        eng = _moe_engine(dev, {}, MOE_EP, M // MOE_EP, impl=impl,
+                          params=tree)
+        b[impl] = r = _seq_steps(eng, tokens, MOE_STEPS, dev, "ep")
+        eng.close()
+        _moe_check_flash(f"(b) {impl}", r["launches"], L, M // MOE_EP,
+                         False, MOE_STEPS - 1)
+        if not all(np.isfinite(r["losses"])):
+            fail(f"train_moe (b) {impl}: losses {r['losses']}")
+    diffs = [abs(x - y) / abs(y) for x, y in
+             zip(b["scatter"]["losses"], b["einsum"]["losses"])]
+    print(f"[train_moe] (b) fp32 engines (Adam eps {MOE_FP32_EPS}), "
+          f"micro-batches of {MOE_EP} rows, einsum vs scatter dispatch: "
+          f"einsum {b['einsum']['step_ms']:.1f} ms, scatter "
+          f"{b['scatter']['step_ms']:.1f} ms per step; losses "
+          f"{b['einsum']['losses']} vs {b['scatter']['losses']}; rel diffs "
+          f"{' '.join(f'{x:.3g}' for x in diffs)} (bar {MOE_LOSS_RTOL}) "
+          f"[{card}]")
+    if not max(diffs) <= MOE_LOSS_RTOL:
+        fail("train_moe (b): the scatter engine's losses differ from the "
+             "einsum engine's")
+    return b["einsum"]["losses"], digest
+
+
+def _moe_arm_c(ref, digest, card: str):
+    L, M = 12, PIPE_GA
+    ranks = _pipe_ranks(digest, MOE_EP, script=_MOE_RANK, tag="MOE_RANK")
+    want = moe_exchange(1, M // MOE_EP, False, 4)
+    for res in ranks:
+        r = res["fp32"]
+        label = f"(c) ep {MOE_EP} data rank {res['data_index']}"
+        layer = _moe_check_layer_ep(label, res["layer"])
+        if r["wi_piece"][1] != MOE_EXPERTS // MOE_EP:
+            fail(f"train_moe {label}: moe/wi piece {r['wi_piece']}")
+        per = _moe_check_flash(label, r["launches"], L, M // MOE_EP, False,
+                               MOE_STEPS - 1)
+        _moe_check_exchange(label, r["ep"], want, staged=True)
+        worst = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], ref))
+        secs = r["ep"].get("seconds", 0.0)
+        print(f"[train_moe] {label} (gloo, cuda:0, experts "
+              f"{r['wi_piece'][1]} of {MOE_EXPERTS}): {layer}; engine "
+              f"{r['step_ms']:.1f} ms per step, peak {r['peak_mib']:.1f} "
+              f"MiB; exchange {r['ep']['calls']:.0f} calls, "
+              f"{r['ep']['bytes']:.0f} B, {r['ep']['staged']:.0f} host "
+              f"stagings, {secs * 1e3:.1f} ms per step ({want['calls']} "
+              f"calls and {want['bytes']} B from the shapes); flash "
+              f"launches per step {per}; losses {r['losses']} vs (b)'s "
+              f"{ref}: max rel diff {worst:.3g} (bar {MOE_LOSS_RTOL}) "
+              f"[{card}]")
+        if not worst <= MOE_LOSS_RTOL:
+            fail(f"train_moe {label}: fp32 losses {r['losses']} differ "
+                 f"from ep 1's {ref}")
 
 
 MESH_REQ, MESH_NEW = 8, 32
@@ -5437,6 +5826,7 @@ def main() -> None:
     by_phase["train_zero"] = timed(phase_train_zero, dev)
     by_phase["train_pipe"] = timed(phase_train_pipe, dev, card)
     by_phase["train_seq"] = timed(phase_train_seq, dev, card)
+    by_phase["train_moe"] = timed(phase_train_moe, dev, card)
     by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
     by_phase["train_offload"], offload_ref = timed(phase_train_offload, dev)
     by_phase["train_offload_disk"] = timed(phase_train_offload_disk, dev,

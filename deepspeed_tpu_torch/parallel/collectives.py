@@ -15,14 +15,19 @@ plus the autograd pairs that Megatron tensor parallelism and ZeRO-3 need:
 :func:`copy_to_axis` (identity forward, all-reduce backward),
 :func:`reduce_from_axis` (all-reduce forward, identity backward) and
 :func:`gather_from_axis` (all-gather forward, reduce-scatter backward);
-and the two that sequence parallelism needs on the ``seq`` axis, each
-with the transpose JAX's AD takes as its backward:
-:func:`seq_all_to_all` (``lax.all_to_all(..., tiled=True)``: backward is
-the all-to-all with the dims swapped) and :func:`seq_ring_shift`
-(``ppermute`` to the next rank: backward shifts to the previous one, its
-send and receive posted together).  Gloo moves no CUDA tensor in an
-all-to-all or a point-to-point call, so on a gloo group these two stage a
-CUDA tensor through host memory, each staging counted in ``seq_stats``.
+the two that sequence parallelism needs on the ``seq`` axis, each with
+the transpose JAX's AD takes as its backward: :func:`seq_all_to_all`
+(``lax.all_to_all(..., tiled=True)``: backward is the all-to-all with
+the dims swapped) and :func:`seq_ring_shift` (``ppermute`` to the next
+rank: backward shifts to the previous one, its send and receive posted
+together); and the two that expert parallelism needs on ``data``:
+:func:`data_all_to_all` (the token exchange between the data ranks and
+the ranks that hold their experts, backward the reverse exchange) and
+:func:`sum_over_axis` (a sum every rank's loss takes whole: all-reduce
+forward and backward).  Gloo moves no CUDA tensor in an all-to-all or a
+point-to-point call, so on a gloo group the all-to-alls and the ring
+shift stage a CUDA tensor through host memory, each staging counted in
+``seq_stats`` or ``ep_stats``.
 
 Each function returns a new tensor and leaves its input as it was.  On a
 local mesh (no process group) an axis has one rank and each collective
@@ -39,7 +44,7 @@ import time
 import torch
 import torch.distributed as dist
 
-from .mesh import SEQ_AXIS, Mesh
+from .mesh import DATA_AXIS, SEQ_AXIS, Mesh
 
 #: calls per collective in this process (``reduce`` counts psum, pmean
 #: and pmax)
@@ -51,6 +56,10 @@ calls: collections.Counter = collections.Counter()
 #: copies and the gloo call, the card synchronized first so no queued
 #: kernel is counted; on NCCL the enqueue only)
 seq_stats: collections.Counter = collections.Counter()
+#: the expert exchange's traffic (:func:`data_all_to_all`) in this
+#: process, forward, backward and a checkpointed block's recompute: the
+#: same keys as ``seq_stats``
+ep_stats: collections.Counter = collections.Counter()
 
 
 def _reduce(x, mesh: Mesh, axis: str, op):
@@ -197,29 +206,32 @@ def _host_staged(g, x: torch.Tensor) -> bool:
     return staged
 
 
-def _all_to_all(x, mesh: Mesh, split_dim: int, concat_dim: int):
-    g = mesh.group(SEQ_AXIS)
+def _all_to_all(x, mesh: Mesh, axis: str, split_dim: int,
+                concat_dim: int, stats: collections.Counter, name: str):
+    """The tiled all-to-all over ``axis``, its traffic counted in
+    ``stats`` (``name`` is the public function, for the error)."""
+    g = mesh.group(axis)
     if g is None:
         return x.clone()
-    n = mesh.axis_size(SEQ_AXIS)
+    n = mesh.axis_size(axis)
     if x.shape[split_dim] % n:
         raise ValueError(
-            f"seq_all_to_all: dim {split_dim} of {tuple(x.shape)} does not "
-            f"divide by the seq axis's {n}")
+            f"{name}: dim {split_dim} of {tuple(x.shape)} does not "
+            f"divide by the {axis} axis's {n}")
     send = torch.stack(x.chunk(n, split_dim)).contiguous()
     staged = _host_staged(g, send)
     t0 = time.perf_counter()
     if staged:
         send = send.cpu()
-        seq_stats["staged"] += 1
+        stats["staged"] += 1
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=g)
     if staged:
         recv = recv.to(x.device)
-        seq_stats["staged"] += 1
-    seq_stats["seconds"] += time.perf_counter() - t0
-    seq_stats["calls"] += 1
-    seq_stats["bytes"] += send.numel() * send.element_size()
+        stats["staged"] += 1
+    stats["seconds"] += time.perf_counter() - t0
+    stats["calls"] += 1
+    stats["bytes"] += send.numel() * send.element_size()
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
@@ -253,17 +265,18 @@ def _ring_shift(x, mesh: Mesh, step: int):
     return recv
 
 
-class _SeqAllToAll(torch.autograd.Function):
+class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh, split_dim, concat_dim):
-        ctx.mesh, ctx.dims = mesh, (split_dim, concat_dim)
-        return _all_to_all(x, mesh, split_dim, concat_dim)
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (split_dim, concat_dim)
+        return _all_to_all(x, mesh, axis, split_dim, concat_dim,
+                           *_A2A[axis])
 
     @staticmethod
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
-        return (_all_to_all(g, ctx.mesh, concat_dim, split_dim), None, None,
-                None)
+        return (_all_to_all(g, ctx.mesh, ctx.axis, concat_dim, split_dim,
+                            *_A2A[ctx.axis]), None, None, None, None)
 
 
 class _SeqRingShift(torch.autograd.Function):
@@ -283,10 +296,50 @@ def seq_all_to_all(x: torch.Tensor, mesh: Mesh, split_dim: int,
     split_dim, concat_dim, tiled=True)``): ``x`` splits into n chunks
     along ``split_dim``, chunk j goes to seq index j, and the chunks
     received concatenate along ``concat_dim`` in seq order."""
-    return _SeqAllToAll.apply(x, mesh, split_dim, concat_dim)
+    return _AllToAll.apply(x, mesh, SEQ_AXIS, split_dim, concat_dim)
 
 
 def seq_ring_shift(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``x`` of seq index ``i - 1`` on seq index ``i`` (mod n) — the
     ``ppermute`` that rotates ring attention's K/V shards forward."""
     return _SeqRingShift.apply(x, mesh)
+
+
+# ---------------------------------------------------------------------------
+# the data axis: the expert exchange
+# ---------------------------------------------------------------------------
+#: each all-to-all axis's counters and the function named in its errors
+_A2A = {SEQ_AXIS: (seq_stats, "seq_all_to_all"),
+        DATA_AXIS: (ep_stats, "data_all_to_all")}
+
+
+def data_all_to_all(x: torch.Tensor, mesh: Mesh, split_dim: int,
+                    concat_dim: int) -> torch.Tensor:
+    """The tiled all-to-all over ``data`` — expert parallelism's token
+    exchange: ``x`` splits into dp chunks along ``split_dim`` (the expert
+    dim, forward), chunk j goes to data index j, and the chunks received
+    concatenate along ``concat_dim`` in data order.  Backward is the
+    all-to-all with the dims swapped, so each expert's rank receives
+    every data rank's contribution to its gradient.  Counted in
+    ``ep_stats``."""
+    return _AllToAll.apply(x, mesh, DATA_AXIS, split_dim, concat_dim)
+
+
+class _SumOverAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+def sum_over_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of a quantity that every rank's loss then
+    takes whole (the MoE load-balance statistics over the global batch):
+    all-reduced forward and backward — each rank's cotangent reaches
+    every rank's summand, as it would in one program over the global
+    batch (:func:`reduce_from_axis` passes only the rank's own)."""
+    return _SumOverAxis.apply(x, mesh, axis)

@@ -95,9 +95,15 @@ must declare ``seq_parallel`` (its batch leaves are next-token rows
 window of each row that holds its shard's inputs ``[s·T/sp,
 (s+1)·T/sp)`` and their shifted targets (:func:`seq_window`), and the
 ZeRO runtime sums the seq-replicated parameters' gradients over ``seq``.
-Every other config knob whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: experts, 1-bit Adam
-and ``sparse_gradients`` (item 11).
+Expert parallelism: a model whose specs place a dim over ``data``
+(``models/gpt2_moe.py``'s experts, ``moe/layer.py``) gets each data
+rank's share of that dim at every stage (``runtime/zero.py``), and its
+MoE layers exchange tokens with the experts' ranks over ``data``;
+``eval_batch`` routes at the eval capacity (``train=False``).  Every
+other config knob whose path is not ported raises
+``NotImplementedError`` naming its ROADMAP.md item: 1-bit Adam and
+``sparse_gradients`` (item 11, compressed parallelism), and a MoE model
+on a seq axis (item 11, expert × sequence parallelism).
 """
 from __future__ import annotations
 
@@ -286,6 +292,12 @@ class DeepSpeedEngine(XlaOffloadTier):
         self.mesh = mesh
         self.dp_world_size = mesh_axis_size(mesh, DATA_AXIS)
         self.sp_world_size = mesh_axis_size(mesh, SEQ_AXIS)
+        if self.sp_world_size > 1 and getattr(model, "expert_parallel",
+                                              False):
+            raise _unported(
+                f"{type(model).__name__} on a seq axis (the mesh has "
+                f"seq={self.sp_world_size})",
+                "item 11 (expert × sequence parallelism)")
         if self.sp_world_size > 1 and not getattr(model, "seq_parallel",
                                                   False):
             raise ValueError(

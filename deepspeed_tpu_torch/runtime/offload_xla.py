@@ -31,7 +31,9 @@ tensor a side stream touches is ``record_stream``-ed on it.
 
 Layout (``FlatLeaf``): a leaf ZeRO shards over ``data`` (the stage's
 ``zero_dim``, dp > 1) has that dim moved to the front, so rank r's row is
-exactly its data shard; any other leaf is flattened, padded to a multiple
+exactly its data shard, and an expert leaf its expert dim, so rank r's
+row is its own experts (never gathered: they are the rank's compute copy
+at every stage); any other leaf is flattened, padded to a multiple
 of dp and row-chunked.  Packing a rank's gradient into its row and
 unpacking its row into its stage-3 shard are therefore local: no
 collective.  At stages <= 2 each updated compute row is all-gathered over
@@ -109,6 +111,19 @@ def flat_leaf_layout(shape: tuple, data_dim: Optional[int],
         return FlatLeaf(tuple(shape), size, data_dim, size // dp, 0)
     pad = (-size) % dp
     return FlatLeaf(tuple(shape), size, None, (size + pad) // dp, pad)
+
+
+def flat_record(rt, pl) -> FlatLeaf:
+    """The record of one leaf (a ``runtime.zero.LeafPlacement`` under
+    the runtime ``rt``): over the rank's tensor-parallel piece, its
+    ``data_dim`` the expert dim of an expert leaf (rank r's row is its
+    own experts) or else the ZeRO dim."""
+    shape = list(pl.shape)
+    if pl.tp_dim is not None:
+        shape[pl.tp_dim] //= rt.tp
+    dim = pl.ep_dim if pl.ep_dim is not None else pl.zero_dim
+    return flat_leaf_layout(tuple(shape), dim if rt.dp > 1 else None,
+                            rt.dp)
 
 
 def _is_torch(x) -> bool:
@@ -684,11 +699,7 @@ class XlaOffloadTier:
                 "cpu_offload (xla tier) requires an all-float parameter "
                 "tree; non-float leaves cannot be Adam-updated")
         dp, rank = self.dp_world_size, rt.dp_rank
-        self._flat_layout = [
-            flat_leaf_layout(pl.shape if rt.tp == 1 else tuple(
-                b - a for a, b in rt.box(i, False)),
-                pl.zero_dim if dp > 1 else None, dp)
-            for i, pl in enumerate(rt.placements)]
+        self._flat_layout = [flat_record(rt, pl) for pl in rt.placements]
         self._flat_sizes = [int(np.prod(pl.shape, dtype=np.int64))
                             for pl in rt.placements]
         # streaming: the model's mask over the stacked leaves
@@ -707,7 +718,8 @@ class XlaOffloadTier:
                     "param_streaming is enabled but the model's "
                     "streaming_param_spec returned None — the model must "
                     "mark its stacked scan leaves (for GPT2Model set "
-                    "scan_layers=True and stream_scan=True)")
+                    "scan_layers=True and stream_scan=True; for "
+                    "GPT2MoEModel scan_groups=True and stream_scan=True)")
             mask = tree_leaves(spec)
             if len(mask) != len(pieces):
                 raise ValueError(
@@ -781,7 +793,7 @@ class XlaOffloadTier:
             return
         rt = self._zero
         rec = self._flat_layout[i]
-        if rt.stage >= 3 and rec.data_dim is not None:
+        if rec.data_dim is not None and (rt.stage >= 3 or rt.expert(i)):
             src = unpack_row(row, rec, self.dp_world_size).contiguous()
         else:
             full = col.all_gather(row[None], self.mesh, DATA_AXIS, 0)

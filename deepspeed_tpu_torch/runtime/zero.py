@@ -48,11 +48,22 @@ reaches its host stack), so every stage's update, norm and overflow flag
 see the logical gradient once.  The stage-3 gathers stay over ``data``,
 and a checkpoint piece is written by seq index 0 only.
 
+Expert parallelism (a base spec entry ``'data'``, as the MoE weights
+declare on their expert dim): the leaf is split over ``data`` on that dim
+at every stage, stage 0 included, and ZeRO adds nothing on top, as in
+the JAX plan (``shard_spec_for_leaf``).  The expert pieces are never
+gathered: the MoE layer sends the tokens to them instead
+(``moe/layer.py``), and the all-to-all's backward already brings every
+data rank's contribution to an expert's gradient, so those gradients are
+not reduced over ``data`` again (they keep the data-mean scaling of
+every leaf).  Each data rank writes its own expert pieces to a
+checkpoint, and the norms sum them over ``data``.
+
 A leaf whose dims do not divide stays replicated (no padding), and a
-tensor-parallel dim that does not divide falls back to replication, as in
-the JAX plan.  Every collective runs at every stage and every group size
-(a one-rank NCCL group on the card); a local mesh runs them as one-rank
-identities.
+tensor-parallel dim or an expert dim that does not divide falls back to
+replication, as in the JAX plan (ZeRO then picks its own dim).  Every
+collective runs at every stage and every group size (a one-rank NCCL
+group on the card); a local mesh runs them as one-rank identities.
 """
 from __future__ import annotations
 
@@ -217,11 +228,13 @@ class ZeroShardingPlan:
         return self._specs(params, sharded=self.stage >= 2)
 
     def placements(self, params) -> List["LeafPlacement"]:
-        """Each leaf's shape, tensor-parallel dim and ZeRO dim, in
-        ``tree_leaves`` order.  The ZeRO dim is the one the stage-3 spec
-        shards, chosen by the same rule at every data-axis size — at
-        dp = 1 too, where the specs shard nothing, so that one rank runs
-        the same slicing and collectives as many."""
+        """Each leaf's shape, tensor-parallel dim, ZeRO dim and expert
+        dim, in ``tree_leaves`` order.  The ZeRO dim is the one the
+        stage-3 spec shards, chosen by the same rule at every data-axis
+        size — at dp = 1 too, where the specs shard nothing, so that one
+        rank runs the same slicing and collectives as many.  A leaf whose
+        base spec splits a dim over ``data`` (an expert dim that divides)
+        has no ZeRO dim."""
         base = (None if self.base_param_specs is None
                 else _leaves(self.base_param_specs, _is_spec))
         out = []
@@ -229,20 +242,24 @@ class ZeroShardingPlan:
             shape = _shape(leaf)
             spec = list((base[i] if base is not None else None) or ())
             spec += [None] * (len(shape) - len(spec))
-            tp_dim = zero_dim = None
+            tp_dim = zero_dim = ep_dim = None
             for d, e in enumerate(spec):
-                if isinstance(e, tuple) or e not in (None, MODEL_AXIS):
-                    raise NotImplementedError(
-                        f"a base spec entry {e!r} ({tuple(spec)}) is not "
-                        "ported to deepspeed_tpu_torch yet: ROADMAP.md "
-                        "queue 1, item 11 (expert parallelism)")
+                if isinstance(e, tuple) or e not in (None, MODEL_AXIS,
+                                                     DATA_AXIS):
+                    raise ValueError(
+                        f"a base spec entry {e!r} ({tuple(spec)}): the "
+                        "engine places a dim over 'model' (tensor "
+                        "parallelism) or 'data' (experts) only")
                 if e == MODEL_AXIS:
                     tp_dim = d
+                elif e == DATA_AXIS:
+                    ep_dim = d
             for d, n in enumerate(shape):
-                if spec[d] is None and n > 0 and n % self.dp == 0:
+                if ep_dim is None and spec[d] is None and n > 0 \
+                        and n % self.dp == 0:
                     zero_dim = d
                     break
-            out.append(LeafPlacement(shape, tp_dim, zero_dim))
+            out.append(LeafPlacement(shape, tp_dim, zero_dim, ep_dim))
         return out
 
 
@@ -250,6 +267,7 @@ class LeafPlacement(NamedTuple):
     shape: tuple                 # the whole (logical) leaf
     tp_dim: Optional[int]        # dim split over ``model``
     zero_dim: Optional[int]      # dim ZeRO splits over ``data``
+    ep_dim: Optional[int] = None  # expert dim, split over ``data`` always
 
 
 class ShardPiece:
@@ -360,7 +378,8 @@ class ZeroRuntime:
         # (the grads' and the update's too, once reduced): the norms sum
         # their pieces over that group
         self._data_mask = torch.tensor(
-            [self.master_split(i) for i in range(len(self.placements))],
+            [self.master_split(i) or self.expert(i)
+             for i in range(len(self.placements))],
             dtype=torch.bool, device=dev)[:, None]
         self._model_mask = torch.tensor(
             [p.tp_dim is not None for p in self.placements],
@@ -373,14 +392,22 @@ class ZeroRuntime:
     def master_split(self, i: int) -> bool:
         return self.stage >= 1 and self.placements[i].zero_dim is not None
 
+    def expert(self, i: int) -> bool:
+        """Leaf ``i`` is split over ``data`` by its base spec (experts)."""
+        return self.placements[i].ep_dim is not None
+
     def box(self, i: int, data: bool) -> Tuple[Tuple[int, int], ...]:
         """This rank's ``[start, stop)`` per dim of leaf ``i``: its
-        tensor-parallel piece, and its data shard too when ``data``."""
+        tensor-parallel and expert piece, and its data shard too when
+        ``data``."""
         pl = self.placements[i]
         b = [(0, n) for n in pl.shape]
         if pl.tp_dim is not None:
             n = pl.shape[pl.tp_dim] // self.tp
             b[pl.tp_dim] = (self.tp_rank * n, (self.tp_rank + 1) * n)
+        if pl.ep_dim is not None:
+            n = pl.shape[pl.ep_dim] // self.dp
+            b[pl.ep_dim] = (self.dp_rank * n, (self.dp_rank + 1) * n)
         if data and pl.zero_dim is not None:
             n = pl.shape[pl.zero_dim] // self.dp
             b[pl.zero_dim] = (self.dp_rank * n, (self.dp_rank + 1) * n)
@@ -406,7 +433,8 @@ class ZeroRuntime:
             box = self.box(i, self.master_split(i))
             shape = pl.shape
             mine = i in self.pipe_local
-            write = ((self.master_split(i) or self.dp_rank == 0)
+            write = ((self.master_split(i) or self.expert(i)
+                      or self.dp_rank == 0)
                      and (pl.tp_dim is not None or self.tp_rank == 0)
                      and (mine or self.pp_rank == 0) and self.sp_rank == 0)
             if mine:
@@ -529,8 +557,10 @@ class ZeroRuntime:
                                          pl.zero_dim - (layer is not None))
         if self.streamed(i):
             # no boundary all-reduce reaches a host stack: reduce each
-            # layer's contribution now
-            if not self._acc_sharded[i] and self.dp > 1:
+            # layer's contribution now (an expert's holds every data
+            # rank's already)
+            if not self._acc_sharded[i] and self.dp > 1 \
+                    and not self.expert(i):
                 g32 = col.psum(g32, self.mesh, DATA_AXIS)
             if self.sp > 1:
                 g32 = col.psum(g32, self.mesh, SEQ_AXIS)
@@ -542,7 +572,8 @@ class ZeroRuntime:
     def finish_grads(self) -> List[torch.Tensor]:
         """The step's summed grads in the master's placement: the
         accumulators not yet reduced are all-reduced over ``data`` (and
-        cut to the rank's shard where the master is sharded), then over
+        cut to the rank's shard where the master is sharded; an expert
+        leaf's already holds every data rank's tokens), then over
         ``seq`` under sequence parallelism.  A leaf
         whose gradient was not kept is None; a streamed leaf's is its
         host stack (``offload_xla.HostGrad``)."""
@@ -552,7 +583,8 @@ class ZeroRuntime:
         for i, a in enumerate(self._acc):
             if i in host:
                 a = host[i]
-            elif a is not None and not self._acc_sharded[i]:
+            elif a is not None and not self._acc_sharded[i] \
+                    and not self.expert(i):
                 a = col.psum(a, self.mesh, DATA_AXIS)
                 if self.master_split(i):
                     a = self.data_shard(a, i)
@@ -572,7 +604,8 @@ class ZeroRuntime:
     def leaf_sums(self, v: torch.Tensor) -> torch.Tensor:
         """``v [n_leaves, k]``: each leaf's local sums (of squares) over
         its master-placed piece → the sums over the whole leaf, on every
-        rank: summed over ``data`` for leaves split there, then over
+        rank: summed over ``data`` for leaves split there (ZeRO shards
+        and experts), then over
         ``model`` for tensor-parallel leaves; a replicated leaf counts
         once.  Under a pipeline a stacked leaf's sums are summed over
         ``pipe`` last (a pipe-replicated leaf counts once)."""
