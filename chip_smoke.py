@@ -383,6 +383,33 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             step ms and the layer fetches' GB/s, and the compute copy on
             the card == bf16 of the pinned master on every leaf that does
             not stream.
+33. train_onebit  (after train_moe) compressed data parallelism
+            through ``initialize()``: (a) phase 10's model and batch with
+            1-bit Adam (bf16, ZeRO 0, freeze step 2, clipping 1.0) in a
+            one-rank NCCL group, 4 steps: losses finite, flash launches
+            2·L·A, L·A and L·A a step, the master after the 2 warm steps
+            within 1e-6 (leaf by leaf) of an Adam engine's without bias
+            correction on the same tree and batch, ν bitwise unchanged
+            after the freeze, the error buffers nonzero, no compressed
+            collective called (the simulated exchange); (b) dp 2 as two
+            processes on cuda:0 over gloo (``onebit_rank``), fp32,
+            dropout 0, freeze step 1, 3 steps on train_pipe's batch: the
+            first loss within 1e-5 of an fp32 dp-1 engine's on the same
+            tree (its digest checked) and global batch, the two ranks'
+            masters bitwise equal after every step, rank 0's first
+            frozen exchange (the leaves of at most 8M elements) within
+            1e-6 of a numpy version of the two-phase algorithm on both
+            ranks' μ and errors (a sign flip only on a near-tie, |buf| <
+            1e-5·scale, reported), a frozen step's uint8 bytes those of
+            the leaves' ``padded_size``s with no float collective over
+            4·dp elements, the warm step's fp32 reduction covering the
+            largest leaf; (c) CSR gradients on the same processes: GPT-2
+            small's embedding table [50257, 768] mean-pooled into a head
+            (``EmbedPool``), 8 x 1024 tokens a rank, fp32, 3 steps: the
+            sparse engine's losses within 1e-5 of the dense engine's, no
+            collective as large as the table, the indices' and values'
+            bytes those of the tokens; each arm's step ms and wire bytes
+            beside the card's name and power limit.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -3764,6 +3791,535 @@ def _moe_arm_c(ref, digest, card: str):
                  f"from ep 1's {ref}")
 
 
+# ---------------------------------------------------------------------------
+# train_onebit: compressed data parallelism (1-bit Adam, CSR gradients)
+# ---------------------------------------------------------------------------
+#: (a): phase train's model and batch (GPT-2 small, dropout 0.1, remat
+#: block, 8 x 1024 tokens, accumulation 2), bf16, 1-bit Adam, 4 steps
+#: across freeze step 2
+ONEBIT_FREEZE, ONEBIT_STEPS = 2, 4
+#: (b): dp 2 over gloo on cuda:0, fp32, dropout 0 (each worker draws its
+#: own dropout, so only then does dp 2's first loss equal dp 1's),
+#: train_pipe's batch, freeze step 1, 3 steps
+ONEBIT_DP, ONEBIT_DP_FREEZE, ONEBIT_DP_STEPS = 2, 1, 3
+#: (a)'s warm master against Adam without bias correction, leaf by leaf
+ONEBIT_ADAM_RTOL = 1e-6
+#: (b)'s first loss against dp 1's, (c)'s sparse against dense losses
+ONEBIT_LOSS_RTOL = 1e-5
+#: (b)'s first frozen exchange against the numpy two-phase algorithm
+ONEBIT_EXCHANGE_RTOL = 1e-6
+#: a sign may differ from numpy's only where |buf| < this · scale
+ONEBIT_NEAR_TIE = 1e-5
+#: the leaves the numpy check recomputes: at most this many elements
+ONEBIT_ORACLE_ELEMS = 8 << 20
+#: (c): GPT-2 small's embedding table mean-pooled into a [768, 768] head,
+#: phase train's 8 x 1024 tokens a rank, Adam, fp32, 3 steps
+CSR_MICRO, CSR_STEPS = 8, 3
+_ONEBIT_RANK = _PIPE_RANK.replace("pipe_rank", "onebit_rank")
+
+
+class EmbedPool:
+    """``tests/test_sparse_grads_engine.py``'s model at GPT-2 small's
+    embedding shape: ``wte [50257, 768]`` mean-pooled over a row's tokens
+    into a ``[768, 768]`` head, MSE against a target.  It declares the
+    table's gradient rows (``sparse_grad_tokens``)."""
+
+    def init(self, seed, device=None):
+        import torch
+        from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+        g = torch.Generator().manual_seed(seed)
+        d = GPT2_SMALL.d_model
+        return {"emb": torch.randn(GPT2_SMALL.vocab_size, d, generator=g)
+                * 0.02,
+                "head_w": torch.randn(d, d, generator=g) * d ** -0.5}
+
+    def loss_fn(self, params, batch, rng, train=True):
+        import torch
+        tokens, target = batch
+        h = params["emb"].float()[tokens.long()].mean(dim=1)
+        return torch.mean((h @ params["head_w"].float() - target) ** 2)
+
+    def sparse_grad_tokens(self, batch):
+        return {"['emb']": batch[0]}
+
+
+def _onebit_model_cfg():
+    import dataclasses
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    return dataclasses.replace(GPT2_SMALL, remat="block")
+
+
+def _onebit_tree():
+    """(b)'s weight tree: GPT-2 small's init at SEED on the CPU, and its
+    digest."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    tree = GPT2Model(_onebit_model_cfg()).init(SEED)
+    digest = float(sum(np.abs(x.numpy()).astype(np.float64).sum()
+                       for x in tree_leaves(tree)))
+    return tree, digest
+
+
+def _onebit_fp32(dev, tree, mesh, dp, micro, ga, freeze):
+    """GPT-2 small with 1-bit Adam at fp32 through ``initialize()``: the
+    config built with bf16 and bf16 switched off after (the config check
+    refuses 1-bit Adam without fp16/bf16)."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.config import DeepSpeedConfig
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    gc.collect()
+    torch.cuda.empty_cache()
+    conf = _train_config({"bf16": {"enabled": True}}, micro, ga)
+    conf["optimizer"] = {"type": "OneBitAdam",
+                         "params": {"lr": 1e-4, "freeze_step": freeze}}
+    cfg = DeepSpeedConfig(conf, world_size=dp)
+    cfg.bf16.enabled = False
+    return deepspeed_tpu_torch.initialize(
+        model=GPT2Model(_onebit_model_cfg()), mesh=mesh, params=tree,
+        seed=SEED, config=cfg, device=dev)[0]
+
+
+def _master_digest(eng) -> str:
+    import hashlib
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    h = hashlib.sha256()
+    for x in tree_leaves(eng.state.master_params):
+        h.update(x.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _onebit_dp_arm(mesh, tree, dev, work) -> dict:
+    """(b) on this rank: 3 fp32 steps at freeze step 1; the first frozen
+    exchange's inputs and outputs of the leaves the numpy check takes
+    saved to ``work``; each step's loss, master digest, ms and wire."""
+    import torch
+    from deepspeed_tpu_torch.compress import onebit, padded_size
+    from deepspeed_tpu_torch.parallel import collectives as col
+    from deepspeed_tpu_torch.runtime.dataloader import rank_rows
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    dp, d = mesh.axis_size("data"), mesh.axis_index("data")
+    ga = PIPE_GA // dp
+    tokens = torch.from_numpy(rank_rows(_pipe_tokens(), ga, dp, d)).to(dev)
+    eng = _onebit_fp32(dev, tree, mesh, dp, 1, ga, ONEBIT_DP_FREEZE)
+    sizes = [x.numel() for x in tree_leaves(eng.state.master_params)]
+    rec, saved = {"on": False}, []
+    plain = onebit.compressed_allreduce
+
+    def recording(x, we, se, mesh_, axis="data"):
+        out = plain(x, we, se, mesh_, axis)
+        if rec["on"] and x.numel() <= ONEBIT_ORACLE_ELEMS:
+            saved.append([t.detach().reshape(-1).cpu().numpy()
+                          for t in (x, we, se) + tuple(out)])
+        return out
+
+    onebit.compressed_allreduce = recording
+    steps = []
+    try:
+        for step in range(ONEBIT_DP_STEPS):
+            rec["on"] = step == ONEBIT_DP_FREEZE
+            col.onebit_stats.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with col.recorded() as log:
+                loss = float(eng.train_batch(tokens))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            floats = [e for _, dt, e in log if dt == "float32"]
+            steps.append({"loss": loss, "ms": ms,
+                          "digest": _master_digest(eng),
+                          "max_float": max(floats, default=0),
+                          "float_bytes": 4 * sum(floats),
+                          "stats": dict(col.onebit_stats)})
+    finally:
+        onebit.compressed_allreduce = plain
+    eng.close()
+    np.savez(os.path.join(work, f"exchange{d}.npz"),
+             **{f"{i}_{j}": a for i, arrs in enumerate(saved)
+                for j, a in enumerate(arrs)})
+    return {"steps": steps, "largest": max(sizes),
+            "uint8_want": sum(padded_size(n, dp) // 8
+                              + padded_size(n, dp) // (8 * dp)
+                              for n in sizes),
+            "oracle_leaves": len(saved),
+            "oracle_elems": sum(a[0].size for a in saved)}
+
+
+def _csr_arm(mesh, dev) -> dict:
+    """(c) on this rank: the CSR engine and the dense engine on
+    :class:`EmbedPool` at dp 2, fp32, 3 steps each on the same rows."""
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    from deepspeed_tpu_torch.parallel import collectives as col
+    from deepspeed_tpu_torch.runtime.dataloader import rank_rows
+    dp, d = mesh.axis_size("data"), mesh.axis_index("data")
+    rng = np.random.default_rng(SEED + 11)
+    T = GPT2_SMALL.n_positions
+    tokens = rng.integers(0, GPT2_SMALL.vocab_size, (dp * CSR_MICRO, T))
+    target = rng.standard_normal((dp * CSR_MICRO, GPT2_SMALL.d_model),
+                                 dtype=np.float32)
+    batch = tuple(torch.from_numpy(x).to(dev)
+                  for x in rank_rows((tokens, target), 1, dp, d))
+    tree = EmbedPool().init(SEED)
+    out = {}
+    for label, sparse in (("sparse", True), ("dense", False)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = deepspeed_tpu_torch.initialize(
+            model=EmbedPool(), mesh=mesh, params=tree, seed=SEED,
+            device=dev, config={
+                "train_micro_batch_size_per_gpu": CSR_MICRO,
+                "gradient_accumulation_steps": 1,
+                "steps_per_print": 10 ** 9, "sparse_gradients": sparse,
+                "optimizer": {"type": "Adam", "params": {"lr": 1e-3}}})[0]
+        if eng._sparse_path != sparse:
+            raise AssertionError(f"{label}: the engine took the other step")
+        r = out[label] = {"losses": [], "ms": [], "max_elems": 0,
+                          "stats": {}}
+        for _ in range(CSR_STEPS):
+            col.csr_stats.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with col.recorded() as log:
+                r["losses"].append(float(eng.train_batch(batch)))
+            torch.cuda.synchronize()
+            r["ms"].append((time.perf_counter() - t0) * 1e3)
+            r["max_elems"] = max([r["max_elems"]]
+                                 + [e for _, _, e in log])
+            r["stats"] = dict(col.csr_stats)
+        eng.close()
+    return out
+
+
+def onebit_rank(rank: int, init: str, digest: float,
+                world: int = ONEBIT_DP, backend: str = "gloo") -> None:
+    """One data rank of train_onebit's arms (b) and (c), every process
+    on cuda:0 over gloo; the exchange's records go to the directory in
+    ``ONEBIT_RANK_DIR``.  Prints one ``ONEBIT_RANK`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import build_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {"rank": rank}
+    try:
+        tree, mine = _onebit_tree()
+        if mine != digest:
+            raise AssertionError(f"rank {rank}: weight tree digest {mine} "
+                                 f"!= the dp-1 engine's {digest}")
+        mesh = build_mesh(dp=world)
+        out["data_index"] = mesh.axis_index("data")
+        out["b"] = _onebit_dp_arm(mesh, tree, dev,
+                                  os.environ["ONEBIT_RANK_DIR"])
+        del tree
+        out["c"] = _csr_arm(mesh, dev)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("ONEBIT_RANK " + json.dumps(out), flush=True)
+
+
+def _np_sign_compress(buf, error):
+    buf = buf + error
+    scale = np.linalg.norm(buf) / np.sqrt(buf.size)
+    sign = np.where(buf >= 0, 1.0, -1.0)
+    return buf, sign, scale, buf - scale * sign
+
+
+def _np_exchange(xs, wes, ses):
+    """The two-phase algorithm in numpy (float64) over every worker's
+    buffer and error rows: (out, worker bufs, signs and scales, server
+    bufs, signs and scales)."""
+    world, n = len(xs), xs[0].size
+    P = wes[0].size
+    chunk = P // world
+    w = [_np_sign_compress(np.pad(x.astype(np.float64), (0, P - n)),
+                           e.astype(np.float64)) for x, e in zip(xs, wes)]
+    s = []
+    for r in range(world):
+        comp = np.mean([sign[r * chunk:(r + 1) * chunk] * scale
+                        for _, sign, scale, _ in w], axis=0)
+        s.append(_np_sign_compress(comp, ses[r].astype(np.float64)))
+    out = np.concatenate([sc * sign for _, sign, sc, _ in s])[:n]
+    return out, w, s
+
+
+def _onebit_check_exchange(work, world) -> str:
+    """(b)'s first frozen exchange: rank 0's output and error rows
+    against :func:`_np_exchange` on both ranks' μ and errors, within
+    ``ONEBIT_EXCHANGE_RTOL`` of the largest magnitude (the error rows of
+    the μ they are residuals of); a sign that differs from numpy's must
+    be a near-tie (|buf| < ``ONEBIT_NEAR_TIE`` · scale) and is left out
+    of the comparison, each reported with its margin."""
+    files = [np.load(os.path.join(work, f"exchange{r}.npz"))
+             for r in range(world)]
+    leaves = len(files[0].files) // 6
+    flips, worst, elems = [], 0.0, 0
+    for i in range(leaves):
+        x, we, se, out, we2, se2 = (
+            [f[f"{i}_{j}"] for f in files] for j in range(6))
+        ref, wk, sv = _np_exchange(x, we, se)
+        n, P = x[0].size, we[0].size
+        chunk = P // world
+        floor = max(np.abs(x[0]).max(), np.abs(x[1]).max())
+        # worker signs (rank 0) implied by its residual, server signs by
+        # the output's
+        buf0, sign0, scale0, res0 = wk[0]
+        got_sign = np.where((buf0 - we2[0]) >= 0, 1.0, -1.0)
+        keep_w = got_sign == sign0
+        ssign = np.concatenate([sign for _, sign, _, _ in sv])[:n]
+        keep_o = np.sign(out[0]) == ssign
+        for j in np.nonzero(~keep_w)[0]:
+            flips.append(("worker", i, int(j), abs(buf0[j]) / scale0))
+        for j in np.nonzero(~keep_o)[0]:
+            b, _, sc, _ = sv[j // chunk]
+            flips.append(("server", i, int(j), abs(b[j % chunk]) / sc))
+        sbuf0, ssign0, sscale0, sres0 = sv[0]
+        got_s = np.where((sbuf0 - se2[0]) >= 0, 1.0, -1.0)
+        keep_s = got_s == ssign0
+        for j in np.nonzero(~keep_s)[0]:
+            flips.append(("server", i, int(j), abs(sbuf0[j]) / sscale0))
+        for got, want, keep, fl in ((out[0], ref, keep_o, 0.0),
+                                    (we2[0], res0, keep_w, floor),
+                                    (se2[0], sres0, keep_s, floor)):
+            err = np.abs(got[keep].astype(np.float64) - want[keep]).max(
+                initial=0.0)
+            rel = err / max(np.abs(want).max(), fl, 1e-30)
+            worst = max(worst, rel)
+        elems += n
+    bad = [f for f in flips if not f[3] < ONEBIT_NEAR_TIE]
+    if bad or not worst <= ONEBIT_EXCHANGE_RTOL:
+        fail(f"train_onebit (b): rank 0's first frozen exchange differs "
+             f"from the numpy two-phase algorithm: worst {worst:.3g} (bar "
+             f"{ONEBIT_EXCHANGE_RTOL}), sign flips off the near-tie rule "
+             f"{bad[:8]}")
+    return (f"first frozen exchange of {leaves} leaves ({elems} elements) "
+            f"against numpy on both ranks' μ and errors: worst "
+            f"{worst:.3g} of the largest magnitude (bar "
+            f"{ONEBIT_EXCHANGE_RTOL}); sign flips "
+            f"{[(k, i, j, f'{m:.2g}') for k, i, j, m in flips] or 'none'}"
+            f" (near-tie bar {ONEBIT_NEAR_TIE})")
+
+
+def phase_train_onebit(dev, card: str):
+    """Compressed data parallelism through ``initialize()``.  (a) phase
+    train's model and batch with 1-bit Adam, bf16, ZeRO 0, freeze step
+    2, in a one-rank NCCL group (the simulated exchange), 4 steps: the
+    losses finite, the flash launches a step the ones worked out, the
+    master after the 2 warm steps within ``ONEBIT_ADAM_RTOL`` of an Adam
+    engine's without bias correction (leaf by leaf), ν bitwise unchanged
+    after the freeze with the error buffers nonzero, and no compressed
+    collective called.  (b) dp 2 as two processes on cuda:0 over gloo,
+    fp32, dropout 0, freeze step 1, 3 steps: the first loss within
+    ``ONEBIT_LOSS_RTOL`` of an fp32 dp-1 engine's on the same tree and
+    global batch, the two ranks' masters bitwise equal after every
+    step, rank 0's first frozen exchange against numpy, the frozen
+    steps' uint8 bytes those of the leaves' ``padded_size``s with no
+    float collective over 4·dp elements, the warm step's fp32 reduction
+    covering the largest leaf.  (c) CSR gradients at GPT-2 small's
+    embedding shape on the same two processes: the sparse engine's
+    losses within ``ONEBIT_LOSS_RTOL`` of the dense engine's, no
+    collective as large as the table, the indices' and values' bytes
+    those of the tokens.  Returns (a)'s flash launches."""
+    import tempfile
+    import torch
+    launches = _onebit_arm_a(dev, card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tree, digest = _onebit_tree()
+    tokens = torch.from_numpy(_pipe_tokens()).to(dev)
+    eng = _onebit_fp32(dev, tree, None, 1, 1, PIPE_GA, ONEBIT_DP_FREEZE)
+    ref = float(eng.train_batch(tokens))
+    eng.close()
+    del eng, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        os.environ["ONEBIT_RANK_DIR"] = work
+        try:
+            ranks = _pipe_ranks(digest, ONEBIT_DP, script=_ONEBIT_RANK,
+                                tag="ONEBIT_RANK")
+        finally:
+            os.environ.pop("ONEBIT_RANK_DIR", None)
+        exchange = _onebit_check_exchange(work, ONEBIT_DP)
+    _onebit_check_bc(ranks, ref, exchange, card)
+    return launches
+
+
+def _onebit_arm_a(dev, card: str):
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+    from deepspeed_tpu_torch.parallel import collectives as col
+    from deepspeed_tpu_torch.runtime.utils import tree_leaves
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    tree = GPT2Model(cfg).init(SEED)
+    T, L, A = cfg.n_positions, cfg.n_layer, TRAIN_GA
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (TRAIN_MICRO * A, T + 1))).to(dev)
+
+    def build(opt):
+        gc.collect()
+        torch.cuda.empty_cache()
+        conf = _train_config({"bf16": {"enabled": True}}, TRAIN_MICRO, A)
+        conf["optimizer"] = opt
+        return deepspeed_tpu_torch.initialize(
+            model=GPT2Model(cfg), params=tree, seed=SEED, config=conf)[0]
+
+    with _one_rank_group():
+        eng = build({"type": "Adam", "params": {"lr": 1e-4,
+                                                "bias_correction": False}})
+        for _ in range(ONEBIT_FREEZE):
+            eng.train_batch(tokens)
+        adam = [x.detach().clone() for x in
+                tree_leaves(eng.state.master_params)]
+        eng.close()
+        del eng
+        eng = build({"type": "OneBitAdam",
+                     "params": {"lr": 1e-4, "freeze_step": ONEBIT_FREEZE}})
+        if eng.device != dev or eng._onebit_steps is not None:
+            fail(f"train_onebit (a): the engine is on {eng.device} with "
+                 f"the per-worker steps {eng._onebit_steps}")
+        col.onebit_stats.clear()
+        losses, ms = [], []
+        torch.cuda.synchronize()
+        _zero_counts()
+        for step in range(ONEBIT_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch(tokens)))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            st = eng.state
+            if step == ONEBIT_FREEZE - 1:
+                worst = max(float((a - b).abs().max() / b.abs().max())
+                            for a, b in zip(tree_leaves(st.master_params),
+                                            adam))
+                nu = [v.clone() for v in st.opt_state.nu]
+        launches = _train_counts()
+        st = eng.state.opt_state
+        nu_kept = all(torch.equal(a, b) for a, b in zip(st.nu, nu))
+        err_max = max(float(e.abs().max()) for e in st.worker_error)
+        count = int(st.count)
+        eng.close()
+    want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+            "flash_bwd_dkv": L * A}
+    for name, per in want.items():
+        if launches[name] != per * ONEBIT_STEPS:
+            fail(f"train_onebit (a): {name} launched {launches[name]} times "
+                 f"in {ONEBIT_STEPS} steps, expected {per} per step")
+    if not all(np.isfinite(losses)):
+        fail(f"train_onebit (a): losses {losses}")
+    if not worst <= ONEBIT_ADAM_RTOL:
+        fail(f"train_onebit (a): the warm master differs from Adam's "
+             f"without bias correction by {worst:.3g} (bar "
+             f"{ONEBIT_ADAM_RTOL})")
+    if not nu_kept or not err_max > 0 or count != ONEBIT_STEPS:
+        fail(f"train_onebit (a): after the freeze ν kept {nu_kept}, error "
+             f"max {err_max}, count {count}")
+    if col.onebit_stats:
+        fail(f"train_onebit (a): dp 1 called the compressed collectives "
+             f"{dict(col.onebit_stats)}")
+    print(f"[train_onebit] (a) GPT-2 small bf16, 1-bit Adam freeze step "
+          f"{ONEBIT_FREEZE}, one-rank NCCL group (the simulated exchange), "
+          f"8 x {T} tokens, accumulation {A}, dropout 0.1, remat block: "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}; step ms "
+          f"{_ms_list(ms)} (warm, warm, frozen, "
+          f"frozen; the first includes the engine's first launches); "
+          f"warm master vs Adam without bias correction {worst:.3g} "
+          f"(bar {ONEBIT_ADAM_RTOL}); ν unchanged after the freeze, "
+          f"worker error max {err_max:.3g}; no compressed collective "
+          f"called; flash launches per step "
+          f"{'/'.join(str(v) for v in want.values())} [{card}]")
+    return launches
+
+
+def _ms_list(ms) -> str:
+    return " ".join(f"{x:.1f}" for x in ms)
+
+
+def _onebit_check_bc(ranks, ref, exchange, card):
+    for res in ranks:
+        b = res["b"]
+        label = f"(b) dp {ONEBIT_DP} data rank {res['data_index']}"
+        s = b["steps"]
+        if abs(s[0]["loss"] - ref) > ONEBIT_LOSS_RTOL * abs(ref):
+            fail(f"train_onebit {label}: first loss {s[0]['loss']} vs dp "
+                 f"1's {ref}")
+        if not all(np.isfinite([x["loss"] for x in s])):
+            fail(f"train_onebit {label}: losses {[x['loss'] for x in s]}")
+        for i, x in enumerate(s):
+            if x["digest"] != ranks[0]["b"]["steps"][i]["digest"]:
+                fail(f"train_onebit {label}: step {i + 1}'s master differs "
+                     f"from rank 0's")
+        warm, frozen = s[:ONEBIT_DP_FREEZE], s[ONEBIT_DP_FREEZE:]
+        for x in frozen:
+            if x["stats"].get("bytes_uint8") != b["uint8_want"] or \
+                    x["max_float"] > 4 * ONEBIT_DP:
+                fail(f"train_onebit {label}: a frozen step moved "
+                     f"{x['stats']} with a float collective of "
+                     f"{x['max_float']} elements; {b['uint8_want']} uint8 "
+                     "bytes from padded_size")
+        for x in warm:
+            if x["max_float"] < b["largest"] or x["stats"]:
+                fail(f"train_onebit {label}: the warm step's largest fp32 "
+                     f"collective {x['max_float']} < the largest leaf "
+                     f"{b['largest']}")
+        step_ms = _ms_list(x["ms"] for x in s)
+        staging = frozen[0]["stats"].get("seconds", 0) * 1e3
+        print(f"[train_onebit] {label} (gloo, cuda:0, fp32, dropout 0, "
+              f"freeze step {ONEBIT_DP_FREEZE}): losses "
+              f"{[x['loss'] for x in s]}, first vs dp 1's {ref}: rel "
+              f"{abs(s[0]['loss'] - ref) / abs(ref):.3g} (bar "
+              f"{ONEBIT_LOSS_RTOL}); masters bitwise equal across ranks "
+              f"after every step; step ms {step_ms}; warm step fp32 "
+              f"bytes {warm[0]['float_bytes']} (largest collective "
+              f"{warm[0]['max_float']} elements); frozen step uint8 bytes "
+              f"{frozen[0]['stats']['bytes_uint8']} ({b['uint8_want']} "
+              f"from padded_size), fp32 scale bytes "
+              f"{frozen[0]['stats'].get('bytes_float32', 0)}, largest float "
+              f"collective {frozen[0]['max_float']} elements (bar "
+              f"{4 * ONEBIT_DP}), the exchange's host time {staging:.1f} ms "
+              f"[{card}]")
+    print(f"[train_onebit] (b) rank 0's {exchange}")
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    table = GPT2_SMALL.vocab_size * GPT2_SMALL.d_model
+    toks = CSR_MICRO * GPT2_SMALL.n_positions
+    for res in ranks:
+        c = res["c"]
+        label = f"(c) CSR dp {ONEBIT_DP} data rank {res['data_index']}"
+        sp, dn = c["sparse"], c["dense"]
+        diffs = [abs(a - b) / abs(b) for a, b in zip(sp["losses"],
+                                                      dn["losses"])]
+        st = sp["stats"]
+        if not max(diffs) <= ONEBIT_LOSS_RTOL:
+            fail(f"train_onebit {label}: sparse losses {sp['losses']} vs "
+                 f"dense {dn['losses']}")
+        if not sp["max_elems"] < table or dn["max_elems"] < table:
+            fail(f"train_onebit {label}: largest collective sparse "
+                 f"{sp['max_elems']}, dense {dn['max_elems']} elements, "
+                 f"table {table}")
+        if (st.get("bytes_int32") != toks * 4
+                or st.get("bytes_float32") != toks * GPT2_SMALL.d_model * 4):
+            fail(f"train_onebit {label}: CSR bytes {st}, {toks} tokens")
+        print(f"[train_onebit] {label} (gloo, cuda:0, fp32, [50257, 768] "
+              f"table, {CSR_MICRO} x {GPT2_SMALL.n_positions} tokens a "
+              f"rank): losses {sp['losses']} vs dense {dn['losses']}, rel "
+              f"{max(diffs):.3g} (bar {ONEBIT_LOSS_RTOL}); largest "
+              f"collective {sp['max_elems']} elements vs the dense step's "
+              f"{dn['max_elems']}; CSR bytes a step: indices "
+              f"{st.get('bytes_int32')}, values {st.get('bytes_float32')} "
+              f"({toks} tokens); step ms sparse {_ms_list(sp['ms'])}, "
+              f"dense {_ms_list(dn['ms'])} [{card}]")
+
+
 MESH_REQ, MESH_NEW = 8, 32
 
 
@@ -5827,6 +6383,7 @@ def main() -> None:
     by_phase["train_pipe"] = timed(phase_train_pipe, dev, card)
     by_phase["train_seq"] = timed(phase_train_seq, dev, card)
     by_phase["train_moe"] = timed(phase_train_moe, dev, card)
+    by_phase["train_onebit"] = timed(phase_train_onebit, dev, card)
     by_phase["serve_mesh"] = timed(phase_serve_mesh, dev)
     by_phase["train_offload"], offload_ref = timed(phase_train_offload, dev)
     by_phase["train_offload_disk"] = timed(phase_train_offload_disk, dev,

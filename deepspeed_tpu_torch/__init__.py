@@ -21,7 +21,11 @@ idle serving sessions (``inference.kv_tier``); and block-sparse attention
 ``BertSparseSelfAttention``); and pipeline parallelism (``pipe``:
 ``PipelineModule`` of ``LayerSpec``s, the 1F1B and GPipe schedules over
 ``torch.distributed`` point-to-point, GPT-2 and BERT as pipeline modules
-in ``models.gpt2_pipe`` and ``models.bert_pipe``).  Kernels: flash attention forward and
+in ``models.gpt2_pipe`` and ``models.bert_pipe``); sequence and expert
+parallelism (``parallel.sequence``, ``moe``); and compressed data
+parallelism (``compress``: 1-bit Adam's sign-compressed momentum
+exchange; ``runtime.csr_tensor``: CSR embedding gradients).  Kernels:
+flash attention forward and
 backward, the four decode-attention kernels and the block-sparse forward,
 dQ and dK/dV.  ROADMAP.md lists what comes next.
 

@@ -27,18 +27,27 @@ the ranks that hold their experts, backward the reverse exchange) and
 forward and backward).  Gloo moves no CUDA tensor in an all-to-all or a
 point-to-point call, so on a gloo group the all-to-alls and the ring
 shift stage a CUDA tensor through host memory, each staging counted in
-``seq_stats`` or ``ep_stats``.
+``seq_stats`` or ``ep_stats``.  Compressed data parallelism adds
+:func:`data_all_gather` (a gather over ``data`` of 1-bit Adam's packed
+signs and scales, ``onebit_stats``, or of a CSR gradient's indices and
+values, ``csr_stats``) and 1-bit Adam's packed-sign all-to-all,
+:func:`onebit_all_to_all`; both stage a CUDA tensor through host memory
+on gloo too.
 
 Each function returns a new tensor and leaves its input as it was.  On a
 local mesh (no process group) an axis has one rank and each collective
 computes that one-rank result; on a joined mesh every call runs its
 collective, whatever the group's size.  A failed collective raises.
 ``calls`` counts each function's calls in this process (a layout's
-tests show with it that a path runs no collective).
+tests show with it that a path runs no collective), and inside
+:func:`recorded` every collective that crosses ranks is logged with its
+dtype and element count (a step's wire sizes, which the JAX package's
+tests read from the compiled program's HLO).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 
 import torch
@@ -60,6 +69,36 @@ seq_stats: collections.Counter = collections.Counter()
 #: process, forward, backward and a checkpointed block's recompute: the
 #: same keys as ``seq_stats``
 ep_stats: collections.Counter = collections.Counter()
+#: 1-bit Adam's compressed momentum exchange (``compress/onebit.py``) in
+#: this process: ``calls``, ``bytes`` and ``bytes_<dtype>`` (of the send
+#: buffers: the packed signs as ``bytes_uint8``, the scales as
+#: ``bytes_float32``), ``staged`` and ``seconds`` as in ``seq_stats``
+onebit_stats: collections.Counter = collections.Counter()
+#: the CSR gradients' exchange (``runtime/csr_tensor.py``): the same keys
+#: (indices as ``bytes_int32``, values as ``bytes_<their dtype>``)
+csr_stats: collections.Counter = collections.Counter()
+
+#: the active :func:`recorded` logs
+_logs: list = []
+
+
+@contextlib.contextmanager
+def recorded():
+    """Log every collective that crosses ranks inside the block as
+    ``(op, dtype name, elements of its result)`` in a list this yields —
+    the sizes the JAX package's tests read from a compiled step's HLO
+    (an all-gather's result is the gathered tensor)."""
+    log: list = []
+    _logs.append(log)
+    try:
+        yield log
+    finally:
+        _logs.remove(log)
+
+
+def _record(op: str, out: torch.Tensor) -> None:
+    for log in _logs:
+        log.append((op, str(out.dtype).replace("torch.", ""), out.numel()))
 
 
 def _reduce(x, mesh: Mesh, axis: str, op):
@@ -68,6 +107,7 @@ def _reduce(x, mesh: Mesh, axis: str, op):
     g = mesh.group(axis)
     if g is not None:
         dist.all_reduce(out, op=op, group=g)
+        _record("all_reduce", out)
     return out
 
 
@@ -95,6 +135,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str,
     out = torch.empty((n * x0.shape[0],) + tuple(x0.shape[1:]),
                       dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x0, group=g)
+    _record("all_gather", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -113,6 +154,7 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str,
     out = torch.empty((x0.shape[0] // n,) + tuple(x0.shape[1:]),
                       dtype=x.dtype, device=x.device)
     dist.reduce_scatter_tensor(out, x0, op=dist.ReduceOp.SUM, group=g)
+    _record("reduce_scatter", out)
     return out.movedim(0, dim).contiguous()
 
 
@@ -125,6 +167,7 @@ def pbroadcast_from(x: torch.Tensor, mesh: Mesh, axis: str,
     g = mesh.group(axis)
     if g is not None:
         dist.broadcast(out, src=mesh.axis_ranks(axis)[root], group=g)
+        _record("broadcast", out)
     return out
 
 
@@ -137,6 +180,7 @@ def reduce_to(x: torch.Tensor, mesh: Mesh, axis: str,
     g = mesh.group(axis)
     if g is not None:
         dist.reduce(out, dst=mesh.axis_ranks(axis)[root], group=g)
+        _record("reduce", out)
     return out
 
 
@@ -226,6 +270,7 @@ def _all_to_all(x, mesh: Mesh, axis: str, split_dim: int,
         stats["staged"] += 1
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=g)
+    _record("all_to_all", recv)
     if staged:
         recv = recv.to(x.device)
         stats["staged"] += 1
@@ -256,6 +301,7 @@ def _ring_shift(x, mesh: Mesh, step: int):
         dist.P2POp(dist.irecv, recv, ranks[(i - step) % n], group=g)])
     for w in works:
         w.wait()
+    _record("ring_shift", recv)
     if staged:
         recv = recv.to(x.device)
         seq_stats["staged"] += 1
@@ -343,3 +389,55 @@ def sum_over_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     every rank's summand, as it would in one program over the global
     batch (:func:`reduce_from_axis` passes only the rank's own)."""
     return _SumOverAxis.apply(x, mesh, axis)
+
+
+# ---------------------------------------------------------------------------
+# the data axis: compressed data parallelism (1-bit Adam, CSR gradients)
+# ---------------------------------------------------------------------------
+def _dtype_bytes(stats: collections.Counter, x: torch.Tensor) -> None:
+    stats["bytes_" + str(x.dtype).replace("torch.", "")] += (
+        x.numel() * x.element_size())
+
+
+def onebit_all_to_all(x: torch.Tensor, mesh: Mesh,
+                      axis: str = DATA_AXIS) -> torch.Tensor:
+    """1-bit Adam's first phase (``lax.all_to_all(x, axis, 0, 0)``): row
+    j of ``x [world, k]`` goes to index j of ``axis``, and row i of the
+    result came from index i.  Counted in ``onebit_stats``."""
+    out = _all_to_all(x, mesh, axis, 0, 0, onebit_stats,
+                      "onebit_all_to_all")
+    if mesh.group(axis) is not None:
+        # ``_all_to_all`` counted the call and its ``bytes``
+        _dtype_bytes(onebit_stats, x)
+    return out
+
+
+def data_all_gather(x: torch.Tensor, mesh: Mesh, stats: collections.Counter,
+                    axis: str = DATA_AXIS) -> torch.Tensor:
+    """``[world, *x.shape]``: every index of ``axis``'s ``x`` in axis order
+    (``lax.all_gather``), its traffic counted in ``stats``
+    (``onebit_stats`` or ``csr_stats``).  On gloo a CUDA tensor is staged
+    through host memory."""
+    g = mesh.group(axis)
+    if g is None:
+        return x[None].clone()
+    n = mesh.axis_size(axis)
+    send = x.reshape(-1).contiguous()
+    staged = _host_staged(g, send)
+    t0 = time.perf_counter()
+    if staged:
+        send = send.cpu()
+        stats["staged"] += 1
+    out = torch.empty(n * send.numel(), dtype=send.dtype,
+                      device=send.device)
+    dist.all_gather_into_tensor(out, send, group=g)
+    _record("all_gather", out)
+    out = out.reshape((n,) + tuple(x.shape))
+    if staged:
+        out = out.to(x.device)
+        stats["staged"] += 1
+    stats["seconds"] += time.perf_counter() - t0
+    stats["calls"] += 1
+    stats["bytes"] += send.numel() * send.element_size()
+    _dtype_bytes(stats, send)
+    return out

@@ -99,10 +99,30 @@ Expert parallelism: a model whose specs place a dim over ``data``
 (``models/gpt2_moe.py``'s experts, ``moe/layer.py``) gets each data
 rank's share of that dim at every stage (``runtime/zero.py``), and its
 MoE layers exchange tokens with the experts' ranks over ``data``;
-``eval_batch`` routes at the eval capacity (``train=False``).  Every
-other config knob whose path is not ported raises
-``NotImplementedError`` naming its ROADMAP.md item: 1-bit Adam and
-``sparse_gradients`` (item 11, compressed parallelism), and a MoE model
+``eval_batch`` routes at the eval capacity (``train=False``).
+
+Compressed data parallelism (ZeRO 0, whole leaves on every rank), the
+JAX engine's 1-bit and CSR steps: each rank keeps its own gradients
+(``runtime/zero.py``'s local mode, unscaled by ``loss_scale · grad_acc``
+only) and draws its own dropout, ``fold_in(fold_in(rng, step),
+data index)``.  1-bit Adam (``compress/onebit.py``) at dp 1 is the plain
+step with the simulated exchange, warm while the applied count is at
+most ``freeze_step``; at dp > 1 it is a pair of steps that the host
+picks by the dispatch counter (``global_steps < freeze_step``: warm):
+the warm one averages the gradients over ``data`` inside the optimizer,
+the frozen one exchanges only the sign-compressed momentum, so no
+gradient-sized float collective runs.  The overflow flag is summed over
+``data``, the norm is ``sqrt(pmean(‖g_local‖²))`` and clips, a skip keeps
+the master, the moments and both per-rank error buffers, and the loss is
+averaged.  ``sparse_gradients`` with a model that declares
+``sparse_grad_tokens`` (``runtime/module.py``), at ZeRO 0 and dp > 1,
+exchanges each declared leaf's gradient as CSR indices and values
+gathered over ``data`` (``runtime/csr_tensor.py``) and averages the
+others; otherwise it logs why and takes the dense step.  Every other
+config knob whose path is not ported raises ``NotImplementedError``
+naming its ROADMAP.md item: 1-bit Adam over tensor-parallel or pipeline
+pieces, 1-bit Adam or CSR gradients per worker over experts or over a
+tensor-parallel mesh (item 11, compressed parallelism), and a MoE model
 on a seq axis (item 11, expert × sequence parallelism).
 """
 from __future__ import annotations
@@ -133,8 +153,8 @@ from .engine_stages import (finish_close, pop_stage_errors, stage_degraded,
 from .prefetch import DevicePlacedBatch, DevicePrefetcher, place_on_device
 from .lr_schedules import get_lr_schedule
 from .resilience import AsyncCheckpointWriter
-from .utils import clip_by_global_norm, fold_in, tree_leaves
-from .zero import ZeroRuntime, ZeroShardingPlan
+from .utils import clip_by_global_norm, fold_in, global_norm, tree_leaves
+from .zero import ShardPiece, ZeroRuntime, ZeroShardingPlan
 from ..ops.adam import fused_adam
 from ..ops.lamb import fused_lamb
 from .progressive_layer_drop import ProgressiveLayerDrop
@@ -182,8 +202,21 @@ def check_mesh(mesh) -> None:
 
 def refuse_unported(config, optimizer=None, mesh=None) -> None:
     """Raise on every config knob whose training path this port does not
-    run yet (defaults never raise)."""
+    run yet (defaults never raise), and on 1-bit Adam where the JAX
+    engine refuses it."""
     zc = config.zero_config
+    if config.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER and optimizer is None:
+        if config.zero_optimization_stage >= 1:
+            raise ValueError(
+                "OneBitAdam is not a ZeRO-supported optimizer (reference "
+                "zero/utils.py:26-40): its compressed collective replaces "
+                "the data-parallel gradient reduction, which conflicts with "
+                "ZeRO's sharded gradients/state. Use zero stage 0.")
+        if zc.cpu_offload:
+            raise ValueError(
+                "cpu_offload requires the built-in Adam optimizer "
+                "(the reference's offload whitelist likewise admits "
+                "only Adam-family, zero/utils.py:26-40)")
     if zc.cpu_offload and zc.offload_impl != "xla":
         # "auto" resolves to the host tier off a TPU (reference
         # engine.py:283-287); the host tier's own refusals are the JAX
@@ -208,13 +241,9 @@ def refuse_unported(config, optimizer=None, mesh=None) -> None:
     check_mesh(mesh)
     name = config.optimizer_name
     if optimizer is None and name not in (None, C.ADAM_OPTIMIZER,
-                                          C.LAMB_OPTIMIZER):
-        if name == C.ONEBIT_ADAM_OPTIMIZER:
-            raise _unported("optimizer onebitadam",
-                            "item 11 (compressed parallelism)")
+                                          C.LAMB_OPTIMIZER,
+                                          C.ONEBIT_ADAM_OPTIMIZER):
         raise ValueError(f"Unknown optimizer {name!r}")
-    if config.sparse_gradients_enabled:
-        raise _unported("sparse_gradients", "item 11 (runtime/csr_tensor)")
 
 
 def seq_window(x, index: int, size: int):
@@ -305,6 +334,10 @@ class DeepSpeedEngine(XlaOffloadTier):
                 f"(the mesh has seq={self.sp_world_size}): sequence "
                 "parallelism needs a model that declares seq_parallel "
                 "(GPT-2 with attn_impl='ring' or 'ulysses')")
+        self._onebit_path = (config.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER
+                             and optimizer is None)
+        self._sparse_path = self._use_sparse_grads()
+        self._refuse_compressed(model)
         if config.world_size != self.dp_world_size:
             raise ValueError(
                 f"DeepSpeedConfig was built for world_size="
@@ -386,13 +419,24 @@ class DeepSpeedEngine(XlaOffloadTier):
         self._pg_check_pending = bool(config.zero_config.pg_correctness_test)
         self.optimizer = (optimizer if optimizer is not None
                           else self._build_basic_optimizer())
+        # the per-worker steps: 1-bit Adam's warm/frozen pair at dp > 1
+        # and the CSR step
+        self._onebit_steps = None
+        if self._onebit_path and self.dp_world_size > 1:
+            self._onebit_steps = (self._build_basic_optimizer("warm"),
+                                  self._build_basic_optimizer("frozen"),
+                                  int(config.optimizer_params.get(
+                                      "freeze_step", 100000)))
+        if self._onebit_steps is not None or self._sparse_path:
+            # each worker draws its own dropout over its own rows
+            self._zero.model_mesh = single_device_mesh()
         scaler, self.loss_scale_config = precision.from_fp16_config(
             config.fp16, device=self.device)
         self.state = TrainState(
             master_params=master,
             opt_state=(xla_opt if self._offload_xla
                        else self._offload_opt_state() if self._offload
-                       else self.optimizer.init(tree_leaves(master))),
+                       else self._fresh_opt_state(tree_leaves(master))),
             scaler=scaler,
             skipped_steps=torch.zeros((), dtype=torch.int32,
                                       device=self.device))
@@ -592,13 +636,22 @@ class DeepSpeedEngine(XlaOffloadTier):
             return get_lr_schedule(cfg.scheduler_name, cfg.scheduler_params)
         return None
 
-    def _build_basic_optimizer(self):
+    def _build_basic_optimizer(self, phase: Optional[str] = None):
+        """The config's optimizer.  1-bit Adam takes the mesh at dp > 1
+        (local gradients, the real exchange), and ``phase`` fixes its
+        branch (the dp > 1 step pair)."""
         params = dict(self.config.optimizer_params)
         lr = params.pop("lr", 1e-3)
         if self._lr_schedule is not None:
             lr = self._lr_schedule
         args = (lr, tuple(params.pop("betas", (0.9, 0.999))),
                 params.pop("eps", 1e-8), params.pop("weight_decay", 0.0))
+        if self._onebit_path:
+            from ..compress.onebit import onebit_adam
+            return onebit_adam(
+                *args, freeze_step=params.pop("freeze_step", 100000),
+                mesh=self.mesh if self.dp_world_size > 1 else None,
+                phase=phase)
         if self.config.optimizer_name == C.LAMB_OPTIMIZER:
             return fused_lamb(*args,
                               max_coeff=params.pop("max_coeff", 10.0),
@@ -608,6 +661,75 @@ class DeepSpeedEngine(XlaOffloadTier):
                           adam_w_mode=params.pop("adam_w_mode", True),
                           bias_correction=params.pop("bias_correction",
                                                      True))
+
+    def _fresh_opt_state(self, leaves):
+        """A new optimizer state over the master ``leaves``: 1-bit Adam's
+        at dp > 1 with this rank's error rows sized for the data axis."""
+        if self._onebit_steps is not None:
+            from ..compress.onebit import init_onebit_state
+            return init_onebit_state(leaves, self.dp_world_size)
+        return self.optimizer.init(leaves)
+
+    def _use_sparse_grads(self) -> bool:
+        """The CSR step runs: ``sparse_gradients`` on, a model that
+        declares ``sparse_grad_tokens``, ZeRO 0 and dp > 1 (the JAX
+        engine's rule and log lines)."""
+        if not self.config.sparse_gradients_enabled:
+            return False
+        from .module import TrainModule
+        hook = getattr(type(self.module), "sparse_grad_tokens", None)
+        if hook is None or hook is TrainModule.sparse_grad_tokens:
+            log_dist(
+                "sparse_gradients enabled but the module declares no "
+                "sparse params (sparse_grad_tokens) — dense path",
+                ranks=[0])
+            return False
+        if self.config.zero_optimization_stage >= 1:
+            log_dist(
+                "sparse_gradients ignored under ZeRO stage >= 1 "
+                "(reference parity: only the stage-0 allreduce path is "
+                "sparse there)", ranks=[0])
+            return False
+        return self.dp_world_size > 1
+
+    def _refuse_compressed(self, model) -> None:
+        """The meshes the 1-bit and CSR paths run on: every master leaf
+        whole on the rank (no tensor-parallel or pipeline pieces, and at
+        dp > 1 no experts), and no seq axis under the per-worker steps —
+        the JAX package's refusals, and ``NotImplementedError`` where it
+        runs a combination the port does not."""
+        if not (self._onebit_path or self._sparse_path):
+            return
+        per_worker = self._sparse_path or self.dp_world_size > 1
+        what = "OneBitAdam" if self._onebit_path else "sparse_gradients"
+        pipelined = getattr(model, "pipelined", False)
+        if self._onebit_path and pipelined and self.dp_world_size > 1:
+            raise ValueError(
+                "OneBitAdam does not run under the pipeline engine at "
+                f"dp={self.dp_world_size}: the 1-bit step is a program "
+                "over 'data' that the pipeline's own program over 'pipe' "
+                "cannot hold (the JAX engine fails there too)")
+        if per_worker and self.sp_world_size > 1:
+            raise NotImplementedError(
+                "sequence-parallel attention cannot run inside a manual "
+                "SPMD program over axes ['data']; sp composes with the "
+                "plain dp/tp/ZeRO engines and (via the uniform-stage "
+                "body) the pipeline engine — not the 1-bit or "
+                "sparse-gradient engines")
+        tp = mesh_axis_size(self.mesh, MODEL_AXIS)
+        if tp > 1 or pipelined:
+            pieces = "pipeline stages" if pipelined else "tensor-parallel " \
+                "pieces"
+            raise _unported(
+                f"{what} over {pieces} (model={tp})",
+                "item 11 (compressed parallelism: every leaf whole on "
+                "every rank)")
+        if per_worker and getattr(model, "expert_parallel", False):
+            raise _unported(
+                f"{what} per worker with {type(model).__name__}'s experts "
+                f"over data (dp={self.dp_world_size})",
+                "item 11 (compressed parallelism: every leaf whole on "
+                "every rank)")
 
     def _lr_at(self, count: torch.Tensor) -> torch.Tensor:
         if self._lr_schedule is not None:
@@ -621,7 +743,7 @@ class DeepSpeedEngine(XlaOffloadTier):
     # the step
     # ------------------------------------------------------------------
     def _scaled_grads(self, batch, scaler, step_rng, sharded=None,
-                      keep=None):
+                      keep=None, local=False):
         """Sum fp32 grads of the scaled micro-batch losses over the
         micro-steps and the data ranks (``runtime/zero.py``; ``sharded``
         overrides the stage's gradient placement — False is the plain
@@ -629,11 +751,13 @@ class DeepSpeedEngine(XlaOffloadTier):
         ``loss_scale * grad_acc * dp``.  Returns (grads in tree_leaves
         order, in the master's placement; scaled losses).  ``keep``: the
         leaves whose grads are computed (the others None); a streamed
-        leaf's grad is its host stack with the unscale attached."""
+        leaf's grad is its host stack with the unscale attached.
+        ``local``: the rank's own grads, unscaled by ``loss_scale *
+        grad_acc`` (the per-worker steps)."""
         rt = self._zero
         ga = int(self.gradient_accumulation_steps)
         rt.start_grads(self.zero_stage >= 2 if sharded is None
-                       else sharded, keep=keep)
+                       else sharded, keep=keep, local=local)
         scaled_losses = []
         for i in range(ga):
             mb = _tree_map(lambda x: x[i], batch)
@@ -648,7 +772,8 @@ class DeepSpeedEngine(XlaOffloadTier):
             scaled.backward()
             scaled_losses.append(scaled.detach())
         grads = rt.finish_grads()
-        inv = (1.0 / (scaler.loss_scale * (ga * self.dp_world_size))).float()
+        inv = (1.0 / (scaler.loss_scale * (
+            ga * (1 if local else self.dp_world_size)))).float()
         out = []
         for g in grads:
             if isinstance(g, HostGrad):
@@ -722,20 +847,21 @@ class DeepSpeedEngine(XlaOffloadTier):
         return {"max_abs_diff": max_abs, "max_rel_diff": max_rel}
 
     @torch.no_grad()
-    def _apply_update(self, grads, finite):
-        """Adam on the master, kept only where ``finite`` (device bool):
-        a skipped step leaves the master, the moments and the count as
-        they were."""
+    def _apply_update(self, grads, finite, tx=None):
+        """The optimizer (``tx``, by default the engine's) on the master,
+        kept only where ``finite`` (device bool): a skipped step leaves
+        the master and every field of the state (the count, the moments,
+        1-bit Adam's error buffers) as they were."""
         st = self.state
         leaves = tree_leaves(st.master_params)
-        updates, new = self.optimizer.update(grads, st.opt_state, leaves)
+        updates, new = (tx or self.optimizer).update(grads, st.opt_state,
+                                                     leaves)
         for p, u in zip(leaves, updates):
             p.copy_(torch.where(finite, p + u, p))
-        old = st.opt_state
-        return type(old)(
-            count=torch.where(finite, new.count, old.count),
-            mu=[torch.where(finite, a, b) for a, b in zip(new.mu, old.mu)],
-            nu=[torch.where(finite, a, b) for a, b in zip(new.nu, old.nu)])
+        return type(new)(*(
+            [torch.where(finite, a, b) for a, b in zip(n, o)]
+            if isinstance(n, list) else torch.where(finite, n, o)
+            for n, o in zip(new, st.opt_state)))
 
     def _train_step(self, batch) -> torch.Tensor:
         """One step on a placed batch [grad_acc, micro, ...]; returns the
@@ -750,7 +876,83 @@ class DeepSpeedEngine(XlaOffloadTier):
             if self.gradient_clipping > 0:
                 grads, _ = clip_by_global_norm(grads, self.gradient_clipping,
                                                norm=grad_norm)
-        new_opt = self._apply_update(grads, finite)
+        return self._finish_step(scaled_losses, grad_norm, finite,
+                                 self._apply_update(grads, finite))
+
+    def _worker_rng(self) -> int:
+        """The per-worker steps' seed: ``fold_in(fold_in(rng, step),
+        data index)``, as the JAX engine decorrelates its workers."""
+        return fold_in(fold_in(self._rng, self.global_steps),
+                       self.mesh.axis_index(DATA_AXIS))
+
+    def _train_step_onebit(self, batch) -> torch.Tensor:
+        """1-bit Adam at dp > 1 on local gradients: the warm or the
+        frozen optimizer, picked on the host by the dispatch counter
+        (``global_steps < freeze_step``: warm — a skipped fp16 step
+        counts, as in the JAX engine)."""
+        warm_tx, frozen_tx, freeze = self._onebit_steps
+        tx = warm_tx if self.global_steps < freeze else frozen_tx
+        mesh = self.mesh
+        scaler = self.state.scaler
+        grads, scaled_losses = self._scaled_grads(
+            batch, scaler, self._worker_rng(), local=True)
+        with torch.no_grad():
+            # overflow anywhere: every worker skips
+            bad = col.psum((~precision.grads_finite(grads)).float(), mesh,
+                           DATA_AXIS)
+            finite = bad == 0
+            # the worker-mean squared local norm (the norm of the mean
+            # would need the very all-reduce the exchange avoids)
+            grad_norm = col.pmean(global_norm(grads).square(), mesh,
+                                  DATA_AXIS).sqrt()
+            if self.gradient_clipping > 0:
+                grads, _ = clip_by_global_norm(grads, self.gradient_clipping,
+                                               norm=grad_norm)
+        return self._finish_step(scaled_losses, grad_norm, finite,
+                                 self._apply_update(grads, finite, tx))
+
+    def _train_step_sparse(self, batch) -> torch.Tensor:
+        """The CSR step: local gradients; each leaf the model declares in
+        ``sparse_grad_tokens`` crosses ``data`` as its token rows'
+        indices and values (densified, over dp), every other leaf is
+        averaged; then the plain update on the combined gradients."""
+        from .checkpointing import tree_map_with_keys
+        from .csr_tensor import csr_allgather, sparse_embedding_grad
+        mesh, dp = self.mesh, self.dp_world_size
+        scaler = self.state.scaler
+        grads, scaled_losses = self._scaled_grads(
+            batch, scaler, self._worker_rng(), local=True)
+        sparse_map = self.module.sparse_grad_tokens(batch) or {}
+        keys: list = []
+        tree_map_with_keys(lambda k, _: keys.append(k), self._zero.template)
+        unknown = set(sparse_map) - set(keys)
+        if unknown:
+            raise ValueError(
+                f"sparse_grad_tokens declares params {sorted(unknown)} "
+                f"that do not exist in the gradient tree; valid "
+                f"keystrs: {sorted(keys)}")
+        with torch.no_grad():
+            grads = [
+                csr_allgather(sparse_embedding_grad(g, sparse_map[k]),
+                              mesh).to_dense() / dp
+                if k in sparse_map else col.pmean(g, mesh, DATA_AXIS)
+                for k, g in zip(keys, grads)]
+            # identical on every worker from here on
+            finite = precision.grads_finite(grads)
+            grad_norm = global_norm(grads)
+            if self.gradient_clipping > 0:
+                grads, _ = clip_by_global_norm(grads, self.gradient_clipping,
+                                               norm=grad_norm)
+        return self._finish_step(scaled_losses, grad_norm, finite,
+                                 self._apply_update(grads, finite))
+
+    def _finish_step(self, scaled_losses, grad_norm, finite,
+                     new_opt) -> torch.Tensor:
+        """The step's epilogue after the update: the compute copy, the
+        mean loss, the loss scale, the skip count and the packed metrics
+        (the new state installed)."""
+        st = self.state
+        scaler = st.scaler
         with torch.no_grad():
             # stages 1-2: the compute copy all-gathered from the shards
             self._zero.set_sources(tree_leaves(st.master_params))
@@ -1189,6 +1391,10 @@ class DeepSpeedEngine(XlaOffloadTier):
                             step=self.global_steps + 1):
             packed = (self._train_step_xla(placed) if self._offload_xla
                       else self._train_step_offload(placed) if self._offload
+                      else self._train_step_onebit(placed)
+                      if self._onebit_steps is not None
+                      else self._train_step_sparse(placed)
+                      if self._sparse_path
                       else self._train_step(placed))
             self._last_packed = packed
             self._last_metrics = None
@@ -1688,26 +1894,40 @@ class DeepSpeedEngine(XlaOffloadTier):
                 mu=_unflatten_like(master, st["mu"]),
                 nu=_unflatten_like(master, st["nu"]))
         opt = self.state.opt_state
-        if not all(hasattr(opt, f) for f in ("count", "mu", "nu")):
+        if "count" not in getattr(opt, "_fields", ()):
             raise NotImplementedError(
                 f"checkpointing a {type(opt).__name__} optimizer state: "
-                "only the count/mu/nu states of Adam and LAMB have the "
+                "only the states of Adam, LAMB and 1-bit Adam have the "
                 "JAX package's checkpoint layout")
-        return master, type(opt)(count=opt.count,
-                                 mu=_unflatten_like(master, opt.mu),
-                                 nu=_unflatten_like(master, opt.nu))
+        # every per-leaf field (the moments, 1-bit Adam's error
+        # buffers) re-nested onto the param tree
+        return master, type(opt)(*(
+            _unflatten_like(master, f) if isinstance(f, list) else f
+            for f in opt))
 
     def _checkpoint_state(self, templates: bool = False):
         """``_canonical_state`` with each param-shaped leaf as this rank's
-        ``ShardPiece`` of it: what the checkpoint writes and loads into."""
+        ``ShardPiece`` of it: what the checkpoint writes and loads into.
+        1-bit Adam's error buffers at dp > 1 are the JAX engine's stacked
+        ``[dp, P]`` leaves, each rank writing its own row; at dp 1 they
+        are whole ``[P]`` leaves."""
         master, opt = self._canonical_state(templates)
 
         def pieces(tree):
             return _unflatten_like(
                 tree, self._zero.shard_pieces(tree_leaves(tree)))
-        return pieces(master), type(opt)(count=opt.count,
-                                         mu=pieces(opt.mu),
-                                         nu=pieces(opt.nu))
+
+        def rows(tree):
+            if self._onebit_steps is None:
+                return tree
+            dp, d = self.dp_world_size, self.mesh.axis_index(DATA_AXIS)
+            return _tree_map(lambda t: ShardPiece(
+                t[None], (dp, t.numel()), ((d, d + 1), (0, t.numel())),
+                write=True), tree)
+        return pieces(master), type(opt)(**{
+            f: (opt.count if f == "count" else
+                rows(v) if f.endswith("_error") else pieces(v))
+            for f, v in zip(opt._fields, opt)})
 
     def _adopt_loaded(self, master, opt_tree, scaler,
                       skipped_steps: int) -> None:
@@ -1751,11 +1971,16 @@ class DeepSpeedEngine(XlaOffloadTier):
                                            device=self.device))
             return
         if opt_tree is None:
-            opt_state = self.optimizer.init(leaves)
+            opt_state = self._fresh_opt_state(leaves)
         else:
-            opt_state = type(opt_tree)(count=opt_tree.count,
-                                       mu=tree_leaves(opt_tree.mu),
-                                       nu=tree_leaves(opt_tree.nu))
+            # a rank's loaded [1, P] error row back to its [P] buffer
+            row = ((lambda t: t.squeeze(0)) if self._onebit_steps is not None
+                   else (lambda t: t))
+            opt_state = type(opt_tree)(**{
+                f: (opt_tree.count if f == "count" else
+                    [row(t) for t in tree_leaves(v)] if f.endswith("_error")
+                    else tree_leaves(v))
+                for f, v in zip(opt_tree._fields, opt_tree)})
         self.state = TrainState(
             master_params=master, opt_state=opt_state, scaler=scaler,
             skipped_steps=torch.tensor(skipped_steps, dtype=torch.int32,

@@ -28,3 +28,14 @@ class TrainModule:
     def loss_fn(self, params, batch, rng, train: bool = True):
         raise NotImplementedError
 
+    def sparse_grad_tokens(self, batch) -> dict:
+        """Optional: declare embedding-style params whose gradient rows
+        are only the batch's token rows, as ``{keystr: token ids}``.  The
+        keystr is the JAX package's (``"['emb']"``, a dict key path as
+        ``jax.tree_util.keystr`` writes it), so one declaration serves
+        both packages; the ids come from ``batch``, the rank's placed
+        ``[grad_acc, micro, ...]`` leaves.  With ``sparse_gradients`` on,
+        the engine exchanges these params' gradients over ``data`` as
+        (indices, values) instead of dense (``runtime/csr_tensor.py``)."""
+        return {}
+

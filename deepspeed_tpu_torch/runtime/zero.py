@@ -48,6 +48,12 @@ reaches its host stack), so every stage's update, norm and overflow flag
 see the logical gradient once.  The stage-3 gathers stay over ``data``,
 and a checkpoint piece is written by seq index 0 only.
 
+Compressed data parallelism (1-bit Adam, CSR gradients; stage 0 only,
+every leaf whole on every rank): ``start_grads(local=True)`` keeps each
+rank's own gradients, with no reduction over ``data`` at the boundary —
+the engine exchanges them itself — and ``model_mesh`` is the mesh the
+model sees, a local one when each worker draws its own dropout masks.
+
 Expert parallelism (a base spec entry ``'data'``, as the MoE weights
 declare on their expert dim): the leaf is split over ``data`` on that dim
 at every stage, stage 0 included, and ZeRO adds nothing on top, as in
@@ -303,7 +309,7 @@ class LayerStack:
         self._rt = runtime
         self._names = names
         self._anchor = anchor
-        self.mesh = runtime.mesh
+        self.mesh = runtime.model_mesh
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         return {name: self._rt.fetch(self._anchor, idx, i)
@@ -343,6 +349,10 @@ class ZeroRuntime:
                  stacked=None, pipelined: bool = False):
         self.plan = plan
         self.mesh = plan.mesh
+        #: the mesh the model's forward sees (its tensor-parallel group,
+        #: data rows and seq shard): the engine's, or a local one where
+        #: every worker draws its own dropout (the 1-bit and CSR steps)
+        self.model_mesh = self.mesh
         self.stage = plan.stage
         self.compute_dtype = compute_dtype
         self.placements = plan.placements(params)
@@ -369,6 +379,8 @@ class ZeroRuntime:
         self.sources: List[torch.Tensor] = []
         self._acc: Optional[List[torch.Tensor]] = None
         self._acc_sharded: List[bool] = []
+        #: this pass keeps each rank's own gradients (no data reduction)
+        self._local = False
         #: the leaves whose gradients this pass keeps (None: every leaf)
         self._keep: Optional[frozenset] = None
         #: the host-streamed leaves' fetcher and gradient sink, or None
@@ -523,12 +535,19 @@ class ZeroRuntime:
 
     # -- gradients --------------------------------------------------------
     def start_grads(self, sharded: bool,
-                    keep: Optional[frozenset] = None) -> None:
+                    keep: Optional[frozenset] = None,
+                    local: bool = False) -> None:
         """Zeroed fp32 accumulators for one step: a rank's data shard
         where ``sharded`` (stages 2–3) and the leaf divides, else the
         whole tensor-parallel piece; only the ``keep`` leaves' when
         given.  A streamed leaf's accumulator is the streamer's host
-        stack."""
+        stack.  ``local`` (stage 0): :meth:`finish_grads` returns each
+        rank's own sums, not reduced over ``data``."""
+        if local and (sharded or self.stage or any(
+                self.expert(i) for i in range(len(self.placements)))):
+            raise ValueError(
+                "local gradients are a stage-0 mode over whole leaves")
+        self._local = local
         self._keep = keep
         self._acc_sharded = [sharded and p.zero_dim is not None
                              for p in self.placements]
@@ -584,7 +603,7 @@ class ZeroRuntime:
             if i in host:
                 a = host[i]
             elif a is not None and not self._acc_sharded[i] \
-                    and not self.expert(i):
+                    and not self.expert(i) and not self._local:
                 a = col.psum(a, self.mesh, DATA_AXIS)
                 if self.master_split(i):
                     a = self.data_shard(a, i)
@@ -598,6 +617,7 @@ class ZeroRuntime:
             out.append(a)
         self._acc = None
         self._keep = None
+        self._local = False
         return out
 
     # -- norms over the logical tree ---------------------------------------
