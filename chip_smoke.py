@@ -2668,7 +2668,93 @@ def phase_train(dev):
           f"flash_bwd_dq {launches['flash_bwd_dq'] // TRAIN_STEPS}, "
           f"flash_bwd_dkv {launches['flash_bwd_dkv'] // TRAIN_STEPS} "
           f"(= {L} x {A})")
+    _checkpointing_case(dev)
     return launches
+
+
+#: activation_checkpointing: the checkpointed blocks' grads against the
+#: plain blocks' (fp32, relative to each gradient's largest magnitude)
+CKPT_BLOCKS, CKPT_RTOL = 4, 1e-6
+
+
+def _checkpointing_case(dev):
+    """``runtime.activation_checkpointing``: four GPT-2 small blocks (fp32,
+    the flash kernels, dropout 0.1) on [2, 1024, 768], plain, through
+    ``checkpoint`` (recomputed) and through it with ``cpu_checkpointing``
+    (run once, what the backward saves kept in pinned host memory): the
+    gradients of every block parameter and of the input within
+    ``CKPT_RTOL`` of the plain blocks', and the CUDA memory allocated
+    between the forward and the backward (it must fall under
+    ``cpu_checkpointing``).  Outside the timed steps: not counted."""
+    import dataclasses
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import (GPT2_SMALL, GPT2Model,
+                                                 gpt2_block_forward)
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import (
+        checkpointing as ac)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, remat=None,
+                              n_layer=CKPT_BLOCKS)
+    blocks = GPT2Model(cfg).init(SEED, device=dev)["blocks"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10)
+    x0 = torch.randn((2, cfg.n_positions, cfg.d_model), generator=g,
+                     device=dev)
+    cot = torch.randn(x0.shape, generator=g, device=dev)
+
+    def run(ckpt):
+        params = {k: v.clone().requires_grad_() for k, v in blocks.items()}
+        x = x0.clone().requires_grad_()
+
+        def four(h):
+            for i in range(CKPT_BLOCKS):
+                h = gpt2_block_forward(cfg, {k: v[i] for k, v in
+                                             params.items()}, h, SEED + i,
+                                       True)
+            return h
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        out = ckpt(four, x)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev) - before
+        (out * cot).sum().backward()
+        grads = {k: v.grad for k, v in params.items()}
+        grads["x"] = x.grad
+        return grads, held
+
+    plain, held_plain = run(lambda f, x: f(x))
+    ac.reset()
+    recomputed, held_re = run(ac.checkpoint)
+    ac.configure(checkpoint_in_cpu=True)
+    ac.offload_stats.clear()
+    try:
+        host, held_cpu = run(ac.checkpoint)
+    finally:
+        ac.reset()
+    moved = dict(ac.offload_stats)
+    err = {name: max(_normwise(got[k], plain[k]) for k in plain)
+           for name, got in (("checkpoint", recomputed),
+                             ("cpu_checkpointing", host))}
+    mib = 2 ** 20
+    print(f"[train] activation_checkpointing over {CKPT_BLOCKS} GPT-2 small "
+          f"blocks (fp32, flash, dropout 0.1, [2, {cfg.n_positions}, "
+          f"{cfg.d_model}]): grads vs the plain blocks', normwise: "
+          f"checkpoint {err['checkpoint']:.3g}, cpu_checkpointing "
+          f"{err['cpu_checkpointing']:.3g} (bar {CKPT_RTOL}); CUDA memory "
+          f"held between forward and backward: plain "
+          f"{held_plain / mib:.1f} MiB, checkpoint {held_re / mib:.1f} MiB, "
+          f"cpu_checkpointing {held_cpu / mib:.1f} MiB ("
+          f"{(held_plain - held_cpu) / mib:.1f} MiB less than plain; "
+          f"{moved.get('tensors', 0)} saved tensors, "
+          f"{moved.get('bytes', 0) / mib:.1f} MiB, kept in pinned host "
+          f"memory) [{smi()}]")
+    if not max(err.values()) <= CKPT_RTOL:
+        fail(f"train: checkpointed grads differ from the plain blocks': "
+             f"{err}")
+    if not (held_cpu < held_plain and moved.get("restored", 0)
+            == moved.get("tensors", -1) > 0):
+        fail(f"train: cpu_checkpointing held {held_cpu} B on the card "
+             f"(plain {held_plain} B), host hooks {moved}")
 
 
 ZERO_STAGES = (0, 1, 2, 3)
@@ -3258,27 +3344,32 @@ def _seq_tree():
     return tree, digest
 
 
-def _seq_steps(eng, tokens, steps, dev, key: str = "seq"):
+def _seq_steps(eng, tokens, steps, dev, key="seq"):
     """``steps`` steps: losses, then over the steps after the first the
     launches, step ms, peak MiB and the ``<key>_stats`` collectives'
-    counters per step (``"seq"``, or ``"ep"``: the expert exchange)."""
+    counters per step (``"seq"``, or ``"ep"``: the expert exchange; a
+    tuple of keys for several)."""
     import torch
     from deepspeed_tpu_torch.parallel import collectives as col
-    stats = getattr(col, key + "_stats")
+    keys = (key,) if isinstance(key, str) else tuple(key)
+    stats = {k: getattr(col, k + "_stats") for k in keys}
     losses = [float(eng.train_batch(tokens))]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    stats.clear()
+    for st in stats.values():
+        st.clear()
     _zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps - 1):
         losses.append(float(eng.train_batch(tokens)))
     torch.cuda.synchronize()
     n = max(steps - 1, 1)
-    return {"losses": losses, "launches": _train_counts(),
-            "step_ms": (time.perf_counter() - t0) / n * 1e3,
-            "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20,
-            key: {k: v / n for k, v in stats.items()}}
+    out = {"losses": losses, "launches": _train_counts(),
+           "step_ms": (time.perf_counter() - t0) / n * 1e3,
+           "peak_mib": torch.cuda.max_memory_allocated(dev) / 2 ** 20}
+    for k, st in stats.items():
+        out[k] = {c: v / n for c, v in st.items()}
+    return out
 
 
 def _seq_engine(impl, block, dev, mesh=None, params=None):
@@ -3446,13 +3537,13 @@ MOE_FP32_EPS = 1e-3
 _MOE_RANK = _PIPE_RANK.replace("pipe_rank", "moe_rank")
 
 
-def _moe_model_cfg(remat=None, impl: str = "einsum"):
+def _moe_model_cfg(remat=None, impl: str = "einsum", attn: str = "flash"):
     import dataclasses
     from deepspeed_tpu_torch.models import GPT2MoEConfig
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
     base = dict(dataclasses.asdict(GPT2_SMALL), scan_layers=False,
                 dropout=0.1, embd_dropout=0.1, remat=remat,
-                attn_impl="flash")
+                attn_impl=attn)
     return GPT2MoEConfig(**base, n_experts=MOE_EXPERTS,
                          moe_top_k=MOE_TOP_K, moe_layer_freq=MOE_FREQ,
                          capacity_factor=MOE_CF, aux_loss_weight=1e-2,
@@ -3471,7 +3562,7 @@ def _moe_tree():
 
 
 def _moe_engine(dev, block, micro, ga, remat=None, impl="einsum", mesh=None,
-                params=None, stage=0):
+                params=None, stage=0, attn="flash"):
     """GPT-2 small MoE through ``initialize()``; an fp32 engine takes
     ``MOE_FP32_EPS``."""
     import torch
@@ -3485,7 +3576,7 @@ def _moe_engine(dev, block, micro, ga, remat=None, impl="einsum", mesh=None,
         conf["optimizer"] = {"type": "Adam",
                              "params": {"lr": 1e-4, "eps": MOE_FP32_EPS}}
     return deepspeed_tpu_torch.initialize(
-        model=GPT2MoEModel(_moe_model_cfg(remat, impl)), mesh=mesh,
+        model=GPT2MoEModel(_moe_model_cfg(remat, impl, attn)), mesh=mesh,
         params=params, seed=SEED, config=conf, device=dev)[0]
 
 
@@ -3569,27 +3660,70 @@ def _moe_layer_case(dev, card: str) -> None:
              "einsum's")
 
 
-def _moe_layer_ep(mesh, dev) -> dict:
-    """One MoE layer on the data ranks of ``mesh`` (each rank its experts
-    and its row of the inputs, the tokens exchanged over ``data``)
-    against the whole layer on every row in this process: normwise
-    errors of y, the aux, the expert pieces' and the row's gradients and
-    the router's (summed over ``data``).  Each rank's loss takes the aux
-    whole, so the reference weighs it by the rank count."""
+def _moe_dropped(cfg, tokens: int, run):
+    """``run()``'s result and the (token, choice) pairs its MoE layer
+    dropped: selected with a queue position at or past the capacity of a
+    ``tokens``-long row (read from ``moe.layer._choice_positions``)."""
+    from deepspeed_tpu_torch.moe import layer
+    C = cfg.capacity(tokens, True)
+    real, seen = layer._choice_positions, []
+
+    def spy(mask, base):
+        pos = real(mask, base)
+        seen.append(int((pos >= C).sum()))
+        return pos
+    layer._choice_positions = spy
+    try:
+        out = run()
+    finally:
+        layer._choice_positions = real
+    return out, sum(seen)
+
+
+def _moe_layer_split(mesh, dev) -> dict:
+    """One MoE layer on the ranks of ``mesh`` (each its data rows' token
+    window of the seq axis, its experts where ``data`` divides them — the
+    tokens exchanged over ``data`` — and the routing counts gathered over
+    ``seq``) against the whole layer on every row in this process, on
+    inputs that route most tokens to expert 0 (so the capacity drops):
+    normwise errors of y, the window's x gradient and every parameter
+    gradient (the router's summed over every rank, the experts' over
+    ``seq``), the aux, and the dropped (token, choice) pairs, split (summed
+    over the ranks) and whole. Each rank's loss takes the aux whole, and
+    the data ranks' gradients add, so the reference weighs the aux by
+    dp."""
+    import torch
     import torch.distributed as dist
-    dp = mesh.axis_size("data")
-    d = mesh.axis_index("data")
-    mcfg, mp0, x0 = _moe_layer_inputs(dev, dp)
-    y, aux, g, gx = _moe_layer_run(mcfg, mp0, x0, mesh, slice(d, d + 1))
-    dist.all_reduce(g["wg"], group=mesh.group("data"))
-    yr, auxr, gr, gxr = _moe_layer_run(mcfg, mp0, x0, weight=float(dp))
-    n = mcfg.n_experts // dp
-    err = {"y": _normwise(y, yr[d:d + 1]), "x": _normwise(gx, gxr[d:d + 1]),
+    from deepspeed_tpu_torch.moe.layer import _expert_parallel
+    dp, d = mesh.axis_size("data"), mesh.axis_index("data")
+    sp, s = mesh.axis_size("seq"), mesh.axis_index("seq")
+    mcfg, mp0, x0 = _moe_layer_inputs(dev, max(MOE_EP, dp))
+    R, S, dm = x0.shape
+    u = torch.full((dm,), dm ** -0.5, device=dev)
+    mp0 = dict(mp0, wg=mp0["wg"].clone())
+    mp0["wg"][:, 0] += 0.5 * u
+    x0 = x0 + 2.0 * u
+    g_rows, t = R // dp, S // sp
+    win = (slice(d * g_rows, (d + 1) * g_rows), slice(s * t, (s + 1) * t))
+    (y, aux, g, gx), dropped = _moe_dropped(
+        mcfg, S, lambda: _moe_layer_run(mcfg, mp0, x0, mesh, win))
+    ep = _expert_parallel(mesh, mcfg.n_experts)
+    for k, v in g.items():
+        dist.all_reduce(v, group=mesh.group("seq"))
+        if k == "wg" or not ep:
+            dist.all_reduce(v, group=mesh.group("data"))
+    n = torch.tensor([dropped], device=dev)
+    dist.all_reduce(n)
+    (yr, auxr, gr, gxr), whole = _moe_dropped(
+        mcfg, S, lambda: _moe_layer_run(mcfg, mp0, x0, weight=float(dp)))
+    ne = mcfg.n_experts // dp if ep else mcfg.n_experts
+    err = {"y": _normwise(y, yr[win]), "x": _normwise(gx, gxr[win]),
            "aux": abs(float(aux) - float(auxr)) / abs(float(auxr))}
     for k in g:
-        err[k] = _normwise(g[k], gr[k] if k == "wg"
-                           else gr[k][d * n:(d + 1) * n])
-    return err
+        err[k] = _normwise(g[k], gr[k] if k == "wg" or not ep
+                           else gr[k][d * ne:(d + 1) * ne])
+    return {"err": err, "dropped": int(n.item()), "whole_dropped": whole,
+            "shape": list(x0.shape)}
 
 
 def moe_rank(rank: int, init: str, digest: float, world: int = MOE_EP,
@@ -3598,7 +3732,7 @@ def moe_rank(rank: int, init: str, digest: float, world: int = MOE_EP,
     ``MOE_EXPERTS / world`` experts), from :func:`_moe_tree`: over gloo
     every process on cuda:0 (train_moe's arm (c)), over NCCL one card a
     process (``profile_moe_torch.py``).  First one MoE layer against the
-    whole layer (:func:`_moe_layer_ep`), then the engines: micro-batches
+    whole layer (:func:`_moe_layer_split`), then the engines: micro-batches
     of one row, ga ``8 / world``, the ``arms`` (comma-separated "fp32",
     "bf16") in turn, each arm's result passed to ``after(eng, tokens,
     result)`` when given.  Prints one ``MOE_RANK`` JSON line."""
@@ -3623,7 +3757,7 @@ def moe_rank(rank: int, init: str, digest: float, world: int = MOE_EP,
                                  f"!= the ep-1 engines' {digest}")
         mesh = build_mesh(dp=world)
         d = out["data_index"] = mesh.axis_index("data")
-        out["layer"] = _moe_layer_ep(mesh, dev)
+        out["layer"] = _moe_layer_split(mesh, dev)
         col.ep_stats.clear()
         ga = PIPE_GA // world
         tokens = torch.from_numpy(rank_rows(_pipe_tokens(), ga, world,
@@ -3664,15 +3798,25 @@ def _moe_check_exchange(label, got, want, staged):
              f"step")
 
 
-def _moe_check_layer_ep(label, err) -> str:
+def _moe_check_layer(label, lay) -> str:
+    """Hold :func:`_moe_layer_split`'s result to ``MOE_LAYER_RTOL`` (the
+    aux to 1e-6) and its drops to the whole layer's, and say so."""
+    err = lay["err"]
     worst = max(v for k, v in err.items() if k != "aux")
     if not (worst <= MOE_LAYER_RTOL and err["aux"] <= 1e-6):
-        fail(f"train_moe {label}: the exchanged layer differs from the "
-             f"whole one: {err}")
+        fail(f"train_moe {label}: the split layer differs from the whole "
+             f"one: {err}")
+    if not 0 < lay["dropped"] == lay["whole_dropped"]:
+        fail(f"train_moe {label}: the split layer dropped {lay['dropped']} "
+             f"(token, choice) pairs, the whole layer "
+             f"{lay['whole_dropped']}")
     grads = max(v for k, v in err.items() if k not in ("y", "aux"))
-    return (f"one layer against the whole layer, normwise: y "
-            f"{err['y']:.3g}, grads {grads:.3g} (bar {MOE_LAYER_RTOL}), "
-            f"aux {err['aux']:.3g} (bar 1e-6)")
+    R, S, _ = lay["shape"]
+    return (f"one layer {lay['shape']} skewed to expert 0 against the "
+            f"whole layer, normwise: y {err['y']:.3g}, grads {grads:.3g} "
+            f"(bar {MOE_LAYER_RTOL}), aux {err['aux']:.3g} (bar 1e-6); "
+            f"dropped (token, choice) pairs {lay['dropped']} of "
+            f"{MOE_TOP_K * R * S}, the whole layer {lay['whole_dropped']}")
 
 
 def phase_train_moe(dev, card: str):
@@ -3688,10 +3832,16 @@ def phase_train_moe(dev, card: str):
     processes on cuda:0 over gloo, fp32, each with 4 experts: one layer
     against the whole layer within ``MOE_LAYER_RTOL``, the engines'
     losses within ``MOE_LOSS_RTOL`` of (b)'s einsum engine, the counters
-    equal to the shapes'.  Returns arm (a)'s flash launches."""
+    equal to the shapes'; (d) sp 2 with Ulysses attention as two
+    processes on cuda:0 over gloo, fp32, all experts on each: one layer
+    split over seq against the whole layer within ``MOE_LAYER_RTOL`` and
+    with the same drops, the engines' losses within ``MOE_LOSS_RTOL`` of
+    (b)'s einsum engine, the flash launches and the seq collectives equal
+    to the shapes'.  Returns arm (a)'s flash launches."""
     a = _moe_arm_a(dev, card)
     ref, digest = _moe_arm_b(dev, card)
     _moe_arm_c(ref, digest, card)
+    _moe_arm_d(ref, digest, card)
     return a
 
 
@@ -3768,7 +3918,7 @@ def _moe_arm_c(ref, digest, card: str):
     for res in ranks:
         r = res["fp32"]
         label = f"(c) ep {MOE_EP} data rank {res['data_index']}"
-        layer = _moe_check_layer_ep(label, res["layer"])
+        layer = _moe_check_layer(label, res["layer"])
         if r["wi_piece"][1] != MOE_EXPERTS // MOE_EP:
             fail(f"train_moe {label}: moe/wi piece {r['wi_piece']}")
         per = _moe_check_flash(label, r["launches"], L, M // MOE_EP, False,
@@ -3789,6 +3939,125 @@ def _moe_arm_c(ref, digest, card: str):
         if not worst <= MOE_LOSS_RTOL:
             fail(f"train_moe {label}: fp32 losses {r['losses']} differ "
                  f"from ep 1's {ref}")
+
+
+#: train_moe arm (d): GPT-2 small MoE with Ulysses attention over a seq
+#: axis of SEQ_SP, fp32, as two processes on cuda:0 over gloo
+_MOE_SEQ_RANK = _PIPE_RANK.replace("pipe_rank", "moe_seq_rank")
+
+
+def moe_seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
+                 backend: str = "gloo", dp: int = 1, micro: int = MOE_EP,
+                 ga: int = PIPE_GA // MOE_EP, arms: str = "fp32",
+                 after=None) -> None:
+    """One rank of GPT-2 small MoE with Ulysses attention on a mesh of dp
+    × (``world``/dp) seq ranks, from :func:`_moe_tree`: over gloo every
+    process on cuda:0 (train_moe's arm (d), dp 1), over NCCL one card a
+    process (``profile_moe_torch.py``).  First one MoE layer against the
+    whole layer (:func:`_moe_layer_split`), then the engines on
+    train_pipe's batch (each data rank its rows, ``micro`` a micro-batch,
+    ``ga`` of them), the ``arms`` (comma-separated "fp32", "bf16") in
+    turn, each arm's result passed to ``after(eng, tokens, result)`` when
+    given.  Prints one ``MOE_SEQ_RANK`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from deepspeed_tpu_torch.parallel import build_mesh
+    from deepspeed_tpu_torch.runtime.dataloader import rank_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    out = {"rank": rank}
+    try:
+        tree, mine = _moe_tree()
+        if mine != digest:
+            raise AssertionError(f"rank {rank}: weight tree digest {mine} "
+                                 f"!= the one-process engines' {digest}")
+        mesh = build_mesh(dp=dp, sp=world // dp)
+        d = out["data_index"] = mesh.axis_index("data")
+        out["seq_index"] = mesh.axis_index("seq")
+        out["layer"] = _moe_layer_split(mesh, dev)
+        tokens = torch.from_numpy(rank_rows(_pipe_tokens(), ga, dp,
+                                            d)).to(dev)
+        for label in arms.split(","):
+            block = {"bf16": {"enabled": True}} if label == "bf16" else {}
+            eng = _moe_engine(dev, block, micro, ga, mesh=mesh, params=tree,
+                              attn="ulysses")
+            out[label] = r = _seq_steps(eng, tokens, MOE_STEPS, dev,
+                                        ("seq", "ep"))
+            if after is not None:
+                after(eng, tokens, r)
+            eng.close()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("MOE_SEQ_RANK " + json.dumps(out), flush=True)
+
+
+def moe_seq_collectives(micro: int, micro_steps: int, sp: int,
+                        elt: int) -> dict:
+    """The seq collectives a step a rank, worked out from the shapes: per
+    block and micro-step, Ulysses' two all-to-alls forward (q, k and v
+    stacked ``[3, B, H, T/sp, Dh]`` to heads; the output ``[B, H/sp, T,
+    Dh]`` back) and their two transposes backward; per MoE layer and
+    micro-step one gather of the routing counts ``[k, B, E]`` (fp32) in
+    the forward."""
+    cfg = _moe_model_cfg()
+    L, n_moe, d = cfg.n_layer, len(cfg.moe_layers), cfg.d_model
+    t = cfg.n_positions // sp
+    a2a = 2 * (3 + 1) * micro * t * d * elt
+    gather = MOE_TOP_K * micro * MOE_EXPERTS * 4
+    return {"calls": micro_steps * (L * 4 + n_moe),
+            "bytes": micro_steps * (L * a2a + n_moe * gather)}
+
+
+def _moe_arm_d(ref, digest, card: str):
+    L, M = 12, PIPE_GA
+    ranks = _pipe_ranks(digest, SEQ_SP, script=_MOE_SEQ_RANK,
+                        tag="MOE_SEQ_RANK")
+    want = moe_seq_collectives(MOE_EP, M // MOE_EP, SEQ_SP, 4)
+    for res in ranks:
+        r = res["fp32"]
+        label = f"(d) sp {SEQ_SP} seq rank {res['seq_index']}"
+        layer = _moe_check_layer(label, res["layer"])
+        per = _moe_check_flash(label, r["launches"], L, M // MOE_EP, False,
+                               MOE_STEPS - 1)
+        q = r["seq"]
+        for k in ("calls", "bytes"):
+            if q.get(k, 0) != want[k]:
+                fail(f"train_moe {label}: the seq collectives' {k} a step "
+                     f"{q.get(k, 0)}, {want[k]} from the shapes")
+        if q.get("staged", 0) != 2 * want["calls"]:
+            fail(f"train_moe {label}: {q.get('staged', 0)} host stagings a "
+                 f"step")
+        if not all(np.isfinite(r["losses"])):
+            fail(f"train_moe {label}: losses {r['losses']}")
+        if r["losses"] != ranks[0]["fp32"]["losses"]:
+            fail(f"train_moe {label}: the seq ranks return different "
+                 f"losses")
+        diff = max(abs(x - y) / abs(y) for x, y in zip(r["losses"], ref))
+        secs = q.get("seconds", 0.0)
+        print(f"[train_moe] {label} (gloo, cuda:0, Ulysses, all "
+              f"{MOE_EXPERTS} experts): {layer}; engine "
+              f"{r['step_ms']:.1f} ms per "
+              f"step, peak {r['peak_mib']:.1f} MiB; seq collectives "
+              f"{q['calls']:.0f} calls, {q['bytes']:.0f} B, "
+              f"{q['staged']:.0f} host stagings, {secs * 1e3:.1f} ms per "
+              f"step ({want['calls']} calls and {want['bytes']} B from the "
+              f"shapes: the Ulysses all-to-alls and one routing-count "
+              f"gather a MoE layer); expert exchange on the one-rank data "
+              f"group {r['ep'].get('calls', 0):.0f} calls, "
+              f"{r['ep'].get('bytes', 0):.0f} B; flash launches per step "
+              f"{per}; losses "
+              f"{r['losses']} vs (b)'s {ref}: max rel diff {diff:.3g} (bar "
+              f"{MOE_LOSS_RTOL}) [{card}]")
+        if not diff <= MOE_LOSS_RTOL:
+            fail(f"train_moe {label}: fp32 losses {r['losses']} differ "
+                 f"from (b)'s {ref}")
 
 
 # ---------------------------------------------------------------------------
@@ -5632,7 +5901,64 @@ def phase_sparse(dev):
     if not err <= TOL["bfloat16"] * top:
         fail(f"sparse: the gather path differs from the kernel path by {err}"
              f", above {TOL['bfloat16']} x {top}")
+    _sparse_composition(dev)
     return launches
+
+
+def _sparse_composition(dev):
+    """The standalone ops composed as the reference's attention composes
+    them — ``MatMul(sdd, trans_b)`` → ``Softmax(scale)`` → ``MatMul(dsd)``
+    — in bf16 at ``SPARSE_SHAPE`` on the Fixed layout's first head (the
+    layout is the same for every head), against the block-sparse forward
+    kernel (row 8) on the same inputs, within its bf16 tolerance of the
+    largest output magnitude; both times printed.  These launches
+    compare and time: they are not counted."""
+    import torch
+    from deepspeed_tpu_torch.ops.kernels import block_sparse_attention as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, MatMul, Softmax)
+    B, H, T, D = SPARSE_SHAPE
+    block = 16
+    layout = FixedSparsityConfig(num_heads=H).make_layout(T)
+    if not (layout == layout[:1]).all():
+        fail("sparse composition: the Fixed layout differs across heads")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 9)
+    q, k, v = (torch.randn(SPARSE_SHAPE, generator=g, device=dev).bfloat16()
+               for _ in range(3))
+    scale = D ** -0.5
+    sdd = MatMul(layout[0], block, "sdd", trans_b=True)
+    dsd = MatMul(layout[0], block, "dsd")
+    softmax = Softmax(layout[0], block)
+    (cols, nvalid, _, _), groups = _sparse_tables(bs, layout, block, dev)
+
+    def composed():
+        return dsd(softmax(sdd(q, k), scale=scale), v)
+
+    def kernel():
+        return bs.block_sparse_fwd_cuda(q, k, v, cols, nvalid, scale, block,
+                                        groups)[0]
+
+    with torch.no_grad():
+        got, want = composed(), kernel()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        top = want.float().abs().max().item()
+        # CUDA events around back-to-back calls: both keep the card busy
+        # (the kernel's 0.3 ms against its wrapper's tens of µs), and the
+        # profiler, read by every phase before this one, is left alone
+        ms_k, ms_c = time_ms(kernel, 10), time_ms(composed, 10)
+    print(f"[sparse] sdd -> softmax -> dsd from the standalone ops (Fixed "
+          f"layout's first head, block {block}, {sdd.index.nnz} active "
+          f"blocks of {sdd.index.nb_r ** 2}), bf16 {list(SPARSE_SHAPE)}: "
+          f"against the block-sparse forward kernel max abs diff {err:.3g} "
+          f"= {err / top:.3g} of the largest output magnitude {top:.3g} "
+          f"(bar {TOL['bfloat16']}); ms a call (CUDA events, 10 calls "
+          f"back to back): composition {ms_c:.4f}, kernel {ms_k:.4f} "
+          f"({ms_c / ms_k:.1f}x) [{smi()}]")
+    if not (torch.isfinite(got).all() and err <= TOL["bfloat16"] * top):
+        fail(f"sparse: the composition differs from the kernel by {err}, "
+             f"above {TOL['bfloat16']} x {top}")
 
 
 def mlm_batch(rows, seq, vocab, seed):

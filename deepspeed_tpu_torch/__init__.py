@@ -22,9 +22,11 @@ idle serving sessions (``inference.kv_tier``); and block-sparse attention
 ``PipelineModule`` of ``LayerSpec``s, the 1F1B and GPipe schedules over
 ``torch.distributed`` point-to-point, GPT-2 and BERT as pipeline modules
 in ``models.gpt2_pipe`` and ``models.bert_pipe``); sequence and expert
-parallelism (``parallel.sequence``, ``moe``); and compressed data
-parallelism (``compress``: 1-bit Adam's sign-compressed momentum
-exchange; ``runtime.csr_tensor``: CSR embedding gradients).  Kernels:
+parallelism (``parallel.sequence``, ``moe``), composed (GPT-2 MoE on a
+``seq`` axis); compressed data parallelism (``compress``: 1-bit Adam's
+sign-compressed momentum exchange; ``runtime.csr_tensor``: CSR embedding
+gradients); the standalone block-sparse ``MatMul``/``Softmax`` ops and
+activation checkpointing (``checkpointing``).  Kernels:
 flash attention forward and
 backward, the four decode-attention kernels and the block-sparse forward,
 dQ and dK/dV.  ROADMAP.md lists what comes next.
@@ -38,6 +40,7 @@ from __future__ import annotations
 from .config.constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER  # noqa: F401
 from .ops.transformer import (DeepSpeedTransformerConfig,  # noqa: F401
                               DeepSpeedTransformerLayer)
+from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 from .version import __version__  # noqa: F401
 
 

@@ -22,9 +22,13 @@ form and one group in the grouped forms.  Under the XLA offload tier's
 ``param_streaming`` the three stacks stay in pinned host memory and each
 block fetches its rows (``runtime/offload_xla.py``).
 
-Not ported: a ``seq`` axis under MoE (the engine and :func:`moe_ffn`
-raise, naming ROADMAP.md queue 1, item 11, expert × sequence
-parallelism).
+With ``attn_impl="ring"`` or ``"ulysses"`` the model trains on a
+``seq`` axis (:attr:`GPT2MoEModel.seq_parallel`), as ``models/gpt2.py``
+does: each seq rank holds its token shard from the embedding to the
+loss (its ``wpe`` rows, dropout masks drawn over the whole sequence,
+the loss a ``token_mean`` over ``seq`` with the aux added once), and
+:func:`moe_ffn` routes the shard as the whole sequence would be routed
+(global capacity, positions and drops).
 """
 from __future__ import annotations
 
@@ -38,10 +42,10 @@ from torch.utils.checkpoint import checkpoint
 from ..moe.layer import MoEConfig, init_moe_params, moe_ffn, moe_param_specs
 from ..parallel.mesh import MODEL_AXIS
 from ..runtime.module import TrainModule
-from ..runtime.utils import data_rows, dropout as _dropout, fold_in
+from ..runtime.utils import data_rows, dropout as _dropout, fold_in, seq_tokens
 from .gpt2 import (GPT2Config, _embed_tokens, _layer_norm, _logits,
                    _vocab_parallel, _vocab_parallel_nll, gpt2_attn_sublayer,
-                   gpt2_ffn)
+                   gpt2_ffn, token_mean)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +157,8 @@ def _dense_block(cfg, layers, i: int, d_idx: int, x, lrng, train, mesh):
     h = _layer_norm(x, ap["ln2_scale"], ap["ln2_bias"])
     y = gpt2_ffn(layers[1](d_idx), h, mesh)
     return x + _dropout(y, cfg.dropout if train else 0.0, fold_in(r_ffn, 1),
-                        data_rows(mesh, x.shape[0]))
+                        data_rows(mesh, x.shape[0]),
+                        seq_tokens(mesh, x.shape[1]))
 
 
 def _moe_block(cfg, layers, i: int, m_idx: int, x, lrng, train, mesh):
@@ -164,7 +169,8 @@ def _moe_block(cfg, layers, i: int, m_idx: int, x, lrng, train, mesh):
     h = _layer_norm(x, ap["ln2_scale"], ap["ln2_bias"])
     y, aux = moe_ffn(cfg.moe_cfg(), layers[2](m_idx), h, r_ffn, train, mesh)
     return x + _dropout(y, cfg.dropout if train else 0.0, fold_in(r_ffn, 1),
-                        data_rows(mesh, x.shape[0])), aux
+                        data_rows(mesh, x.shape[0]),
+                        seq_tokens(mesh, x.shape[1])), aux
 
 
 def _group(cfg, layers, g: int, x, rng, train, mesh):
@@ -195,11 +201,18 @@ class GPT2MoEModel(TrainModule):
     #: the layer-stacked subtrees the training engine fetches one layer
     #: at a time (``runtime/zero.py``)
     stacked_layers = ("attn", "dense_ffn", "moe")
-    #: the engine places the experts over ``data`` and refuses a seq axis
+    #: the engine places the experts over ``data``
     expert_parallel = True
 
     def __init__(self, config: GPT2MoEConfig):
         self.config = config
+
+    @property
+    def seq_parallel(self) -> bool:
+        """Trains on a ``seq`` axis (ring or Ulysses attention), as
+        ``GPT2Model.seq_parallel`` says: the engine gives a seq rank its
+        window of the next-token rows ``[B, T+1]``."""
+        return self.config.attn_impl in ("ring", "ulysses")
 
     def init(self, seed: int, device=None,
              dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
@@ -285,17 +298,19 @@ class GPT2MoEModel(TrainModule):
         loss, an fp32 scalar)."""
         cfg = self.config
         B, T = tokens.shape
-        if T > cfg.n_positions:
-            raise ValueError(
-                f"sequence length {T} exceeds n_positions={cfg.n_positions}")
-        # the training engine's mesh (data rows, expert and tensor-
-        # parallel pieces), None outside it
+        # the training engine's mesh (data rows, seq shard, expert and
+        # tensor-parallel pieces), None outside it
         mesh = getattr(params["attn"], "mesh", None)
+        seq = seq_tokens(mesh, T)
+        off, total = seq if seq is not None else (0, T)
+        if total > cfg.n_positions:
+            raise ValueError(f"sequence length {total} exceeds "
+                             f"n_positions={cfg.n_positions}")
         tokens = tokens.long()
         x = (_embed_tokens(cfg, params["wte"], tokens, mesh)
-             + params["wpe"][:T][None])
+             + params["wpe"][off:off + T][None])
         x = _dropout(x, cfg.embd_dropout if train else 0.0,
-                     fold_in(rng, 997), data_rows(mesh, B))
+                     fold_in(rng, 997), data_rows(mesh, B), seq)
         layers = tuple(_layers(params[k]) for k in self.stacked_layers)
         remat = cfg.remat == "block" and torch.is_grad_enabled()
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -333,7 +348,10 @@ class GPT2MoEModel(TrainModule):
     def loss_fn(self, params, batch, rng: Optional[int],
                 train: bool = True) -> torch.Tensor:
         """Mean next-token NLL (fp32 ``log_softmax``) plus the aux loss.
-        ``batch``: tokens [B, T+1] or a dict with ``input_ids``."""
+        ``batch``: tokens [B, T+1] or a dict with ``input_ids`` — under a
+        seq axis the rank's window of them: the NLL is a ``token_mean``
+        over ``seq`` and the aux, already the whole batch's, is added
+        once."""
         tokens = batch["input_ids"] if isinstance(batch, dict) else batch
         logits, aux = self.apply(params, tokens[:, :-1], rng, train)
         targets = tokens[:, 1:].long()
@@ -344,4 +362,4 @@ class GPT2MoEModel(TrainModule):
         else:
             logp = torch.log_softmax(logits.float(), dim=-1)
             nll = -torch.gather(logp, -1, targets[..., None])
-        return nll.mean() + aux
+        return token_mean(nll, mesh) + aux

@@ -31,14 +31,36 @@ exchange runs in the data group of the rank's model index.  Where
 ``data`` does not divide ``E`` the experts stay replicated and each rank
 runs all of them on its own tokens, with no exchange.
 
+Sequence parallelism.  Under a mesh with a ``seq`` axis of sp > 1 each
+rank holds ``S/sp`` tokens of every row, and the layer computes what the
+JAX layer computes on the whole sequence: the capacity is that of the
+whole row (``C = capacity(sp · S)``); each token's arrival position is
+its rank-local ``cumsum`` plus the counts ``[G, E]`` of its choice on the
+lower seq ranks, and a second choice queues behind every first choice of
+the whole row, so the drops fall on global positions.  One all-gather of
+the routing counts over ``seq`` (``collectives.seq_all_gather``) gives
+both.  Each rank fills only its own tokens' slots of the global
+``[E, G, C, d]`` buffer and runs the experts (and the exchange over
+``data``) on that partial buffer: the expert FFN is slotwise, a token's
+output depends on its own slot only, and a slot another rank filled gets
+no cotangent here (its combine weight is zero on this rank), so the
+expert gradients hold the rank's tokens and ZeRO's sum over ``seq``
+(``runtime/zero.py``) completes them once.
+
 The aux loss is the JAX layer's over the GLOBAL batch: the routed
-counts and the probability sums are summed over ``data`` before their
-product, and the z-loss is a mean over every token, each through
-``collectives.sum_over_axis`` (its backward all-reduces the cotangents,
-as the one-program gradient would).  The jitter's uniform draw covers
-the global rows (``runtime.utils.data_rows``), so a data-parallel run
-equals the one-rank run.  ``rng`` is the port's host-integer seed; the
-jitter's seed is ``fold_in(rng, 11)``, as the JAX layer folds its key.
+counts and the probability sums are summed over ``data`` and ``seq``
+before their product, and the z-loss is a mean over every token.  Over
+``data`` the sums go through ``collectives.sum_over_axis`` (its backward
+all-reduces the cotangents: the engine averages the data ranks'
+gradients, and every rank's loss takes the aux whole); over ``seq``
+through ``collectives.reduce_from_axis`` (its backward passes the
+cotangent through: the engine sums the seq ranks' gradients, so each
+rank back-propagates its own tokens' share, as ``token_mean`` does for
+the loss).  The jitter's uniform draw covers the global rows and the
+whole sequence (``runtime.utils.data_rows``, ``seq_tokens``), so a data-
+or sequence-parallel run equals the one-rank run.  ``rng`` is the port's
+host-integer seed; the jitter's seed is ``fold_in(rng, 11)``, as the JAX
+layer folds its key.
 """
 from __future__ import annotations
 
@@ -51,13 +73,7 @@ import torch.nn.functional as F
 
 from ..parallel import collectives as col
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
-from ..runtime.utils import data_rows, fold_in, seeded_generator
-
-#: the refusal of a seq axis under a MoE layer (the capacity positions
-#: would have to be prefix-summed across the seq shards)
-SEQ_UNPORTED = ("MoE on a seq axis is not ported to deepspeed_tpu_torch "
-                "yet: ROADMAP.md queue 1, item 11 (expert × sequence "
-                "parallelism)")
+from ..runtime.utils import data_rows, fold_in, seeded_generator, seq_tokens
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,20 +175,41 @@ def _choice_positions(mask, base):
     """Each (token, expert)'s arrival position [G, S, E] for one choice's
     one-hot mask, in fp32 as the JAX layer keeps it (the drops compare
     it with the capacity); ``base`` [G, 1, E] queues this choice behind
-    the earlier choices' assignments.  -1 where not selected."""
+    the earlier choices' assignments (and, on a seq shard, behind the
+    lower seq ranks' tokens).  -1 where not selected."""
     return (torch.cumsum(mask, dim=1) + base) * mask - 1.0
 
 
-def _einsum_dispatch(choices, capacity: int):
+def _queue_bases(choices, mesh):
+    """(each choice's ``base`` [G, 1, E], the first choices' counts [E]
+    over the rank's rows of the whole sequence).  GShard order: choice k
+    queues behind every earlier choice of the whole row.  On a seq axis
+    of sp > 1 the counts ``[k, G, E]`` of every seq rank are gathered
+    once: a choice's base adds its counts on the lower seq ranks, and
+    the second choice's adds every seq rank's first choices."""
+    counts = torch.stack([m.sum(dim=1) for _idx, _gate, m in choices])
+    sp = 1 if mesh is None else mesh.axis_size(SEQ_AXIS)
+    if sp > 1:
+        every = col.seq_all_gather(counts, mesh)           # [sp, k, G, E]
+        lower = every[:mesh.axis_index(SEQ_AXIS)].sum(dim=0)
+        total = every.sum(dim=0)
+    else:
+        lower, total = torch.zeros_like(counts), counts
+    bases, behind = [], torch.zeros_like(counts[0])
+    for k in range(len(choices)):
+        bases.append((behind + lower[k])[:, None, :])
+        behind = behind + total[k]
+    return bases, total[0].sum(dim=0)
+
+
+def _einsum_dispatch(choices, bases, capacity: int):
     """(dispatch [G, S, E, C] in {0, 1}, combine [G, S, E, C]): the
     one-hot formulation.  ``jax.nn.one_hot`` gives a zero row for a
     position of -1 or >= C, where ``F.one_hot`` raises: the position is
     clamped into range and those rows zeroed by the keep mask."""
     dispatch = combine = None
-    base = torch.zeros_like(choices[0][2][:, :1, :])
-    for _idx, gate, mask in choices:
+    for (_idx, gate, mask), base in zip(choices, bases):
         pos = _choice_positions(mask, base)
-        base = base + mask.sum(dim=1, keepdim=True)
         keep = (pos >= 0) & (pos < capacity)
         slot = pos.clamp(0, capacity - 1).long()
         d = (F.one_hot(slot, capacity).to(mask.dtype)
@@ -225,8 +262,8 @@ def _experts(mp: Dict[str, Any], ein, mesh):
     return eo
 
 
-def _scatter_moe(cfg: MoEConfig, mp: Dict[str, Any], x, probs,
-                 capacity: int, choices, mesh):
+def _scatter_moe(cfg: MoEConfig, mp: Dict[str, Any], x, capacity: int,
+                 choices, bases, mesh):
     """Scatter/gather dispatch: each kept token added into its slot of
     a ``[G·E·C, d]`` buffer (``index_add``), the experts run on it, and
     each token's output gathered back and gated.  Slots are unique by
@@ -235,11 +272,9 @@ def _scatter_moe(cfg: MoEConfig, mp: Dict[str, Any], x, probs,
     G, S, d = x.shape
     E, C = cfg.n_experts, capacity
     dt = x.dtype
-    base = torch.zeros((G, 1, E), dtype=probs.dtype, device=x.device)
     slots = []
-    for idx, gate, mask in choices:
+    for (idx, gate, mask), base in zip(choices, bases):
         pos = _token_slots(mask, base)                       # [G, S]
-        base = base + mask.sum(dim=1, keepdim=True)
         keep = pos < C
         slot = idx * C + torch.clamp(pos, max=C - 1.0).long()
         slots.append((slot, keep, gate))
@@ -261,56 +296,69 @@ def _scatter_moe(cfg: MoEConfig, mp: Dict[str, Any], x, probs,
     return y
 
 
+def _global_sum(v, mesh):
+    """``v`` summed over the global batch: over ``data`` with its
+    cotangent all-reduced, over ``seq`` with it passed through (the
+    module docstring says why)."""
+    if mesh is None:
+        return v
+    v = col.sum_over_axis(v, mesh, DATA_AXIS)
+    if mesh.axis_size(SEQ_AXIS) > 1:
+        v = col.reduce_from_axis(v, mesh, SEQ_AXIS)
+    return v
+
+
 def moe_ffn(cfg: MoEConfig, mp: Dict[str, Any], x: torch.Tensor,
             rng: Optional[int], train: bool = True,
             mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [G, S, d] → (y [G, S, d], the weighted aux loss, an fp32 scalar,
     the same on every rank).  ``mesh``: the training engine's (the rank's
-    rows of the global batch, its expert and tensor-parallel pieces);
-    None for one process holding everything.  Dropped tokens give y = 0
-    at their positions."""
+    rows of the global batch and its token shard of the sequence, its
+    expert and tensor-parallel pieces); None for one process holding
+    everything.  Dropped tokens give y = 0 at their positions."""
     G, S, d = x.shape
     E = cfg.n_experts
-    C = cfg.capacity(S, train)
-    if mesh is not None and mesh.axis_size(SEQ_AXIS) > 1:
-        raise NotImplementedError(SEQ_UNPORTED)
+    seq = seq_tokens(mesh, S)
+    s_all = S if seq is None else seq[1]              # the whole sequence
+    C = cfg.capacity(s_all, train)
     rows = data_rows(mesh, G)
     g_all = G if rows is None else rows[1]           # the global rows
-    n_tok = float(g_all * S)
+    n_tok = float(g_all * s_all)
     x_gate = x.float()
     if train and cfg.router_jitter > 0.0:
         eps = cfg.router_jitter
-        u = torch.rand((g_all, S, d), device=x.device,
+        u = torch.rand((g_all, s_all, d), device=x.device,
                        generator=seeded_generator(fold_in(rng, 11),
                                                   x.device))
         if rows is not None:
             u = u[rows[0]:rows[0] + G]
+        if seq is not None:
+            u = u[:, seq[0]:seq[0] + S]
         x_gate = x_gate * ((1.0 - eps) + (2.0 * eps) * u)
     logits = x_gate @ mp["wg"].float()                        # [G, S, E]
     probs = torch.softmax(logits, dim=-1)
     choices = _route(probs, cfg.top_k)
+    bases, routed = _queue_bases(choices, mesh)
 
     # Switch load-balance loss over the global batch: E · Σ_e (fraction
     # routed to e) · (mean router prob of e), 1.0 at perfect balance —
-    # the counts and sums reduced over ``data`` before the product
-    routed = choices[0][2].sum(dim=(0, 1))
+    # the counts and sums reduced over ``data`` and ``seq`` before the
+    # product (``routed`` holds the whole sequence's already)
     prob_sum = probs.sum(dim=(0, 1))
     if mesh is not None:
         routed = col.psum(routed, mesh, DATA_AXIS)
-        prob_sum = col.sum_over_axis(prob_sum, mesh, DATA_AXIS)
+    prob_sum = _global_sum(prob_sum, mesh)
     aux = cfg.aux_loss_weight * E * torch.sum(
         (routed / n_tok) * (prob_sum / n_tok))
     if cfg.z_loss_weight > 0.0:
         z = torch.logsumexp(logits, dim=-1)
-        zz = (z * z).sum()
-        if mesh is not None:
-            zz = col.sum_over_axis(zz, mesh, DATA_AXIS)
+        zz = _global_sum((z * z).sum(), mesh)
         aux = aux + cfg.z_loss_weight * (zz / n_tok)
 
     if cfg.dispatch_impl == "scatter":
-        return _scatter_moe(cfg, mp, x, probs, C, choices, mesh), aux
+        return _scatter_moe(cfg, mp, x, C, choices, bases, mesh), aux
 
-    dispatch, combine = _einsum_dispatch(choices, C)
+    dispatch, combine = _einsum_dispatch(choices, bases, C)
     dt = x.dtype
     ein = torch.einsum("gsec,gsd->egcd", dispatch.to(dt), x)
     eo = _experts(mp, ein, mesh)

@@ -32,7 +32,9 @@ shift stage a CUDA tensor through host memory, each staging counted in
 signs and scales, ``onebit_stats``, or of a CSR gradient's indices and
 values, ``csr_stats``) and 1-bit Adam's packed-sign all-to-all,
 :func:`onebit_all_to_all`; both stage a CUDA tensor through host memory
-on gloo too.
+on gloo too.  Expert × sequence parallelism adds :func:`seq_all_gather`
+(the MoE layer's routing counts over ``seq``, counted in ``seq_stats``
+beside the all-to-alls and rotations).
 
 Each function returns a new tensor and leaves its input as it was.  On a
 local mesh (no process group) an axis has one rank and each collective
@@ -58,7 +60,8 @@ from .mesh import DATA_AXIS, SEQ_AXIS, Mesh
 #: calls per collective in this process (``reduce`` counts psum, pmean
 #: and pmax)
 calls: collections.Counter = collections.Counter()
-#: the seq pairs' traffic in this process, forward and backward: ``calls``,
+#: the seq pairs' traffic in this process, forward and backward, and the
+#: MoE routing counts' gather (:func:`seq_all_gather`): ``calls``,
 #: ``bytes`` (of the send buffers, the rank's own chunk included),
 #: ``staged`` (tensors copied through host memory for gloo) and
 #: ``seconds`` (host wall time of the exchange: on a staged call the
@@ -412,12 +415,11 @@ def onebit_all_to_all(x: torch.Tensor, mesh: Mesh,
     return out
 
 
-def data_all_gather(x: torch.Tensor, mesh: Mesh, stats: collections.Counter,
-                    axis: str = DATA_AXIS) -> torch.Tensor:
-    """``[world, *x.shape]``: every index of ``axis``'s ``x`` in axis order
-    (``lax.all_gather``), its traffic counted in ``stats``
-    (``onebit_stats`` or ``csr_stats``).  On gloo a CUDA tensor is staged
-    through host memory."""
+def _stacked_gather(x: torch.Tensor, mesh: Mesh, axis: str,
+                    stats: collections.Counter) -> torch.Tensor:
+    """``[world, *x.shape]``: every index of ``axis``'s ``x`` in axis
+    order, counted in ``stats``; on gloo a CUDA tensor is staged through
+    host memory."""
     g = mesh.group(axis)
     if g is None:
         return x[None].clone()
@@ -439,5 +441,24 @@ def data_all_gather(x: torch.Tensor, mesh: Mesh, stats: collections.Counter,
     stats["seconds"] += time.perf_counter() - t0
     stats["calls"] += 1
     stats["bytes"] += send.numel() * send.element_size()
-    _dtype_bytes(stats, send)
     return out
+
+
+def data_all_gather(x: torch.Tensor, mesh: Mesh, stats: collections.Counter,
+                    axis: str = DATA_AXIS) -> torch.Tensor:
+    """``[world, *x.shape]``: every index of ``axis``'s ``x`` in axis order
+    (``lax.all_gather``), its traffic counted in ``stats``
+    (``onebit_stats`` or ``csr_stats``, with the bytes by dtype too).  On
+    gloo a CUDA tensor is staged through host memory."""
+    out = _stacked_gather(x, mesh, axis, stats)
+    if mesh.group(axis) is not None:
+        _dtype_bytes(stats, x)
+    return out
+
+
+def seq_all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``[sp, *x.shape]``: every seq index's ``x`` in seq order — the MoE
+    layer's routing counts, which carry no gradient (the result is
+    detached).  Counted in ``seq_stats``; on gloo a CUDA tensor is staged
+    through host memory."""
+    return _stacked_gather(x.detach(), mesh, SEQ_AXIS, seq_stats)

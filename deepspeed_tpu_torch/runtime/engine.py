@@ -121,9 +121,11 @@ gathered over ``data`` (``runtime/csr_tensor.py``) and averages the
 others; otherwise it logs why and takes the dense step.  Every other
 config knob whose path is not ported raises ``NotImplementedError``
 naming its ROADMAP.md item: 1-bit Adam over tensor-parallel or pipeline
-pieces, 1-bit Adam or CSR gradients per worker over experts or over a
-tensor-parallel mesh (item 11, compressed parallelism), and a MoE model
-on a seq axis (item 11, expert × sequence parallelism).
+pieces, and 1-bit Adam or CSR gradients per worker over experts or over
+a tensor-parallel mesh (item 11, compressed parallelism).  A MoE model
+on a seq axis (ring or Ulysses attention) trains like GPT-2: its batch
+rows are cut to the seq window, and its experts' gradients, which hold
+the rank's tokens, are summed over ``seq`` with the rest.
 """
 from __future__ import annotations
 
@@ -321,19 +323,13 @@ class DeepSpeedEngine(XlaOffloadTier):
         self.mesh = mesh
         self.dp_world_size = mesh_axis_size(mesh, DATA_AXIS)
         self.sp_world_size = mesh_axis_size(mesh, SEQ_AXIS)
-        if self.sp_world_size > 1 and getattr(model, "expert_parallel",
-                                              False):
-            raise _unported(
-                f"{type(model).__name__} on a seq axis (the mesh has "
-                f"seq={self.sp_world_size})",
-                "item 11 (expert × sequence parallelism)")
         if self.sp_world_size > 1 and not getattr(model, "seq_parallel",
                                                   False):
             raise ValueError(
                 f"{type(model).__name__} does not train on a seq axis "
                 f"(the mesh has seq={self.sp_world_size}): sequence "
                 "parallelism needs a model that declares seq_parallel "
-                "(GPT-2 with attn_impl='ring' or 'ulysses')")
+                "(GPT-2 or GPT-2 MoE with attn_impl='ring' or 'ulysses')")
         self._onebit_path = (config.optimizer_name == C.ONEBIT_ADAM_OPTIMIZER
                              and optimizer is None)
         self._sparse_path = self._use_sparse_grads()

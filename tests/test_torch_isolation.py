@@ -207,6 +207,53 @@ def test_disk_xla_streaming_and_lut_run_with_jax_unimportable():
     assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
 
 
+def test_sparse_matmul_checkpointing_and_moe_seq_run_with_jax_unimportable():
+    """The modules item 13's residue adds (``ops/sparse_attention/
+    matmul.py``, ``runtime/activation_checkpointing/``) and the MoE layer's
+    seq path run with jax made unimportable: sdd → softmax → dsd, a
+    ``cpu_checkpointing`` region through the host hooks, and GPT-2 MoE
+    with ring attention trained a step on a one-rank gloo group's
+    seq-axis mesh (sp 1)."""
+    code = ("import sys, tempfile\n"
+            "for m in ('jax', 'jaxlib', 'deepspeed_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import numpy as np, torch\n"
+            "import deepspeed_tpu_torch as dst\n"
+            "from deepspeed_tpu_torch.ops.sparse_attention import MatMul, "
+            "Softmax\n"
+            "from deepspeed_tpu_torch.models import GPT2MoEConfig, "
+            "GPT2MoEModel\n"
+            "from deepspeed_tpu_torch.parallel import build_mesh, "
+            "init_distributed\n"
+            "lay = np.eye(4, dtype=np.int64)\n"
+            "q = torch.randn(1, 2, 64, 8)\n"
+            "s = MatMul(lay, 16, 'sdd', trans_b=True)(q, q)\n"
+            "o = MatMul(lay, 16, 'dsd')(Softmax(lay, 16)(s, scale=0.5), q)\n"
+            "assert o.shape == q.shape and torch.isfinite(o).all()\n"
+            "ac = dst.checkpointing\n"
+            "ac.configure(checkpoint_in_cpu=True)\n"
+            "w = torch.randn(8, 8, requires_grad=True)\n"
+            "ac.checkpoint(lambda x: torch.tanh(x @ w), torch.randn(2, 8))"
+            ".sum().backward()\n"
+            "assert ac.offload_stats['restored'] > 0\n"
+            "d = tempfile.mkdtemp()\n"
+            "init_distributed(device='cpu', init_method='file://' + d + "
+            "'/store', rank=0, world_size=1)\n"
+            "m = GPT2MoEModel(GPT2MoEConfig(vocab_size=64, n_positions=16, "
+            "d_model=32, n_layer=2, n_head=2, n_experts=2, "
+            "attn_impl='ring'))\n"
+            "assert m.seq_parallel\n"
+            "eng, *_ = dst.initialize(model=m, mesh=build_mesh(sp=1), "
+            "config={'train_micro_batch_size_per_gpu': 1, 'optimizer': "
+            "{'type': 'Adam', 'params': {'lr': 1e-3}}}, device='cpu')\n"
+            "assert torch.isfinite(eng.train_batch(torch.zeros(1, 9, "
+            "dtype=torch.long)))\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "ok" in proc.stdout, proc.stderr
+
+
 TINY = GPT2Config(vocab_size=64, n_positions=32, d_model=64, n_layer=1,
                   n_head=1)
 

@@ -12,8 +12,8 @@ process:
   - 4 ranks (ep 4): ZeRO 0 and 1 with router jitter and dropout, ZeRO 2
     saving a checkpoint that dp2 × tp2 loads (``:275``) and the JAX
     engine's checkpoint loaded back (``:297``), the XLA tier (``:233``)
-    and the host tier, the refusal of a seq mesh, and the exchange's
-    counters against the shapes.
+    and the host tier, and the exchange's counters against the shapes
+    (a seq mesh under MoE: ``tests/test_torch_moe_seq_engine.py``).
 
 The oracle is the JAX package's engine on one device on the same weights
 (its ``GPT2MoEModel.init`` tree) and batches: every rank's 3 fp32 losses
@@ -181,12 +181,6 @@ def _job4(rank, world, trees, b8, work):
     eng = port_engine(conf(2, cpu_offload=True), trees[4], mesh, 4)
     out["host"] = _train(eng, b8, 4, d)
     eng.close()
-    # a seq axis under MoE is refused, naming its ROADMAP entry
-    try:
-        port_engine(conf(2), trees[4], build_mesh(dp=2, sp=2), 2)
-        out["seq"] = None
-    except NotImplementedError as e:
-        out["seq"] = str(e)
     # the JAX engine's checkpoint (written by the pytest process after its
     # second step) continues at ep 4
     done = os.path.join(work, "jax", "latest")
@@ -388,14 +382,6 @@ def test_offload_tiers_at_ep4(tier, job4, refs):
     engine's."""
     for r in job4:
         assert close(r[tier], refs["jax8"]), (tier, r[tier], refs["jax8"])
-
-
-def test_seq_mesh_refused(job4):
-    """A MoE model on a seq axis raises NotImplementedError naming its
-    ROADMAP.md entry."""
-    for r in job4:
-        assert r["seq"] is not None
-        assert "item 11 (expert × sequence parallelism)" in r["seq"]
 
 
 # ---------------------------------------------------------------------------
