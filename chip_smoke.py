@@ -272,7 +272,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             width and depth, 8 micro-batches of 1 x 1024 tokens, dropout
             0.1, Adam, clipping 1.0, every arm from one weight tree (the
             pp-1 module's init at the seed).  (a) pp 1 on a one-rank NCCL
-            group: 1 + 4 bf16 steps under 1F1B and under GPipe, losses
+            group: 1 + 2 bf16 steps under 1F1B and under GPipe, losses
             equal (whether bitwise printed); fp32, 1 + 2 steps; fp32 at
             dropout 0 with the kernels against the dense attention,
             within 1e-4; flash launches 2·L·M, L·M and L·M a step (the
@@ -281,7 +281,7 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             512, 1 + 1 steps: finite, launches 2·24·4, 24·4, 24·4.  (b)
             pp 2: two processes on cuda:0 over a gloo group (NCCL takes
             no two ranks on one card), each one stage, building the same
-            tree (its digest checked): 1 + 2 fp32 and bf16 1F1B steps,
+            tree (its digest checked): 1 + 1 fp32 and bf16 1F1B steps,
             the fp32 losses within 1e-5 relative of (a)'s, the first bf16
             loss within 1e-2 of (a)'s, each rank's launches half of (a)'s;
             each rank's step ms, peak MiB, point-to-point calls, bytes,
@@ -290,7 +290,9 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             the card's name and power limit.
 27. train_seq  (after train_pipe) sequence parallelism through
             ``initialize()`` on a mesh with a seq axis of 2: GPT-2 small
-            at full width and depth on train_pipe's batch (8 micro-batches
+            at full width and a third of its depth (4 blocks: the phase's
+            time; ``profile_seq_torch.py`` runs all 12) on train_pipe's batch
+            (8 micro-batches
             of 1 x 1024 tokens), dropout 0.1, Adam, clipping 1.0, no
             remat, 1 + 3 steps, every arm from one weight tree (the
             model's init at the seed on the CPU).  Two processes on
@@ -410,6 +412,29 @@ Phases, all on ``cuda:0``; any failure exits non-zero:
             collective as large as the table, the indices' and values'
             bytes those of the tokens; each arm's step ms and wire bytes
             beside the card's name and power limit.
+34. launcher  (last) ``bin/ds_torch --hostfile <localhost slots=1>
+            --launcher local --elastic --max-restarts 1`` (under an
+            inherited CUDA_VISIBLE_DEVICES no hostfile and
+            ``--num_gpus 1``: the runner keeps the rank on this
+            process's card) runs
+            ``launcher_worker`` (phase 10's GPT-2 small bf16 engine, 8 x
+            1024 tokens x accumulation 2, a seed a step's batch, a
+            checkpoint each step under a temporary directory): the
+            per-node launcher forks the rank, which joins a one-rank
+            NCCL group from the env contract (``init_distributed()``);
+            attempt 0 exits 3 after step 2 of 3, the supervisor
+            relaunches, attempt 1 resumes from the newest tag.  Each
+            attempt's rank saw RANK 0, WORLD_SIZE 1, LOCAL_RANK 0,
+            CUDA_VISIBLE_DEVICES this process's card (0 when none is
+            inherited), trained on cuda:0 over NCCL, on the card of
+            this process (the CUDA UUIDs agree), and
+            launched the flash kernels 2·L·A, L·A, L·A a step (its
+            counts, written to a JSON file, are the phase's launches);
+            the stitched losses equal an uninterrupted run's (this
+            process, a one-rank NCCL group) bitwise; the heartbeat file
+            is there; the time to recover and its parts printed.  Then
+            ``bin/ds_report_torch``: its device line names the card and
+            every kernel library reads built.
 
 Every phase that drives a path sets the launch counts to 0 just before it
 and reads them just after; the kernels line carries each kernel's
@@ -3012,7 +3037,7 @@ def _one_rank_group():
 
 
 #: train_pipe: GPT-2 small in 8 micro-batches of 1 x 1024 tokens
-PIPE_MICRO, PIPE_GA, PIPE_STEPS, PIPE_PP2_STEPS = 1, 8, 5, 3
+PIPE_MICRO, PIPE_GA, PIPE_STEPS, PIPE_PP2_STEPS = 1, 8, 3, 2
 PIPE_FP32_STEPS, PIPE_PARITY_STEPS = 3, 2
 #: BERT-large through build_bert_pipe: 4 micro-batches of 2 x 512 tokens
 PIPE_BERT_MICRO, PIPE_BERT_GA, PIPE_BERT_STEPS = 2, 4, 2
@@ -3313,8 +3338,9 @@ def phase_train_pipe(dev, card: str):
     return total
 
 
-#: train_seq: GPT-2 small over a seq axis of 2, on train_pipe's batch
-SEQ_SP, SEQ_STEPS = 2, 4
+#: train_seq: GPT-2 small's width at a third of its depth over a seq axis
+#: of 2, on train_pipe's batch (profile_seq_torch.py runs all 12 layers)
+SEQ_SP, SEQ_STEPS, SEQ_LAYERS = 2, 4, 4
 #: the arms every seq rank trains, in order: (label, attn_impl, dtype)
 SEQ_ARMS = (("ulysses fp32", "ulysses", {}),
             ("ulysses bf16", "ulysses", {"bf16": {"enabled": True}}),
@@ -3323,22 +3349,24 @@ SEQ_ARMS = (("ulysses fp32", "ulysses", {}),
 _SEQ_RANK = _PIPE_RANK.replace("pipe_rank", "seq_rank")
 
 
-def _seq_model_cfg(impl: str):
-    """GPT-2 small with dropout 0.1 and no remat: a recomputed block
-    would repeat its seq collectives, which over gloo cost more than the
-    activations a 512-token shard keeps."""
+def _seq_model_cfg(impl: str, n_layer=None):
+    """GPT-2 small (``n_layer`` blocks, default its 12) with dropout 0.1
+    and no remat: a recomputed block would repeat its seq collectives,
+    which over gloo cost more than the activations a 512-token shard
+    keeps."""
     import dataclasses
     from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
     return dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
-                               attn_impl=impl, remat=None)
+                               attn_impl=impl, remat=None,
+                               n_layer=n_layer or GPT2_SMALL.n_layer)
 
 
-def _seq_tree():
+def _seq_tree(n_layer=None):
     """The one weight tree every train_seq arm starts from: GPT-2
     small's init at SEED on the CPU, and its digest."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2Model
     from deepspeed_tpu_torch.runtime.utils import tree_leaves
-    tree = GPT2Model(_seq_model_cfg("ring")).init(SEED)
+    tree = GPT2Model(_seq_model_cfg("ring", n_layer)).init(SEED)
     digest = float(sum(np.abs(x.numpy()).astype(np.float64).sum()
                        for x in tree_leaves(tree)))
     return tree, digest
@@ -3372,24 +3400,25 @@ def _seq_steps(eng, tokens, steps, dev, key="seq"):
     return out
 
 
-def _seq_engine(impl, block, dev, mesh=None, params=None):
+def _seq_engine(impl, block, dev, mesh=None, params=None, n_layer=None):
     import torch
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2Model
     gc.collect()
     torch.cuda.empty_cache()
     return deepspeed_tpu_torch.initialize(
-        model=GPT2Model(_seq_model_cfg(impl)), mesh=mesh, params=params,
+        model=GPT2Model(_seq_model_cfg(impl, n_layer)), mesh=mesh,
+        params=params,
         seed=SEED, config=_train_config(block, PIPE_MICRO, PIPE_GA),
         device=dev)[0]
 
 
 def seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
              backend: str = "gloo") -> None:
-    """One seq rank of GPT-2 small at sp ``world`` (train_seq's
-    processes: over gloo every one on cuda:0), every arm of
-    ``SEQ_ARMS`` from :func:`_seq_tree`.  Prints one ``SEQ_RANK`` JSON
-    line."""
+    """One seq rank of GPT-2 small (``SEQ_LAYERS`` blocks) at sp
+    ``world`` (train_seq's processes: over gloo every one on cuda:0),
+    every arm of ``SEQ_ARMS`` from :func:`_seq_tree`.  Prints one
+    ``SEQ_RANK`` JSON line."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3403,7 +3432,7 @@ def seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
                             timeout=datetime.timedelta(seconds=240))
     out = {"rank": rank}
     try:
-        tree, mine = _seq_tree()
+        tree, mine = _seq_tree(SEQ_LAYERS)
         if mine != digest:
             raise AssertionError(f"rank {rank}: weight tree digest {mine} "
                                  f"!= the sp-1 engines' {digest}")
@@ -3411,7 +3440,7 @@ def seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
         out["seq_index"] = mesh.axis_index("seq")
         tokens = torch.from_numpy(_pipe_tokens()).to(dev)
         for label, impl, block in SEQ_ARMS:
-            eng = _seq_engine(impl, block, dev, mesh, tree)
+            eng = _seq_engine(impl, block, dev, mesh, tree, SEQ_LAYERS)
             out[label] = _seq_steps(eng, tokens, SEQ_STEPS, dev)
             eng.close()
         dist.barrier()
@@ -3422,7 +3451,8 @@ def seq_rank(rank: int, init: str, digest: float, world: int = SEQ_SP,
 
 def phase_train_seq(dev, card: str):
     """Sequence parallelism through ``initialize()`` on a seq axis of 2:
-    GPT-2 small at full width and depth, train_pipe's batch, dropout 0.1,
+    GPT-2 small at full width and a third of its depth (``SEQ_LAYERS``),
+    train_pipe's batch, dropout 0.1,
     Adam, clipping 1.0 — Ulysses and ring attention as two processes on
     cuda:0 over gloo, each against the one-process sp-1 engine with the
     same ``attn_impl`` (the dense attention with the same hashed mask).
@@ -3430,16 +3460,16 @@ def phase_train_seq(dev, card: str):
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    tree, digest = _seq_tree()
+    tree, digest = _seq_tree(SEQ_LAYERS)
     tokens = torch.from_numpy(_pipe_tokens()).to(dev)
-    L, M = 12, PIPE_GA
+    L, M = SEQ_LAYERS, PIPE_GA
     flash = {"flash_fwd": L * M, "flash_bwd_dq": L * M,
              "flash_bwd_dkv": L * M}
     timed_steps = SEQ_STEPS - 1
     sp1 = {}
     for label, impl, block in (("ring fp32", "ring", {}),) + SEQ_ARMS[:2] \
             + (("flash fp32", "flash", {}),):
-        eng = _seq_engine(impl, block, dev, params=tree)
+        eng = _seq_engine(impl, block, dev, params=tree, n_layer=SEQ_LAYERS)
         if eng.device != dev:
             fail(f"train_seq: initialize() placed the engine on "
                  f"{eng.device}")
@@ -6653,6 +6683,309 @@ def phase_fleet_disagg(dev):
     return launches
 
 
+#: launcher: ``ds_torch --elastic`` over one slot, GPT-2 small bf16 on
+#: phase train's model and micro-batches; attempt 0 exits after step 2
+LAUNCH_STEPS, LAUNCH_CRASH_AT, LAUNCH_EXIT = 3, 2, 3
+LAUNCH_TIMEOUT_S = 600
+#: the env keys a launched rank reports back
+LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "CUDA_VISIBLE_DEVICES",
+              "MASTER_ADDR", "DS_ELASTIC_RESTART", "DS_ELASTIC_WORLD_SLOTS",
+              "DS_HEARTBEAT_DIR")
+
+#: the user script ``ds_torch`` launches (argv: repo root, then
+#: :func:`launcher_worker`'s arguments)
+_LAUNCHER_WORKER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.launcher_worker(*sys.argv[2:])
+"""
+
+
+def _launch_batch(step: int, rows: int, dev):
+    """Step ``step``'s global batch of GPT-2 small tokens (a seed a
+    step, so a resumed run feeds what the uninterrupted one fed)."""
+    import torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+    T = GPT2_SMALL.n_positions
+    return torch.from_numpy(np.random.default_rng(SEED + 100 + step).integers(
+        0, GPT2_SMALL.vocab_size, (rows, T + 1))).to(dev)
+
+
+def _launch_engine(micro: int, dev=None):
+    """Phase train's engine (GPT-2 small bf16, dropout 0.1, remat block,
+    Adam, clipping 1.0) at ``TRAIN_MICRO · TRAIN_GA`` rows a step over the
+    data ranks, ``micro`` rows a micro-batch."""
+    import dataclasses
+    import torch
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL, GPT2Model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(GPT2_SMALL, dropout=0.1, embd_dropout=0.1,
+                              remat="block")
+    config = _train_config({"bf16": {"enabled": True}}, micro, 1)
+    del config["gradient_accumulation_steps"]
+    config["train_batch_size"] = TRAIN_MICRO * TRAIN_GA
+    return deepspeed_tpu_torch.initialize(model=GPT2Model(cfg), seed=SEED,
+                                          config=config, device=dev)[0]
+
+
+def launcher_worker(out_dir: str, ckpt_dir: str, steps: str, crash_at: str,
+                    micro: str) -> None:
+    """One rank that ``ds_torch`` launched: joins the group from the
+    launcher's env contract (``init_distributed()``: NCCL on
+    ``cuda:LOCAL_RANK``), builds :func:`_launch_engine`, resumes from the
+    newest verified tag under ``ckpt_dir``, trains up to ``steps`` steps
+    on this rank's rows of each global batch, checkpointing every step.
+    On attempt 0 (``DS_ELASTIC_RESTART``) it exits ``LAUNCH_EXIT`` after
+    step ``crash_at``.  Writes ``attempt<a>_rank<r>.json``: its env, device,
+    group, physical card, losses by step, launch counts and times."""
+    t_start = time.time()
+    import torch
+    import torch.distributed as dist
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.runtime.dataloader import rank_rows
+    steps, crash_at, micro = int(steps), int(crash_at), int(micro)
+    attempt = int(os.environ.get("DS_ELASTIC_RESTART", "0"))
+    rank = int(os.environ["RANK"])
+    if not deepspeed_tpu_torch.init_distributed():
+        raise RuntimeError("the launcher's env contract formed no group")
+    eng = _launch_engine(micro)
+    dp, d = eng.dp_world_size, eng.mesh.axis_index("data")
+    props = torch.cuda.get_device_properties(eng.device)
+    out = {"attempt": attempt, "rank": rank,
+           "env": {k: os.environ.get(k) for k in LAUNCH_ENV},
+           "device": str(eng.device), "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "dp": dp,
+           "ga": int(eng.gradient_accumulation_steps),
+           "uuid": str(getattr(props, "uuid", "")),
+           "losses": {}, "t_start": t_start}
+    path, _ = eng.load_checkpoint(ckpt_dir)
+    out["resumed_from"] = path and os.path.basename(path)
+    out["start_step"] = eng.global_steps
+    out["t_ready"] = time.time()
+    _zero_counts()
+    step_t = []
+
+    def dump():
+        out["launches"] = _counts()
+        out["step_end"] = step_t
+        with open(os.path.join(out_dir, f"attempt{attempt}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+
+    global_rows = TRAIN_MICRO * TRAIN_GA
+    for step in range(eng.global_steps, steps):
+        batch = rank_rows(_launch_batch(step, global_rows, "cpu").numpy(),
+                          out["ga"], dp, d)
+        out["losses"][step] = float(eng.train_batch(batch))
+        step_t.append(time.time())
+        eng.save_checkpoint(ckpt_dir)
+        if crash_at and attempt == 0 and step + 1 == crash_at:
+            dist.barrier()  # every rank's pieces of the tag are on disk
+            out["t_exit"] = time.time()
+            dump()
+            os._exit(LAUNCH_EXIT)  # hard: no close(), no group teardown
+    dump()
+    eng.close()
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def launch_cards(slots: int) -> list:
+    """The physical cards ``ds_torch`` puts ``slots`` ranks of this host
+    on in :func:`launch_elastic`: the first ``slots`` of an inherited
+    CUDA_VISIBLE_DEVICES (the cards this process was given), else 0 to
+    ``slots - 1``."""
+    from deepspeed_tpu_torch.launcher.runner import visible_cards
+    cards = visible_cards()
+    return list(range(slots)) if cards is None else cards[:slots]
+
+
+def launch_elastic(root: str, slots: int, micro: int, probe_cmd=None,
+                   crash_at: int = LAUNCH_CRASH_AT,
+                   steps: int = LAUNCH_STEPS,
+                   timeout: float = LAUNCH_TIMEOUT_S):
+    """``bin/ds_torch --hostfile <localhost slots=N> --launcher local
+    --elastic --max-restarts 1`` running :func:`launcher_worker` under
+    ``root`` (``crash_at`` 0: no crash, the uninterrupted run): (wall s,
+    the supervisor's output, the heartbeat dir, the rank results by
+    (attempt, rank)).  Under an inherited CUDA_VISIBLE_DEVICES it passes
+    no hostfile and ``--num_gpus N`` instead, so the runner keeps the
+    ranks on the cards this process was given (:func:`launch_cards`)."""
+    import glob
+    worker = os.path.join(root, "worker.py")
+    with open(worker, "w") as f:
+        f.write(_LAUNCHER_WORKER)
+    hf = os.path.join(root, "hostfile")
+    if "CUDA_VISIBLE_DEVICES" in os.environ:
+        pool = ["--hostfile", hf, "--num_gpus", str(slots)]
+    else:
+        with open(hf, "w") as f:
+            f.write(f"localhost slots={slots}\n")
+        pool = ["--hostfile", hf]
+    out, ckpt, hb = (os.path.join(root, n) for n in ("out", "ckpt", "hb"))
+    for d in (out, ckpt, hb):
+        os.makedirs(d)
+    cmd = [sys.executable, os.path.join(HERE, "bin", "ds_torch"), *pool,
+           "--launcher", "local", "--elastic",
+           "--max-restarts", "1", "--backoff-base", "0.1",
+           "--heartbeat-dir", hb, "--master_addr", "127.0.0.1",
+           "--master_port", str(_free_port())]
+    if probe_cmd:
+        cmd += ["--probe-cmd", probe_cmd]
+    cmd += [worker, HERE, out, ckpt, str(steps), str(crash_at),
+            str(micro)]
+    env = {k: v for k, v in os.environ.items() if k not in ZERO_ENV}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        fail(f"ds_torch --elastic exited {proc.returncode}:\n{log[-4000:]}")
+    res = {}
+    for p in glob.glob(os.path.join(out, "attempt*_rank*.json")):
+        with open(p) as f:
+            r = json.load(f)
+        r["losses"] = {int(k): v for k, v in r["losses"].items()}
+        res[(r["attempt"], r["rank"])] = r
+    return wall, log, hb, res
+
+
+def phase_launcher(dev, card: str):
+    """The launcher and the elastic agent on the card: ``ds_torch
+    --elastic`` over one slot (the per-node launcher forks one rank a
+    card) runs phase train's GPT-2 small bf16 engine, 3 steps; attempt 0
+    checkpoints each step and exits 3 after step 2, the supervisor
+    relaunches, and attempt 1 resumes from the newest tag.  Checks: each
+    attempt's rank saw RANK 0, WORLD_SIZE 1, LOCAL_RANK 0,
+    CUDA_VISIBLE_DEVICES this process's physical card, trained on cuda:0
+    in a one-rank NCCL group on this process's card (the UUIDs agree) and
+    launched the flash forward, dQ and dK/dV 2·L·A, L·A and L·A times a
+    step; the stitched losses equal an uninterrupted run's (this process,
+    a one-rank NCCL group) bitwise; its heartbeat file is there.  Then
+    ``bin/ds_report_torch``: the device line names the card and every
+    kernel library reads built.  Returns the launched ranks' launches."""
+    import shutil
+    import tempfile
+    import torch
+    from deepspeed_tpu_torch.git_version_info import kernel_libraries
+    from deepspeed_tpu_torch.models.gpt2 import GPT2_SMALL
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    L, A = GPT2_SMALL.n_layer, TRAIN_GA
+    want = {"flash_fwd": 2 * L * A, "flash_bwd_dq": L * A,
+            "flash_bwd_dkv": L * A}
+    phys = launch_cards(1)[0]
+    uuid = str(torch.cuda.get_device_properties(dev).uuid)
+    if not uuid:
+        fail("launcher: torch reports no UUID for this process's card")
+    root = tempfile.mkdtemp(prefix="chip_smoke_launcher_")
+    try:
+        wall, log, hb, res = launch_elastic(root, 1, TRAIN_MICRO)
+        beats = sorted(os.listdir(hb))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if "attempt 0 FAILED: worker on localhost exited rc=" \
+            f"{LAUNCH_EXIT}" not in log:
+        fail(f"launcher: the supervisor did not see attempt 0 exit "
+             f"{LAUNCH_EXIT}:\n{log[-3000:]}")
+    if sorted(res) != [(0, 0), (1, 0)]:
+        fail(f"launcher: rank results {sorted(res)}, expected attempts 0 "
+             "and 1 of rank 0")
+    launches = dict.fromkeys(_counts(), 0)
+    for (attempt, _), r in sorted(res.items()):
+        env = r["env"]
+        seen = (env["RANK"], env["WORLD_SIZE"], env["LOCAL_RANK"],
+                env["CUDA_VISIBLE_DEVICES"], env["DS_ELASTIC_RESTART"])
+        if seen != ("0", "1", "0", str(phys), str(attempt)):
+            fail(f"launcher attempt {attempt}: the rank saw {env}")
+        if (r["device"], r["backend"], r["world"]) != ("cuda:0", "nccl", 1):
+            fail(f"launcher attempt {attempt}: trained on {r['device']} in "
+                 f"a {r['backend']} group of {r['world']}")
+        if r["uuid"] != uuid:
+            fail(f"launcher attempt {attempt}: the rank ran on the card "
+                 f"with UUID {r['uuid']}, this process on {uuid}")
+        n = len(r["losses"])
+        if n != (LAUNCH_CRASH_AT if attempt == 0
+                 else LAUNCH_STEPS - LAUNCH_CRASH_AT):
+            fail(f"launcher attempt {attempt}: {n} steps")
+        for name, per in want.items():
+            if r["launches"][name] != per * n:
+                fail(f"launcher attempt {attempt}: {name} launched "
+                     f"{r['launches'][name]} times in {n} steps, expected "
+                     f"{per} a step")
+        _add(launches, r["launches"])
+    a0, a1 = res[(0, 0)], res[(1, 0)]
+    if a1["start_step"] != LAUNCH_CRASH_AT or a1["resumed_from"] is None:
+        fail(f"launcher: attempt 1 resumed from {a1['resumed_from']} at "
+             f"step {a1['start_step']}")
+    if beats != ["heartbeat_0.json"]:
+        fail(f"launcher: heartbeat dir holds {beats}")
+    got = [{**a0["losses"], **a1["losses"]}[s] for s in range(LAUNCH_STEPS)]
+    # the uninterrupted run: the same engine and batches in a one-rank
+    # NCCL group of this process, no checkpoint
+    with _one_rank_group():
+        eng = _launch_engine(TRAIN_MICRO, dev)
+        ref = [float(eng.train_batch(_launch_batch(
+            s, TRAIN_MICRO * TRAIN_GA, dev))) for s in range(LAUNCH_STEPS)]
+        eng.close()
+        del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(got)) or got != ref:
+        fail(f"launcher: the stitched losses {got} are not the "
+             f"uninterrupted run's {ref} bitwise")
+    relaunch = a1["t_start"] - a0["t_exit"]
+    ready = a1["t_ready"] - a1["t_start"]
+    first = a1["step_end"][0] - a1["t_ready"]
+    step_ms = [(b - a) * 1e3 for a, b in zip(a0["step_end"],
+                                              a0["step_end"][1:])]
+    print(f"[launcher] ds_torch --elastic --max-restarts 1 over localhost "
+          f"slots=1: GPT-2 small bf16, {TRAIN_MICRO} x 1024 tokens x "
+          f"accumulation {A}, dropout 0.1, remat block, {LAUNCH_STEPS} "
+          f"steps with a checkpoint each; attempt 0 exited "
+          f"{LAUNCH_EXIT} after step {LAUNCH_CRASH_AT}, attempt 1 resumed "
+          f"from {a1['resumed_from']}; {wall:.1f} s in all [{card}]")
+    print(f"[launcher] each attempt's rank: RANK 0 WORLD_SIZE 1 LOCAL_RANK "
+          f"0 CUDA_VISIBLE_DEVICES {phys} (inherited here: "
+          f"{os.environ.get('CUDA_VISIBLE_DEVICES', 'unset')}), cuda:0 in a "
+          f"one-rank NCCL group on this process's card (UUID {uuid}); "
+          f"flash launches a step {want['flash_fwd']}/{want['flash_bwd_dq']}"
+          f"/{want['flash_bwd_dkv']} in both attempts")
+    print(f"[launcher] stitched losses {' '.join(f'{x:.6f}' for x in got)}"
+          f" = the uninterrupted run's bitwise")
+    print(f"[launcher] time to recover {relaunch + ready + first:.1f} s "
+          f"= attempt 0's exit to attempt 1's worker running "
+          f"{relaunch:.1f} s (the launcher's teardown, the supervisor's "
+          f"poll and backoff, a new launcher and interpreter) + to its "
+          f"engine ready {ready:.1f} s "
+          f"(torch, the NCCL group, the engine, the checkpoint load; "
+          f"attempt 0's {a0['t_ready'] - a0['t_start']:.1f} s without a "
+          f"load) + its first step {first:.1f} s; a step with its "
+          f"checkpoint {' '.join(f'{x:.1f}' for x in step_ms)} ms "
+          f"[{card}]")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "bin", "ds_report_torch")],
+        capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        print(f"[launcher] ds_report_torch: {line}")
+    dev_line = [ln for ln in lines if ln.startswith("devices")]
+    if proc.returncode != 0 or not dev_line \
+            or torch.cuda.get_device_name(0) not in dev_line[0]:
+        fail(f"launcher: ds_report_torch's device line {dev_line} "
+             f"(exit {proc.returncode}):\n{proc.stderr[-2000:]}")
+    kern = {ln.split()[1].rstrip("."): ln.rsplit(" ", 1)[1]
+            for ln in lines if ln.startswith("kernel ")}
+    if sorted(kern) != kernel_libraries() or set(kern.values()) != {"built"}:
+        fail(f"launcher: ds_report_torch's kernel libraries {kern}")
+    return launches
+
+
 def timed(phase, *args, **kwargs):
     """Run one phase and print its wall time."""
     t0 = time.perf_counter()
@@ -6716,6 +7049,7 @@ def main() -> None:
                                            offload_ref)
     by_phase["train_offload_xla"] = timed(phase_train_offload_xla, dev,
                                           offload_ref)
+    by_phase["launcher"] = timed(phase_launcher, dev, card)
     for name, r in kernels.items():
         r["launches_by_phase"] = {ph: c.get(name, 0)
                                   for ph, c in by_phase.items()}

@@ -34,14 +34,64 @@ dQ and dK/dV.  ROADMAP.md lists what comes next.
     engine, optimizer, dataloader, lr_schedule = deepspeed_tpu_torch.initialize(
         model=BertModel(BERT_LARGE), config=ds_config)
     loss = engine.train_batch(batch)
+
+A launched script (``bin/ds_torch``, one process a card; ``launcher/``)
+calls ``add_config_arguments(parser)``, ``init_distributed()`` and
+``initialize(args=...)``.  The JAX package's top-level names resolve
+here lazily (``FlaxModule`` has no PyTorch counterpart): importing the
+package loads no torch, so the launcher's processes never do.
 """
 from __future__ import annotations
 
-from .config.constants import ADAM_OPTIMIZER, LAMB_OPTIMIZER  # noqa: F401
-from .ops.transformer import (DeepSpeedTransformerConfig,  # noqa: F401
-                              DeepSpeedTransformerLayer)
-from .runtime.activation_checkpointing import checkpointing  # noqa: F401
+import argparse
+import importlib
+
 from .version import __version__  # noqa: F401
+
+#: the top-level names, resolved on first access: name -> (submodule, attr)
+_LAZY = {
+    "ADAM_OPTIMIZER": ("config.constants", "ADAM_OPTIMIZER"),
+    "LAMB_OPTIMIZER": ("config.constants", "LAMB_OPTIMIZER"),
+    "DeepSpeedConfig": ("config", "DeepSpeedConfig"),
+    "DeepSpeedConfigError": ("config.config", "DeepSpeedConfigError"),
+    "init_distributed": ("parallel.distributed", "init_distributed"),
+    "DeepSpeedEngine": ("runtime.engine", "DeepSpeedEngine"),
+    "TrainModule": ("runtime.module", "TrainModule"),
+    "FunctionalModule": ("runtime.module", "FunctionalModule"),
+    "DeepSpeedDataLoader": ("runtime.dataloader", "DeepSpeedDataLoader"),
+    "RepeatingLoader": ("runtime.dataloader", "RepeatingLoader"),
+    "DevicePlacedBatch": ("runtime.prefetch", "DevicePlacedBatch"),
+    "DevicePrefetcher": ("runtime.prefetch", "DevicePrefetcher"),
+    "add_tuning_arguments": ("runtime.lr_schedules", "add_tuning_arguments"),
+    "checkpointing": ("runtime.activation_checkpointing", "checkpointing"),
+    "log_dist": ("utils.logging", "log_dist"),
+    "DeepSpeedTransformerLayer": ("ops.transformer",
+                                  "DeepSpeedTransformerLayer"),
+    "DeepSpeedTransformerConfig": ("ops.transformer",
+                                   "DeepSpeedTransformerConfig"),
+    "PipelineModule": ("pipe.module", "PipelineModule"),
+    "PipelineEngine": ("pipe.engine", "PipelineEngine"),
+    "__git_hash__": ("git_version_info", "git_hash"),
+    "__git_branch__": ("git_version_info", "git_branch"),
+}
+
+__all__ = ["initialize", "add_config_arguments", "__version__",
+           *(n for n in _LAZY if not n.startswith("__"))]
+
+
+def __getattr__(name):
+    try:
+        module, attr = _LAZY[name]
+    except KeyError:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(f".{module}", __name__), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
 
 
 def initialize(args=None,
@@ -116,3 +166,18 @@ def initialize(args=None,
                              mesh=mesh)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
+
+
+def add_config_arguments(parser: argparse.ArgumentParser):
+    """argparse plumbing (reference: deepspeed/__init__.py:139-203; a
+    copy of the JAX package's)."""
+    group = parser.add_argument_group("DeepSpeed", "DeepSpeed configurations")
+    group.add_argument("--deepspeed", default=False, action="store_true",
+                       help="Enable DeepSpeed (helper flag, parity only)")
+    group.add_argument("--deepspeed_config", default=None, type=str,
+                       help="Path to the DeepSpeed json config file")
+    group.add_argument("--deepscale", default=False, action="store_true",
+                       help=argparse.SUPPRESS)  # deprecated alias
+    group.add_argument("--deepscale_config", default=None, type=str,
+                       help=argparse.SUPPRESS)
+    return parser

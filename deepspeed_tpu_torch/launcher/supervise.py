@@ -4,7 +4,7 @@ docs/serving.md "serving fleet"; a copy of
 
 Two supervisors ride these: the elastic restart loop
 (``launcher/elastic.py`` — relaunch a TRAINING world after host
-failures; ROADMAP.md queue 1 item 14 in this package) and the serving fleet router (``inference/fleet.py`` — keep N
+failures) and the serving fleet router (``inference/fleet.py`` — keep N
 ServeEngine replicas alive behind one front door).  Both need the same
 machinery: SIGTERM-then-grace-then-SIGKILL process teardown, bounded
 exponential backoff between relaunches, heartbeat-directory hygiene

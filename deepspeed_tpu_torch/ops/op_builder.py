@@ -130,3 +130,16 @@ def cpu_ops_loaded() -> Optional[ctypes.CDLL]:
     """The already-loaded library, or None: never triggers a build (for
     callers whose native path is optional, such as the sparse LUT)."""
     return _lib
+
+
+def cpu_ops_status() -> str:
+    """ds_report-style one-liner (the JAX package's).  The report must
+    DESCRIBE a broken library (the incomplete-csrc RuntimeError), not die
+    on it — only here; runtime callers still get the loud error."""
+    try:
+        return ("cpu_ops ... compatible "
+                f"(v{load_cpu_ops().ds_cpu_ops_version()})")
+    except OpBuilderError as e:
+        return f"cpu_ops ... NOT compatible ({e})"
+    except RuntimeError as e:
+        return f"cpu_ops ... BROKEN ({e})"

@@ -3,15 +3,17 @@
 
 The JAX package joins ``jax.distributed`` from its launcher's env; the
 port joins ``torch.distributed`` from the env contract every torch
-launcher exports (``torchrun``, and the port's launcher once it lands,
-ROADMAP.md queue 1 item 14):
+launcher exports (``torchrun``, and the port's own ``ds_torch``, whose
+per-node launcher ``launcher/launch.py`` forks one process a card):
 
   MASTER_ADDR, MASTER_PORT   the rendezvous (rank 0's host and a free port)
   RANK, WORLD_SIZE           this process's rank and the job's size
   LOCAL_RANK                 this process's card on its host
 
 Explicit arguments override the env.  The backend follows the device the
-engine trains on: ``nccl`` for ``cuda``, ``gloo`` for ``cpu``.  A timeout
+engine trains on: ``nccl`` for ``cuda`` (by default ``cuda:LOCAL_RANK``;
+without a CUDA device that raises unless ``device="cpu"`` is given, as the
+engine's ``resolve_device`` does), ``gloo`` for ``cpu``.  A timeout
 is always passed, so a rank that dies leaves the others raising instead
 of waiting forever.  ``deepspeed_tpu_torch.initialize()`` calls
 :func:`init_distributed`; without the env (and without arguments) it is a
@@ -51,8 +53,9 @@ def init_distributed(device=None,
     group.  Idempotent: a group that exists already (the caller's own,
     or an earlier call's) is kept.
 
-    ``device``: the device the engine will train on (default ``cuda``
-    when CUDA is available, else ``cpu``) — it picks the backend.
+    ``device``: the device the engine will train on — it picks the
+    backend.  Default ``cuda:LOCAL_RANK``; with no CUDA device a group is
+    never joined on the CPU by default: pass ``device="cpu"`` (gloo).
     ``init_method``: a ``tcp://host:port`` or ``file://path`` URL; default
     ``env://`` when ``MASTER_ADDR`` is set."""
     if is_initialized():
@@ -68,9 +71,12 @@ def init_distributed(device=None,
     if world_size < 1:
         raise ValueError("init_distributed: world_size must be >= 1 (pass "
                          "it or export WORLD_SIZE)")
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"init_distributed: device {device} needs CUDA, "
+            "which is not available; pass device='cpu' to join the group "
+            "on the CPU (gloo)")
     backend = "nccl" if device.type == "cuda" else "gloo"
     if backend == "nccl":
         if device.index is None:

@@ -16,7 +16,7 @@ a ``torch.Generator`` carried across the boundary would not.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional
 
 
 class TrainModule:
@@ -39,3 +39,26 @@ class TrainModule:
         (indices, values) instead of dense (``runtime/csr_tensor.py``)."""
         return {}
 
+
+class FunctionalModule(TrainModule):
+    """Wrap bare (init_fn, loss_fn) callables (the JAX package's
+    ``FunctionalModule``).  ``init_fn(seed)`` returns the parameter tree
+    (numpy or tensors; the engine moves it to its device);
+    ``loss_fn(params, batch, rng, train)`` the scalar loss;
+    ``partition_spec_fn(params)``, when given, the tree's tensor-parallel
+    placement as ``param_partition_specs`` returns it."""
+
+    def __init__(self, init_fn: Callable, loss_fn: Callable,
+                 partition_spec_fn: Optional[Callable] = None):
+        self._init = init_fn
+        self._loss = loss_fn
+        self._specs = partition_spec_fn
+
+    def init(self, seed: int, device=None):
+        return self._init(seed)
+
+    def loss_fn(self, params, batch, rng, train: bool = True):
+        return self._loss(params, batch, rng, train)
+
+    def param_partition_specs(self, params):
+        return self._specs(params) if self._specs else None

@@ -34,7 +34,8 @@ setup(
                                     "deepspeed_tpu_torch*"]),
     # csrc/ ships in the sdist via MANIFEST.in; a wheel install without the
     # sources degrades gracefully (op_builder reports the numpy fallback)
-    scripts=["bin/ds", "bin/ds_report", "bin/ds_ssh", "bin/deepspeed", "bin/deepspeed.pt"],
+    scripts=["bin/ds", "bin/ds_report", "bin/ds_ssh", "bin/deepspeed",
+             "bin/deepspeed.pt", "bin/ds_torch", "bin/ds_report_torch"],
     python_requires=">=3.10",
     install_requires=["jax", "optax", "numpy", "ml_dtypes"],
 )

@@ -39,7 +39,9 @@ def _port_files():
             os.path.join(REPO, "profile_decode_torch.py"),
             os.path.join(REPO, "profile_pipe_torch.py"),
             os.path.join(REPO, "profile_seq_torch.py"),
-            os.path.join(REPO, "profile_moe_torch.py")] + _package_files()
+            os.path.join(REPO, "profile_moe_torch.py"),
+            os.path.join(REPO, "profile_onebit_torch.py"),
+            os.path.join(REPO, "profile_launcher_torch.py")] + _package_files()
 
 
 def _module_names():
